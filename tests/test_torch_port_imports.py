@@ -1,0 +1,154 @@
+"""The port's import boundary: ``mlcomp_tpu_torch`` and ``chip_smoke.py``
+import nothing of JAX, flax, optax, the JAX package ``mlcomp_tpu``, or
+of ``click`` and ``msgpack`` (which the card's machine does not have) —
+and serving really runs with all of those unimportable."""
+
+import ast
+import json
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import textwrap
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'mlcomp_tpu', 'click',
+             'msgpack')
+
+
+def _port_files():
+    out = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(os.path.join(REPO, 'mlcomp_tpu_torch')):
+        out += [os.path.join(root, f) for f in files if f.endswith('.py')]
+    return sorted(out)
+
+
+def forbidden_imports(source: str) -> list:
+    """(line, module) of every import whose top-level package is one of
+    FORBIDDEN (``mlcomp_tpu_torch`` itself is of course allowed)."""
+    hits = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names = [node.module or '']
+        else:
+            continue
+        hits += [(node.lineno, n) for n in names
+                 if n.split('.')[0] in FORBIDDEN]
+    return hits
+
+
+def test_port_files_exist():
+    files = [os.path.relpath(f, REPO) for f in _port_files()]
+    assert 'chip_smoke.py' in files
+    assert 'mlcomp_tpu_torch/server/serve.py' in files
+    assert len(files) > 15
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_forbidden_imports(path):
+    with open(path) as fh:
+        hits = forbidden_imports(fh.read())
+    assert not hits, f'{os.path.relpath(path, REPO)} imports {hits}'
+
+
+def test_checker_catches_each_form():
+    src = textwrap.dedent('''
+        import os, jax.numpy as jnp
+        from flax import linen
+        from mlcomp_tpu.ops import fused_attention
+        import mlcomp_tpu_torch.ops
+        from . import sibling
+        def f():
+            import msgpack
+    ''')
+    assert [m for _, m in forbidden_imports(src)] == [
+        'jax.numpy', 'flax', 'mlcomp_tpu.ops', 'msgpack']
+
+
+_BLOCKER = textwrap.dedent('''
+    import importlib.abc, sys
+    BLOCKED = {blocked!r}
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split('.')[0] in BLOCKED:
+                raise ImportError(f'{{name}} is blocked in this process')
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    import runpy
+    sys.argv = ['mlcomp_tpu_torch.server'] + {argv!r}
+    runpy.run_module('mlcomp_tpu_torch.server', run_name='__main__')
+''')
+
+
+def test_serving_on_cpu_without_jax(tmp_path):
+    """``python -m mlcomp_tpu_torch.server serve`` in a subprocess where
+    importing jax, flax, optax, mlcomp_tpu, click or msgpack raises:
+    it serves a request, reports the CPU on /health and drains on
+    SIGTERM with exit code 0."""
+    from mlcomp_tpu_torch import TOKEN
+    from mlcomp_tpu_torch.convert import params_to_jax
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.train.export import export_model
+    spec = {'name': 'transformer_lm', 'vocab_size': 32, 'd_model': 16,
+            'n_layers': 1, 'n_heads': 2, 'd_ff': 32, 'max_seq_len': 8,
+            'dtype': 'float32'}
+    model = create_model(**spec, device='cpu')
+    path = export_model(str(tmp_path / 'lm'), params_to_jax(
+        model.state_dict(), n_heads=2), spec,
+        meta={'input_shape': [8], 'input_dtype': 'int32'})
+    code = _BLOCKER.format(blocked=FORBIDDEN, argv=[
+        'serve', path, '--device', 'cpu', '--port', '0', '--batch-size',
+        '2', '--activation', 'argmax'])
+    env = {**os.environ, 'PYTHONPATH': REPO}
+    proc = subprocess.Popen([sys.executable, '-c', code], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith('serving lm on http://'), \
+            line + proc.stderr.read()
+        port = int(line.split('http://127.0.0.1:')[1].split()[0])
+        x = np.random.RandomState(0).randint(0, 32, (3, 8))
+        req = urllib.request.Request(
+            f'http://127.0.0.1:{port}/predict',
+            data=json.dumps({'x': x.tolist()}).encode(),
+            headers={'Authorization': TOKEN})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            y = np.asarray(json.loads(resp.read())['y'])
+        with torch.no_grad():
+            want = model(torch.from_numpy(x)).argmax(-1).numpy()
+        np.testing.assert_array_equal(y, want)
+        with urllib.request.urlopen(f'http://127.0.0.1:{port}/health',
+                                    timeout=60) as resp:
+            health = json.loads(resp.read())
+        assert health['platform'] == 'cpu' and health['requests'] == 1
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_chip_smoke_refuses_without_card_or_package(tmp_path):
+    """Here there is no card; alone in a directory it also lacks the
+    package. Either way it exits non-zero and prints no result line."""
+    shutil.copy(os.path.join(REPO, 'chip_smoke.py'), str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert 'FAIL' in proc.stdout
