@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mlcomp_tpu_torch``) on one
-NVIDIA card — the quickest proof that the port still builds, is right
-and serves on the GPU.
+NVIDIA card — the quickest proof that the port still builds, is right,
+serves and trains on the GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -14,12 +14,15 @@ last line:
 2. build: every kernel under ``mlcomp_tpu_torch/csrc/`` with nvcc, timed,
    with ptxas's register / spill report;
 3. kernels: each kernel's wrapper on tensors on the card against its
-   plain PyTorch version at several shapes (the serving path's shape
-   first), by the largest relative error of an output row (see
+   plain PyTorch version at several shapes (the main path's shape first),
+   by the largest relative error of an output row (see
    ``mlcomp_tpu_torch/testing/kernel_check.py``), with its time, the
    plain version's time, one PyTorch library call's time as a
    yardstick, and the least time the card could take (bytes over
-   3.35 TB/s or operations over the dtype's peak);
+   3.35 TB/s or operations over the dtype's peak): the forward at the
+   serving shapes, then the forward's lse and the two backward kernels
+   at the training shapes (also held against torch autograd through the
+   plain version, per head);
 4. serving: the flagship transformer LM (vocab 32768, d_model 1024, 16
    heads, d_ff 4096, 8 layers, T=8192, bf16 activations, f32 params;
    weights from a seed) exported with the port's ``export_model``,
@@ -27,7 +30,18 @@ last line:
    launch counts are zeroed just before the requests and read just
    after, and one row's logits are held against the same model with the
    plain attention;
-5. the ``{"kernels": [...]}`` line, the card's name and power limit, and
+5. train: ``Executor.from_config('train', config)`` on the card — the
+   flagship at batch 1 over an npz of random tokens, AdamW with
+   ``warmup_cosine``, one epoch, checkpoints and a ``model_name`` export
+   that ``make_predictor`` then loads; the launch counts are zeroed just
+   before and read just after (8 forward and 8 of each backward kernel
+   per step);
+6. step: the flagship's train step as ``bench.py``'s ``bench_lm``
+   measures it (B=1, T=8192, AdamW): tokens/s, MFU, device time, the
+   attention share of it and the step's longest kernels (profiler), and
+   one step's gradients against the same weights with the plain
+   attention (cosine per parameter tensor);
+7. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds this script and nothing else
@@ -55,6 +69,16 @@ sys.path.insert(0, HERE)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
                   torch.float32: 67e12}
+#: a train step's gradients vs the same weights with plain attention:
+#: least cosine similarity of any parameter tensor's gradient (bf16
+#: activations; the kernels round P and dS to bf16 where the plain
+#: attention keeps f32)
+MIN_GRAD_COSINE = 0.99
+#: rows of 8192 random tokens in the train phase's npz: 4 train, 1 valid
+TRAIN_ROWS = 5
+STEP_ITERS = 5
+#: kernels of the step printed with their device time, longest first
+TOP_KERNELS = 12
 #: served LM vs the same weights with plain attention: cosine similarity
 #: of the [T, V] logits, and top-1 agreement where a pick counts when its
 #: reference logit is within TIE_DELTA (two bf16 ulps at logits of 4-8)
@@ -212,6 +236,127 @@ def phase_kernels(seed: int):
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return main
+
+
+def backward_bound_ms(b, t, h, d, dtype, causal, products, n_in, n_out):
+    """Least time for a backward: ``products`` matrix products of 2·D
+    operations for every live (query, key) pair; ``n_in`` [B, T, H, D]
+    inputs and the f32 row statistics (lse, delta: two [B, H, T]) read
+    once, ``n_out`` gradients written once."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    ops = 2 * products * b * h * d * pairs
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (n_in + n_out) * b * t * h * d * size + 2 * b * h * t * 4
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
+                                 else 'bytes')
+
+
+def _fields(errors: dict) -> str:
+    return ','.join(f'{n}:{e:.3e}' for n, e in errors.items())
+
+
+def phase_backward_kernels(seed: int):
+    """The forward's lse and both backward kernels against their plain
+    versions at every backward shape; the training shape timed. Returns
+    the kernels line's entries for the two backward kernels."""
+    from mlcomp_tpu_torch.ops import flash_attention as fa
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        AUTOGRAD_HEAD_TOL, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
+        BACKWARD_SHAPES, LSE_TOL, backward_check, backward_ok, qkv_views,
+    )
+    import torch.nn.functional as F
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    for b, t, h, d, dtype, causal in BACKWARD_SHAPES:
+        shape = (b, t, h, d, dtype, causal)
+        try:
+            r = backward_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused launch or a fault in the run
+            fail(f'flash attention backward at B={b} T={t} H={h} D={d} '
+                 f'{dtype} causal={causal}: {e}')
+        ok = backward_ok(r, dtype)
+        say('kernel-bwd', ok=ok, shape=f'{b}x{t}x{h}x{d}',
+            dtype=str(dtype)[6:], causal=causal,
+            lse_err=f'{r["lse_err"]:.3e}', lse_tol=LSE_TOL,
+            row_err=_fields(r['row_err']), tol=BACKWARD_ROW_TOL[dtype],
+            head_err=_fields(r['head_err']),
+            head_tol=BACKWARD_HEAD_TOL[dtype],
+            autograd_head_err=_fields(r['autograd_head_err']),
+            autograd_tol=AUTOGRAD_HEAD_TOL[dtype])
+        if not ok:
+            fail(f'flash attention backward disagrees with its plain '
+                 f'version at {shape}: {r}')
+        if shape == BACKWARD_SHAPES[0]:
+            main = r
+        torch.cuda.empty_cache()
+
+    # the training shape, timed: forward with lse, each backward kernel,
+    # the plain versions, and scaled_dot_product_attention forward and
+    # backward as the library yardstick
+    b, t, h, d, dtype, causal = BACKWARD_SHAPES[0]
+    q, k, v = qkv_views(b, t, h, d, dtype, gen)
+    do = torch.randn((b, t, h, d), generator=gen, device='cuda',
+                     dtype=torch.float32).to(dtype)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                          with_lse=True)
+    delta = fa.attention_delta(out, do)
+    fwd_ms = time_ms(lambda: fa.flash_attention_forward(
+        q, k, v, causal=causal, with_lse=True), iters=20)
+    dq_ms = time_ms(lambda: fa.flash_attention_backward_dq(
+        q, k, v, do, lse, delta, causal=causal), iters=20)
+    dkv_ms = time_ms(lambda: fa.flash_attention_backward_dkv(
+        q, k, v, do, lse, delta, causal=causal), iters=20)
+    bwd_ms = time_ms(lambda: fa.flash_attention_backward(
+        q, k, v, out, lse, do, causal=causal), iters=20)
+    plain_fwd_ms = time_ms(lambda: fa.reference_attention(
+        q, k, v, causal=causal, with_lse=True), iters=2)
+    plain_bwd_ms = time_ms(lambda: fa.reference_attention_backward(
+        q, k, v, out, lse, do, causal=causal), iters=2)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    sdpa_ms = time_ms(sdpa_fwd_bwd, iters=20)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    fwd_bound, _ = attention_bound_ms(b, t, h, d, dtype, causal)
+    bound, bound_by = backward_bound_ms(b, t, h, d, dtype, causal, 5, 5, 3)
+    say('kernel-bwd', shape=f'{b}x{t}x{h}x{d}', dtype=str(dtype)[6:],
+        causal=causal, fwd_lse_ms=f'{fwd_ms:.4f}',
+        fwd_bound_ms=f'{fwd_bound:.4f}', bwd_ms=f'{bwd_ms:.4f}',
+        dq_ms=f'{dq_ms:.4f}', dkv_ms=f'{dkv_ms:.4f}',
+        bwd_bound_ms=f'{bound:.4f}', bwd_bound_by=bound_by,
+        fwd_bwd_ms=f'{fwd_ms + bwd_ms:.4f}',
+        sdpa_fwd_bwd_ms=f'{sdpa_ms:.4f}', sdpa_bwd_ms=f'{sdpa_bwd_ms:.4f}',
+        plain_fwd_lse_ms=f'{plain_fwd_ms:.3f}',
+        plain_bwd_ms=f'{plain_bwd_ms:.3f}')
+    entries = []
+    for name, ms, products, n_out, grads in (
+            ('flash_attention_bwd_dq', dq_ms, 3, 1, ('dq',)),
+            ('flash_attention_bwd_dkv', dkv_ms, 4, 2, ('dk', 'dv'))):
+        kb, kb_by = backward_bound_ms(b, t, h, d, dtype, causal, products,
+                                      4, n_out)
+        entries.append({
+            'name': name, 'route': 'cuda',
+            'source': 'mlcomp_tpu_torch/csrc/flash_attention_bwd.cu',
+            'replaces': 'mlcomp_tpu/ops/flash_attention.py:'
+                        + ('309' if n_out == 1 else '336'),
+            'max_abs_err': max(main['max_abs_err'][g] for g in grads),
+            'row_err': max(main['row_err'][g] for g in grads),
+            'ms': ms, 'plain_ms': plain_bwd_ms, 'bound_ms': kb,
+            'bound_by': kb_by, 'library_ms': None,
+            'shape': [b, t, h, d], 'dtype': str(dtype)[6:],
+            'causal': causal})
+    del q, k, v, do, out, lse, delta, qt, kt, vt, dot, o_lib
+    torch.cuda.empty_cache()
+    return entries
 
 
 # ---------------------------------------------------------------- phase 4
@@ -376,6 +521,205 @@ def phase_serving(seed: int):
         thread.join(timeout=30)
 
 
+# ---------------------------------------------------------------- phase 5
+def _train_logger():
+    """The executor's log lines on stdout, marked as this phase's."""
+    import logging
+    log = logging.getLogger('chip_smoke.train')
+    if not log.handlers:
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter('[train]   %(message)s'))
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
+        log.propagate = False
+    return log
+
+
+def phase_train(seed: int) -> dict:
+    """The training entry point at the flagship width on the card;
+    returns the launches of each kernel in its run."""
+    import gc
+    from mlcomp_tpu_torch.ops import flash_attention as fa
+    from mlcomp_tpu_torch.train.export import make_predictor
+    from mlcomp_tpu_torch.worker.executors import Executor
+
+    t, vocab = FLAGSHIP['max_seq_len'], FLAGSHIP['vocab_size']
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_train_')
+    cwd = os.getcwd()
+    try:
+        tokens = np.random.default_rng(seed + 2).integers(
+            0, vocab, (TRAIN_ROWS, t), dtype=np.int32)
+        data = os.path.join(work, 'tokens.npz')
+        np.savez(data, x=tokens, y=tokens)
+        ck_dir = os.path.join(work, 'checkpoints')
+        config = {'executors': {'train': {
+            'type': 'train',
+            'model': {**FLAGSHIP, 'attn_impl': 'auto'},
+            'dataset': {'name': 'npz', 'path': data},
+            'loss': 'lm_ce', 'batch_size': 1,
+            'stages': [{'name': 'stage1', 'epochs': 1, 'optimizer': {
+                'name': 'adamw', 'lr': 3e-4,
+                'schedule': {'name': 'warmup_cosine'}}}],
+            'main_metric': 'loss', 'minimize': True,
+            'checkpoint_dir': ck_dir, 'model_name': 'flagship_lm_trained',
+            'seed': seed, 'device': 'cuda'}}}
+        os.chdir(work)          # the export lands in models/ under it
+        executor = Executor.from_config('train', config)
+        n_train = int(TRAIN_ROWS * 0.8)       # the npz loader's split
+        n_valid = TRAIN_ROWS - n_train
+        counters = {'flash_attention_fwd': fa.flash_attention_forward,
+                    'flash_attention_bwd_dq': fa.flash_attention_backward_dq,
+                    'flash_attention_bwd_dkv':
+                        fa.flash_attention_backward_dkv}
+        # the main path: counts zeroed just before, read just after
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        result = executor(logger=_train_logger())
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        del executor
+        gc.collect()
+        torch.cuda.empty_cache()
+        layers = FLAGSHIP['n_layers']
+        want = {'flash_attention_fwd': layers * (n_train + n_valid),
+                'flash_attention_bwd_dq': layers * n_train,
+                'flash_attention_bwd_dkv': layers * n_train}
+        files = sorted(os.listdir(ck_dir))
+        export = os.path.join(work, 'models', 'flagship_lm_trained')
+        say('train', steps=n_train, valid_rows=n_valid,
+            seconds=f'{train_s:.1f}', valid_loss=result['best_score'],
+            params=result['n_params'], launches=launches,
+            checkpoints=files)
+        if launches != want:
+            fail(f'expected launches {want} (8 forward per step and per '
+                 f'valid batch, 8 of each backward kernel per step), '
+                 f'got {launches}')
+        if not np.isfinite(result['best_score']):
+            fail(f'train loss is not finite: {result}')
+        if not {'best.msgpack', 'last.msgpack'} <= set(files) \
+                or not os.path.exists(export + '.msgpack'):
+            fail(f'checkpoints {files} or the export {export} missing')
+        predict = make_predictor(export, batch_size=1, activation='argmax',
+                                 device='cuda')
+        y = predict(tokens[:1])
+        ok = y.shape == (1, t) and 0 <= y.min() and y.max() < vocab
+        say('train', export=os.path.basename(export), predictor_device=str(
+            next(predict.model.parameters()).device), predict_shape=y.shape,
+            ok=ok)
+        if not ok:
+            fail(f'the trained export predicts {y.shape} {y.dtype}')
+        del predict
+        return launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 6
+def _device_times_us(prof) -> tuple:
+    """(all kernels', attention kernels' device time in a profile, us;
+    the kernels by time, [(us, name), ...] longest first)."""
+    total = attention = 0.0
+    by_name = []
+    for event in prof.key_averages():
+        us = getattr(event, 'self_device_time_total', None)
+        if us is None:
+            us = getattr(event, 'self_cuda_time_total', 0.0)
+        total += us
+        if 'fa_fwd' in event.key or 'fa_bwd' in event.key:
+            attention += us
+        if us > 0:
+            by_name.append((us, event.key))
+    return total, attention, sorted(by_name, reverse=True)
+
+
+def phase_step(seed: int):
+    """The flagship's train step at B=1, T=8192 as bench_lm measures it,
+    and one step's gradients against the plain attention."""
+    import torch.nn.functional as F
+    from mlcomp_tpu_torch.models import create_model, param_count
+    from mlcomp_tpu_torch.train.loop import (
+        create_train_state, loss_for_task, make_train_step,
+    )
+    from mlcomp_tpu_torch.train.optim import make_optimizer
+
+    t, vocab = FLAGSHIP['max_seq_len'], FLAGSHIP['vocab_size']
+    layers, d = FLAGSHIP['n_layers'], FLAGSHIP['d_model']
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (1, t)).astype(np.int32)).cuda()
+    loss_fn = loss_for_task('lm_ce')
+    model = create_model(**FLAGSHIP, device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(seed))
+    n_params = param_count(model)
+
+    def grads(m):
+        loss, _ = loss_fn(m(tokens, train=True), tokens)
+        return dict(zip((n for n, _ in m.named_parameters()),
+                        torch.autograd.grad(loss, list(m.parameters()))))
+
+    kernel = grads(model)
+    # the plain attention keeps [T, T] f32 scores per layer: remat keeps
+    # one layer's at a time
+    dense = create_model(**{**FLAGSHIP, 'attn_impl': 'dense',
+                            'remat': True}, device='cuda')
+    dense.load_state_dict(model.state_dict())
+    plain = grads(dense)
+    del dense
+    cosines = {n: float(F.cosine_similarity(
+        kernel[n].flatten().float(), plain[n].flatten().float(), dim=0))
+        for n in kernel}
+    worst = min(cosines, key=cosines.get)
+    del kernel, plain
+    torch.cuda.empty_cache()
+
+    optimizer, _ = make_optimizer({'name': 'adamw', 'lr': 3e-4}, 1000)
+    state = create_train_state(model, optimizer, seed=seed)
+    step = make_train_step(model, optimizer, loss_fn, self_supervised=True)
+    for _ in range(3):                   # warm-up, as bench_lm does
+        state, metrics = step(state, tokens, None)
+    step_ms = time_ms(lambda: step(state, tokens, None), iters=STEP_ITERS,
+                      warmup=0)
+    loss = float(step(state, tokens, None)[1]['loss'])
+    tok_s = t / (step_ms / 1e3)
+    flops_per_token = 6 * n_params + 6 * layers * t * d
+    mfu = tok_s * flops_per_token / PEAK_OPS_PER_S[torch.bfloat16]
+    fields = dict(params=n_params, step_ms=f'{step_ms:.2f}',
+                  tokens_per_s=f'{tok_s:.1f}', mfu=f'{mfu:.4f}',
+                  loss=f'{loss:.4f}')
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(state, tokens, None)
+            torch.cuda.synchronize()
+        total_us, attention_us, by_name = _device_times_us(prof)
+        if total_us <= 0:
+            raise RuntimeError('the profile holds no device time')
+        for us, name in by_name[:TOP_KERNELS]:
+            say('step-kernel', ms_per_step=f'{us / 2e3:.3f}',
+                share=f'{us / total_us:.4f}', name=repr(name[:90]))
+        fields.update(device_ms=f'{total_us / 2e3:.2f}',
+                      attention_ms=f'{attention_us / 2e3:.2f}',
+                      attention_share=f'{attention_us / total_us:.4f}',
+                      device_busy=f'{total_us / 2e3 / step_ms:.4f}')
+    except Exception as e:      # the profiler is untried on that machine
+        fields.update(device_ms='not measured', profiler=repr(str(e)[:80]))
+    say('step', **fields)
+    say('step', grad_min_cosine=f'{cosines[worst]:.6f}', worst=worst,
+        mean_cosine=f'{sum(cosines.values()) / len(cosines):.6f}',
+        tensors=len(cosines), min_cosine=MIN_GRAD_COSINE)
+    if not np.isfinite(loss):
+        fail(f'train step loss is not finite: {loss}')
+    if not cosines[worst] >= MIN_GRAD_COSINE:
+        fail(f'gradients disagree with the plain attention: {worst} '
+             f'cosine {cosines[worst]}')
+    del state, model, step
+    torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -399,14 +743,24 @@ def main():
 
         smi = phase_device()
         phase_build()
-        main_kernel = phase_kernels(args.seed)
-        launches = phase_serving(args.seed)
+        fwd = phase_kernels(args.seed)
+        backward = phase_backward_kernels(args.seed)
+        serve_launches = phase_serving(args.seed)
+        train_launches = phase_train(args.seed)
+        phase_step(args.seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    if launches <= 0:
-        fail('the main path launched no flash_attention_fwd')
-    main_kernel['launches'] = launches
-    print(json.dumps({'kernels': [main_kernel]}), flush=True)
+    fwd['launches_by_path'] = {
+        'serve': serve_launches,
+        'train': train_launches['flash_attention_fwd']}
+    fwd['launches'] = sum(fwd['launches_by_path'].values())
+    for entry in backward:
+        entry['launches'] = train_launches[entry['name']]
+    kernels = [fwd] + backward
+    for entry in kernels:
+        if entry['launches'] <= 0:
+            fail(f'the main path launched no {entry["name"]}')
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

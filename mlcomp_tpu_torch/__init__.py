@@ -6,7 +6,8 @@ beside it slice by slice and imports nothing from it. Plain tensor code
 is PyTorch; every kernel the JAX package wrote in Pallas for the TPU is
 a kernel written by hand for ``sm_90a`` under ``csrc/``.
 
-Only the environment the serving slice needs is carried over from
+Only the environment the serving and training slices need is carried
+over from
 ``mlcomp_tpu/__init__.py``: the same root-folder rule (``MLCOMP_TPU_ROOT``,
 the per-xdist-worker test sandbox, ``~/mlcomp_tpu`` by default), the
 same ``models/`` folder and the same ``TOKEN`` read from the same
@@ -36,6 +37,7 @@ def _sandbox_root():
 ROOT_FOLDER = _sandbox_root()
 MODEL_FOLDER = os.path.join(ROOT_FOLDER, 'models')
 CONFIG_FOLDER = os.path.join(ROOT_FOLDER, 'configs')
+TASK_FOLDER = os.path.join(ROOT_FOLDER, 'tasks')
 
 
 def _read_env(path):
@@ -62,4 +64,4 @@ _ENV = _read_env(os.path.join(CONFIG_FOLDER, '.env'))
 TOKEN = _ENV.get('TOKEN', 'token')
 
 __all__ = ['__version__', 'ROOT_FOLDER', 'MODEL_FOLDER', 'CONFIG_FOLDER',
-           'TOKEN']
+           'TASK_FOLDER', 'TOKEN']

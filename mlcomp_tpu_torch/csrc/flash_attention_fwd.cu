@@ -2,11 +2,14 @@
 //
 // Replaces: the Pallas TPU kernel `_fa_kernel` of
 // mlcomp_tpu/ops/flash_attention.py (kernel at :83, launched by
-// `flash_attention_forward` at :250), forward without the lse output.
+// `flash_attention_forward` at :250), with and without its lse output.
 //
 // Computes, for each (b, h): out = softmax(scale * Q K^T, causal mask) V
 // over q, k, v of shape [B, T, H, D], read through their strides (no
-// [B*H, T, D] fold), out written as a fresh contiguous [B, T, H, D].
+// [B*H, T, D] fold), out written as a fresh contiguous [B, T, H, D]; and,
+// when the lse pointer is not null (training), the per-row logsumexp of
+// the scaled scores, lse = m + log(l) in natural-log units, as a
+// contiguous [B, H, T] f32 (the backward rebuilds P from it).
 // Numerics follow the TPU kernel: scores accumulate in f32, masked
 // scores take the finite NEG_INF = -1e30, the softmax is online with a
 // running max and sum in f32, P is rounded to V's dtype before the PV
@@ -43,25 +46,21 @@
 // C interface (bound with ctypes): flash_attention_fwd(...) returns the
 // cudaError_t of the launch as an int; 0 means launched. It takes a
 // positive scale: the row max is found on unscaled scores, so the
-// wrapper moves a negative scale's sign onto q.
+// wrapper moves a negative scale's sign onto q. The helpers it shares
+// with the backward live in flash_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace flash;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, T] or null
   int B, T, H;
   int64_t q_sb, q_st, q_sh;
   int64_t k_sb, k_st, k_sh;
@@ -75,7 +74,6 @@ struct Params {
 constexpr int MMA_BLOCK_N = 64;  // key rows per K/V tile
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int SMEM_PAD = 8;      // elements; keeps ldmatrix rows off one bank
 
 // m16 row tiles per warp: two for D <= 64, so every K/V fragment read
 // from shared memory feeds two MMAs (one would leave ldmatrix traffic
@@ -93,104 +91,6 @@ template <int D>
 __host__ __device__ constexpr int mma_smem_bytes(int elem) {
   // Q tile + two stages of K and V
   return (block_m<D>() + 4 * MMA_BLOCK_N) * (D + SMEM_PAD) * elem;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_bytes = valid ? 16 : 0;  // 0 = fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// 2^x on the MUFU unit, one instruction (max relative error ~2^-22)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-// ROWS rows x D columns from global (row stride `st` elements, rows from
-// `row0`) into shared memory with row stride D + SMEM_PAD, by cp.async;
-// rows at or past T are zero-filled.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(T* s, const T* g, int64_t st,
-                                          int row0, int T_len) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int LD = D + SMEM_PAD;
-#pragma unroll
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += MMA_THREADS) {
-    const int r = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    const int t = row0 + r;
-    const bool valid = t < T_len;
-    const T* src = valid ? g + static_cast<int64_t>(t) * st + col : g;
-    cp_async16(s + r * LD + col, src, valid);
-  }
 }
 
 template <typename T, int D>
@@ -228,10 +128,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int n_k_tiles = (kv_end + MMA_BLOCK_N - 1) / MMA_BLOCK_N;
 
   // copy groups in flight: Q, then K/V tile 0 (stage 0)
-  load_rows<T, D, BLOCK_M>(Qs, qg, p.q_st, q0, p.T);
+  load_rows<T, D, BLOCK_M, MMA_THREADS>(Qs, qg, p.q_st, q0, p.T);
   cp_async_commit();
-  load_rows<T, D, MMA_BLOCK_N>(Ks, kg, p.k_st, 0, p.T);
-  load_rows<T, D, MMA_BLOCK_N>(Vs, vg, p.v_st, 0, p.T);
+  load_rows<T, D, MMA_BLOCK_N, MMA_THREADS>(Ks, kg, p.k_st, 0, p.T);
+  load_rows<T, D, MMA_BLOCK_N, MMA_THREADS>(Vs, vg, p.v_st, 0, p.T);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -268,9 +168,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
     // is used (that stage was freed by the barrier ending iteration
     // kt - 1)
     if (kt + 1 < n_k_tiles) {
-      load_rows<T, D, MMA_BLOCK_N>(Ks + ((kt + 1) & 1) * TILE, kg, p.k_st,
+      load_rows<T, D, MMA_BLOCK_N, MMA_THREADS>(Ks + ((kt + 1) & 1) * TILE, kg, p.k_st,
                                    k0 + MMA_BLOCK_N, p.T);
-      load_rows<T, D, MMA_BLOCK_N>(Vs + ((kt + 1) & 1) * TILE, vg, p.v_st,
+      load_rows<T, D, MMA_BLOCK_N, MMA_THREADS>(Vs + ((kt + 1) & 1) * TILE, vg, p.v_st,
                                    k0 + MMA_BLOCK_N, p.T);
       cp_async_commit();
       cp_async_wait<1>();
@@ -409,6 +309,12 @@ __global__ void __launch_bounds__(MMA_THREADS)
     const float norm1 = fmaxf(l_r[mt][1], 1e-30f);
     const int row0 = wrow0 + mt * 16 + g;
     const int row1 = row0 + 8;
+    if (p.lse != nullptr && tq == 0) {
+      // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2
+      float* lg = p.lse + (static_cast<int64_t>(b) * p.H + h) * p.T;
+      if (row0 < p.T) lg[row0] = (m_r[mt][0] + log2f(norm0)) * LN2;
+      if (row1 < p.T) lg[row1] = (m_r[mt][1] + log2f(norm1)) * LN2;
+    }
 #pragma unroll
     for (int n = 0; n < D_TILES; ++n) {
       const int col = n * 8 + tq * 2;
@@ -515,6 +421,8 @@ __global__ void __launch_bounds__(F32_THREADS)
 
   if (row < p.T) {
     const float norm = fmaxf(l, 1e-30f);
+    if (p.lse != nullptr && qd == 0)
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.T + row] = m + logf(norm);
 #pragma unroll
     for (int c = 0; c < COLS; ++c) og[row * p.o_st + qd + 4 * c] = acc[c] / norm;
   }
@@ -523,20 +431,9 @@ __global__ void __launch_bounds__(F32_THREADS)
 template <typename T, int D>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<D>(sizeof(T));
-  // above 48 KB of dynamic shared memory needs the opt-in: once per
-  // device for each instantiation (bit i = device i), not per launch
   static std::atomic<unsigned long long> opted_in{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = opt_in_smem(fa_fwd_mma_kernel<T, D>, smem, opted_in);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (!(opted_in.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(fa_fwd_mma_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    opted_in.fetch_or(bit, std::memory_order_release);
-  }
   dim3 grid((p.T + block_m<D>() - 1) / block_m<D>(), p.B * p.H);
   fa_fwd_mma_kernel<T, D><<<grid, MMA_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -564,9 +461,10 @@ cudaError_t dispatch_dtype(const Params& p, int dtype, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Strides in elements;
-// the head_dim stride must be 1. Returns the cudaError_t of the launch.
+// the head_dim stride must be 1. lse: a contiguous [B, H, T] f32 output,
+// or null for none. Returns the cudaError_t of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int T, int H, int D, int dtype,
+                        float* lse, int B, int T, int H, int D, int dtype,
                         long long q_sb, long long q_st, long long q_sh,
                         long long k_sb, long long k_st, long long k_sh,
                         long long v_sb, long long v_st, long long v_sh,
@@ -574,7 +472,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float scale, int causal, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, B, T, H,
+  Params p{q, k, v, o, lse, B, T, H,
            q_sb, q_st, q_sh, k_sb, k_st, k_sh,
            v_sb, v_st, v_sh, o_sb, o_st, o_sh,
            scale, causal};

@@ -1,7 +1,7 @@
 """Decoder-only Transformer LM — port of ``mlcomp_tpu/models/transformer.py``.
 
-The dense, unsharded forward of the flagship LM as ``nn.Module``s, with
-the JAX package's numerics:
+The dense, unsharded LM as ``nn.Module``s, with the JAX package's
+numerics:
 
 - activations run in ``dtype`` (bf16 by default) from f32 params: every
   projection casts its input and weight to ``dtype`` (flax
@@ -9,18 +9,26 @@ the JAX package's numerics:
 - RMSNorm is flax's ``nn.RMSNorm``: epsilon 1e-6, statistics in f32,
   output cast to ``dtype``;
 - attention goes through ``ops.fused_attention(impl=cfg.attn_impl)``,
-  the hand-written CUDA flash kernel for CUDA tensors;
+  the hand-written CUDA flash kernels for CUDA tensors (forward, and the
+  backward kernels when autograd needs a gradient);
 - the embedding lookup reproduces ``jnp.take`` on the CPU: a negative id
   wraps once, an id out of range gives a NaN row — without indexing out
   of range, which on CUDA would be a device-side assert that poisons the
   process's CUDA context.
 
+``forward(tokens, train=True, generator=...)`` is the training mode:
+dropout (flax ``nn.Dropout``: keep with probability 1 - rate, kept values
+divided by it) after the attention output projection and after ``wo``,
+its masks drawn from a ``torch.Generator`` (a CPU generator that seeds
+one device generator per layer, so a recomputed layer draws the same
+masks), and with ``remat`` each ``DecoderLayer`` under
+``torch.utils.checkpoint`` (non-reentrant), whose recompute launches the
+attention forward again. At eval both have no effect, as in JAX.
+
 Weights are stored the PyTorch way (a projection's ``weight`` is
 ``[out, in]``); ``convert.py`` maps them to and from the JAX trees in
 both ``scan_layers`` layouts. Knobs this port does not implement yet
 raise: ``n_experts > 0`` (MoE), ``matmul_precision='int8'`` and a mesh.
-``remat`` and ``dropout`` act only in training, which is not ported, so
-at eval they have no effect, as in JAX.
 """
 
 import dataclasses
@@ -28,6 +36,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mlcomp_tpu_torch.models.base import register_model
@@ -147,6 +156,20 @@ class RMSNorm(nn.Module):
         return (xf * mul).to(self.dtype)
 
 
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout`` in training: keep each value with probability
+    ``1 - rate`` (mask from ``generator``) and divide the kept ones by
+    it; ``rate`` 0 (or no generator: eval) is the identity."""
+    if not rate or generator is None:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator).bool()
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -156,27 +179,30 @@ class Attention(nn.Module):
         self.qkv = Dense(cfg.d_model, 3 * h * d, dtype, pdtype, device)
         self.out = Dense(h * d, cfg.d_model, dtype, pdtype, device)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         cfg = self.cfg
         b, t, _ = x.shape
         qkv = self.qkv(x).view(b, t, 3, cfg.n_heads, cfg.head_dim)
-        # strided views into qkv: the kernel reads them in place
+        # strided views into qkv: the kernels read them in place
         q, k, v = qkv.unbind(dim=2)
         out = fused_attention(q, k, v, causal=cfg.causal,
                               impl=cfg.attn_impl)
-        return self.out(out.reshape(b, t, cfg.n_heads * cfg.head_dim))
+        out = self.out(out.reshape(b, t, cfg.n_heads * cfg.head_dim))
+        return dropout(out, cfg.dropout, generator)
 
 
 class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
         self.wi_gate = Dense(cfg.d_model, cfg.d_ff, dtype, pdtype, device)
         self.wi_up = Dense(cfg.d_model, cfg.d_ff, dtype, pdtype, device)
         self.wo = Dense(cfg.d_ff, cfg.d_model, dtype, pdtype, device)
 
-    def forward(self, x):
-        return self.wo(F.silu(self.wi_gate(x)) * self.wi_up(x))
+    def forward(self, x, generator=None):
+        y = self.wo(F.silu(self.wi_gate(x)) * self.wi_up(x))
+        return dropout(y, self.cfg.dropout, generator)
 
 
 class DecoderLayer(nn.Module):
@@ -188,9 +214,15 @@ class DecoderLayer(nn.Module):
         self.norm_mlp = RMSNorm(cfg.d_model, dtype, pdtype, device=device)
         self.mlp = MlpBlock(cfg, device)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm_attn(x))
-        return x + self.mlp(self.norm_mlp(x))
+    def forward(self, x, seed: Optional[int] = None):
+        """``seed`` (training with dropout): this layer's dropout masks
+        come from a device generator seeded with it, so a recompute under
+        ``checkpoint`` draws the same ones."""
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(x.device).manual_seed(seed)
+        x = x + self.attn(self.norm_attn(x), gen)
+        return x + self.mlp(self.norm_mlp(x), gen)
 
 
 class TransformerLM(nn.Module):
@@ -231,15 +263,28 @@ class TransformerLM(nn.Module):
             elif isinstance(module, RMSNorm):
                 module.scale.fill_(1.0)
 
-    def forward(self, tokens, train: bool = False):
-        if train:
-            raise NotImplementedError(
-                'training the port is not ported yet (ROADMAP.md, queue A: '
-                'LM training with the flash backward)')
+    def forward(self, tokens, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Logits [B, T, V]. ``train``: dropout with masks from
+        ``generator`` (a CPU ``torch.Generator``; required when
+        ``dropout`` > 0) and ``remat`` checkpointing take effect."""
+        cfg = self.cfg
+        seeds = [None] * cfg.n_layers
+        if train and cfg.dropout:
+            if generator is None:
+                raise ValueError(
+                    'train=True with dropout > 0 needs a generator for the '
+                    'dropout masks')
+            seeds = torch.randint(0, 2 ** 62, (cfg.n_layers,),
+                                  generator=generator).tolist()
         x = embed_lookup(self.embed, tokens).to(self.dtype)
         x = x + self.pos_embed[:tokens.shape[1]].to(self.dtype)
-        for layer in self.layers:
-            x = layer(x)
+        for layer, seed in zip(self.layers, seeds):
+            if train and cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, seed, use_reentrant=False)
+            else:
+                x = layer(x, seed)
         return self.lm_head(self.norm_final(x))
 
 
@@ -256,5 +301,5 @@ def _transformer(mesh=None, device=None, generator=None, **kwargs):
 
 
 __all__ = ['TransformerConfig', 'TransformerLM', 'DecoderLayer',
-           'Attention', 'MlpBlock', 'RMSNorm', 'Dense', 'embed_lookup',
-           'torch_dtype']
+           'Attention', 'MlpBlock', 'RMSNorm', 'Dense', 'dropout',
+           'embed_lookup', 'torch_dtype']

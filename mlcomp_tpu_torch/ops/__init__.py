@@ -1,14 +1,18 @@
 """Custom ops of the port: hand-written Hopper kernels with their plain
 PyTorch versions beside them (counterpart of ``mlcomp_tpu/ops``).
 
-Only the flash-attention forward is ported so far; the other TPU
-kernels are listed in ROADMAP.md as still to be ported.
+Ported so far: flash attention, forward (with its row logsumexp) and
+backward, and the dense half of the cross-entropy (``fused_ce``); the
+other TPU kernels are listed in ROADMAP.md as still to be ported.
 """
 
 from mlcomp_tpu_torch.ops.flash_attention import (
-    flash_attention_forward, fused_attention, reference_attention,
+    FlashAttention, flash_attention_backward, flash_attention_forward,
+    fused_attention, reference_attention, reference_attention_backward,
     resolve_impl,
 )
 
 __all__ = ['fused_attention', 'flash_attention_forward',
-           'reference_attention', 'resolve_impl']
+           'flash_attention_backward', 'FlashAttention',
+           'reference_attention', 'reference_attention_backward',
+           'resolve_impl']

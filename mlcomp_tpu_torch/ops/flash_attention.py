@@ -1,19 +1,25 @@
-"""Causal flash attention forward: a hand-written CUDA kernel for Hopper.
+"""Causal flash attention, forward and backward: hand-written CUDA
+kernels for Hopper.
 
 Port of ``mlcomp_tpu/ops/flash_attention.py``. The TPU's Pallas kernel
-``_fa_kernel`` becomes ``csrc/flash_attention_fwd.cu`` (its header says
-what bounds it on the card and what the design does about that). This
-slice ports the forward without the per-row logsumexp: serving applies
-the model with ``train=False``, so neither ``lse`` nor the backward is on
-its path.
+``_fa_kernel`` becomes ``csrc/flash_attention_fwd.cu``, its backward
+kernels ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel`` become the two
+kernels of ``csrc/flash_attention_bwd.cu`` (each file's header says what
+bounds it on the card and what the design does about that).
 
-- ``reference_attention``: the plain PyTorch version, the numerics the
-  kernel must reproduce; the CPU path and the card-side check use it.
-- ``flash_attention_forward``: the kernel's wrapper. It takes the plain
-  version only for a tensor on the CPU. A CUDA tensor launches the kernel
-  or raises; there is no fallback. ``flash_attention_forward.launches``
-  counts the kernel's launches.
+- ``reference_attention`` / ``reference_attention_backward``: the plain
+  PyTorch versions, the numerics the kernels must reproduce; the CPU path
+  and the card-side checks use them.
+- ``flash_attention_forward`` (optionally with the row logsumexp) and
+  ``flash_attention_backward``: the kernels' wrappers. They take the
+  plain versions only for tensors on the CPU. A CUDA tensor launches the
+  kernels or raises; there is no fallback. ``flash_attention_forward
+  .launches``, ``flash_attention_backward_dq.launches`` and
+  ``flash_attention_backward_dkv.launches`` count the launches.
 - ``fused_attention(impl=...)``: the entry point the transformer uses.
+  On a CUDA tensor that needs a gradient it runs ``FlashAttention``, the
+  port of the ``_flash_attention`` custom_vjp, which saves only
+  (q, k, v, out, lse).
 """
 
 import ctypes
@@ -34,11 +40,26 @@ _IMPL_ALIASES = {'pallas': 'cuda', 'interpret': 'auto'}
 IMPLS = ('auto', 'dense', 'cuda')
 
 
+def _scores(q, k, causal: bool, scale: float):
+    """f32 scaled scores [B, H, T, T] with the causal triangle at NEG_INF
+    (the products of bf16 pairs are exact in f32, as with the JAX
+    version's ``preferred_element_type``)."""
+    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float())
+    s.mul_(scale)
+    if causal:
+        t = q.shape[1]
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        s.masked_fill_(~keep, NEG_INF)
+    return s
+
+
 def reference_attention(q, k, v, causal: bool = True,
-                        scale: Optional[float] = None, round_p: bool = False):
+                        scale: Optional[float] = None, round_p: bool = False,
+                        with_lse: bool = False):
     """Dense softmax attention over [B, T, H, D]: scores and softmax in
-    f32 (the products of bf16 pairs are exact in f32, as with the JAX
-    version's ``preferred_element_type``), output cast to q's dtype.
+    f32, output cast to q's dtype. ``with_lse`` also returns the row
+    logsumexp of the scaled scores, [B, H, T] f32, as the JAX kernel's
+    ``with_lse`` does.
 
     ``round_p`` follows the kernel (and the TPU kernel) one step
     further: ``exp(s - row max)`` is rounded to v's dtype before the PV
@@ -47,23 +68,52 @@ def reference_attention(q, k, v, causal: bool = True,
     the default is JAX's ``reference_attention``, which the CPU path
     matches."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float())
-    s.mul_(scale)
-    if causal:
-        t = q.shape[1]
-        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-        s.masked_fill_(~keep, NEG_INF)
+    s = _scores(q, k, causal, scale)
+    lse = torch.logsumexp(s, dim=-1) if with_lse else None
     if not round_p:
         p = torch.softmax(s, dim=-1)
         del s
-        out = torch.einsum('bhqk,bkhd->bqhd', p, v.float())
-        return out.to(q.dtype)
+        out = torch.einsum('bhqk,bkhd->bqhd', p, v.float()).to(q.dtype)
+        return (out, lse) if with_lse else out
     s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
     l = s.sum(dim=-1, keepdim=True).clamp_min_(1e-30)   # [B, H, T, 1]
     p = s.to(v.dtype)
     del s
     out = torch.einsum('bhqk,bkhd->bqhd', p.float(), v.float())
-    return out.div_(l.transpose(1, 2)).to(q.dtype)
+    out = out.div_(l.transpose(1, 2)).to(q.dtype)
+    return (out, lse) if with_lse else out
+
+
+def attention_delta(out, do):
+    """delta = rowsum(dO * O) in f32, [B, H, T]: the dS correction term
+    (computed outside the kernels, as the JAX package does)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _recompute_p_ds(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """P and dS [B, H, T, T] exactly as the backward kernels rebuild them:
+    P = exp(scale * s - lse) (0 on the causal triangle), dS = P (dO Vᵀ -
+    delta), both rounded to the input dtype for the gradient products."""
+    p = _scores(q, k, causal, scale).sub_(lse[..., None]).exp_()
+    ds = torch.einsum('bqhd,bkhd->bhqk', do.float(), v.float())
+    ds.sub_(delta[..., None]).mul_(p)
+    return p.to(q.dtype), ds.to(q.dtype)
+
+
+def reference_attention_backward(q, k, v, out, lse, do, causal: bool = True,
+                                 scale: Optional[float] = None):
+    """(dq, dk, dv) of attention, the plain version of the kernels:
+    products of rounded P and dS accumulated in f32, the scale applied
+    after the dq and dk products, outputs in the inputs' dtypes."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    p, ds = _recompute_p_ds(q, k, v, do, lse.float(),
+                            attention_delta(out, do), causal, scale)
+    dv = torch.einsum('bhqk,bqhd->bkhd', p.float(), do.float())
+    del p
+    ds = ds.float()
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, k.float()).mul_(scale)
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds, q.float()).mul_(scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def resolve_impl(name: str) -> str:
@@ -133,66 +183,217 @@ def _kernel_operand(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _c_function():
-    """The C entry point with its argument types declared (ctypes would
-    otherwise pass each pointer and stride as a 32-bit int)."""
-    lib = _build.library('flash_attention_fwd')
-    fn = lib.flash_attention_fwd
+def _declare(fn, n_ptr: int, n_int: int, n_stride: int, n_float: int):
+    """Declare a C entry point's argument types once (ctypes would
+    otherwise pass each pointer and stride as a 32-bit int): pointers,
+    ints, strides, floats, then the causal flag and the stream."""
     if fn.argtypes is None:
         ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i] + [ll] * 12 + [
-            ctypes.c_float, i, ptr]
+        fn.argtypes = ([ptr] * n_ptr + [i] * n_int + [ll] * n_stride
+                       + [ctypes.c_float] * n_float + [i, ptr])
         fn.restype = i
-        lib.flash_attention_fwd_error_string.argtypes = [i]
-        lib.flash_attention_fwd_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    return fn
+
+
+def _library(name: str):
+    """The kernel library ``csrc/<name>.cu`` and its error-string
+    function, declared."""
+    lib = _build.library(name)
+    err = getattr(lib, name + '_error_string')
+    if err.argtypes is None:
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib, err
+
+
+def _check_launch(error_string, kernel: str, err: int, q):
+    if err:
+        b, t, h, d = q.shape
+        raise RuntimeError(
+            f'{kernel} launch failed: CUDA error {err} '
+            f'({error_string(err).decode()}) at B={b} T={t} H={h} D={d} '
+            f'{q.dtype}')
+
+
+def _on_card(q, what: str):
+    """Raise for anything but a CUDA tensor the kernels take."""
+    if q.device.type != 'cuda':
+        raise ValueError(
+            f'{what} runs on cuda (or cpu: plain version), got device '
+            f'{q.device}')
+    check_kernel_inputs(q)
+
+
+def _strides(*tensors) -> list:
+    return [s for x in tensors for s in x.stride()[:3]]
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def flash_attention_forward(q, k, v, causal: bool = True,
-                            scale: Optional[float] = None):
-    """Flash forward over [B, T, H, D] (any T; no lse). A CPU tensor takes
-    the plain version; a CUDA tensor launches ``flash_attention_fwd``."""
+                            scale: Optional[float] = None,
+                            with_lse: bool = False):
+    """Flash forward over [B, T, H, D] (any T). ``with_lse`` also returns
+    the row logsumexp [B, H, T] f32 the backward needs. A CPU tensor
+    takes the plain version; a CUDA tensor launches
+    ``flash_attention_fwd``."""
     check_attention_inputs(q, k, v)
     if q.device.type == 'cpu':
-        return reference_attention(q, k, v, causal=causal, scale=scale)
-    if q.device.type != 'cuda':
-        raise ValueError(
-            f'flash_attention_forward runs on cuda (or cpu: plain '
-            f'version), got device {q.device}')
+        return reference_attention(q, k, v, causal=causal, scale=scale,
+                                   with_lse=with_lse)
+    _on_card(q, 'flash_attention_forward')
     b, t, h, d = q.shape
-    check_kernel_inputs(q)
     q, scale = _kernel_scale(q, scale if scale is not None else d ** -0.5)
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lib, fn = _c_function()
-    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    lib, error_string = _library('flash_attention_fwd')
+    fn = _declare(lib.flash_attention_fwd, 5, 5, 12, 1)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, h, d, _DTYPE_CODES[q.dtype], *strides,
-                 float(scale), int(bool(causal)), stream)
-    if err:
-        msg = lib.flash_attention_fwd_error_string(err).decode()
-        raise RuntimeError(
-            f'flash_attention_fwd launch failed: CUDA error {err} ({msg}) '
-            f'at B={b} T={t} H={h} D={d} {q.dtype}')
+                 lse.data_ptr() if with_lse else None,
+                 b, t, h, d, _DTYPE_CODES[q.dtype],
+                 *_strides(q, k, v, out), float(scale), int(bool(causal)),
+                 _stream(q.device))
+    _check_launch(error_string, 'flash_attention_fwd', err, q)
     flash_attention_forward.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_forward.launches = 0
+
+
+def _backward_operands(q, k, v, do, lse, delta, scale: float):
+    """What both backward kernels take: the operands as they read them,
+    the positive score scale and the dq scale (the caller's own, which
+    undoes ``_kernel_scale``'s moving a negative sign onto q)."""
+    kq, kscale = _kernel_scale(q, scale)
+    ops = [_kernel_operand(x) for x in (kq, k, v, do)]
+    stats = [x.float().contiguous() for x in (lse, delta)]
+    return ops, stats, kscale
+
+
+def flash_attention_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
+                                scale: Optional[float] = None):
+    """dq from the kernel ``flash_attention_bwd_dq`` (CUDA tensors)."""
+    _on_card(q, 'flash_attention_backward_dq')
+    b, t, h, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    (kq, k, v, do), (lse, delta), kscale = _backward_operands(
+        q, k, v, do, lse, delta, scale)
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib, error_string = _library('flash_attention_bwd')
+    fn = _declare(lib.flash_attention_bwd_dq, 7, 5, 12, 2)
+    with torch.cuda.device(q.device):
+        err = fn(kq.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 b, t, h, d, _DTYPE_CODES[q.dtype],
+                 *_strides(kq, k, v, do), float(kscale), float(scale),
+                 int(bool(causal)), _stream(q.device))
+    _check_launch(error_string, 'flash_attention_bwd_dq', err, q)
+    flash_attention_backward_dq.launches += 1
+    return dq
+
+
+flash_attention_backward_dq.launches = 0
+
+
+def flash_attention_backward_dkv(q, k, v, do, lse, delta,
+                                 causal: bool = True,
+                                 scale: Optional[float] = None):
+    """(dk, dv) from the kernel ``flash_attention_bwd_dkv`` (CUDA
+    tensors)."""
+    _on_card(q, 'flash_attention_backward_dkv')
+    b, t, h, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    (kq, k, v, do), (lse, delta), kscale = _backward_operands(
+        q, k, v, do, lse, delta, scale)
+    dk = torch.empty((b, t, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, t, h, d), dtype=v.dtype, device=q.device)
+    lib, error_string = _library('flash_attention_bwd')
+    fn = _declare(lib.flash_attention_bwd_dkv, 8, 5, 12, 1)
+    with torch.cuda.device(q.device):
+        err = fn(kq.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, t, h, d, _DTYPE_CODES[q.dtype],
+                 *_strides(kq, k, v, do), float(kscale), int(bool(causal)),
+                 _stream(q.device))
+    _check_launch(error_string, 'flash_attention_bwd_dkv', err, q)
+    flash_attention_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_backward_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, do, causal: bool = True,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) of attention from the forward's residuals: out and
+    lse [B, H, T]. A CPU tensor takes the plain version; a CUDA tensor
+    launches both backward kernels."""
+    check_attention_inputs(q, k, v)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(
+            f'out {tuple(out.shape)} and do {tuple(do.shape)} must have '
+            f'the shape of q {tuple(q.shape)}')
+    b, t, h, _ = q.shape
+    if lse.shape != (b, h, t):
+        raise ValueError(f'lse must be [B, H, T] = {(b, h, t)}, got '
+                         f'{tuple(lse.shape)}')
+    if q.device.type == 'cpu':
+        return reference_attention_backward(q, k, v, out, lse, do,
+                                            causal=causal, scale=scale)
+    _on_card(q, 'flash_attention_backward')
+    do = do.to(q.dtype)
+    delta = attention_delta(out, do)
+    dq = flash_attention_backward_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_backward_dkv(q, k, v, do, lse, delta, causal,
+                                          scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The ``_flash_attention`` custom_vjp: the forward kernel with lse,
+    residuals (q, k, v, out, lse) only, and the two backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
 def fused_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None, impl: str = 'auto'):
     """Attention over [B, T, H, D] with implementation selection:
 
-    - ``auto``: the kernel for a CUDA tensor, the plain version for a CPU
-      tensor (never the plain version for a CUDA tensor)
-    - ``cuda``: the kernel; CUDA tensors only
+    - ``auto``: the kernels for a CUDA tensor, the plain version (with
+      torch autograd) for a CPU tensor — never the plain version for a
+      CUDA tensor
+    - ``cuda``: the kernels; CUDA tensors only
     - ``dense``: the plain version on any device
     - ``pallas`` / ``interpret`` (as JAX exports name them): ``cuda`` /
       ``auto``
+
+    On a CUDA tensor the forward kernel runs alone (no lse) under
+    ``no_grad``/``inference_mode``; when autograd needs a gradient it
+    runs ``FlashAttention`` (forward with lse, backward kernels).
     """
     impl = resolve_impl(impl)
     if impl == 'dense':
@@ -201,9 +402,13 @@ def fused_attention(q, k, v, causal: bool = True,
     if impl == 'cuda' and q.device.type != 'cuda':
         raise ValueError(
             f"attn impl 'cuda' needs CUDA tensors, got device {q.device}")
+    if q.device.type == 'cuda' and _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention_forward(q, k, v, causal=causal, scale=scale)
 
 
 __all__ = ['fused_attention', 'flash_attention_forward',
-           'reference_attention', 'resolve_impl', 'NEG_INF',
-           'KERNEL_HEAD_DIMS']
+           'flash_attention_backward', 'flash_attention_backward_dq',
+           'flash_attention_backward_dkv', 'FlashAttention',
+           'reference_attention', 'reference_attention_backward',
+           'attention_delta', 'resolve_impl', 'NEG_INF', 'KERNEL_HEAD_DIMS']

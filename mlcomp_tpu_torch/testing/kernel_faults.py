@@ -1,17 +1,19 @@
-"""Plant faults in a copy of the flash-attention kernel and read each
+"""Plant faults in copies of the flash-attention kernels and read each
 against the card-side check, to show the check would catch them.
 
     python -m mlcomp_tpu_torch.testing.kernel_faults [--seeds 0 1 2]
 
-Needs one CUDA card and ``nvcc``. First the kernel as it stands runs at
-every shape of ``kernel_check.ATTENTION_SHAPES`` for each seed, which
-shows the margin of its tolerance. Then each fault below, a textual edit
-of ``csrc/flash_attention_fwd.cu`` written to a temporary directory (the
+Needs one CUDA card and ``nvcc``. First the kernels as they stand run at
+every shape of ``kernel_check.ATTENTION_SHAPES`` (forward) and
+``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward) for
+each seed, which shows the margin of each tolerance. Then each fault
+below, a textual edit of ``csrc/flash_attention_fwd.cu`` or
+``csrc/flash_attention_bwd.cu`` written to a temporary directory (the
 checkout is not touched) and built with the package's nvcc flags, runs
-at the serving shape. Each line gives the largest relative row error
-against its bound and, for comparison, the elementwise error scaled to
-``1 + |ref|``. Exits 1 if the kernel as it stands fails its bound or a
-planted fault passes it.
+at the serving shape (forward faults) or the training shape (backward
+faults). Each line gives the largest relative row error against its
+bound. Exits 1 if a kernel as it stands fails a bound or a planted fault
+passes them all.
 """
 
 import argparse
@@ -26,14 +28,16 @@ import torch
 from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
-    ATTENTION_ROW_TOL, ATTENTION_SHAPES, qkv_views, row_relative_error,
+    ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
+    BACKWARD_SHAPES,
+    backward_check, backward_ok, qkv_views, row_relative_error,
 )
 
 KERNEL = 'flash_attention_fwd'
 _LIVE_TILE = '    if (!p.causal || k0 <= wrow0 + 16 * MT - 1) {\n'
 _MASK = 'if (kc >= p.T || (p.causal && kc > qr)) s[mt][n][e] = NEG_INF;'
 
-#: name -> (text of the kernel source, its faulty replacement)
+#: name -> (text of the forward kernel's source, its faulty replacement)
 FAULTS = {
     # rows from 4096 on lose keys 64..127: ~1% of their keys
     'k_tile_skipped_from_row_4096': (
@@ -53,20 +57,72 @@ FAULTS = {
         _MASK, _MASK.replace('kc > qr', 'kc >= qr')),
 }
 
+BACKWARD_KERNEL = 'flash_attention_bwd'
+_DQ_MASK = ('if (need_mask && (kc >= p.T || (p.causal && kc > '
+            'rows[mt][i])))')
+_DKV_MASK = ('if (need_mask && (qc >= p.T || (p.causal && key > qc)))')
+_DQ_A = '        uint32_t a[MT][4];\n'
+_DQ_MMA = ('            Mma<T>::run(dq[mt][2 * dc], a[mt], kb[0], kb[1]);\n'
+           '            Mma<T>::run(dq[mt][2 * dc + 1], a[mt], kb[2], '
+           'kb[3]);\n')
+_DQ_PACK = ('          a[mt][3] = Mma<T>::pack(s[mt][2 * kk + 1][2], '
+            's[mt][2 * kk + 1][3]);\n')
 
-def build_faults(out_dir: str) -> dict:
-    """{fault: library path}, one nvcc per fault, all started together."""
-    src = os.path.join(_build.CSRC_DIR, KERNEL + '.cu')
+
+def _residue(i: str, j: int) -> str:
+    """The part of s[mt][i][j] that rounding to T drops."""
+    return f's[mt][{i}][{j}] - float(T(s[mt][{i}][{j}]))'
+
+
+def _residue_pack(slot: int, i: str, j: int) -> str:
+    return (f'          lo[mt][{slot}] = Mma<T>::pack({_residue(i, j)}, '
+            f'{_residue(i, j + 1)});\n')
+
+
+#: name -> [(text of the backward kernels' source, its replacement), ...]
+BACKWARD_FAULTS = {
+    # keys in the last 512 lose their block's second q-tile
+    'dkv_q_tile_skipped_in_last_512_keys': [(
+        _DKV_MASK,
+        _DKV_MASK[:-1] + ' || (qt == first_qt + 1 && k0 >= p.T - 512))')],
+    # dq: each query also takes a gradient from the key after it
+    'dq_causal_mask_lets_next_key_in': [(
+        _DQ_MASK, _DQ_MASK.replace('rows[mt][i]', 'rows[mt][i] + 1'))],
+    # dk/dv: each key loses its own query
+    'dkv_causal_mask_hides_the_diagonal': [(
+        _DKV_MASK, _DKV_MASK.replace('> qc', '>= qc'))],
+    # dq: dS not rounded to the input dtype before dS K (its rounding
+    # residue goes through a second product)
+    'dq_ds_not_rounded': [
+        (_DQ_A, '        uint32_t a[MT][4], lo[MT][4];\n'),
+        (_DQ_PACK, _DQ_PACK + _residue_pack(0, '2 * kk', 0)
+         + _residue_pack(1, '2 * kk', 2) + _residue_pack(2, '2 * kk + 1', 0)
+         + _residue_pack(3, '2 * kk + 1', 2)),
+        (_DQ_MMA, _DQ_MMA + _DQ_MMA.replace('a[mt]', 'lo[mt]'))],
+    # dk/dv: the lse multiplied by the scale once more
+    'dkv_lse_off_by_the_scale': [(
+        '-lse_c[qi] * LOG2E', '-lse_c[qi] * LOG2E * p.scale')],
+}
+
+
+def build_faults(out_dir: str, kernel: str, faults: dict) -> dict:
+    """{fault: library path} for ``faults`` ({name: [(old, new), ...]})
+    planted in ``csrc/<kernel>.cu``, one nvcc per fault, all started
+    together."""
+    src = os.path.join(_build.CSRC_DIR, kernel + '.cu')
     with open(src) as fh:
         source = fh.read()
     running = {}
-    for name, (old, new) in FAULTS.items():
-        if source.count(old) != 1:
-            raise RuntimeError(
-                f'fault {name}: the text it edits is not in {src} once')
+    for name, edits in faults.items():
+        text = source
+        for old, new in edits:
+            if source.count(old) != 1:
+                raise RuntimeError(
+                    f'fault {name}: the text it edits is not in {src} once')
+            text = text.replace(old, new)
         cu = os.path.join(out_dir, f'{name}.cu')
         with open(cu, 'w') as fh:
-            fh.write(source.replace(old, new))
+            fh.write(text)
         so = os.path.join(out_dir, f'{name}.so')
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, '-I', _build.CSRC_DIR,
                '-o', so, cu]
@@ -90,13 +146,35 @@ def scaled_error(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def check(shape, seed: int) -> tuple:
-    """(row error, scaled error) of the loaded kernel at ``shape``."""
+    """(row error, scaled error) of the loaded forward kernel at
+    ``shape``."""
     b, t, h, d, dtype, causal = shape
     gen = torch.Generator(device='cuda').manual_seed(seed)
     q, k, v = qkv_views(b, t, h, d, dtype, gen)
     out = fa.flash_attention_forward(q, k, v, causal=causal)
     ref = fa.reference_attention(q, k, v, causal=causal, round_p=True)
     return row_relative_error(out, ref), scaled_error(out, ref)
+
+
+def _fmt(errors: dict) -> str:
+    return ','.join(f'{n}:{e:.3e}' for n, e in errors.items())
+
+
+def check_backward(shape, seed: int) -> dict:
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    result = backward_check(shape, gen)
+    torch.cuda.empty_cache()
+    return result
+
+
+def _with_library(kernel: str, so: str, fn):
+    """``fn()`` with the kernel library swapped for the one at ``so``."""
+    shipped = _build.library(kernel)
+    _build._LIBS[kernel] = ctypes.CDLL(so)
+    try:
+        return fn()
+    finally:
+        _build._LIBS[kernel] = shipped
 
 
 def main() -> int:
@@ -117,21 +195,47 @@ def main() -> int:
                   f'tol={tol} scaled_err={scaled:.3e} '
                   f'ok={row <= tol}', flush=True)
         torch.cuda.empty_cache()
+    for shape in BACKWARD_SHAPES:
+        for seed in args.seeds:
+            r = check_backward(shape, seed)
+            ok = backward_ok(r, shape[4])
+            holes += not ok
+            print(f'[backward] shape={shape[:4]} dtype={str(shape[4])[6:]} '
+                  f'causal={shape[5]} seed={seed} lse_err={r["lse_err"]:.3e} '
+                  f'row_err={_fmt(r["row_err"])} '
+                  f'tol={BACKWARD_ROW_TOL[shape[4]]} '
+                  f'head_err={_fmt(r["head_err"])} '
+                  f'tol={BACKWARD_HEAD_TOL[shape[4]]} '
+                  f'autograd_head_err={_fmt(r["autograd_head_err"])} '
+                  f'autograd_row_err={_fmt(r["autograd_row_err"])} '
+                  f'ok={ok}', flush=True)
 
     serving = ATTENTION_SHAPES[0]
     tol = ATTENTION_ROW_TOL[serving[4]]
-    shipped = _build.library(KERNEL)
+    training = BACKWARD_SHAPES[0]
     with tempfile.TemporaryDirectory(prefix='kernel_faults_') as tmp:
-        for name, so in build_faults(tmp).items():
-            _build._LIBS[KERNEL] = ctypes.CDLL(so)
-            try:
-                row, scaled = check(serving, args.seeds[0])
-            finally:
-                _build._LIBS[KERNEL] = shipped
+        forward = build_faults(tmp, KERNEL, {
+            name: [edit] for name, edit in FAULTS.items()})
+        for name, so in forward.items():
+            row, scaled = _with_library(
+                KERNEL, so, lambda: check(serving, args.seeds[0]))
             holes += row <= tol
             print(f'[fault] {name} shape={serving[:4]} row_err={row:.3e} '
                   f'tol={tol} caught={not row <= tol} '
                   f'scaled_err={scaled:.3e}', flush=True)
+        backward = build_faults(tmp, BACKWARD_KERNEL, BACKWARD_FAULTS)
+        for name, so in backward.items():
+            r = _with_library(BACKWARD_KERNEL, so, lambda: check_backward(
+                training, args.seeds[0]))
+            caught = not backward_ok(r, training[4])
+            holes += not caught
+            print(f'[fault] {name} shape={training[:4]} '
+                  f'row_err={_fmt(r["row_err"])} '
+                  f'tol={BACKWARD_ROW_TOL[training[4]]} '
+                  f'head_err={_fmt(r["head_err"])} '
+                  f'tol={BACKWARD_HEAD_TOL[training[4]]} '
+                  f'autograd_head_err={_fmt(r["autograd_head_err"])} '
+                  f'caught={caught}', flush=True)
     print(f'[done] holes={holes}', flush=True)
     return 1 if holes else 0
 

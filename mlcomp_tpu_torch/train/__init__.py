@@ -1,3 +1,3 @@
-"""Export, predictor and parameter-layout helpers of the port
-(counterpart of ``mlcomp_tpu/train``; training itself is not ported
-yet)."""
+"""Training of the port (counterpart of ``mlcomp_tpu/train``): losses and
+steps, optimizers, datasets, checkpoints, export and the ``train``
+executor; plus the parameter-layout helpers."""

@@ -1,5 +1,5 @@
 """Model export + batched inference on the card (port of
-``mlcomp_tpu/train/export.py``).
+``mlcomp_tpu/train/export.py``, including ``export_from_checkpoint``).
 
 The export format is the JAX package's, so either package reads what the
 other writes: ``<name>.msgpack`` holds the unboxed ``{'params', ...}``
@@ -59,6 +59,25 @@ def export_model(out_path: str, params, model_spec: dict,
     with open(base + '.json', 'w') as fh:
         json.dump({'model': dict(model_spec), **(meta or {})}, fh)
     return blob_path
+
+
+def export_from_checkpoint(ck_path: str, model_spec: dict, out_path: str,
+                           meta: dict = None) -> str:
+    """Export from a train-state checkpoint blob (``last``/``best
+    .msgpack``, either package's) without knowing the optimizer that
+    saved it: the untyped tree is read and its JAX-layout ``params`` (and
+    ``batch_stats``, if any) lifted out."""
+    if os.path.isdir(ck_path):
+        raise NotImplementedError(
+            f'{ck_path} is a sharded checkpoint directory: the sharded '
+            f'format is not ported yet (ROADMAP.md, queue A: A4)')
+    with open(ck_path, 'rb') as fh:
+        raw = msgpack_restore(fh.read())
+    stats = raw.get('batch_stats')
+    return export_model(out_path, _unwrap_value_nodes(raw['params']),
+                        model_spec, meta=meta,
+                        batch_stats=None if stats is None
+                        else _unwrap_value_nodes(stats))
 
 
 def load_export_meta(path: str) -> dict:
@@ -157,5 +176,5 @@ def make_predictor(file: str = None, model_spec: dict = None,
     return predict
 
 
-__all__ = ['export_model', 'export_base', 'load_export', 'load_export_meta',
-           'build_model', 'make_predictor']
+__all__ = ['export_model', 'export_from_checkpoint', 'export_base',
+           'load_export', 'load_export_meta', 'build_model', 'make_predictor']
