@@ -23,25 +23,50 @@ last line:
    serving shapes, then the forward's lse and the two backward kernels
    at the training shapes (also held against torch autograd through the
    plain version, per head);
-4. serving: the flagship transformer LM (vocab 32768, d_model 1024, 16
+4. norm kernel: the fused batch-norm+ReLU kernel against its plain
+   version (run in f64) at the CIFAR ResNet-18's norm sites at batch 512
+   and 256 (the step's and the executor's; with and without the ReLU)
+   and at ragged shapes in fp16 and f32 (``kernel_check.NORM_SHAPES``),
+   by the mean, var and per-channel y errors, then timed by CUDA events
+   at each site shape of the step (inputs rotated through more than the
+   L2 cache; back-to-back calls, so host launch gaps are included)
+   against its bound, its plain version and
+   ``F.batch_norm(training=True)`` + ``F.relu``;
+5. serving: the flagship transformer LM (vocab 32768, d_model 1024, 16
    heads, d_ff 4096, 8 layers, T=8192, bf16 activations, f32 params;
    weights from a seed) exported with the port's ``export_model``,
    served by ``ModelServer(device='cuda')`` and asked over HTTP; the
    launch counts are zeroed just before the requests and read just
    after, and one row's logits are held against the same model with the
    plain attention;
-5. train: ``Executor.from_config('train', config)`` on the card — the
+6. train: ``Executor.from_config('train', config)`` on the card — the
    flagship at batch 1 over an npz of random tokens, AdamW with
    ``warmup_cosine``, one epoch, checkpoints and a ``model_name`` export
    that ``make_predictor`` then loads; the launch counts are zeroed just
    before and read just after (8 forward and 8 of each backward kernel
    per step);
-6. step: the flagship's train step as ``bench.py``'s ``bench_lm``
+7. CIFAR train: ``Executor.from_config('train', config)`` on the card
+   with ``examples/cifar_simple/config.yml``'s train executor (ResNet-18
+   at full width, ``norm: fused``, ``synthetic_images`` 8192/1024, batch
+   256, AdamW ``warmup_cosine``, ``device_data: auto``, ``mesh: {dp:
+   -1}``) for one epoch: checkpoints, the export loaded by
+   ``make_predictor`` and served by ``ModelServer`` over HTTP; the norm
+   kernel's launch count zeroed just before and read just after (20 per
+   train step, none in eval);
+8. CIFAR step: ResNet-18 at batch 512 with SGD (lr 0.1, momentum 0.9)
+   as ``bench.py``'s CIFAR legs run it, ``norm: batch`` and ``norm:
+   fused`` from the same weights on the same batch: step ms and
+   images/s for each (timed in turns), the norm's share of the step and
+   the longest kernels (profiler), and the cosine of every parameter's
+   gradient between the two variants;
+9. step: the flagship's train step as ``bench.py``'s ``bench_lm``
    measures it (B=1, T=8192, AdamW): tokens/s, MFU, device time, the
    attention share of it and the step's longest kernels (profiler), and
    one step's gradients against the same weights with the plain
    attention (cosine per parameter tensor);
-7. the ``{"kernels": [...]}`` line, the card's name and power limit, and
+10. norm device time: the fused norm kernels' own device time per call
+   (profiler) at each site shape of the step, with and without the ReLU;
+11. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds this script and nothing else
@@ -74,6 +99,16 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
 #: activations; the kernels round P and dS to bf16 where the plain
 #: attention keeps f32)
 MIN_GRAD_COSINE = 0.99
+#: batch-vs-fused train step of the CIFAR ResNet-18: least cosine of
+#: any parameter's gradient (bf16 activations; the fused variant's
+#: backward runs in f32 where cuDNN's rounds differently)
+MIN_NORM_GRAD_COSINE = 0.99
+#: the residual branches' end scale in the gradient comparison
+BRANCH_SCALE = 0.2
+CIFAR_STEP_BATCH = 512
+CIFAR_STEP_ITERS = 10
+#: bytes the norm timing rotates its inputs through, past the 50 MB L2
+ROTATE_BYTES = 256 << 20
 #: rows of 8192 random tokens in the train phase's npz: 4 train, 1 valid
 TRAIN_ROWS = 5
 STEP_ITERS = 5
@@ -619,21 +654,22 @@ def phase_train(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
-def _device_times_us(prof) -> tuple:
-    """(all kernels', attention kernels' device time in a profile, us;
-    the kernels by time, [(us, name), ...] longest first)."""
-    total = attention = 0.0
+def _device_times_us(prof, is_part) -> tuple:
+    """(all kernels' device time in a profile, us; that of the kernels
+    whose name ``is_part`` accepts; the kernels by time, [(us, name),
+    ...] longest first)."""
+    total = part = 0.0
     by_name = []
     for event in prof.key_averages():
         us = getattr(event, 'self_device_time_total', None)
         if us is None:
             us = getattr(event, 'self_cuda_time_total', 0.0)
         total += us
-        if 'fa_fwd' in event.key or 'fa_bwd' in event.key:
-            attention += us
+        if is_part(event.key):
+            part += us
         if us > 0:
             by_name.append((us, event.key))
-    return total, attention, sorted(by_name, reverse=True)
+    return total, part, sorted(by_name, reverse=True)
 
 
 def phase_step(seed: int):
@@ -695,7 +731,8 @@ def phase_step(seed: int):
             for _ in range(2):
                 step(state, tokens, None)
             torch.cuda.synchronize()
-        total_us, attention_us, by_name = _device_times_us(prof)
+        total_us, attention_us, by_name = _device_times_us(
+            prof, lambda key: 'fa_fwd' in key or 'fa_bwd' in key)
         if total_us <= 0:
             raise RuntimeError('the profile holds no device time')
         for us, name in by_name[:TOP_KERNELS]:
@@ -718,6 +755,387 @@ def phase_step(seed: int):
              f'cosine {cosines[worst]}')
     del state, model, step
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 7
+def norm_bound_ms(r, c, dtype):
+    """Least time for the norm: x read once and y written once (gamma,
+    beta, mean and var are [C] f32), or ~6 f32 operations per element
+    (square-add, sum, subtract, multiply-add, max) over the card's f32
+    peak outside the tensor cores, whichever is larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * r * c * size + 4 * c * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 6 * r * c / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                 else 'bytes')
+
+
+def time_rotating_ms(fn, inputs, iters: int) -> float:
+    """``time_ms`` of ``fn(*inputs[i % len])``: each launch reads inputs
+    the previous ones did not, so they come from device memory and not
+    from L2, as a norm site's activation does at batch 512."""
+    count = [0]
+
+    def call():
+        fn(*inputs[count[0] % len(inputs)])
+        count[0] += 1
+    return time_ms(call, iters=iters, warmup=len(inputs))
+
+
+def rotating_norm_inputs(r, c, gen) -> list:
+    """bf16 norm inputs at [R, C], as many copies as make ROTATE_BYTES
+    (at least 8)."""
+    from mlcomp_tpu_torch.testing.kernel_check import norm_inputs
+    copies = max(8, -(-ROTATE_BYTES // (r * c * 2)))
+    return [norm_inputs(r, c, torch.bfloat16, gen) for _ in range(copies)]
+
+
+def phase_norm_kernel(seed: int) -> dict:
+    """The fused norm kernel against its plain version at every norm
+    shape; timed at the CIFAR sites. Returns its kernels-line entry."""
+    import torch.nn.functional as F
+    from mlcomp_tpu_torch.ops.fused_norm import (
+        norm_act_forward, reference_norm_act,
+    )
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL, cifar_norm_sites, norm_check,
+        norm_ok,
+    )
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    main = None
+    for shape in NORM_SHAPES:
+        r_, c, dtype, act = shape
+        try:
+            r = norm_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused launch or a fault in the run
+            fail(f'fused_norm at R={r_} C={c} {dtype} act={act}: {e}')
+        ok = norm_ok(r, dtype)
+        say('kernel-norm', ok=ok, shape=f'{r_}x{c}', dtype=str(dtype)[6:],
+            act=act, mean_err=f'{r["mean_err"]:.3e}',
+            var_err=f'{r["var_err"]:.3e}', stat_tol=NORM_STAT_TOL,
+            y_err=f'{r["y_err"]:.3e}', tol=NORM_Y_TOL[dtype],
+            max_abs_err=f'{r["max_abs_err"]:.3e}')
+        if not ok:
+            fail(f'fused_norm disagrees with reference_norm_act at {shape}: '
+                 f'{r}')
+        if main is None:
+            main = dict(r, shape=[r_, c], dtype=str(dtype)[6:])
+        torch.cuda.empty_cache()
+
+    # timed at each CIFAR site shape of the step (bf16, with the ReLU) by
+    # CUDA events over back-to-back calls: host launch gaps included,
+    # which hold the small sites (``profile_norm_sites`` reads the
+    # kernels' own device time)
+    sites = {}
+    for r_, c in cifar_norm_sites(CIFAR_STEP_BATCH):
+        hw = int(round((r_ / CIFAR_STEP_BATCH) ** 0.5))
+        inputs = rotating_norm_inputs(r_, c, gen)
+        ms = time_rotating_ms(lambda x, g, b: norm_act_forward(x, g, b),
+                              inputs, iters=max(20, 2 * len(inputs)))
+        plain_ms = time_rotating_ms(lambda x, g, b: reference_norm_act(
+            x, g, b), inputs, iters=max(5, len(inputs)))
+        # the library yardstick on the same memory, as NCHW channels_last
+        lib_inputs = [(x.view(CIFAR_STEP_BATCH, hw, hw, c).permute(
+            0, 3, 1, 2), g, b) for x, g, b in inputs]
+        library_ms = time_rotating_ms(lambda x, g, b: F.relu(F.batch_norm(
+            x, None, None, g, b, training=True)), lib_inputs,
+            iters=max(20, 2 * len(inputs)))
+        bound, bound_by = norm_bound_ms(r_, c, torch.bfloat16)
+        sites[f'{r_}x{c}'] = dict(ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, bound_ms=bound,
+                                  bound_by=bound_by)
+        say('kernel-norm', shape=f'{r_}x{c}', dtype='bfloat16', act=True,
+            ms=f'{ms:.4f}', bound_ms=f'{bound:.4f}', bound_by=bound_by,
+            two_pass_bound_ms=f'{bound * 1.5:.4f}',
+            plain_ms=f'{plain_ms:.4f}', library_ms=f'{library_ms:.4f}',
+            gbytes_per_s=f'{2 * r_ * c * 2 / ms / 1e6:.1f}',
+            timing='cuda_events_with_host_gaps')
+        del inputs, lib_inputs
+        torch.cuda.empty_cache()
+    first = sites[f'{main["shape"][0]}x{main["shape"][1]}']
+    return {'name': 'fused_norm', 'route': 'cuda',
+            'source': 'mlcomp_tpu_torch/csrc/fused_norm.cu',
+            'replaces': 'mlcomp_tpu/ops/fused_norm.py:83',
+            'max_abs_err': main['max_abs_err'], 'y_err': main['y_err'],
+            'mean_err': main['mean_err'], 'var_err': main['var_err'],
+            **first, 'shape': main['shape'], 'dtype': main['dtype'],
+            'timing': 'cuda_events_with_host_gaps', 'sites': sites}
+
+
+def profile_norm_sites(seed: int) -> dict:
+    """The fused norm kernels' own device time per call (profiler) at
+    each CIFAR site shape of the step, with and without the ReLU, on
+    rotating inputs; {'RxC': {'act': ms, 'no_act': ms}}."""
+    from torch.profiler import ProfilerActivity, profile
+    from mlcomp_tpu_torch.ops.fused_norm import norm_act_forward
+    from mlcomp_tpu_torch.testing.kernel_check import cifar_norm_sites
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    out = {}
+    for r_, c in cifar_norm_sites(CIFAR_STEP_BATCH):
+        inputs = rotating_norm_inputs(r_, c, gen)
+        bound, _ = norm_bound_ms(r_, c, torch.bfloat16)
+        out[f'{r_}x{c}'] = {}
+        for act in (True, False):
+            for x, g, b in inputs:                      # warm
+                norm_act_forward(x, g, b, act=act)
+            torch.cuda.synchronize()
+            ms = None
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for x, g, b in inputs:
+                        norm_act_forward(x, g, b, act=act)
+                    torch.cuda.synchronize()
+                _, norm_us, _ = _device_times_us(prof,
+                                                 _is_norm_kernel(True))
+                if norm_us > 0:
+                    ms = norm_us / len(inputs) / 1e3
+            except Exception as e:      # the profiler's view of the card
+                say('kernel-norm-device', profiler=repr(str(e)[:80]))
+            out[f'{r_}x{c}']['act' if act else 'no_act'] = ms
+            say('kernel-norm-device', shape=f'{r_}x{c}', dtype='bfloat16',
+                act=act, calls=len(inputs),
+                device_ms='not measured' if ms is None else f'{ms:.4f}',
+                bound_ms=f'{bound:.4f}',
+                two_pass_bound_ms=f'{bound * 1.5:.4f}')
+        del inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+def cifar_train_spec() -> dict:
+    """``examples/cifar_simple/config.yml``'s train executor, as the
+    port runs it: ``type: train`` and the model's ``norm: fused``."""
+    return {
+        'type': 'train',
+        'model': {'name': 'resnet18', 'num_classes': 10,
+                  'dtype': 'bfloat16', 'norm': 'fused'},
+        'dataset': {'name': 'synthetic_images', 'n_train': 8192,
+                    'n_valid': 1024, 'image_size': 32, 'channels': 3,
+                    'num_classes': 10},
+        'loss': 'softmax_ce', 'batch_size': 256, 'mesh': {'dp': -1},
+        'main_metric': 'accuracy', 'model_name': 'cifar_resnet18',
+        'device_data': 'auto',
+        'stages': [{'name': 'stage1', 'epochs': 1, 'optimizer': {
+            'name': 'adamw', 'lr': 0.001,
+            'schedule': {'name': 'warmup_cosine'}}}]}
+
+
+def phase_cifar_train(seed: int) -> int:
+    """ResNet-18 with the fused norm trained through the executor on the
+    card, its export served; returns the norm kernel's launches."""
+    import gc
+    from mlcomp_tpu_torch import TOKEN
+    from mlcomp_tpu_torch.ops.fused_norm import norm_act_forward
+    from mlcomp_tpu_torch.server.serve import ModelServer
+    from mlcomp_tpu_torch.train.data import create_dataset
+    from mlcomp_tpu_torch.train.export import make_predictor
+    from mlcomp_tpu_torch.utils.msgpack_io import msgpack_restore
+    from mlcomp_tpu_torch.worker.executors import Executor
+
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_cifar_')
+    cwd = os.getcwd()
+    spec = cifar_train_spec()
+    try:
+        ck_dir = os.path.join(work, 'checkpoints')
+        config = {'executors': {'train': dict(
+            spec, checkpoint_dir=ck_dir, seed=seed, device='cuda')}}
+        os.chdir(work)          # the export lands in models/ under it
+        executor = Executor.from_config('train', config)
+        # the main path: counts zeroed just before, read just after
+        norm_act_forward.launches = 0
+        t0 = time.monotonic()
+        result = executor(logger=_train_logger())
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t0
+        launches = norm_act_forward.launches
+        del executor
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps = spec['dataset']['n_train'] // spec['batch_size']
+        files = sorted(os.listdir(ck_dir))
+        export = os.path.join(work, 'models', spec['model_name'])
+        say('cifar-train', steps=steps, seconds=f'{train_s:.1f}',
+            valid_accuracy=result['best_score'], params=result['n_params'],
+            samples_per_s=f'{result["samples_per_sec"]:.1f}',
+            launches=launches, checkpoints=files)
+        if launches != 20 * steps:
+            fail(f'expected {20 * steps} fused_norm launches (20 norm sites '
+                 f'per train step, none in eval), got {launches}')
+        if not np.isfinite(result['best_score']):
+            fail(f'CIFAR valid accuracy is not finite: {result}')
+        if not {'best.msgpack', 'last.msgpack'} <= set(files) \
+                or not os.path.exists(export + '.msgpack'):
+            fail(f'checkpoints {files} or the export {export} missing')
+        with open(os.path.join(ck_dir, 'last.msgpack'), 'rb') as fh:
+            if 'batch_stats' not in msgpack_restore(fh.read()):
+                fail('the CIFAR checkpoint holds no batch_stats')
+
+        data = create_dataset(**spec['dataset'])
+        x, y = data['x_valid'][:64], data['y_valid'][:64]
+        predict = make_predictor(export, batch_size=16, activation='argmax',
+                                 device='cuda')
+        want = predict(x)
+        accuracy = float((want == y).mean())
+        server = ModelServer(export + '.msgpack', batch_size=16,
+                             activation='argmax', port=0, device='cuda')
+        if not server.warmup():
+            fail('the CIFAR export carries no input_shape to warm up with')
+        server.bind()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            got, latencies = [], []
+            for start, n in ((0, 1), (1, 16), (17, 7), (24, 40)):
+                t1 = time.monotonic()
+                out = _http(server.port, '/predict',
+                            {'x': x[start:start + n].tolist()}, TOKEN)
+                latencies.append((time.monotonic() - t1) * 1e3)
+                got.append(np.asarray(out['y']))
+            got = np.concatenate(got)
+            health = _http(server.port, '/health')
+        finally:
+            server.shutdown()
+            thread.join(timeout=30)
+        say('cifar-serve', requests=len(latencies), rows=len(got),
+            p50_ms=f'{float(np.percentile(latencies, 50)):.1f}',
+            served_accuracy=f'{accuracy:.4f}',
+            agrees_with_predictor=bool(np.array_equal(got, want)),
+            platform=health['platform'], device=repr(health['device']))
+        if got.shape != (64,) or not np.array_equal(got, want) \
+                or got.min() < 0 or got.max() >= 10:
+            fail(f'/predict answered {got} where the predictor gives {want}')
+        if health['platform'] != 'gpu':
+            fail(f'/health disagrees: {health}')
+        del predict, server
+        return launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 9
+def _open_branches(model):
+    """Every residual branch's end scale (zero at init, which would leave
+    the branches without a gradient to compare) set to BRANCH_SCALE.
+    Random norm scales instead make a per-tensor cosine meaningless: at
+    bf16 the gradients of the norms' scales and biases are then sums
+    that cancel to a small remainder, which rounding moves by a large
+    share even between two runs of one variant."""
+    from mlcomp_tpu_torch.models.resnet import BatchNorm, FusedNormAct
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (BatchNorm, FusedNormAct)) and m.zero_scale:
+                m.scale.fill_(BRANCH_SCALE)
+
+
+def _is_norm_kernel(fused: bool):
+    """The profile's norm kernels: the three of ``fused_norm.cu``, or
+    the library's batch-norm kernels."""
+    if fused:
+        return lambda key: any(k in key for k in (
+            'norm_stats_kernel', 'norm_finalize_kernel', 'norm_apply_kernel'))
+    return lambda key: 'batch_norm' in key or 'bn_' in key
+
+
+def phase_cifar_step(seed: int) -> dict:
+    """ResNet-18's train step at batch 512, ``norm: batch`` against
+    ``norm: fused`` from the same weights on the same batch. Returns the
+    profiled device ms per step of each variant's norm kernels (the
+    fused variant's: its 20 launches, three kernels each)."""
+    import torch.nn.functional as F
+    from mlcomp_tpu_torch.models import create_model, param_count
+    from mlcomp_tpu_torch.train.data import create_dataset
+    from mlcomp_tpu_torch.train.loop import (
+        create_train_state, loss_for_task, make_train_step,
+    )
+    from mlcomp_tpu_torch.train.optim import make_optimizer
+
+    gen = torch.Generator('cuda').manual_seed(seed)
+    spec = {'name': 'resnet18', 'num_classes': 10, 'dtype': 'bfloat16'}
+    fused = create_model(**spec, norm='fused', device='cuda', generator=gen)
+    _open_branches(fused)
+    plain = create_model(**spec, norm='batch', device='cuda')
+    plain.load_state_dict(fused.state_dict())
+    n_params = param_count(fused)
+    data = create_dataset('synthetic_images', n_train=CIFAR_STEP_BATCH,
+                          n_valid=1, seed=seed)
+    x = torch.from_numpy(data['x_train']).cuda()
+    y = torch.from_numpy(data['y_train']).cuda()
+    loss_fn = loss_for_task('softmax_ce')
+
+    def grads(m):
+        loss, _ = loss_fn(m(x, train=True), y)
+        return dict(zip((n for n, _ in m.named_parameters()),
+                        torch.autograd.grad(loss, list(m.parameters()))))
+
+    g_fused, g_plain = grads(fused), grads(plain)
+    cosines = {n: float(F.cosine_similarity(
+        g_fused[n].flatten().float(), g_plain[n].flatten().float(), dim=0))
+        for n in g_fused}
+    worst = min(cosines, key=cosines.get)
+    del g_fused, g_plain
+
+    steps, norm_ms = {}, {}
+    for name, model in (('batch', plain), ('fused', fused)):
+        optimizer, _ = make_optimizer(
+            {'name': 'sgd', 'lr': 0.1, 'momentum': 0.9}, 1000)
+        state = create_train_state(model, optimizer, seed=seed)
+        step = make_train_step(model, optimizer, loss_fn)
+        for _ in range(3):
+            state, metrics = step(state, x, y)
+        steps[name] = (state, step)
+    times = {'batch': [], 'fused': []}
+    for name in ('batch', 'fused', 'fused', 'batch'):     # in turns
+        state, step = steps[name]
+        times[name].append(time_ms(lambda: step(state, x, y),
+                                   iters=CIFAR_STEP_ITERS, warmup=0))
+    for name in ('batch', 'fused'):
+        state, step = steps[name]
+        loss = float(step(state, x, y)[1]['loss'])
+        step_ms = sum(times[name]) / len(times[name])
+        fields = dict(norm=name, params=n_params, batch=CIFAR_STEP_BATCH,
+                      step_ms=f'{step_ms:.3f}',
+                      runs_ms=[f'{t:.3f}' for t in times[name]],
+                      images_per_s=f'{CIFAR_STEP_BATCH / step_ms * 1e3:.1f}',
+                      loss=f'{loss:.4f}')
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    step(state, x, y)
+                torch.cuda.synchronize()
+            total_us, norm_us, by_name = _device_times_us(
+                prof, _is_norm_kernel(name == 'fused'))
+            if total_us <= 0:
+                raise RuntimeError('the profile holds no device time')
+            for us, kernel in by_name[:TOP_KERNELS]:
+                say('cifar-step-kernel', norm=name,
+                    ms_per_step=f'{us / 2e3:.3f}',
+                    share=f'{us / total_us:.4f}', name=repr(kernel[:90]))
+            norm_ms[name] = norm_us / 2e3
+            fields.update(device_ms=f'{total_us / 2e3:.3f}',
+                          norm_kernel_ms=f'{norm_us / 2e3:.3f}',
+                          norm_kernel_share=f'{norm_us / total_us:.4f}',
+                          device_busy=f'{total_us / 2e3 / step_ms:.4f}')
+        except Exception as e:      # the profiler's view of the card
+            fields.update(device_ms='not measured',
+                          profiler=repr(str(e)[:80]))
+        say('cifar-step', **fields)
+        if not np.isfinite(loss):
+            fail(f'CIFAR {name} step loss is not finite: {loss}')
+    say('cifar-step', grad_min_cosine=f'{cosines[worst]:.6f}', worst=worst,
+        mean_cosine=f'{sum(cosines.values()) / len(cosines):.6f}',
+        tensors=len(cosines), min_cosine=MIN_NORM_GRAD_COSINE)
+    if not cosines[worst] >= MIN_NORM_GRAD_COSINE:
+        fail(f'fused and batch norm gradients disagree: {worst} cosine '
+             f'{cosines[worst]}')
+    del steps, fused, plain, x, y
+    torch.cuda.empty_cache()
+    return norm_ms
 
 
 def main():
@@ -745,9 +1163,16 @@ def main():
         phase_build()
         fwd = phase_kernels(args.seed)
         backward = phase_backward_kernels(args.seed)
+        norm = phase_norm_kernel(args.seed)
         serve_launches = phase_serving(args.seed)
         train_launches = phase_train(args.seed)
+        norm['launches'] = phase_cifar_train(args.seed)
+        # a profiler window can leave CUDA tracing on, which slows later
+        # launches from the host: the step phases, which profile, come
+        # last, and the launch-bound ResNet step before the LM's
+        step_norm_ms = phase_cifar_step(args.seed)
         phase_step(args.seed)
+        norm['device_ms'] = profile_norm_sites(args.seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fwd['launches_by_path'] = {
@@ -756,7 +1181,10 @@ def main():
     fwd['launches'] = sum(fwd['launches_by_path'].values())
     for entry in backward:
         entry['launches'] = train_launches[entry['name']]
-    kernels = [fwd] + backward
+    # the 20 norm sites of a batch-512 train step as the profiler reads
+    # them (absent if it read no device time)
+    norm['step_device_ms'] = step_norm_ms.get('fused')
+    kernels = [fwd] + backward + [norm]
     for entry in kernels:
         if entry['launches'] <= 0:
             fail(f'the main path launched no {entry["name"]}')

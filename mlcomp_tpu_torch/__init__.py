@@ -10,7 +10,7 @@ Only the environment the serving and training slices need is carried
 over from
 ``mlcomp_tpu/__init__.py``: the same root-folder rule (``MLCOMP_TPU_ROOT``,
 the per-xdist-worker test sandbox, ``~/mlcomp_tpu`` by default), the
-same ``models/`` folder and the same ``TOKEN`` read from the same
+same ``models/`` and ``data/`` folders and the same ``TOKEN`` read from the same
 ``configs/.env``, so both packages find the same exports and accept the
 same token. Unlike the JAX package, importing this one creates, writes
 and wipes nothing.
@@ -35,6 +35,7 @@ def _sandbox_root():
 
 
 ROOT_FOLDER = _sandbox_root()
+DATA_FOLDER = os.path.join(ROOT_FOLDER, 'data')
 MODEL_FOLDER = os.path.join(ROOT_FOLDER, 'models')
 CONFIG_FOLDER = os.path.join(ROOT_FOLDER, 'configs')
 TASK_FOLDER = os.path.join(ROOT_FOLDER, 'tasks')
@@ -63,5 +64,6 @@ def _read_env(path):
 _ENV = _read_env(os.path.join(CONFIG_FOLDER, '.env'))
 TOKEN = _ENV.get('TOKEN', 'token')
 
-__all__ = ['__version__', 'ROOT_FOLDER', 'MODEL_FOLDER', 'CONFIG_FOLDER',
+__all__ = ['__version__', 'ROOT_FOLDER', 'DATA_FOLDER', 'MODEL_FOLDER',
+           'CONFIG_FOLDER',
            'TASK_FOLDER', 'TOKEN']

@@ -1,5 +1,8 @@
-"""Carry transformer_lm weights between JAX parameter trees and the
-port's ``state_dict``.
+"""Carry weights between JAX variable trees and the port's
+``state_dict``: ``transformer_lm`` below, the image models (``mlp``,
+the ResNets, with their ``batch_stats``) under "image models" further
+down; ``state_dict_from_jax`` and ``variables_to_jax`` dispatch on the
+model.
 
 A JAX tree (what ``model.init`` returns under ``'params'``, or what an
 export holds) stores each projection as a flax ``DenseGeneral`` kernel,
@@ -144,4 +147,106 @@ def params_to_jax(state_dict, n_heads: int, stacked: bool = True) -> dict:
     return stack_layer_tree(tree) if stacked else tree
 
 
-__all__ = ['params_from_jax', 'params_to_jax', 'to_tensor']
+# ------------------------------------------------------------ image models
+#: leaf names that are ``batch_stats`` in a JAX tree and buffers in the
+#: port (the running statistics of the ResNets' norms)
+STAT_LEAVES = ('mean', 'var')
+
+
+def _flatten(tree, prefix=''):
+    for key, value in tree.items():
+        path = f'{prefix}{key}'
+        if isinstance(value, dict):
+            yield from _flatten(value, path + '.')
+        else:
+            yield path, value
+
+
+def _image_leaf_from_jax(path: str, leaf) -> tuple:
+    t = to_tensor(leaf)
+    head, _, name = path.rpartition('.')
+    if name != 'kernel':
+        return path, t
+    if t.dim() == 4:                 # conv HWIO -> OIHW
+        t = t.permute(3, 2, 0, 1)
+    elif t.dim() == 2:               # dense [in, out] -> [out, in]
+        t = t.T
+    else:
+        raise ValueError(f'{path}: a kernel of shape {tuple(t.shape)} is '
+                         f'neither a conv nor a dense kernel')
+    return f'{head}.weight', t.contiguous()
+
+
+def image_state_dict_from_jax(variables: dict) -> dict:
+    """JAX ``{'params': ..., 'batch_stats': ...}`` of an ``mlp`` or a
+    ResNet → the port's ``state_dict`` (parameters and the running
+    statistics' buffers), keyed by the JAX paths joined with dots: conv
+    kernels HWIO → ``weight`` OIHW, dense kernels [in, out] → ``weight``
+    [out, in], every other leaf (biases, norm scales, WSConv gains,
+    ``mean``/``var``) as it is."""
+    sd = dict(_image_leaf_from_jax(p, v)
+              for p, v in _flatten(variables['params']))
+    for path, value in _flatten(variables.get('batch_stats') or {}):
+        sd[path] = to_tensor(value)
+    return sd
+
+
+def image_variables_to_jax(state_dict) -> dict:
+    """The port's ``state_dict`` of an ``mlp`` or a ResNet → the JAX
+    ``{'params': ...}`` tree, with ``'batch_stats'`` when it holds
+    running statistics."""
+    variables = {'params': {}}
+    for key, value in state_dict.items():
+        head, _, name = key.rpartition('.')
+        t = value.detach().cpu()
+        kind = 'params'
+        if name in STAT_LEAVES:
+            kind = 'batch_stats'
+        elif name == 'weight':
+            name = 'kernel'
+            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.T
+        node = variables.setdefault(kind, {})
+        for part in head.split('.') if head else ():
+            node = node.setdefault(part, {})
+        node[name] = _to_leaf(t)
+    return variables
+
+
+def state_dict_from_jax(variables: dict, name: str) -> dict:
+    """A JAX export's or checkpoint's variables → the ``state_dict`` of
+    the port's model ``name``."""
+    if name.lower() == 'transformer_lm':
+        return params_from_jax(variables['params'])
+    return image_state_dict_from_jax(variables)
+
+
+def variables_to_jax(model) -> dict:
+    """The JAX variables (``params`` and, where the model keeps running
+    statistics, ``batch_stats``) of a port model: a host copy, which the
+    next train step's in-place updates leave alone."""
+    sd = {k: v.detach().to('cpu', copy=True)
+          for k, v in model.state_dict().items()}
+    cfg = getattr(model, 'cfg', None)
+    if cfg is not None:                         # transformer_lm
+        stacked = cfg.scan_layers if cfg.scan_layers != 'auto' else True
+        return {'params': params_to_jax(sd, n_heads=cfg.n_heads,
+                                        stacked=bool(stacked))}
+    return image_variables_to_jax(sd)
+
+
+def input_shape_from_params(name: str, params: dict):
+    """The input shape an image model's weights imply, for building the
+    port's model around an export without one: a ResNet's stem gives its
+    channels, an MLP's first layer its features; None for others."""
+    if name.lower().startswith('resnet'):
+        return (None, None, int(to_tensor(params['conv_stem']['kernel'])
+                               .shape[2]))
+    if name.lower() == 'mlp':
+        return (int(to_tensor(params['dense_0']['kernel']).shape[0]),)
+    return None
+
+
+__all__ = ['params_from_jax', 'params_to_jax', 'to_tensor',
+           'image_state_dict_from_jax', 'image_variables_to_jax',
+           'state_dict_from_jax', 'variables_to_jax',
+           'input_shape_from_params', 'STAT_LEAVES']

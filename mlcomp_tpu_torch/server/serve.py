@@ -572,29 +572,28 @@ class ModelServer:
                 status = 'ok'
                 try:
                     body = json.loads(raw or '{}')
-                    self._send(200, model.handle_predict(body))
+                    reply = (200, model.handle_predict(body))
                 except Backpressure as e:
                     status = 'backpressure'
-                    self._send(429, {'error': str(e)})
+                    reply = (429, {'error': str(e)})
                 except (ValueError, TypeError) as e:
                     status = 'bad-request'
-                    self._send(400, {'error': str(e)})
+                    reply = (400, {'error': str(e)})
                 except Exception as e:  # noqa — keep the server up
                     status = 'error'
-                    self._send(500, {'error': str(e)})
-                finally:
-                    if trace_id:
-                        from mlcomp_tpu_torch.telemetry.spans import (
-                            record_span,
-                        )
-                        record_span(
-                            'serve.predict', started,
-                            time.monotonic() - t0,
-                            tags={'model': model.name,
-                                  'outcome': status},
-                            status='ok' if status != 'error'
-                            else 'error',
-                            trace_id=trace_id, role='serving')
+                    reply = (500, {'error': str(e)})
+                # the span is recorded before the reply goes out, so a
+                # client that has its answer finds the span buffered
+                if trace_id:
+                    from mlcomp_tpu_torch.telemetry.spans import (
+                        record_span,
+                    )
+                    record_span(
+                        'serve.predict', started, time.monotonic() - t0,
+                        tags={'model': model.name, 'outcome': status},
+                        status='ok' if status != 'error' else 'error',
+                        trace_id=trace_id, role='serving')
+                self._send(*reply)
 
         return Handler
 

@@ -1,5 +1,6 @@
-"""How the card-side checks hold the attention kernels against their
-plain versions (``chip_smoke.py`` and ``kernel_faults``).
+"""How the card-side checks hold the kernels against their plain
+versions (``chip_smoke.py`` and ``kernel_faults``): the attention
+kernels first, the fused batch-norm+ReLU at the end ("Fused norm").
 
 The measure is the relative L2 error of each output row (one query
 position of one head, D values), ``|out - ref| / |ref|``, its maximum
@@ -87,6 +88,93 @@ BACKWARD_ROW_FLOOR = 1e-2
 #: bound on |lse - ref| / max(1, |ref|): an absolute error of the lse is
 #: the relative error of every probability rebuilt from it
 LSE_TOL = 1e-5
+
+
+# ------------------------------------------------------------ fused norm
+#: the CIFAR ResNet-18's norm sites of one train forward by stage (stem
+#: and stage 1, then stages 2-4): (sites with the ReLU, sites without)
+CIFAR_SITE_ACTS = [(3, 2), (2, 3), (2, 3), (2, 3)]
+
+
+def cifar_norm_sites(batch: int) -> list:
+    """[(R, C)] of the CIFAR ResNet-18's norm sites by stage at
+    ``batch``: 32x32 with 64 channels, each later stage half the side and
+    twice the channels (R = batch·H·W)."""
+    return [(batch * 1024 >> 2 * i, 64 << i) for i in range(4)]
+
+
+#: (R, C, dtype, act) at which the card-side checks hold the fused norm
+#: kernel against ``reference_norm_act``: the CIFAR ResNet-18's sites at
+#: batch 512 (the step's) and 256 (the executor's; another row split),
+#: each with and without the ReLU, then ragged rows and channels (tails
+#: of the 8-channel vectors, a single row, one row block) in fp16 with
+#: the ReLU and f32 without
+NORM_SHAPES = [(r, c, torch.bfloat16, act) for batch in (512, 256)
+               for r, c in cifar_norm_sites(batch)
+               for act in (True, False)] + [
+    (r, c, dtype, act)
+    for dtype, act in ((torch.float16, True), (torch.float32, False))
+    for r in (1, 8, 777, 1000) for c in (3, 100, 1000)]
+#: bound on the relative L2 error of each channel of y ([R] values)
+#: against the plain version, by dtype: a few roundings of y (bf16 2^-8,
+#: fp16 2^-11 relative); f32 only the summation order of the statistics.
+#: The plain version runs in f64 (y rounded to x's dtype): in f32 its
+#: own E[x²] − mean² loses ~1e-5 of y at R=8 when the mean is large
+#: against the spread, as much as the bound
+NORM_Y_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
+              torch.float32: 1e-5}
+#: bound on |mean - ref| / sqrt(E[x²]) and |var - ref| / E[x²] per
+#: channel: the kernel sums x − k and (x − k)² in f32 within a row
+#: block (k the channel's first row)
+NORM_STAT_TOL = 1e-5
+#: channels of y are measured against at least this share of the rms
+#: channel (a channel that the ReLU zeroes holds only rounding noise)
+NORM_COLUMN_FLOOR = 1e-2
+
+
+def norm_inputs(r, c, dtype, gen, device='cuda'):
+    """x [R, C] with a mean of 0.5-2 and a spread of 0.5-1.5 per channel
+    (a variance that forgets the mean² term is then far off), gamma in
+    [0.5, 1.5), beta normal(0, 0.5), from ``gen``."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+    mean, spread = rand(c) * 1.5 + 0.5, rand(c) + 0.5
+    x = torch.randn((r, c), generator=gen, device=device) * spread + mean
+    gamma = rand(c) + 0.5
+    beta = torch.randn((c,), generator=gen, device=device) * 0.5
+    return x.to(dtype), gamma, beta
+
+
+def norm_check(shape, gen, device='cuda') -> dict:
+    """The fused norm kernel once at ``shape`` (as ``NORM_SHAPES`` lists
+    them) on inputs from ``gen`` against the plain version in f64: the
+    mean and var errors (scaled by the channel's E[x²]), the worst
+    channel's relative error of y (the reference's y rounded to x's
+    dtype), y's largest absolute error, and whether everything is
+    finite."""
+    from mlcomp_tpu_torch.ops import fused_norm
+    r, c, dtype, act = shape
+    x, gamma, beta = norm_inputs(r, c, dtype, gen, device)
+    y, mean, var = fused_norm.norm_act_forward(x, gamma, beta, act=act)
+    ry, rmean, rvar = fused_norm.reference_norm_act(
+        x.double(), gamma.double(), beta.double(), act=act)
+    ry = ry.to(dtype)
+    ex2 = x.double().square().mean(dim=0)
+    least = NORM_COLUMN_FLOOR * _rms_row(ry.t())
+    return {
+        'mean_err': float(((mean - rmean).abs() / ex2.sqrt()).max()),
+        'var_err': float(((var - rvar).abs() / ex2).max()),
+        'y_err': row_relative_error(y.t(), ry.t(), least),
+        'max_abs_err': float((y.float() - ry.float()).abs().max()),
+        'finite': all(bool(torch.isfinite(t).all()) for t in (y, mean, var)),
+    }
+
+
+def norm_ok(result: dict, dtype) -> bool:
+    """Every bound of ``norm_check``'s result holds."""
+    return (result['finite'] and result['mean_err'] <= NORM_STAT_TOL
+            and result['var_err'] <= NORM_STAT_TOL
+            and result['y_err'] <= NORM_Y_TOL[dtype])
 
 
 def lse_error(lse: torch.Tensor, ref: torch.Tensor) -> float:
@@ -194,6 +282,9 @@ def row_relative_error(out: torch.Tensor, ref: torch.Tensor,
 
 
 __all__ = ['ATTENTION_ROW_TOL', 'ATTENTION_SHAPES', 'AUTOGRAD_HEAD_TOL',
-           'BACKWARD_HEAD_TOL', 'BACKWARD_ROW_FLOOR', 'BACKWARD_ROW_TOL', 'BACKWARD_SHAPES', 'LSE_TOL', 'backward_check',
-           'backward_ok', 'head_relative_error', 'lse_error',
-           'qkv_views', 'row_relative_error']
+           'BACKWARD_HEAD_TOL', 'BACKWARD_ROW_FLOOR', 'BACKWARD_ROW_TOL',
+           'BACKWARD_SHAPES', 'CIFAR_SITE_ACTS', 'LSE_TOL',
+           'NORM_COLUMN_FLOOR', 'NORM_SHAPES', 'NORM_STAT_TOL', 'NORM_Y_TOL',
+           'backward_check', 'backward_ok', 'cifar_norm_sites',
+           'head_relative_error', 'lse_error', 'norm_check', 'norm_inputs',
+           'norm_ok', 'qkv_views', 'row_relative_error']

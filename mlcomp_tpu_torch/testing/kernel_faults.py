@@ -1,19 +1,20 @@
-"""Plant faults in copies of the flash-attention kernels and read each
-against the card-side check, to show the check would catch them.
+"""Plant faults in copies of the kernels and read each against the
+card-side check, to show the check would catch them.
 
     python -m mlcomp_tpu_torch.testing.kernel_faults [--seeds 0 1 2]
 
 Needs one CUDA card and ``nvcc``. First the kernels as they stand run at
-every shape of ``kernel_check.ATTENTION_SHAPES`` (forward) and
-``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward) for
-each seed, which shows the margin of each tolerance. Then each fault
-below, a textual edit of ``csrc/flash_attention_fwd.cu`` or
-``csrc/flash_attention_bwd.cu`` written to a temporary directory (the
-checkout is not touched) and built with the package's nvcc flags, runs
-at the serving shape (forward faults) or the training shape (backward
-faults). Each line gives the largest relative row error against its
-bound. Exits 1 if a kernel as it stands fails a bound or a planted fault
-passes them all.
+every shape of ``kernel_check.ATTENTION_SHAPES`` (forward),
+``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward) and
+``kernel_check.NORM_SHAPES`` (fused norm) for each seed, which shows the
+margin of each tolerance. Then each fault below, a textual edit of
+``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` or
+``csrc/fused_norm.cu`` written to a temporary directory (the checkout is
+not touched) and built with the package's nvcc flags, runs at the
+serving shape (forward faults), the training shape (backward faults) or
+every norm shape (norm faults: caught if any shape fails a bound). Each
+line gives the errors against their bounds. Exits 1 if a kernel as it
+stands fails a bound or a planted fault passes them all.
 """
 
 import argparse
@@ -29,8 +30,9 @@ from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
     ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
-    BACKWARD_SHAPES,
-    backward_check, backward_ok, qkv_views, row_relative_error,
+    BACKWARD_SHAPES, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL,
+    backward_check, backward_ok, norm_check, norm_ok, qkv_views,
+    row_relative_error,
 )
 
 KERNEL = 'flash_attention_fwd'
@@ -105,6 +107,32 @@ BACKWARD_FAULTS = {
 }
 
 
+NORM_KERNEL = 'fused_norm'
+_NORM_VAR = 'double var = q / p.R - d * d;'
+
+#: name -> [(text of the fused norm kernel's source, its replacement)]
+NORM_FAULTS = {
+    # the statistics lose the last row block's partial sums
+    'last_row_block_dropped': [(
+        'b < p.row_blocks; b += FIN_B', 'b < p.row_blocks - 1; b += FIN_B')],
+    # var = E[x²], the mean² term forgotten (the sums are of x - k:
+    # E[x²] = E[(x-k)²] + 2k·E[x-k] + k²)
+    'var_without_mean_squared': [(
+        _NORM_VAR,
+        'double var = q / p.R + 2.0 * shift * d + shift * shift;')],
+    # the unbiased variance (torch.nn.BatchNorm2d's running one)
+    'unbiased_var': [(
+        _NORM_VAR,
+        'double var = (q / p.R - d * d) * p.R / fmax(p.R - 1.0, 1.0);')],
+    # the ReLU applied whether asked for or not
+    'relu_when_act_false': [(
+        'if (p.act) v = fmaxf(v, 0.f);', 'v = fmaxf(v, 0.f);')],
+    # gamma and beta swapped
+    'gamma_beta_swapped': [(
+        'Params p{x, y, gamma, beta,', 'Params p{x, y, beta, gamma,')],
+}
+
+
 def build_faults(out_dir: str, kernel: str, faults: dict) -> dict:
     """{fault: library path} for ``faults`` ({name: [(old, new), ...]})
     planted in ``csrc/<kernel>.cu``, one nvcc per fault, all started
@@ -167,6 +195,18 @@ def check_backward(shape, seed: int) -> dict:
     return result
 
 
+def check_norm(shape, seed: int) -> dict:
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    result = norm_check(shape, gen)
+    torch.cuda.empty_cache()
+    return result
+
+
+def _norm_line(r: dict) -> str:
+    return (f'mean_err={r["mean_err"]:.3e} var_err={r["var_err"]:.3e} '
+            f'tol={NORM_STAT_TOL} y_err={r["y_err"]:.3e}')
+
+
 def _with_library(kernel: str, so: str, fn):
     """``fn()`` with the kernel library swapped for the one at ``so``."""
     shipped = _build.library(kernel)
@@ -210,6 +250,15 @@ def main() -> int:
                   f'autograd_row_err={_fmt(r["autograd_row_err"])} '
                   f'ok={ok}', flush=True)
 
+    for shape in NORM_SHAPES:
+        for seed in args.seeds:
+            r = check_norm(shape, seed)
+            ok = norm_ok(r, shape[2])
+            holes += not ok
+            print(f'[norm] shape={shape[:2]} dtype={str(shape[2])[6:]} '
+                  f'act={shape[3]} seed={seed} {_norm_line(r)} '
+                  f'tol={NORM_Y_TOL[shape[2]]} ok={ok}', flush=True)
+
     serving = ATTENTION_SHAPES[0]
     tol = ATTENTION_ROW_TOL[serving[4]]
     training = BACKWARD_SHAPES[0]
@@ -236,6 +285,19 @@ def main() -> int:
                   f'tol={BACKWARD_HEAD_TOL[training[4]]} '
                   f'autograd_head_err={_fmt(r["autograd_head_err"])} '
                   f'caught={caught}', flush=True)
+        norm = build_faults(tmp, NORM_KERNEL, NORM_FAULTS)
+        for name, so in norm.items():
+            failed = _with_library(NORM_KERNEL, so, lambda: [
+                (shape, r) for shape in NORM_SHAPES
+                for r in [check_norm(shape, args.seeds[0])]
+                if not norm_ok(r, shape[2])])
+            holes += not failed
+            first = failed[0] if failed else None
+            print(f'[fault] {name} caught={bool(failed)} '
+                  f'failing_shapes={len(failed)}/{len(NORM_SHAPES)}'
+                  + (f' first={first[0][:2]} {str(first[0][2])[6:]} '
+                     f'act={first[0][3]} {_norm_line(first[1])}'
+                     if first else ''), flush=True)
     print(f'[done] holes={holes}', flush=True)
     return 1 if holes else 0
 

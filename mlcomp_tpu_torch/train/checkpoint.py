@@ -6,9 +6,10 @@ Layout, as in the JAX package: ``<dir>/last.msgpack`` and
 ``<dir>/best.msgpack``, each with ``.meta.json`` carrying {step, stage,
 stage_epoch, epoch, score, time}. A blob is a flax-format msgpack map
 written with ``utils/msgpack_io.py``. The port's train state stores
-``params`` in the JAX layout (``convert.params_to_jax``), so either
-package's ``export_from_checkpoint`` reads it; ``opt_state`` is in the
-port's own layout (ROADMAP: resuming across packages needs an
+``params`` and, for a model with running statistics, ``batch_stats`` in
+the JAX layout (``convert.variables_to_jax``), so either package's
+``export_from_checkpoint`` reads it; ``opt_state`` is in the port's own
+layout (ROADMAP: resuming across packages needs an
 optimizer-state converter).
 
 Writes are durable: tmp file, flush, fsync, atomic rename, then the

@@ -2,9 +2,13 @@
 ``mlcomp_tpu/train/data.py``.
 
 The registry and the loaders ported so far: ``npz`` (local files with the
-fold split) and ``synthetic_lm`` (Markov-chain token streams; the same
-``np.random.RandomState`` draws as the JAX package, so the same arrays).
-The other names of the JAX registry are registered here too and raise,
+fold split), ``synthetic_lm`` (Markov-chain token streams),
+``synthetic_images`` (class prototypes plus noise, CIFAR-shaped),
+``cifar10`` (a local npz, else the synthetic stand-in) and ``digits``
+(scikit-learn's scans; scikit-learn is imported inside the loader and
+its absence raises there). Each makes the same ``np.random.RandomState``
+draws as the JAX package, so the same seed gives the same arrays. The
+other names of the JAX registry are registered here too and raise,
 pointing at ROADMAP.md. Batches go to the card as pinned host tensors
 copied with ``non_blocking``, ``depth`` batches ahead of the step that
 uses them.
@@ -101,16 +105,104 @@ def _synth_lm(n_train: int = 2048, n_valid: int = 256,
             'x_valid': make(n_valid, seed + 2), 'y_valid': None}
 
 
+@register_dataset('digits')
+def _digits(fold_csv: Optional[str] = None, fold_number: int = 0,
+            valid_fraction: float = 0.2, seed: int = 0, **_):
+    """scikit-learn's handwritten digits (1,797 8x8 grayscale scans),
+    pixels scaled to [0, 1], NHWC [N, 8, 8, 1]. ``fold_csv`` /
+    ``fold_number`` take a fold file (rows in ``load_digits`` order,
+    fold == k validates); without one a seeded ``valid_fraction``
+    split."""
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError as e:
+        raise ImportError(
+            "dataset 'digits' needs scikit-learn, which this Python does "
+            "not have; train from an npz of the digits instead") from e
+    d = load_digits()
+    x = (d.images.astype(np.float32) / 16.0)[..., None]
+    y = d.target.astype(np.int32)
+    if fold_csv:
+        import csv
+        with open(fold_csv, newline='') as fh:
+            folds = np.asarray([int(row['fold'])
+                                for row in csv.DictReader(fh)])
+        if len(folds) != len(y):
+            raise ValueError(
+                f'fold_csv {fold_csv!r} has {len(folds)} rows; expected '
+                f'{len(y)} (load_digits order)')
+        mask = folds == int(fold_number)
+    else:
+        rng = np.random.RandomState(seed)
+        mask = np.zeros(len(y), bool)
+        mask[rng.permutation(len(y))[:int(len(y) * valid_fraction)]] = True
+    return {'x_train': x[~mask], 'y_train': y[~mask],
+            'x_valid': x[mask], 'y_valid': y[mask],
+            'source': 'sklearn.load_digits'}
+
+
+@register_dataset('synthetic_images')
+def _synth_images(n_train: int = 8192, n_valid: int = 1024,
+                  image_size: int = 32, channels: int = 3,
+                  num_classes: int = 10, seed: int = 0, **_):
+    """Class-prototype images + noise — CIFAR-shaped, learnable."""
+    rng = np.random.RandomState(seed)
+    protos = rng.rand(
+        num_classes, image_size, image_size, channels).astype(np.float32)
+
+    def make(n, s):
+        r = np.random.RandomState(s)
+        y = r.randint(0, num_classes, n)
+        x = protos[y] + 0.3 * r.randn(
+            n, image_size, image_size, channels).astype(np.float32)
+        return x.astype(np.float32), y.astype(np.int32)
+
+    xt, yt = make(n_train, seed + 1)
+    xv, yv = make(n_valid, seed + 2)
+    return {'x_train': xt, 'y_train': yt, 'x_valid': xv, 'y_valid': yv}
+
+
+@register_dataset('cifar10')
+def _cifar10(path: str = None, n_train: int = 50000, n_valid: int = 10000,
+             seed: int = 0, **_):
+    """CIFAR-10 from a local npz (``path``, ``$CIFAR10_NPZ`` or
+    ``<root>/data/cifar10.npz``; keys x_train [N,32,32,3] uint8 or float,
+    y_train, x_test, y_test), else a synthetic stand-in with CIFAR's
+    shapes and cardinalities."""
+    from mlcomp_tpu_torch import DATA_FOLDER
+    candidates = [path] if path else []
+    candidates.append(os.environ.get('CIFAR10_NPZ'))
+    candidates.append(os.path.join(DATA_FOLDER, 'cifar10.npz'))
+    for cand in candidates:
+        if cand and os.path.exists(cand):
+            data = np.load(cand)
+
+            def norm(a):
+                a = np.asarray(a, np.float32)
+                return a / 255.0 if a.max() > 2.0 else a
+            return {'x_train': norm(data['x_train'])[:n_train],
+                    'y_train': np.asarray(data['y_train'],
+                                          np.int32)[:n_train],
+                    'x_valid': norm(data['x_test'])[:n_valid],
+                    'y_valid': np.asarray(data['y_test'],
+                                          np.int32)[:n_valid],
+                    'source': cand}
+    out = _synth_images(n_train=n_train, n_valid=n_valid, image_size=32,
+                        channels=3, num_classes=10, seed=seed)
+    out['source'] = 'synthetic'
+    return out
+
+
 def _not_ported(name: str, item: str):
     def loader(**_):
         raise NotImplementedError(
             f'dataset {name!r} is not ported yet (ROADMAP.md, queue A: '
-            f'{item}); ported: npz, synthetic_lm')
+            f'{item}); ported: npz, synthetic_lm, synthetic_images, '
+            f'cifar10, digits')
     register_dataset(name)(loader)
 
 
-for _name, _item in (('digits', 'A1'), ('digits_segmentation', 'A7'),
-                     ('synthetic_images', 'A1'), ('cifar10', 'A2'),
+for _name, _item in (('digits_segmentation', 'A7'),
                      ('synthetic_segmentation', 'A7')):
     _not_ported(_name, _item)
 
@@ -122,11 +214,13 @@ def iterate_batches(x: np.ndarray, y: Optional[np.ndarray],
                     transform=None, logger=None
                     ) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray]]]:
     """Shuffled host-side batches (the same order as the JAX package's
-    for the same ``rng``). Per-sample transforms are not ported yet."""
+    for the same ``rng``). Per-sample host transforms are not ported yet
+    (augmentation runs on the device: ``device_data``)."""
     if transform is not None:
         raise NotImplementedError(
-            'augment transforms are not ported yet (ROADMAP.md, queue A: '
-            'A2)')
+            'host augment transforms are not ported yet (ROADMAP.md, queue '
+            'A: A7); the device-resident path augments pad_crop/hflip/'
+            'vflip/cutout')
     n = len(x)
     idx = np.arange(n)
     if rng is not None:

@@ -20,10 +20,15 @@ Example spec (the JAX trainer's keys, plus ``device``)::
       device: cuda             # the card unless the caller asks for cpu
 
 Ported: stages and epochs, the train and eval loops over the host
-pipeline (pinned batches copied ahead of the step), ``main_metric`` /
-``minimize`` best tracking, ``checkpoint_every``, the async checkpoint
-writer, resume through ``resume_plan``, and the ``model_name`` export.
-Keys whose feature is not ported yet raise ``NotImplementedError`` with
+pipeline (pinned batches copied ahead of the step) or, with
+``device_data`` (``auto``, the default, or ``true``), over a dataset
+resident on the device with on-device ``augment`` (``device_data.py``;
+the JAX trainer's selection rule), ``main_metric`` / ``minimize`` best
+tracking, ``checkpoint_every``, the async checkpoint writer, resume
+through ``resume_plan``, running statistics (``batch_stats``) in
+checkpoints and the export, and the ``model_name`` export. ``mesh`` may
+be ``{dp: 1}`` or ``{dp: -1}`` ("every device") on one device. Keys
+whose feature is not ported yet raise ``NotImplementedError`` with
 their ROADMAP.md item; unknown keys are logged as the JAX trainer logs
 them.
 """
@@ -34,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from mlcomp_tpu_torch.convert import params_from_jax, params_to_jax
+from mlcomp_tpu_torch.convert import state_dict_from_jax, variables_to_jax
 from mlcomp_tpu_torch.models import create_model, param_count
 from mlcomp_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter, checkpoint_exists, load_meta, restore_checkpoint,
@@ -43,8 +48,13 @@ from mlcomp_tpu_torch.train.checkpoint import (
 from mlcomp_tpu_torch.train.data import (
     create_dataset, iterate_batches, place_batch, prefetch_batches,
 )
+from mlcomp_tpu_torch.train.device_data import (
+    DEVICE_AUGMENTS, dataset_fits_hbm, make_device_augment,
+    normalize_augment_spec, place_dataset, quantize_dataset,
+)
 from mlcomp_tpu_torch.train.loop import (
-    aggregate_metrics, create_train_state, loss_for_task, make_eval_step,
+    aggregate_metrics, create_train_state, loss_for_task,
+    make_device_eval_step, make_device_train_step, make_eval_step,
     make_train_step,
 )
 from mlcomp_tpu_torch.train.optim import (
@@ -55,12 +65,10 @@ from mlcomp_tpu_torch.worker.executors import Executor
 
 #: constructor keys whose feature is not ported yet -> ROADMAP.md item
 _NOT_PORTED = {
-    'device_data': 'A2 (the device-resident dataset)',
     'epoch_scan': 'A2 (one dispatch per epoch)',
     'profile': 'A6 (device traces)',
     'infer_valid': 'A5 (validation predictions for Valid/ensembles)',
     'report_imgs': 'slice 4 (report images need the DB)',
-    'augment': 'A2 (augmentation)',
     'stage_per_dispatch': 'slice 4 (requeue needs the DB)',
     'params_file': 'A5 (pretrained.py head-swap)',
     'telemetry': 'A6 (device telemetry)',
@@ -101,16 +109,22 @@ class Train(Executor):
         self.model_spec = dict(model or {'name': 'mlp'})
         if self.model_spec.get('params_file'):
             _not_ported('params_file')
-        if mesh is not None and dict(mesh) != {'dp': 1}:
+        # {dp: -1} is "every device": one here, unless CUDA shows more
+        if mesh is not None and (
+                dict(mesh) not in ({'dp': 1}, {'dp': -1})
+                or (dict(mesh) == {'dp': -1}
+                    and torch.cuda.device_count() > 1)):
             raise NotImplementedError(
                 f'train: mesh {mesh!r} is not ported yet (ROADMAP.md, queue '
                 f'A: A4 parallel and distributed); the port trains on one '
-                f'device (mesh: null or {{dp: 1}})')
-        for key, value in (('device_data', device_data is True),
-                           ('epoch_scan', epoch_scan), ('profile', profile),
+                f'device (mesh: null, {{dp: 1}}, or {{dp: -1}} where one '
+                f'device is visible)')
+        if device_data not in (True, False, 'auto'):
+            raise ValueError(f"device_data must be true, false or 'auto', "
+                             f'got {device_data!r}')
+        for key, value in (('epoch_scan', epoch_scan), ('profile', profile),
                            ('infer_valid', infer_valid),
                            ('report_imgs', report_imgs),
-                           ('augment', augment),
                            ('stage_per_dispatch', stage_per_dispatch),
                            ('telemetry', isinstance(telemetry, dict))):
             if value:
@@ -130,6 +144,8 @@ class Train(Executor):
         self.seed = int(seed)
         self.checkpoint_dir = checkpoint_dir
         self.prefetch = int(prefetch)
+        self.augment = list(augment) if augment else None
+        self.device_data = device_data
         self.checkpoint_every = int(checkpoint_every)
         if self.checkpoint_every == 0 and model_name:
             raise ValueError(
@@ -153,14 +169,10 @@ class Train(Executor):
 
     def _host_tree(self, state) -> dict:
         """A host copy of the train state in the checkpoint layout:
-        ``params`` in the JAX layout, ``opt_state`` in the port's."""
-        cfg = state.model.cfg
-        sd = {k: v.detach().to('cpu', copy=True)
-              for k, v in state.model.state_dict().items()}
-        stacked = cfg.scan_layers if cfg.scan_layers != 'auto' else True
+        ``params`` (and ``batch_stats``, where the model keeps running
+        statistics) in the JAX layout, ``opt_state`` in the port's."""
         return {'step': int(state.step),
-                'params': params_to_jax(sd, n_heads=cfg.n_heads,
-                                        stacked=bool(stacked)),
+                **variables_to_jax(state.model),
                 'opt_state': state_to_host(state.opt_state),
                 'rng': state.rng}
 
@@ -168,7 +180,7 @@ class Train(Executor):
         """``restore_checkpoint``'s target: check that a checkpoint tree
         fits ``state`` (raise if not), then load it in place."""
         def target(tree):
-            sd = params_from_jax(tree['params'])
+            sd = state_dict_from_jax(tree, self.model_spec['name'])
             current = state.model.state_dict()
             if sd.keys() != current.keys() or any(
                     sd[k].shape != current[k].shape for k in sd):
@@ -226,6 +238,39 @@ class Train(Executor):
         x_train, y_train = data['x_train'], data['y_train']
         x_valid, y_valid = data['x_valid'], data['y_valid']
 
+        # input path, the JAX trainer's rule: the dataset resident on the
+        # device with on-device augmentation when every augment is one the
+        # device runs, the data is labelled and both splits fit; else the
+        # host pipeline
+        device_augs = normalize_augment_spec(self.augment)
+        if self.device_data is True and device_augs is None:
+            raise ValueError(
+                f'device_data: true but augment={self.augment!r} has '
+                f'transforms outside the device-expressible set '
+                f'{DEVICE_AUGMENTS}; drop them or use device_data: auto')
+        if self.device_data is True and (y_train is None or self_supervised):
+            raise ValueError(
+                'device_data: true supports labeled datasets only — '
+                'label-less/self-supervised training uses the host '
+                'pipeline (device_data: auto selects it automatically)')
+        use_device_data = (
+            self.device_data is True
+            or (self.device_data == 'auto' and device_augs is not None
+                and y_train is not None and not self_supervised
+                and dataset_fits_hbm(x_train, extra_bytes=x_valid.nbytes)))
+        if self.augment and not use_device_data:
+            raise NotImplementedError(
+                f'train: augment {self.augment!r} needs the host pipeline\'s '
+                f'transforms, which are not ported yet (ROADMAP.md, queue A: '
+                f'A7); the device-resident path runs {DEVICE_AUGMENTS}')
+        if use_device_data:
+            x_q, dequant = quantize_dataset(x_train)
+            x_all, y_all = place_dataset(x_q, y_train, device)
+            xv_q, dequant_v = quantize_dataset(x_valid)
+            xv_all, yv_all = place_dataset(xv_q, y_valid, device)
+            dev_augment = make_device_augment(
+                device_augs, x_train.shape[1:]) if device_augs else None
+
         ck_dir = self._checkpoint_folder()
         steps_per_epoch = max(1, len(x_train) // self.batch_size)
 
@@ -248,7 +293,8 @@ class Train(Executor):
             optimizer, _ = make_optimizer(stage_opt_spec(stage),
                                           stage_steps(stage))
             model = create_model(
-                **self.model_spec, device=device,
+                **self.model_spec, input_shape=x_train.shape[1:],
+                device=device,
                 generator=torch.Generator(device).manual_seed(self.seed))
             return create_train_state(model, optimizer, seed=self.seed,
                                       with_dropout_rng=True)
@@ -257,7 +303,7 @@ class Train(Executor):
         model = state.model
         n_params = param_count(model)
         self.info(f'model={self.model_spec.get("name")} params={n_params:,} '
-                  f'device={device}')
+                  f'device={device} device_data={use_device_data}')
 
         epochs_done_global = 0
         restored = None
@@ -290,10 +336,17 @@ class Train(Executor):
             stage_idx = stage_names.index(stage_name)
             optimizer, _ = make_optimizer(
                 stage_opt_spec(stage), stage_steps(stage))
-            train_step = make_train_step(model, optimizer, loss_fn,
-                                         self_supervised=self_supervised)
-            eval_step = make_eval_step(model, loss_fn,
-                                       self_supervised=self_supervised)
+            if use_device_data:
+                train_step = make_device_train_step(
+                    model, optimizer, loss_fn, augment=dev_augment,
+                    dequantize=dequant)
+                eval_step = make_device_eval_step(model, loss_fn,
+                                                  dequantize=dequant_v)
+            else:
+                train_step = make_train_step(model, optimizer, loss_fn,
+                                             self_supervised=self_supervised)
+                eval_step = make_eval_step(model, loss_fn,
+                                           self_supervised=self_supervised)
             first_epoch = start_epoch if stage is remaining[0] else 0
             if first_epoch == 0 and stage is not self.stages[0]:
                 # stage boundary: fresh optimizer state, keep params
@@ -304,15 +357,37 @@ class Train(Executor):
                 ep_rng = np.random.RandomState(self.seed * 1000 + epoch)
                 t_ep = time.time()
                 train_metrics = []
-                batches = iterate_batches(
-                    x_train, y_train, self.batch_size, ep_rng,
-                    logger=self.info if global_epoch ==
-                    epochs_done_global else None)
-                for x, y in prefetch_batches(batches, device,
-                                             depth=self.prefetch):
-                    state, metrics = train_step(state, x, y)
-                    train_metrics.append(metrics)
-                    samples_seen += self.batch_size
+                first = global_epoch == epochs_done_global
+                if use_device_data:
+                    if steps_per_epoch * self.batch_size > len(x_train):
+                        raise ValueError(
+                            f'dataset has {len(x_train)} train samples — '
+                            f'fewer than batch_size={self.batch_size}; no '
+                            f'full batch to train on')
+                    dropped = len(x_train) % self.batch_size
+                    if dropped and first:
+                        self.info(
+                            f'dropping {dropped} tail samples '
+                            f'(n={len(x_train)} not divisible by '
+                            f'batch_size={self.batch_size})')
+                    perm = ep_rng.permutation(len(x_train))[
+                        :steps_per_epoch * self.batch_size]
+                    # the epoch's indices: the loop's one host→device copy
+                    perm = place_batch((perm.reshape(
+                        steps_per_epoch, self.batch_size), None), device)[0]
+                    for idx in perm:
+                        state, metrics = train_step(state, x_all, y_all, idx)
+                        train_metrics.append(metrics)
+                    samples_seen += steps_per_epoch * self.batch_size
+                else:
+                    batches = iterate_batches(
+                        x_train, y_train, self.batch_size, ep_rng,
+                        logger=self.info if first else None)
+                    for x, y in prefetch_batches(batches, device,
+                                                 depth=self.prefetch):
+                        state, metrics = train_step(state, x, y)
+                        train_metrics.append(metrics)
+                        samples_seen += self.batch_size
                 if not train_metrics:
                     raise ValueError(
                         f'dataset has {len(x_train)} train samples — '
@@ -325,13 +400,18 @@ class Train(Executor):
                 # padding, weights all one)
                 valid_metrics, valid_weights = [], []
                 for start in range(0, len(x_valid), self.eval_batch_size):
-                    bx = x_valid[start:start + self.eval_batch_size]
-                    by = y_valid[start:start + self.eval_batch_size] \
-                        if y_valid is not None else None
-                    x, y = place_batch((bx, by), device)
-                    w = torch.ones(len(bx), device=device)
-                    valid_metrics.append(eval_step(state, x, y, w))
-                    valid_weights.append(len(bx))
+                    stop = min(start + self.eval_batch_size, len(x_valid))
+                    w = torch.ones(stop - start, device=device)
+                    if use_device_data:
+                        idx = torch.arange(start, stop, device=device)
+                        valid_metrics.append(
+                            eval_step(state, xv_all, yv_all, idx, w))
+                    else:
+                        by = y_valid[start:stop] \
+                            if y_valid is not None else None
+                        x, y = place_batch((x_valid[start:stop], by), device)
+                        valid_metrics.append(eval_step(state, x, y, w))
+                    valid_weights.append(stop - start)
                 valid_agg = aggregate_metrics(valid_metrics,
                                               weights=valid_weights)
                 n_train = steps_per_epoch * self.batch_size

@@ -6,8 +6,8 @@ other writes: ``<name>.msgpack`` holds the unboxed ``{'params', ...}``
 variables in flax's msgpack layout (``utils/msgpack_io.py`` reads and
 writes it without flax or msgpack), and ``<name>.json`` holds
 ``{'model': spec, ...meta}``. The port rebuilds the model from the spec
-with its own registry and moves the JAX weights across with
-``convert.params_from_jax``.
+with its own registry and moves the JAX weights (and an image model's
+``batch_stats``) across with ``convert.state_dict_from_jax``.
 
 ``make_predictor`` is the engine under the serving process: the model is
 built and loaded once, batches are applied in fixed-size chunks with the
@@ -102,14 +102,19 @@ def load_export(path: str) -> Tuple[dict, dict]:
 
 def build_model(variables: dict, model_spec: dict, device='cuda'):
     """The spec's model on ``device`` in eval mode, holding the export's
-    weights."""
-    from mlcomp_tpu_torch.convert import params_from_jax
+    weights and running statistics (``batch_stats``)."""
+    from mlcomp_tpu_torch.convert import (
+        input_shape_from_params, state_dict_from_jax,
+    )
     from mlcomp_tpu_torch.models import create_model
     if not model_spec or 'name' not in model_spec:
         raise ValueError('model spec missing (no .json next to export?)')
     dev = resolve_device(device)
-    model = create_model(**model_spec, device=dev)
-    model.load_state_dict(params_from_jax(variables['params']))
+    name = model_spec['name']
+    model = create_model(**model_spec, device=dev,
+                         input_shape=input_shape_from_params(
+                             name, variables['params']))
+    model.load_state_dict(state_dict_from_jax(variables, name))
     return model.eval()
 
 

@@ -9,9 +9,17 @@ backward kernels on the card), the optimizer's update and its in-place
 application. Metrics stay on the device as 0-d tensors until
 ``aggregate_metrics`` pulls a whole epoch's in one transfer.
 
+Running statistics (``batch_stats`` in the JAX package) are the model's
+buffers: a train-mode forward updates them in place, as ``_apply``'s
+mutable ``batch_stats`` does, and the eval step reads them. The
+device-resident data steps (``make_device_train_step`` /
+``make_device_eval_step``) take the whole dataset on the device and an
+index vector.
+
 Not ported yet: the MoE auxiliary loss (``MOE_AUX_COEF`` and the
-``intermediates`` collection wait with MoE), the device-resident data
-steps and ``instrumented_step`` (telemetry, ROADMAP A6).
+``intermediates`` collection wait with MoE), ``make_device_epoch_fn``
+(one dispatch per epoch) and ``instrumented_step`` (telemetry, ROADMAP
+A6).
 """
 
 import dataclasses
@@ -28,9 +36,9 @@ from mlcomp_tpu_torch.train.optim import apply_updates
 @dataclasses.dataclass
 class TrainState:
     """What ``flax``'s TrainState holds, the PyTorch way: the parameters
-    live in ``model`` (updated in place by each step), ``opt_state`` is
-    the optimizer's state over them, ``rng`` the dropout seed (None: no
-    dropout randomness)."""
+    and running statistics live in ``model`` (updated in place by each
+    step), ``opt_state`` is the optimizer's state over the parameters,
+    ``rng`` the dropout seed (None: no dropout randomness)."""
     step: int
     model: nn.Module
     opt_state: Any
@@ -39,6 +47,11 @@ class TrainState:
     @property
     def params(self) -> dict:
         return dict(self.model.named_parameters())
+
+    @property
+    def batch_stats(self) -> Optional[dict]:
+        """The model's running statistics (its buffers), or None."""
+        return dict(self.model.named_buffers()) or None
 
 
 # ------------------------------------------------------------------ losses
@@ -167,6 +180,54 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     return step
 
 
+def _augment_seed(state: TrainState) -> int:
+    """This step's augmentation seed: the dropout seed (0 without one)
+    folded with the step, so the crop and flip pattern changes every
+    step and epoch."""
+    seed = 0 if state.rng is None else int(state.rng)
+    return (seed * 1_000_003 + int(state.step)) * 2 + 1
+
+
+def make_device_train_step(model, optimizer, loss_fn: Callable,
+                           augment=None, dequantize: bool = False):
+    """``step(state, x_all, y_all, idx) -> (state, metrics)`` over a
+    dataset already on the device: the batch is gathered by the [B]
+    index vector there, augmented (``device_data.make_device_augment``,
+    on the stored pixels, before dequantization) and, for a uint8-packed
+    dataset, dequantized to f32 in [0, 1]."""
+    inner = make_train_step(model, optimizer, loss_fn)
+    generators = {}        # one per device, reseeded every step
+
+    def step(state: TrainState, x_all, y_all, idx):
+        x = x_all.index_select(0, idx)
+        y = y_all.index_select(0, idx)
+        if augment is not None:
+            gen = generators.get(x.device)
+            if gen is None:
+                gen = generators[x.device] = torch.Generator(x.device)
+            x = augment(x, gen.manual_seed(_augment_seed(state)))
+        if dequantize:
+            x = x.float() / 255.0
+        return inner(state, x, y)
+
+    return step
+
+
+def make_device_eval_step(model, loss_fn: Callable,
+                          dequantize: bool = False):
+    """``step(state, x_all, y_all, idx, w) -> metrics`` against the
+    device-resident validation set."""
+    inner = make_eval_step(model, loss_fn)
+
+    def step(state: TrainState, x_all, y_all, idx, w=None):
+        x = x_all.index_select(0, idx)
+        if dequantize:
+            x = x.float() / 255.0
+        return inner(state, x, y_all.index_select(0, idx), w)
+
+    return step
+
+
 def make_eval_step(model, loss_fn: Callable, self_supervised: bool = False):
     """``step(state, x, y, w=None) -> metrics`` without gradients."""
 
@@ -210,5 +271,6 @@ def create_train_state(model, optimizer, seed: Optional[int] = 0,
 
 
 __all__ = ['TrainState', 'make_train_step', 'make_eval_step',
+           'make_device_train_step', 'make_device_eval_step',
            'aggregate_metrics', 'create_train_state', 'loss_for_task',
            'LOSSES', 'softmax_ce', 'lm_ce', 'seg_ce', 'lm_ce_with']

@@ -226,9 +226,10 @@ class TestConfig:
             create_model(**SPEC, mesh=object(), device='cpu')
 
     def test_other_models_not_ported(self):
-        assert model_names() == ['transformer_lm']
+        assert model_names() == ['mlp', 'resnet101', 'resnet152', 'resnet18',
+                                 'resnet34', 'resnet50', 'transformer_lm']
         with pytest.raises(KeyError, match='transformer_lm'):
-            create_model('mlp', num_classes=3)
+            create_model('vit', num_classes=3)
 
     def test_train_mode_not_ported(self):
         """Train mode is ported; what of it is not (MoE's auxiliary loss)

@@ -543,11 +543,9 @@ class TestFaultSeamsAndMetrics:
                                                'ms': 120}})
             t0 = time.monotonic()
             _post(server, {'x': _tokens(1).tolist()})
-            slow = time.monotonic() - t0
-            clear_faults()
-            t0 = time.monotonic()
-            _post(server, {'x': _tokens(1).tolist()})
-            assert slow >= time.monotonic() - t0 + 0.1
+            # the planted sleep alone guarantees this; a second timed
+            # request varies with the load of other test workers
+            assert time.monotonic() - t0 >= 0.12
         finally:
             clear_faults()
 

@@ -437,8 +437,7 @@ class TestData:
         assert [int(x[0, 0]) for x, _ in out] == list(range(5))
         assert all(y is None and x.dtype == torch.int32 for x, y in out)
 
-    @pytest.mark.parametrize('name', ['digits', 'synthetic_images',
-                                      'cifar10', 'synthetic_segmentation',
+    @pytest.mark.parametrize('name', ['synthetic_segmentation',
                                       'digits_segmentation'])
     def test_other_datasets_are_not_ported(self, name):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -620,10 +619,10 @@ class TestExecutor:
                    for line in lines)
 
     @pytest.mark.parametrize('key,value', [
-        ('mesh', {'dp': 2}), ('device_data', True), ('epoch_scan', True),
+        ('mesh', {'dp': 2}), ('epoch_scan', True),
         ('profile', {'epoch': 0}), ('infer_valid', {'best_only': True}),
         ('report_imgs', {'type': 'classification'}),
-        ('augment', ['hflip']), ('stage_per_dispatch', True),
+        ('stage_per_dispatch', True),
         ('telemetry', {'flush_every': 10})])
     def test_not_ported_keys_raise(self, tmp_path, key, value):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
