@@ -32,20 +32,37 @@ last line:
    L2 cache; back-to-back calls, so host launch gaps are included)
    against its bound, its plain version and
    ``F.batch_norm(training=True)`` + ``F.relu``;
-5. serving: the flagship transformer LM (vocab 32768, d_model 1024, 16
+5. int8 kernels: the int8 matmul against its plain version run in f64
+   at the bench's shape, the served LM's and ragged ones
+   (``kernel_check.INT8_SHAPES``, a NaN canary after the output), timed
+   beside its bound, the plain version and ``torch.matmul`` on bf16
+   weights; the serving stack per layer against f64 and over the chain
+   against ``reference_stack`` (``kernel_check.STACK_SHAPES``), timed at
+   8 × 8192² at M = 64 in int8 and bf16 beside the bf16 chain;
+6. serving: the flagship transformer LM (vocab 32768, d_model 1024, 16
    heads, d_ff 4096, 8 layers, T=8192, bf16 activations, f32 params;
    weights from a seed) exported with the port's ``export_model``,
    served by ``ModelServer(device='cuda')`` and asked over HTTP; the
    launch counts are zeroed just before the requests and read just
    after, and one row's logits are held against the same model with the
    plain attention;
-6. train: ``Executor.from_config('train', config)`` on the card — the
+7. int8 serving: the flagship exported per layer and served with
+   ``quantize='int8'`` (25 int8 launches a dispatch), then the stacked
+   export (the head alone: 1); counts zeroed just before the requests,
+   read just after; one row against the same int8 weights through the
+   plain product and against the unquantized model; weight bytes;
+8. ``serving_int8``: ``bench.py``'s leg (8 layers of 8192² at M = 64, 7
+   interleaved trials × 100 stacks through ``make_chain_runner``): bf16
+   chain, plain int8 chain, per-layer int8 kernel, int8 and bf16 stack
+   kernel; the ratio of the min times, the paired range, p50/p99 from
+   the recorder's ``histogram_summaries``;
+9. train: ``Executor.from_config('train', config)`` on the card — the
    flagship at batch 1 over an npz of random tokens, AdamW with
    ``warmup_cosine``, one epoch, checkpoints and a ``model_name`` export
    that ``make_predictor`` then loads; the launch counts are zeroed just
    before and read just after (8 forward and 8 of each backward kernel
    per step);
-7. CIFAR train: ``Executor.from_config('train', config)`` on the card
+10. CIFAR train: ``Executor.from_config('train', config)`` on the card
    with ``examples/cifar_simple/config.yml``'s train executor (ResNet-18
    at full width, ``norm: fused``, ``synthetic_images`` 8192/1024, batch
    256, AdamW ``warmup_cosine``, ``device_data: auto``, ``mesh: {dp:
@@ -53,20 +70,20 @@ last line:
    ``make_predictor`` and served by ``ModelServer`` over HTTP; the norm
    kernel's launch count zeroed just before and read just after (20 per
    train step, none in eval);
-8. CIFAR step: ResNet-18 at batch 512 with SGD (lr 0.1, momentum 0.9)
+11. CIFAR step: ResNet-18 at batch 512 with SGD (lr 0.1, momentum 0.9)
    as ``bench.py``'s CIFAR legs run it, ``norm: batch`` and ``norm:
    fused`` from the same weights on the same batch: step ms and
    images/s for each (timed in turns), the norm's share of the step and
    the longest kernels (profiler), and the cosine of every parameter's
    gradient between the two variants;
-9. step: the flagship's train step as ``bench.py``'s ``bench_lm``
+12. step: the flagship's train step as ``bench.py``'s ``bench_lm``
    measures it (B=1, T=8192, AdamW): tokens/s, MFU, device time, the
    attention share of it and the step's longest kernels (profiler), and
    one step's gradients against the same weights with the plain
    attention (cosine per parameter tensor);
-10. norm device time: the fused norm kernels' own device time per call
+13. norm device time: the fused norm kernels' own device time per call
    (profiler) at each site shape of the step, with and without the ReLU;
-11. the ``{"kernels": [...]}`` line, the card's name and power limit, and
+14. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds this script and nothing else
@@ -121,6 +138,13 @@ TOP_KERNELS = 12
 MIN_COSINE = 0.999
 MIN_TOP1 = 0.99
 TIE_DELTA = 0.0625
+#: the int8-served LM against the same weights unquantized: cosine of
+#: the [T, V] logits. Per-channel absmax/127 rounding moves each
+#: projection's output by ~1% (a rounding error of scale/√12 against
+#: columns whose absmax is ~4σ); through 8 layers and the head the
+#: logits stay within a few percent, a cosine above 0.999 — 0.99 leaves
+#: room for the bf16 activations' own rounding
+MIN_INT8_COSINE = 0.99
 
 FLAGSHIP = {'name': 'transformer_lm', 'vocab_size': 32768, 'd_model': 1024,
             'n_layers': 8, 'n_heads': 16, 'd_ff': 4096, 'max_seq_len': 8192,
@@ -1138,6 +1162,456 @@ def phase_cifar_step(seed: int) -> dict:
     return norm_ms
 
 
+# ------------------------------------------------------------ int8 serving
+def int8_bound_ms(m, k, n):
+    """Least time for the int8 product: x (bf16), w_qt (int8) and scale
+    read once and the f32 out written once, or 2·M·N·K operations at the
+    bf16 tensor-core peak, whichever is larger."""
+    nbytes = m * k * 2 + n * k + n * 4 + m * n * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                 else 'bytes')
+
+
+def phase_int8_kernel(seed: int) -> dict:
+    """The int8 matmul kernel against its plain version (run in f64) at
+    every INT8_SHAPES shape; timed at the bench's shape and the served
+    LM's. Returns its kernels-line entry (the top-level times at the
+    LM's d_ff projection, the most launched shape of the main path)."""
+    from mlcomp_tpu_torch.ops.int8_matmul import (
+        int8_matmul, reference_int8_matmul,
+    )
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        INT8_ROW_TOL, INT8_SHAPES, int8_check, int8_inputs, int8_ok,
+    )
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    errors = {}
+    for shape in INT8_SHAPES:
+        try:
+            r = int8_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused launch or a fault in the run
+            fail(f'int8_matmul at (M, K, N)={shape}: {e}')
+        ok = int8_ok(r)
+        say('kernel-int8', ok=ok, shape='x'.join(map(str, shape)),
+            row_err=f'{r["row_err"]:.3e}', tol=INT8_ROW_TOL,
+            max_abs_err=f'{r["max_abs_err"]:.3e}', canary=r['canary'])
+        if not ok:
+            fail(f'int8_matmul disagrees with its plain version at {shape}: '
+                 f'{r}')
+        errors[shape] = r
+        torch.cuda.empty_cache()
+
+    timed = {}
+    for shape in INT8_SHAPES[:4]:
+        m, k, n = shape
+        # the bench's 67 MB weight is read from device memory: turns over
+        # copies that together exceed the 50 MB L2
+        copies = 3 if m <= 64 else 1
+        inputs = [int8_inputs(m, k, n, gen) for _ in range(copies)]
+        w_bf16 = [w.to(torch.bfloat16) for _, w, _ in inputs]
+        iters = 50 if m <= 64 else 10
+        ms = time_rotating_ms(lambda x, w, s: int8_matmul(x, w, s),
+                              inputs, iters=iters)
+        plain_ms = time_rotating_ms(reference_int8_matmul, inputs,
+                                    iters=max(3, copies))
+        library_convert_ms = time_rotating_ms(lambda x, w, s: torch.matmul(
+            x, w.to(torch.bfloat16).t()) * s, inputs, iters=iters)
+        bf_inputs = [(x, wb, s) for (x, _, s), wb in zip(inputs, w_bf16)]
+        library_ms = time_rotating_ms(lambda x, w, s: torch.matmul(
+            x, w.t()) * s, bf_inputs, iters=iters)
+        bound, bound_by = int8_bound_ms(m, k, n)
+        timed[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            library_convert_ms=library_convert_ms,
+                            bound_ms=bound, bound_by=bound_by)
+        say('kernel-int8', shape='x'.join(map(str, shape)), ms=f'{ms:.4f}',
+            bound_ms=f'{bound:.4f}', bound_by=bound_by,
+            plain_ms=f'{plain_ms:.3f}', library_ms=f'{library_ms:.4f}',
+            library_convert_ms=f'{library_convert_ms:.4f}',
+            tflops=f'{2 * m * n * k / ms / 1e9:.1f}',
+            weight_gbytes_per_s=f'{n * k / ms / 1e6:.1f}')
+        del inputs, w_bf16, bf_inputs
+        torch.cuda.empty_cache()
+    main = INT8_SHAPES[1]
+    return {'name': 'int8_matmul', 'route': 'cuda',
+            'source': 'mlcomp_tpu_torch/csrc/int8_matmul.cu',
+            'replaces': 'mlcomp_tpu/ops/int8_matmul.py:87',
+            'max_abs_err': errors[main]['max_abs_err'],
+            'row_err': errors[main]['row_err'], **timed[main],
+            'shape': list(main), 'library': 'torch.matmul(x, w_bf16.t()) '
+                                              '* scale, bf16 weight made '
+                                              'beforehand',
+            'shapes': {'x'.join(map(str, s)): t for s, t in timed.items()},
+            'row_errs': {'x'.join(map(str, s)): r['row_err']
+                         for s, r in errors.items()}}
+
+
+def stack_bound_ms(layers, m, k, wbytes):
+    """Least time for the stack: every layer's weight read once, x read
+    and the f32 out written once (the activations between layers need not
+    leave the chip), or the products at the bf16 peak."""
+    nbytes = layers * k * k * wbytes + m * k * 2 + m * k * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * layers * m * k * k / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                 else 'bytes')
+
+
+def bf16_chain(x, ws):
+    """The bench's ``bf16`` variant: one bf16 product per layer and the
+    feed between them (``ws`` [L, K, N] bf16)."""
+    from mlcomp_tpu_torch.ops.serving_stack import stack_feed
+    y = None
+    for i in range(ws.shape[0]):
+        if i:
+            x = stack_feed(y)
+        y = torch.matmul(x, ws[i])
+    return y
+
+
+def phase_stack_kernel(seed: int) -> dict:
+    """The serving-stack kernel against ``reference_stack`` at every
+    STACK_SHAPES shape; timed at the bench's 8 × 8192² at M = 64, int8
+    and bf16. Returns its kernels-line entry."""
+    from mlcomp_tpu_torch.ops.serving_stack import (
+        reference_stack, serving_stack,
+    )
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        STACK_ROW_TOL, STACK_SHAPES, stack_check, stack_inputs, stack_ok,
+        stack_tol,
+    )
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    errors = {}
+    for shape in STACK_SHAPES:
+        layers, m, k, wdtype, feed = shape
+        try:
+            r = stack_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused launch or a fault in the run
+            fail(f'serving_stack at {shape}: {e}')
+        ok = stack_ok(r, layers)
+        say('kernel-stack', ok=ok, layers=layers, shape=f'{m}x{k}',
+            w=str(wdtype)[6:], feed=feed, row_err=f'{r["row_err"]:.3e}',
+            tol=stack_tol(layers), step_err=f'{r["step_err"]:.3e}',
+            step_tol=STACK_ROW_TOL['step'],
+            max_abs_err=f'{r["max_abs_err"]:.3e}')
+        if not ok:
+            fail(f'serving_stack disagrees with reference_stack at {shape}: '
+                 f'{r}')
+        errors[shape] = r
+        torch.cuda.empty_cache()
+
+    timed = {}
+    for shape in STACK_SHAPES[:2]:
+        layers, m, k, wdtype, feed = shape
+        x, w, scales = stack_inputs(layers, m, k, wdtype, gen)
+        ms = time_ms(lambda: serving_stack(x, w, scales, feed=feed,
+                                           block_n=1024, block_k=2048),
+                     iters=50)
+        plain_ms = time_ms(lambda: reference_stack(x, w, scales, feed=feed),
+                           iters=5)
+        # the bench's bf16 chain on the same weights (as bf16 [K, N])
+        w_kn = torch.stack([(wl.float() * (1 if scales is None else
+                                           scales[i][:, None])).t()
+                            .to(torch.bfloat16).contiguous()
+                            for i, wl in enumerate(w)])
+        chain_ms = time_ms(lambda: bf16_chain(x, w_kn), iters=50)
+        bound, bound_by = stack_bound_ms(layers, m, k, w.element_size())
+        name = f'{str(wdtype)[6:]}'
+        # no one library call computes the stack: library_ms is null and
+        # the bench's bf16 chain is the yardstick
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                           bf16_chain_ms=chain_ms, bound_ms=bound,
+                           bound_by=bound_by)
+        wbytes = layers * k * k * w.element_size()
+        say('kernel-stack', layers=layers, shape=f'{m}x{k}', w=name,
+            ms=f'{ms:.4f}', bound_ms=f'{bound:.4f}', bound_by=bound_by,
+            plain_ms=f'{plain_ms:.3f}', bf16_chain_ms=f'{chain_ms:.4f}',
+            weight_gbytes_per_s=f'{wbytes / ms / 1e6:.1f}')
+        del x, w, scales, w_kn
+        torch.cuda.empty_cache()
+    main = STACK_SHAPES[0]
+    return {'name': 'serving_stack', 'route': 'cuda',
+            'source': 'mlcomp_tpu_torch/csrc/serving_stack.cu',
+            'replaces': 'mlcomp_tpu/ops/serving_stack.py:67',
+            'max_abs_err': errors[main]['max_abs_err'],
+            'row_err': errors[main]['row_err'],
+            'step_err': errors[main]['step_err'], **timed['int8'],
+            'shape': list(main[:3]), 'dtype': 'int8',
+            'bf16_weights': timed['bfloat16'],
+            'row_errs': {f'{s[0]}x{s[1]}x{s[2]}-{str(s[3])[6:]}-'
+                         f'feed{int(s[4])}': r['row_err']
+                         for s, r in errors.items()}}
+
+
+def _model_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def _serve_rows(server, requests, counter) -> tuple:
+    """The requests over HTTP: (latencies ms, answers, launches of
+    ``counter`` per dispatch)."""
+    from mlcomp_tpu_torch import TOKEN
+    latencies, served, per_dispatch = [], [], []
+    vocab = FLAGSHIP['vocab_size']
+    for x in requests:
+        before = counter.launches
+        t1 = time.monotonic()
+        out = _http(server.port, '/predict', {'x': x.tolist()}, TOKEN)
+        latencies.append((time.monotonic() - t1) * 1e3)
+        per_dispatch.append(counter.launches - before)
+        y = np.asarray(out['y'])
+        if y.shape != x.shape or not np.issubdtype(y.dtype, np.integer) \
+                or y.min() < 0 or y.max() >= vocab:
+            fail(f'/predict answered shape {y.shape} dtype {y.dtype} '
+                 f'for {x.shape} tokens')
+        served.append(y)
+    return latencies, served, per_dispatch
+
+
+def phase_serve_int8(seed: int) -> dict:
+    """The flagship served with ``quantize='int8'`` over HTTP, from a
+    per-layer export (every MLP projection and the head quantized: 25
+    int8 launches a dispatch) and from the stacked export of the serving
+    phase (the head alone: 1); one row's logits held against the same
+    int8 weights through the plain product, and against the unquantized
+    model. Returns the int8 kernel's launches by path."""
+    import gc
+    from mlcomp_tpu_torch import MODEL_FOLDER
+    from mlcomp_tpu_torch.ops.int8_matmul import Int8Dense, int8_matmul
+    from mlcomp_tpu_torch.server.serve import ModelServer, resolve_model
+    from mlcomp_tpu_torch.train.export import export_model, make_predictor
+    from mlcomp_tpu_torch.train.layer_stack import unstack_layer_tree
+
+    layers = FLAGSHIP['n_layers']
+    spec = {**FLAGSHIP, 'scan_layers': False}
+    export_model(os.path.join(MODEL_FOLDER, 'smoke', 'flagship_lm_layers'),
+                 unstack_layer_tree(flagship_params(seed)), spec,
+                 meta={'input_shape': [FLAGSHIP['max_seq_len']],
+                       'input_dtype': 'int32'})
+    rng = np.random.default_rng(seed + 1)
+    t, vocab = FLAGSHIP['max_seq_len'], FLAGSHIP['vocab_size']
+    requests = [rng.integers(0, vocab, (n, t), dtype=np.int32)
+                for n in REQUEST_ROWS]
+    launches = {}
+    for name, want in (('flagship_lm_layers', 3 * layers + 1),
+                       ('flagship_lm', 1)):
+        path = resolve_model(name, 'smoke')
+        # the earlier servers' garbage freed first, or the build's delta
+        # reads low
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        server = ModelServer(path, batch_size=SERVE_BATCH,
+                             activation='argmax', port=0, quantize='int8',
+                             device='cuda')
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        int8_bytes = torch.cuda.memory_allocated() - base
+        predict = server.primary.predict
+        model = predict.model
+        if not server.warmup():
+            fail('export carries no input_shape to warm up with')
+        server.bind()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            # the main path: counts zeroed just before, read just after
+            int8_matmul.launches = 0
+            latencies, served, per_dispatch = _serve_rows(
+                server, requests, int8_matmul)
+            launches[name] = int8_matmul.launches
+            health = _http(server.port, '/health')
+        finally:
+            server.shutdown()
+            thread.join(timeout=30)
+        say('serve-int8', export=name, quantized=predict.quantized,
+            load_s=f'{load_s:.1f}', requests=len(requests),
+            launches=launches[name], per_dispatch=per_dispatch,
+            p50_ms=f'{float(np.percentile(latencies, 50)):.1f}',
+            max_ms=f'{max(latencies):.1f}', platform=health['platform'],
+            int8_model_bytes=_model_bytes(model),
+            int8_allocated_bytes=int8_bytes)
+        if predict.quantized != want or per_dispatch != [want] * len(
+                requests):
+            fail(f'{name}: expected {want} int8 modules and as many '
+                 f'launches a dispatch, got {predict.quantized} and '
+                 f'{per_dispatch}')
+        if health['platform'] != 'gpu':
+            fail(f'/health disagrees: {health}')
+        if name != 'flagship_lm_layers':
+            del server, predict, model
+            continue
+
+        # one row: the kernel against the plain product on the same int8
+        # weights, and against the unquantized model
+        tokens = torch.from_numpy(requests[0]).cuda()
+        int8_modules = [m for m in model.modules()
+                        if isinstance(m, Int8Dense)]
+        with torch.inference_mode():
+            kern = model(tokens)[0].float()
+            for m in int8_modules:
+                m.impl = 'dense'
+            dense = model(tokens)[0].float()
+            for m in int8_modules:
+                m.impl = 'auto'
+        del server, predict, model
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        full = make_predictor(path, batch_size=SERVE_BATCH,
+                              activation='argmax', device='cuda')
+        torch.cuda.synchronize()
+        full_bytes = torch.cuda.memory_allocated() - base
+        with torch.inference_mode():
+            ref = full.model(tokens)[0].float()
+        full_model_bytes = _model_bytes(full.model)
+        del full
+        torch.cuda.empty_cache()
+        finite = bool(torch.isfinite(kern).all()
+                      and torch.isfinite(dense).all())
+        cos = float(torch.nn.functional.cosine_similarity(
+            kern.reshape(1, -1), dense.reshape(1, -1)))
+        raw, tie = top1_agreement(kern, dense)
+        cos_full = float(torch.nn.functional.cosine_similarity(
+            kern.reshape(1, -1), ref.reshape(1, -1)))
+        raw_full, tie_full = top1_agreement(kern, ref)
+        served_row = torch.from_numpy(served[0][0]).cuda().long()
+        picked = dense.gather(-1, served_row[:, None]).squeeze(-1)
+        served_tie = float((picked >= dense.max(dim=-1).values - TIE_DELTA)
+                           .float().mean())
+        say('compare-int8', finite=finite, cosine_vs_dense=f'{cos:.6f}',
+            top1_tie_aware=f'{tie:.4f}', top1_raw=f'{raw:.4f}',
+            served_top1_tie_aware=f'{served_tie:.4f}',
+            max_abs_logit_err=f'{float((kern - dense).abs().max()):.4f}',
+            min_cosine=MIN_COSINE, min_top1=MIN_TOP1,
+            cosine_vs_unquantized=f'{cos_full:.6f}',
+            top1_raw_vs_unquantized=f'{raw_full:.4f}',
+            top1_tie_aware_vs_unquantized=f'{tie_full:.4f}',
+            min_cosine_vs_unquantized=MIN_INT8_COSINE,
+            full_model_bytes=full_model_bytes, full_allocated_bytes=full_bytes)
+        if not finite or cos < MIN_COSINE or tie < MIN_TOP1 \
+                or served_tie < MIN_TOP1:
+            fail('the int8 kernel disagrees with the plain int8 product')
+        if cos_full < MIN_INT8_COSINE:
+            fail(f'the int8-served LM is too far from the unquantized one: '
+                 f'cosine {cos_full}')
+        del kern, dense, ref, tokens
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serving_int8(seed: int) -> dict:
+    """``bench.py``'s ``serving_int8`` leg on the port: an 8-layer
+    K = N = 8192 stack at M = 64 tokens, 7 interleaved trials of 100
+    stacks a variant through ``make_chain_runner`` with a recorder.
+    Returns the launches of the int8 kernels in it and its numbers."""
+    from mlcomp_tpu_torch.ops.int8_matmul import (
+        int8_matmul, quantize_int8, reference_int8_matmul,
+    )
+    from mlcomp_tpu_torch.ops.serving_stack import (
+        make_chain_runner, serving_stack, stack_feed,
+    )
+    from mlcomp_tpu_torch.telemetry import MetricRecorder
+
+    m, kn, layers, reps, trials = 64, 8192, 8, 100, 7
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    w_bf, packs = [], []
+    for _ in range(layers):
+        w = torch.randn((kn, kn), generator=gen, device='cuda') * 0.02
+        packs.append(quantize_int8(w))
+        w_bf.append(w.to(torch.bfloat16))
+        del w
+    x0 = torch.randn((m, kn), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    tel = MetricRecorder(component='serving')
+
+    def per_layer(body, args, name):
+        def step(x, *a):
+            for i in range(layers):
+                x = stack_feed(body(x, i, *a))
+            return x
+        return make_chain_runner(step, args, x0, reps, recorder=tel,
+                                 metric=f'serving.{name}_ms')
+
+    flat = [t for pack in packs for t in pack]
+    wq = torch.stack([p[0] for p in packs])
+    sc = torch.stack([p[1] for p in packs])
+    w_t = torch.stack([w.t() for w in w_bf]).contiguous()
+    variants = {
+        'bf16': per_layer(lambda x, i, *ws: torch.matmul(x, ws[i]), w_bf,
+                          'bf16'),
+        'int8_dense': per_layer(lambda x, i, *fl: reference_int8_matmul(
+            x, fl[2 * i], fl[2 * i + 1]), flat, 'int8_dense'),
+        'int8_matmul': per_layer(lambda x, i, *fl: int8_matmul(
+            x, fl[2 * i], fl[2 * i + 1]), flat, 'int8_matmul'),
+        'int8_stack': make_chain_runner(
+            lambda x, wq, sc: stack_feed(serving_stack(
+                x, wq, sc, block_n=1024, block_k=2048)),
+            [wq, sc], x0, reps, recorder=tel,
+            metric='serving.int8_stack_ms'),
+        'bf16_stack': make_chain_runner(
+            lambda x, w: stack_feed(serving_stack(
+                x, w, block_n=1024, block_k=2048)),
+            [w_t], x0, reps, recorder=tel, metric='serving.bf16_stack_ms'),
+    }
+    # the main path of the stack kernel (and of the per-layer int8
+    # kernel's chain): counts zeroed just before, read just after
+    serving_stack.launches = 0
+    int8_matmul.launches = 0
+    results = {name: fn() for name, fn in variants.items()}   # warm
+    times = {name: [] for name in variants}
+    for _ in range(trials):
+        for name, fn in variants.items():
+            t0 = time.perf_counter()
+            results[name] = fn()
+            times[name].append(time.perf_counter() - t0)
+    launches = {'serving_stack': serving_stack.launches,
+                'int8_matmul': int8_matmul.launches}
+    if not all(np.isfinite(v) for v in results.values()):
+        fail(f'serving_int8 chains are not finite: {results}')
+    want = {'serving_stack': 2 * reps * (trials + 1),
+            'int8_matmul': layers * reps * (trials + 1)}
+    if launches != want:
+        fail(f'serving_int8 launches {launches}, expected {want}')
+
+    def ms(name):
+        return min(times[name]) / reps * 1e3
+
+    ratios = sorted(b / q for b, q in zip(times['bf16'],
+                                          times['int8_stack']))
+    hist = {name.split('.')[1][:-3]: s
+            for name, s in tel.histogram_summaries().items()}
+    out = {
+        'serving_int8_speedup': ms('bf16') / ms('int8_stack'),
+        'serving_int8_speedup_paired_range': [ratios[0], ratios[-1]],
+        'serving_int8_ms': ms('int8_stack'),
+        'serving_bf16_ms': ms('bf16'),
+        'serving_int8_dense_ms': ms('int8_dense'),
+        'serving_int8_matmul_ms': ms('int8_matmul'),
+        'serving_stack_bf16_ms': ms('bf16_stack'),
+        # the bf16 weights' bytes over the int8 weights' and scales'
+        'serving_int8_weight_memory_ratio':
+            sum(w.numel() * w.element_size() for w in w_bf)
+            / (wq.numel() * wq.element_size()
+               + sc.numel() * sc.element_size()),
+    }
+    say('serving-int8', **{k: (f'{v:.4f}' if isinstance(v, float) else
+                               [f'{r:.3f}' for r in v] if isinstance(v, list)
+                               else v) for k, v in out.items()},
+        launches=launches, trials=trials, reps=reps)
+    for name, s in hist.items():
+        say('serving-int8-hist', variant=name, count=int(s['count']),
+            p50_ms=f'{s["p50"]:.4f}', p99_ms=f'{s["p99"]:.4f}',
+            min_ms=f'{s["min"]:.4f}', max_ms=f'{s["max"]:.4f}')
+    out['latency_hist'] = hist
+    del w_bf, packs, flat, wq, sc, w_t, x0, variants
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'numbers': out}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1164,7 +1638,11 @@ def main():
         fwd = phase_kernels(args.seed)
         backward = phase_backward_kernels(args.seed)
         norm = phase_norm_kernel(args.seed)
+        int8 = phase_int8_kernel(args.seed)
+        stack = phase_stack_kernel(args.seed)
         serve_launches = phase_serving(args.seed)
+        int8_serve = phase_serve_int8(args.seed)
+        leg = phase_serving_int8(args.seed)
         train_launches = phase_train(args.seed)
         norm['launches'] = phase_cifar_train(args.seed)
         # a profiler window can leave CUDA tracing on, which slows later
@@ -1184,7 +1662,16 @@ def main():
     # the 20 norm sites of a batch-512 train step as the profiler reads
     # them (absent if it read no device time)
     norm['step_device_ms'] = step_norm_ms.get('fused')
-    kernels = [fwd] + backward + [norm]
+    int8['launches_by_path'] = {
+        'serve_int8_per_layer': int8_serve['flagship_lm_layers'],
+        'serve_int8_stacked': int8_serve['flagship_lm'],
+        'serving_int8': leg['launches']['int8_matmul']}
+    int8['launches'] = sum(int8['launches_by_path'].values())
+    stack['launches_by_path'] = {
+        'serving_int8': leg['launches']['serving_stack']}
+    stack['launches'] = sum(stack['launches_by_path'].values())
+    stack['serving_int8'] = leg['numbers']
+    kernels = [fwd] + backward + [norm, int8, stack]
     for entry in kernels:
         if entry['launches'] <= 0:
             fail(f'the main path launched no {entry["name"]}')

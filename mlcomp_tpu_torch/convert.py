@@ -117,6 +117,16 @@ def params_from_jax(tree) -> dict:
     return sd
 
 
+def port_module_name(path) -> str:
+    """The port's module name of a JAX module path (a tuple of names):
+    a per-layer LM's ``layer_i`` is the port's ``layers.i``; every other
+    path joins with dots, as ``image_state_dict_from_jax`` keys it."""
+    head, rest = path[0], tuple(path[1:])
+    if head.startswith('layer_'):
+        return '.'.join(('layers', head[len('layer_'):]) + rest)
+    return '.'.join(path)
+
+
 def params_to_jax(state_dict, n_heads: int, stacked: bool = True) -> dict:
     """The port's ``state_dict`` → a JAX transformer_lm params tree, in
     the stacked (``stacked=True``) or per-layer layout."""
@@ -246,7 +256,8 @@ def input_shape_from_params(name: str, params: dict):
     return None
 
 
-__all__ = ['params_from_jax', 'params_to_jax', 'to_tensor',
+__all__ = ['params_from_jax', 'params_to_jax', 'port_module_name',
+           'to_tensor',
            'image_state_dict_from_jax', 'image_variables_to_jax',
            'state_dict_from_jax', 'variables_to_jax',
            'input_shape_from_params', 'STAT_LEAVES']

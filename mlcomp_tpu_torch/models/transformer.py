@@ -99,7 +99,7 @@ def check_config(cfg: TransformerConfig):
     if cfg.matmul_precision == 'int8':
         raise NotImplementedError(
             "matmul_precision='int8' is not ported yet (ROADMAP.md, "
-            'queue A: the int8 serving path)')
+            'A3: int8_train_matmul and Int8DenseGeneral)')
     if cfg.n_experts:
         raise NotImplementedError(
             'n_experts > 0 (MoE) is not ported yet (ROADMAP.md, queue A: '

@@ -38,6 +38,25 @@ _LIBS = {}
 BUILD_LOGS = {}
 
 
+#: the impls every kernel wrapper takes, and the JAX package's names for
+#: them (its ``interpret`` reads as ``auto``: the kernel on the card)
+IMPLS = ('auto', 'dense', 'cuda')
+_IMPL_ALIASES = {'pallas': 'cuda', 'interpret': 'auto'}
+
+
+def resolve_impl(name: str, option: str) -> str:
+    """The port's impl for ``name``: ``auto``, ``dense`` or ``cuda``,
+    with the JAX package's ``pallas`` / ``interpret`` read as ``cuda`` /
+    ``auto``. Raises on anything else, naming the setting ``option``
+    (``attn_impl``, ``norm_impl``, ``impl``)."""
+    impl = _IMPL_ALIASES.get(name, name)
+    if impl not in IMPLS:
+        raise ValueError(
+            f"unknown {option.replace('_', ' ')} {name!r}: {option} must be "
+            f'one of {IMPLS} (or pallas/interpret)')
+    return impl
+
+
 def build_dir() -> str:
     return os.environ.get(BUILD_ENV) or os.path.join(
         os.path.dirname(PACKAGE_DIR), 'build', 'torch_kernels')

@@ -35,9 +35,6 @@ KERNEL_HEAD_DIMS = (32, 64, 128)
 #: the C interface's dtype codes (f32 runs the SIMT path, the 16-bit
 #: types the tensor-core path)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: JAX export specs name the TPU's impls; the port maps them onto its own
-_IMPL_ALIASES = {'pallas': 'cuda', 'interpret': 'auto'}
-IMPLS = ('auto', 'dense', 'cuda')
 
 
 def _scores(q, k, causal: bool, scale: float):
@@ -117,15 +114,9 @@ def reference_attention_backward(q, k, v, out, lse, do, causal: bool = True,
 
 
 def resolve_impl(name: str) -> str:
-    """The port's attention impl for ``name``: ``auto``, ``dense`` or
-    ``cuda``; a JAX export's ``pallas`` / ``interpret`` read as ``cuda``
-    / ``auto``. Raises on anything else."""
-    impl = _IMPL_ALIASES.get(name, name)
-    if impl not in IMPLS:
-        raise ValueError(
-            f'unknown attn impl {name!r}: attn_impl must be one of {IMPLS} '
-            f'(or pallas/interpret)')
-    return impl
+    """The port's attention impl for ``name`` (``_build.resolve_impl``
+    under the config key ``attn_impl``)."""
+    return _build.resolve_impl(name, 'attn_impl')
 
 
 def check_attention_inputs(q, k, v):

@@ -38,18 +38,12 @@ from mlcomp_tpu_torch.ops import _build
 
 #: the C interface's dtype codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_IMPL_ALIASES = {'pallas': 'cuda', 'interpret': 'auto'}
-IMPLS = ('auto', 'dense', 'cuda')
 
 
 def resolve_norm_impl(name: str) -> str:
-    """The port's norm impl for ``name`` (``auto``, ``dense`` or
-    ``cuda``; ``pallas`` / ``interpret`` as JAX exports name them)."""
-    impl = _IMPL_ALIASES.get(name, name)
-    if impl not in IMPLS:
-        raise ValueError(f'unknown norm impl {name!r}: norm_impl must be '
-                         f'one of {IMPLS} (or pallas/interpret)')
-    return impl
+    """The port's norm impl for ``name`` (``_build.resolve_impl`` under
+    the model key ``norm_impl``)."""
+    return _build.resolve_impl(name, 'norm_impl')
 
 
 def reference_norm_act(x2d, gamma, beta, eps: float = 1e-5, act: bool = True,

@@ -1,0 +1,197 @@
+"""Weight-only int8 matmul for the serving path: a hand-written CUDA
+kernel for Hopper and its plain PyTorch version.
+
+Port of the serving half of ``mlcomp_tpu/ops/int8_matmul.py``. The TPU's
+Pallas kernel ``_kernel`` (launched by ``_pallas_int8_matmul``) becomes
+``csrc/int8_matmul.cu`` (its header says what bounds it on the card and
+what the design does about that)::
+
+    y[M, N] = (x[M, K] @ dequant(w_qt[N, K]).T) * scale[N]      (f32)
+
+- ``quantize_int8``: symmetric per-output-channel quantization of a
+  [K, N] weight (absmax / 127, 1 where a column is all zeros, round half
+  to even, clip to ±127), returning the TRANSPOSED int8 [N, K] and the
+  f32 scale [N] — bit for bit the JAX package's.
+- ``reference_int8_matmul``: the plain version. x cast to bf16 and the
+  int8 values (exact in bf16) multiplied in f32, the scale applied once
+  to the f32 [M, N] product (post-scaling).
+- ``int8_matmul(impl=...)``: ``auto`` launches the kernel for a CUDA
+  tensor and takes the plain version for a CPU tensor; ``cuda`` the
+  kernel (a CPU tensor raises); ``dense`` the plain version anywhere; a
+  JAX caller's ``pallas`` / ``interpret`` read as ``cuda`` / ``auto``.
+  There is no fallback from the kernel. The JAX package's ``auto →
+  dense`` was a TPU measurement and does not carry over, nor does its
+  tile gate (M % 8, K % 128, N % 128): the kernel takes any M, N, K ≥ 1.
+  ``int8_matmul.launches`` counts the calls that launched it.
+- ``Int8Dense``: the serving predictor's stand-in for a ``Dense`` module
+  (``train/export.py`` swaps them in): the int8 weight, the scale and the
+  bias as buffers; ``int8_matmul``, the bias added in f32, the result
+  cast to the module's dtype — ``_quantized_interceptor``'s numerics.
+
+``int8_train_matmul`` (the dynamic int8 training product) is not ported
+yet (ROADMAP.md, A3).
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mlcomp_tpu_torch.ops import _build
+
+def quantize_int8(w):
+    """Symmetric per-output-channel quantization of a [K, N] weight.
+    Returns (w_qt int8 [N, K] — TRANSPOSED — and scale f32 [N]) with
+    ``dequant = (w_qt * scale[:, None]).T``, on w's device."""
+    w = torch.as_tensor(w).float()
+    absmax = w.abs().amax(dim=0)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    w_q = torch.clamp(torch.round(w / scale), -127, 127)
+    return w_q.t().to(torch.int8).contiguous(), scale
+
+
+def reference_int8_matmul(x, w_qt, scale, compute_dtype=torch.bfloat16):
+    """The plain version: x cast to ``compute_dtype`` (bf16) and the int8
+    weight (exact in bf16) multiplied in f32 — every product exact, the
+    sum in f32 — then the per-channel scale applied once."""
+    y = x.to(compute_dtype).float() @ w_qt.to(compute_dtype).float().t()
+    return y * scale.float()[None, :]
+
+
+def check_int8_inputs(x, w_qt, scale):
+    if x.dim() != 2 or w_qt.dim() != 2 or x.shape[1] != w_qt.shape[1] \
+            or tuple(scale.shape) != (w_qt.shape[0],):
+        raise ValueError(
+            f'shape mismatch: x {tuple(x.shape)}, w_qt '
+            f'{tuple(w_qt.shape)} (transposed [N, K] from quantize_int8), '
+            f'scale {tuple(scale.shape)}')
+    if not (x.device == w_qt.device == scale.device):
+        raise ValueError(f'x, w_qt, scale devices differ: {x.device}, '
+                         f'{w_qt.device}, {scale.device}')
+
+
+def _library():
+    lib = _build.library('int8_matmul')
+    fn = lib.int8_matmul
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        # x, w, scale, out, partial (pointers); M, N, K; stream
+        fn.argtypes = [ptr] * 5 + [i] * 3 + [ptr]
+        fn.restype = i
+        ws = lib.int8_matmul_workspace
+        ws.argtypes = [i, i, i]
+        ws.restype = ctypes.c_longlong
+        err = lib.int8_matmul_error_string
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x, w_qt, scale, out):
+    """The kernel on CUDA tensors: ``out`` (f32 [M, N], contiguous) or a
+    new one."""
+    m, k = x.shape
+    n = w_qt.shape[0]
+    if w_qt.dtype != torch.int8 or not w_qt.is_contiguous():
+        raise ValueError(f'int8_matmul takes a contiguous int8 w_qt, got '
+                         f'{w_qt.dtype} with strides {w_qt.stride()}')
+    x = x.to(torch.bfloat16).contiguous()
+    scale = scale.float().contiguous()
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    elif out.shape != (m, n) or out.dtype != torch.float32 \
+            or not out.is_contiguous() or out.device != x.device \
+            or out.data_ptr() % 8:
+        raise ValueError(f'out must be a contiguous, 8-byte aligned f32 '
+                         f'[{m}, {n}] on {x.device}')
+    lib = _library()
+    with torch.cuda.device(x.device):
+        # the scratch is sized from this device's plan
+        need = lib.int8_matmul_workspace(m, n, k)
+        partial = torch.empty(need, dtype=torch.float32, device=x.device) \
+            if need else None
+        err = lib.int8_matmul(
+            x.data_ptr(), w_qt.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), m, n, k,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f'int8_matmul launch failed: CUDA error {err} '
+            f'({lib.int8_matmul_error_string(err).decode()}) at M={m} '
+            f'K={k} N={n}')
+    int8_matmul.launches += 1
+    return out
+
+
+def int8_matmul(x, w_qt, scale, impl: str = 'auto',
+                out: Optional[torch.Tensor] = None):
+    """``x [M, K] @ dequant(w_qt [N, K]).T -> f32 [M, N]``.
+
+    - ``auto``: the kernel for a CUDA tensor, the plain version for a CPU
+      tensor — never the plain version for a CUDA tensor
+    - ``cuda``: the kernel; CUDA tensors only
+    - ``dense``: the plain version on any device
+    - ``pallas`` / ``interpret``: ``cuda`` / ``auto``
+
+    ``out`` (the kernel only): a contiguous f32 [M, N], 8-byte aligned
+    (the kernel stores column pairs), to write into.
+    """
+    check_int8_inputs(x, w_qt, scale)
+    impl = _build.resolve_impl(impl, 'impl')
+    if impl == 'cuda' and x.device.type != 'cuda':
+        raise ValueError(
+            f"int8_matmul impl 'cuda' needs CUDA tensors, got device "
+            f'{x.device}')
+    if impl == 'dense' or x.device.type == 'cpu':
+        if out is not None:
+            raise ValueError('out= is the kernel\'s; the plain version '
+                             'returns a new tensor')
+        return reference_int8_matmul(x, w_qt, scale)
+    if x.device.type != 'cuda':
+        raise ValueError(f'int8_matmul runs on cuda (or cpu: plain '
+                         f'version), got device {x.device}')
+    return _launch(x, w_qt, scale, out)
+
+
+int8_matmul.launches = 0
+
+
+class Int8Dense(nn.Module):
+    """A ``Dense`` with its weight quantized once: buffers ``w_qt`` (int8
+    [out, in]), ``scale`` (f32 [out]) and ``bias`` (or None). Forward:
+    ``int8_matmul`` over the flattened leading dims, the bias added in
+    f32, the result cast to ``dtype`` (left f32 where it is None)."""
+
+    #: ``int8_matmul``'s impl; ``'dense'`` runs the plain product on any
+    #: device (the card-side comparison sets it)
+    impl = 'auto'
+
+    def __init__(self, w_qt, scale, bias=None, dtype=None):
+        super().__init__()
+        self.register_buffer('w_qt', w_qt)
+        self.register_buffer('scale', scale)
+        self.register_buffer('bias', bias)
+        self.dtype = dtype
+
+    @classmethod
+    def from_dense(cls, module) -> 'Int8Dense':
+        """Quantize ``module``'s [out, in] weight where it lies (the JAX
+        kernel is its transpose) and keep its bias and dtype."""
+        with torch.no_grad():
+            w_qt, scale = quantize_int8(module.weight.detach().t())
+        bias = getattr(module, 'bias', None)
+        return cls(w_qt, scale, None if bias is None else bias.detach(),
+                   getattr(module, 'dtype', None))
+
+    def forward(self, x):
+        y = int8_matmul(x.reshape(-1, x.shape[-1]), self.w_qt, self.scale,
+                        impl=self.impl)
+        y = y.reshape(*x.shape[:-1], self.w_qt.shape[0])
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.dtype or y.dtype)
+
+
+__all__ = ['quantize_int8', 'int8_matmul', 'reference_int8_matmul',
+           'Int8Dense', 'check_int8_inputs']

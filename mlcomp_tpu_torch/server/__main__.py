@@ -3,15 +3,17 @@
 
     python -m mlcomp_tpu_torch.server serve NAME [NAME ...] [--project P]
         [--host H] [--port N] [--batch-size B] [--activation A]
-        [--coalesce-ms W] [--max-pending N] [--drain-timeout S]
-        [--device cuda|cpu]
+        [--quantize int8] [--coalesce-ms W] [--max-pending N]
+        [--drain-timeout S] [--device cuda|cpu]
 
 Each NAME is an export name under ``MODEL_FOLDER/<project>/`` or a path
 to a ``.msgpack`` export (written by either package). SIGTERM/SIGINT
 drain: new predicts get 503 while in-flight ones finish (bounded by
-``--drain-timeout``); a second signal closes at once. ``--register`` and
-``--quantize int8`` are not ported yet and fail with a pointer to their
-ROADMAP item.
+``--drain-timeout``); a second signal closes at once. ``--quantize
+int8`` serves the export's large 2-D projections as weight-only int8
+through the hand-written int8 matmul kernel (``train/export.py``).
+``--register`` is not ported yet and fails with a pointer to its ROADMAP
+item.
 """
 
 import argparse
@@ -34,9 +36,9 @@ def _parser() -> argparse.ArgumentParser:
     serve.add_argument('--batch-size', type=int, default=64)
     serve.add_argument('--activation', default=None,
                        choices=('softmax', 'sigmoid', 'argmax'))
-    serve.add_argument('--quantize', default=None,
-                       help="'int8' = weight-only int8 serving (not "
-                            'ported yet)')
+    serve.add_argument('--quantize', default=None, choices=('int8',),
+                       help="'int8' = weight-only int8 serving (half the "
+                            'weight bytes of bf16, a quarter of f32)')
     serve.add_argument('--coalesce-ms', type=float, default=0,
                        help='batch concurrent requests landing within '
                             'this many ms into one device dispatch '
@@ -60,13 +62,11 @@ def serve(args, parser):
         parser.error('--register needs the DB, which is not ported yet '
                      '(ROADMAP.md, queue A: the DB-backed heartbeat, '
                      'spans flush and --register)')
-    if args.quantize is not None:
-        parser.error(f'--quantize {args.quantize} is not ported yet '
-                     '(ROADMAP.md, queue A: the int8 serving path)')
     from mlcomp_tpu_torch.server.serve import ModelServer, resolve_model
     paths = [resolve_model(m, args.project) for m in args.model]
     server = ModelServer(paths, batch_size=args.batch_size,
-                         activation=args.activation, host=args.host,
+                         activation=args.activation,
+                         quantize=args.quantize, host=args.host,
                          port=args.port, coalesce_ms=args.coalesce_ms,
                          max_pending=args.max_pending, device=args.device)
     warmed = server.warmup()
@@ -74,7 +74,8 @@ def serve(args, parser):
     print(f'serving {", ".join(server.models)} on '
           f'http://{args.host}:{server.port} '
           f'(device={server.device_info["device"]}, '
-          f'warmup={"done" if warmed else "first-request"})', flush=True)
+          f'warmup={"done" if warmed else "first-request"}, '
+          f'quantize={args.quantize or "none"})', flush=True)
 
     # polite termination: stop admitting (503), let in-flight requests
     # finish, close. Runs on ANOTHER thread (stdlib shutdown blocks

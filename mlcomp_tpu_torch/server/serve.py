@@ -5,7 +5,8 @@
 
 loads the self-describing msgpack export ONCE (either package's), builds
 the predictor on the device (``device='cuda'`` unless the caller asks
-for the CPU), warms it at the static batch shape when the export's meta
+for the CPU; ``quantize='int8'`` serves its large projections through
+the weight-only int8 kernel, ``train/export.py``), warms it at the static batch shape when the export's meta
 carries ``input_shape``, and serves:
 
 - ``GET  /health``   (no auth) — model names, platform and device name,

@@ -1,6 +1,7 @@
 """How the card-side checks hold the kernels against their plain
 versions (``chip_smoke.py`` and ``kernel_faults``): the attention
-kernels first, the fused batch-norm+ReLU at the end ("Fused norm").
+kernels first, then the fused batch-norm+ReLU ("Fused norm"), then the
+weight-only int8 matmul and the serving stack ("Int8 serving").
 
 The measure is the relative L2 error of each output row (one query
 position of one head, D values), ``|out - ref| / |ref|``, its maximum
@@ -177,6 +178,148 @@ def norm_ok(result: dict, dtype) -> bool:
             and result['y_err'] <= NORM_Y_TOL[dtype])
 
 
+# ---------------------------------------------------------- int8 serving
+#: (M, K, N) at which the card-side checks hold the int8 matmul kernel
+#: against its plain version run in f64: the bench's weight-bound shape
+#: (K split over the SMs), the served flagship LM's projections and its
+#: head at batch 4 (M = 4·8192), then ragged shapes: K on the scalar
+#: path with a split (5×1000×999), one row and one K tile (1×64×10),
+#: M and N tails without a split (200×64×1000), and a split K with an
+#: N tail (37×4096×1000)
+INT8_SHAPES = [(64, 8192, 8192), (32768, 1024, 4096), (32768, 4096, 1024),
+               (32768, 1024, 32768), (5, 1000, 999), (1, 64, 10),
+               (200, 64, 1000), (37, 4096, 1000)]
+#: bound on the max over rows of |out - ref| / |ref| against the f64
+#: plain version: the products are exact (bf16 × int8 fits f32), so
+#: only the f32 sums over K ≤ 8192 (and the scale's one rounding) round
+INT8_ROW_TOL = 1e-5
+#: output rows past M that a tile can reach (the largest tile height):
+#: the check fills this many rows of NaN after the output and reads them
+#: back, so a store past M or N is caught
+CANARY_ROWS = 128
+
+#: (L, M, K, weight dtype, feed) at which the card-side checks hold the
+#: serving-stack kernel against ``reference_stack`` on the card: the
+#: bench's 8 layers of 8192² at M = 64 in int8 and bf16, one layer (no
+#: feed at all), bf16 layers without the feed, and small ragged cases
+#: (M = 5; M = 7 with K = N = 1000, the scalar load path)
+STACK_SHAPES = [(8, 64, 8192, torch.int8, True),
+                (8, 64, 8192, torch.bfloat16, True),
+                (1, 64, 8192, torch.int8, False),
+                (3, 64, 1024, torch.bfloat16, False),
+                (3, 5, 1024, torch.int8, True),
+                (2, 7, 1000, torch.int8, True)]
+#: bounds on the serving stack's row errors:
+#: - ``step``: each layer of the kernel against that layer in f64, fed
+#:   the kernel's own previous output (through ``stack_feed``, which the
+#:   kernel's feed matches bit for bit): the kernel's f32 sums alone;
+#: - ``chain``: the kernel's L layers against ``reference_stack``'s. The
+#:   two sum in another order (~4e-7 of a row at K = 8192), and the feed
+#:   rounds to bf16 between layers, which amplifies that: an activation
+#:   on a rounding edge rounds the other way, one bf16 ulp (2^-8) of
+#:   itself, so a relative difference ε of y becomes about √(ε·2^-8) of
+#:   the next x. Over 8 layers that climbs to the bf16 rounding level
+#:   (4.9e-3 measured on the H100 at 8 × 8192²); 1e-2 is 2.5 ulps
+STACK_ROW_TOL = {'step': 1e-5, 'chain': 1e-2}
+
+
+def stack_tol(layers: int) -> float:
+    """The bound on the end-to-end row error of an L-layer stack: one
+    layer is its f32 sums alone."""
+    return STACK_ROW_TOL['step' if layers == 1 else 'chain']
+
+
+def int8_inputs(m, k, n, gen, device='cuda'):
+    """x [M, K] bf16 standard normal and a [K, N] weight of std 0.02
+    quantized on the device: (x, w_qt, scale)."""
+    from mlcomp_tpu_torch.ops.int8_matmul import quantize_int8
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=device) * 0.02
+    return (x, *quantize_int8(w))
+
+
+def int8_check(shape, gen, device='cuda') -> dict:
+    """The int8 matmul kernel once at ``shape`` (M, K, N) on inputs from
+    ``gen`` against the plain version in f64: the row error, the largest
+    absolute error, whether the output is finite, and whether the
+    CANARY_ROWS rows after it still hold the NaN they were filled with."""
+    from mlcomp_tpu_torch.ops.int8_matmul import int8_matmul
+    m, k, n = shape
+    x, w_qt, scale = int8_inputs(m, k, n, gen, device)
+    buf = torch.full(((m + CANARY_ROWS) * n,), float('nan'), device=device)
+    out = buf[:m * n].view(m, n)
+    int8_matmul(x, w_qt, scale, impl='cuda', out=out)
+    ref = (x.double() @ w_qt.double().t()) * scale.double()
+    result = {
+        'row_err': row_relative_error(out, ref),
+        'max_abs_err': float((out.double() - ref).abs().max()),
+        'finite': bool(torch.isfinite(out).all()),
+        'canary': bool(torch.isnan(buf[m * n:]).all()),
+    }
+    del ref, buf, out
+    return result
+
+
+def int8_ok(result: dict) -> bool:
+    return (result['finite'] and result['canary']
+            and result['row_err'] <= INT8_ROW_TOL)
+
+
+def stack_inputs(layers, m, k, wdtype, gen, device='cuda'):
+    """x [M, K] bf16 standard normal and L weights [K, K] of std 0.02 as
+    the bench makes them: int8 by ``quantize_stack`` (w, scales) or bf16
+    transposed to [L, N, K] (w, None)."""
+    from mlcomp_tpu_torch.ops.serving_stack import quantize_stack
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    ws = [torch.randn((k, k), generator=gen, device=device) * 0.02
+          for _ in range(layers)]
+    if wdtype == torch.int8:
+        return (x, *quantize_stack(ws))
+    return x, torch.stack([w.t().to(torch.bfloat16) for w in ws]), None
+
+
+def stack_check(shape, gen, device='cuda') -> dict:
+    """The serving-stack kernel at ``shape`` (as ``STACK_SHAPES`` lists
+    them) against ``reference_stack`` on the same device: the row error
+    of the whole chain, the largest row error of one layer (the kernel
+    run over the first l layers against layer l in f64, fed the kernel's
+    own output of l - 1 layers), the chain's largest absolute error and
+    whether its output is finite."""
+    from mlcomp_tpu_torch.ops.serving_stack import (
+        reference_stack, serving_stack, stack_feed,
+    )
+    layers, m, k, wdtype, feed = shape
+    x, w, scales = stack_inputs(layers, m, k, wdtype, gen, device)
+
+    def first(n):
+        return w[:n], None if scales is None else scales[:n]
+
+    out = serving_stack(x, w, scales, feed=feed, block_n=k, block_k=k)
+    ref = reference_stack(x, w, scales, feed=feed)
+    step, prev = 0.0, None
+    for n in range(1, layers + 1):
+        y = out if n == layers else serving_stack(
+            x, *first(n), feed=feed, block_n=k, block_k=k)
+        x_n = x if prev is None else (
+            stack_feed(prev) if feed else prev.to(torch.bfloat16))
+        # one layer in f64: an f32 product's own rounding over K = 8192
+        # (~3e-6 of a row on the card) would hide the kernel's
+        want = x_n.to(torch.bfloat16).double() @ \
+            w[n - 1].to(torch.bfloat16).double().t()
+        if scales is not None:
+            want = want * scales[n - 1].double()
+        step = max(step, row_relative_error(y, want))
+        prev = y
+    return {'row_err': row_relative_error(out, ref), 'step_err': step,
+            'max_abs_err': float((out - ref).abs().max()),
+            'finite': bool(torch.isfinite(out).all())}
+
+
+def stack_ok(result: dict, layers: int) -> bool:
+    return (result['finite'] and result['step_err'] <= STACK_ROW_TOL['step']
+            and result['row_err'] <= stack_tol(layers))
+
+
 def lse_error(lse: torch.Tensor, ref: torch.Tensor) -> float:
     """max of |lse - ref| / max(1, |ref|); NaN when not finite."""
     ref = ref.float()
@@ -283,7 +426,10 @@ def row_relative_error(out: torch.Tensor, ref: torch.Tensor,
 
 __all__ = ['ATTENTION_ROW_TOL', 'ATTENTION_SHAPES', 'AUTOGRAD_HEAD_TOL',
            'BACKWARD_HEAD_TOL', 'BACKWARD_ROW_FLOOR', 'BACKWARD_ROW_TOL',
-           'BACKWARD_SHAPES', 'CIFAR_SITE_ACTS', 'LSE_TOL',
+           'BACKWARD_SHAPES', 'CANARY_ROWS', 'CIFAR_SITE_ACTS',
+           'INT8_ROW_TOL', 'INT8_SHAPES', 'LSE_TOL', 'STACK_ROW_TOL',
+           'STACK_SHAPES', 'int8_check', 'int8_inputs', 'int8_ok',
+           'stack_check', 'stack_inputs', 'stack_ok', 'stack_tol',
            'NORM_COLUMN_FLOOR', 'NORM_SHAPES', 'NORM_STAT_TOL', 'NORM_Y_TOL',
            'backward_check', 'backward_ok', 'cifar_norm_sites',
            'head_relative_error', 'lse_error', 'norm_check', 'norm_inputs',

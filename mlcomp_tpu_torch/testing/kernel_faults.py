@@ -5,16 +5,18 @@ card-side check, to show the check would catch them.
 
 Needs one CUDA card and ``nvcc``. First the kernels as they stand run at
 every shape of ``kernel_check.ATTENTION_SHAPES`` (forward),
-``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward) and
-``kernel_check.NORM_SHAPES`` (fused norm) for each seed, which shows the
-margin of each tolerance. Then each fault below, a textual edit of
-``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` or
-``csrc/fused_norm.cu`` written to a temporary directory (the checkout is
-not touched) and built with the package's nvcc flags, runs at the
-serving shape (forward faults), the training shape (backward faults) or
-every norm shape (norm faults: caught if any shape fails a bound). Each
-line gives the errors against their bounds. Exits 1 if a kernel as it
-stands fails a bound or a planted fault passes them all.
+``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward),
+``kernel_check.NORM_SHAPES`` (fused norm), ``kernel_check.INT8_SHAPES``
+(int8 matmul) and ``kernel_check.STACK_SHAPES`` (serving stack) for each
+seed, which shows the margin of each tolerance. Then each fault below, a
+textual edit of a kernel's ``csrc/*.cu`` (or of a header it includes,
+copied beside it) written to a temporary directory (the checkout is not
+touched) and built with the package's nvcc flags, runs at the serving
+shape (forward faults), the training shape (backward faults) or every
+shape of its kernel (norm, int8 and stack faults: caught if any shape
+fails a bound). Each line gives the errors against their bounds. Exits 1
+if a kernel as it stands fails a bound or a planted fault passes them
+all.
 """
 
 import argparse
@@ -30,9 +32,10 @@ from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
     ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
-    BACKWARD_SHAPES, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL,
-    backward_check, backward_ok, norm_check, norm_ok, qkv_views,
-    row_relative_error,
+    BACKWARD_SHAPES, INT8_ROW_TOL, INT8_SHAPES, NORM_SHAPES, NORM_STAT_TOL,
+    NORM_Y_TOL, STACK_ROW_TOL, STACK_SHAPES, backward_check, backward_ok,
+    int8_check, int8_ok, norm_check, norm_ok, qkv_views, row_relative_error,
+    stack_check, stack_ok, stack_tol,
 )
 
 KERNEL = 'flash_attention_fwd'
@@ -133,25 +136,88 @@ NORM_FAULTS = {
 }
 
 
+GEMM_HEADER = 'int8_gemm.cuh'
+_DROP_K_TILE = (
+    GEMM_HEADER, '      const int st = kt % STAGES;\n',
+    '      if (kt == n_k / 2) continue;\n      const int st = kt % STAGES;\n')
+
+INT8_KERNEL = 'int8_matmul'
+#: name -> [(text of the int8 matmul's source, its replacement), or
+#: (header, text, replacement)]
+INT8_FAULTS = {
+    # the middle K tile of every tile product skipped
+    'k_tile_dropped': [_DROP_K_TILE],
+    # the unsplit epilogue scales each column by its neighbour's scale
+    'scale_of_next_channel': [(
+        'const float s0 = col < p.N ? p.scale[col] : 0.f;',
+        'const float s0 = col + 1 < p.N ? p.scale[col + 1] : 0.f;')],
+    # the split-K sum scales by the neighbour's scale
+    'split_sum_scale_of_next_channel': [(
+        'p.out[i] = s * p.scale[n];',
+        'p.out[i] = s * p.scale[n + 1 < p.N ? n + 1 : n];')],
+    # the tiles' rows past M are stored
+    'unmasked_m_tail_store': [(GEMM_HEADER, '  if (row >= M) return;\n', '')],
+    # the columns past N of a tile's last pair are stored
+    'unmasked_n_tail_store': [(
+        GEMM_HEADER,
+        '  if (col < N) p[0] = v0;\n  if (col + 1 < N) p[1] = v1;',
+        '  p[0] = v0;\n  p[1] = v1;')],
+    # the scalar path reads 8 columns past the end of its K range
+    'k_tail_read_past_k': [
+        (GEMM_HEADER, 'xs[r * LDX + kc] = row < M && col < kend',
+         'xs[r * LDX + kc] = row < M && col < kend + 8'),
+        (GEMM_HEADER, 'ws[r * LDW + kc] = n < N && col < kend',
+         'ws[r * LDW + kc] = n < N && col < kend + 8')],
+}
+
+STACK_KERNEL = 'serving_stack'
+#: name -> edits, as INT8_FAULTS
+STACK_FAULTS = {
+    'k_tile_dropped': [_DROP_K_TILE],
+    # each block normalises by its own max, not the grid's
+    'feed_max_of_own_block': [(
+        'g = fmaxf(g, __ldcg(p.slots + i));',
+        'g = fmaxf(g, __ldcg(p.slots + blockIdx.x));')],
+    # the feed passes y through unnormalised
+    'feed_skipped': [(
+        '__float2bfloat16_rn(p.feed ? y / denom : y)',
+        '__float2bfloat16_rn(y)')],
+    # each column scaled by its neighbour's scale
+    'scale_of_next_channel': [(
+        'v0 *= col < N ? s[col] : 0.f;',
+        'v0 *= col + 1 < N ? s[col + 1] : 0.f;')],
+}
+
+
 def build_faults(out_dir: str, kernel: str, faults: dict) -> dict:
     """{fault: library path} for ``faults`` ({name: [(old, new), ...]})
-    planted in ``csrc/<kernel>.cu``, one nvcc per fault, all started
-    together."""
+    planted in ``csrc/<kernel>.cu`` — or, for an edit ``(header, old,
+    new)``, in a copy of that ``csrc/`` header beside the fault's source,
+    where its ``#include "..."`` finds it first — one nvcc per fault, all
+    started together."""
     src = os.path.join(_build.CSRC_DIR, kernel + '.cu')
-    with open(src) as fh:
-        source = fh.read()
     running = {}
     for name, edits in faults.items():
-        text = source
-        for old, new in edits:
-            if source.count(old) != 1:
+        texts = {}
+        for edit in edits:
+            file, old, new = edit if len(edit) == 3 else (
+                kernel + '.cu', *edit)
+            if file not in texts:
+                with open(os.path.join(_build.CSRC_DIR, file)) as fh:
+                    texts[file] = fh.read()
+            if texts[file].count(old) != 1:
                 raise RuntimeError(
-                    f'fault {name}: the text it edits is not in {src} once')
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f'{name}.cu')
-        with open(cu, 'w') as fh:
-            fh.write(text)
-        so = os.path.join(out_dir, f'{name}.so')
+                    f'fault {name}: the text it edits is not in {file} once')
+            texts[file] = texts[file].replace(old, new)
+        fault_dir = os.path.join(out_dir, kernel, name)
+        os.makedirs(fault_dir)
+        with open(src) as fh:
+            texts.setdefault(kernel + '.cu', fh.read())
+        for file, text in texts.items():
+            with open(os.path.join(fault_dir, file), 'w') as fh:
+                fh.write(text)
+        cu = os.path.join(fault_dir, kernel + '.cu')
+        so = os.path.join(fault_dir, f'{name}.so')
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, '-I', _build.CSRC_DIR,
                '-o', so, cu]
         running[name] = (subprocess.Popen(
@@ -207,6 +273,31 @@ def _norm_line(r: dict) -> str:
             f'tol={NORM_STAT_TOL} y_err={r["y_err"]:.3e}')
 
 
+def check_int8(shape, seed: int) -> dict:
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    result = int8_check(shape, gen)
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_stack(shape, seed: int) -> dict:
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    result = stack_check(shape, gen)
+    torch.cuda.empty_cache()
+    return result
+
+
+def _int8_line(r: dict) -> str:
+    return (f'row_err={r["row_err"]:.3e} tol={INT8_ROW_TOL} '
+            f'canary={r["canary"]} finite={r["finite"]}')
+
+
+def _failing(shapes, check, ok, seed: int) -> list:
+    """[(shape, result)] of the shapes at which ``check`` fails ``ok``."""
+    return [(shape, r) for shape in shapes for r in [check(shape, seed)]
+            if not ok(r, shape)]
+
+
 def _with_library(kernel: str, so: str, fn):
     """``fn()`` with the kernel library swapped for the one at ``so``."""
     shipped = _build.library(kernel)
@@ -259,6 +350,23 @@ def main() -> int:
                   f'act={shape[3]} seed={seed} {_norm_line(r)} '
                   f'tol={NORM_Y_TOL[shape[2]]} ok={ok}', flush=True)
 
+    for shape in INT8_SHAPES:
+        for seed in args.seeds:
+            r = check_int8(shape, seed)
+            ok = int8_ok(r)
+            holes += not ok
+            print(f'[int8] shape={shape} seed={seed} {_int8_line(r)} '
+                  f'max_abs_err={r["max_abs_err"]:.3e} ok={ok}', flush=True)
+    for shape in STACK_SHAPES:
+        for seed in args.seeds:
+            r = check_stack(shape, seed)
+            ok = stack_ok(r, shape[0])
+            holes += not ok
+            print(f'[stack] shape={shape[:3]} w={str(shape[3])[6:]} '
+                  f'feed={shape[4]} seed={seed} row_err={r["row_err"]:.3e} '
+                  f'tol={stack_tol(shape[0])} step_err={r["step_err"]:.3e} '
+                  f'step_tol={STACK_ROW_TOL["step"]} ok={ok}', flush=True)
+
     serving = ATTENTION_SHAPES[0]
     tol = ATTENTION_ROW_TOL[serving[4]]
     training = BACKWARD_SHAPES[0]
@@ -298,6 +406,24 @@ def main() -> int:
                   + (f' first={first[0][:2]} {str(first[0][2])[6:]} '
                      f'act={first[0][3]} {_norm_line(first[1])}'
                      if first else ''), flush=True)
+        for kernel, faults, shapes, run, passes in (
+                (INT8_KERNEL, INT8_FAULTS, INT8_SHAPES, check_int8,
+                 lambda r, shape: int8_ok(r)),
+                (STACK_KERNEL, STACK_FAULTS, STACK_SHAPES, check_stack,
+                 lambda r, shape: stack_ok(r, shape[0]))):
+            for name, so in build_faults(tmp, kernel, faults).items():
+                failed = _with_library(kernel, so, lambda: _failing(
+                    shapes, run, passes, args.seeds[0]))
+                holes += not failed
+                first = failed[0] if failed else None
+                print(f'[fault] {kernel}.{name} caught={bool(failed)} '
+                      f'failing_shapes={len(failed)}/{len(shapes)}'
+                      + (f' first={first[0]} row_err='
+                         f'{first[1]["row_err"]:.3e}'
+                         + (f' canary={first[1]["canary"]}'
+                            if 'canary' in first[1] else
+                            f' step_err={first[1]["step_err"]:.3e}')
+                         if first else ''), flush=True)
     print(f'[done] holes={holes}', flush=True)
     return 1 if holes else 0
 

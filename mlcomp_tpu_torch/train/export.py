@@ -13,6 +13,17 @@ with its own registry and moves the JAX weights (and an image model's
 built and loaded once, batches are applied in fixed-size chunks with the
 tail padded by repeats and sliced off after, and an optional
 softmax/sigmoid/argmax head runs on the device.
+
+``quantize='int8'`` is the counterpart of ``_quantized_interceptor``:
+the port has no method interceptor, so the chosen ``Dense`` modules of
+the built model are swapped for ``ops.int8_matmul.Int8Dense``, quantized
+once on the device (the f32 weight is not kept). Which ones follows the
+JAX parameter tree, not the torch shapes: a ``kernel`` leaf that is 2-D
+with at least 65,536 elements (``quantized_modules``). So a stacked
+(``layers``) LM export quantizes its ``lm_head`` alone (its MLP kernels
+are 3-D), a per-layer one each layer's ``wi_gate``, ``wi_up`` and ``wo``
+too; attention's ``qkv`` and ``out`` kernels are 4-D and 3-D there and
+never quantize, and the CIFAR ResNet-18's 512×10 head is too small.
 """
 
 import json
@@ -120,6 +131,49 @@ def build_model(variables: dict, model_spec: dict, device='cuda'):
 
 _ACTIVATIONS = ('softmax', 'sigmoid', 'argmax', None)
 
+#: a JAX ``kernel`` quantizes when it is 2-D with at least this many
+#: elements (``_quantized_interceptor``'s ``min_size``)
+QUANTIZE_MIN_SIZE = 65536
+
+
+def quantized_modules(params: dict) -> list:
+    """Names of the port modules whose JAX ``kernel`` leaf the JAX
+    package's ``_quantized_interceptor`` quantizes: 2-D, at least
+    QUANTIZE_MIN_SIZE elements."""
+    from mlcomp_tpu_torch.convert import port_module_name
+    names = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                walk(sub, path + (key,))
+        elif len(path) > 1 and path[-1] == 'kernel':
+            shape = tuple(getattr(tree, 'shape', ()))
+            if len(shape) == 2 and shape[0] * shape[1] >= QUANTIZE_MIN_SIZE:
+                names.append(port_module_name(path[:-1]))
+
+    walk(params, ())
+    return names
+
+
+def quantize_model(model, names) -> int:
+    """Swap each named ``Dense`` of ``model`` for an ``Int8Dense``
+    quantized from its weight where it lies; a module that is not a
+    ``Dense`` of the port stays as it is (the interceptor, too, passes
+    every other module through). Returns the number swapped."""
+    from mlcomp_tpu_torch.models.resnet import Dense as ImageDense
+    from mlcomp_tpu_torch.models.transformer import Dense as LmDense
+    from mlcomp_tpu_torch.ops.int8_matmul import Int8Dense
+    swapped = 0
+    for name in names:
+        parent_name, _, attr = name.rpartition('.')
+        parent = model.get_submodule(parent_name)
+        module = getattr(parent, attr)
+        if isinstance(module, (LmDense, ImageDense)):
+            setattr(parent, attr, Int8Dense.from_dense(module))
+            swapped += 1
+    return swapped
+
 
 def make_predictor(file: str = None, model_spec: dict = None,
                    variables: dict = None, batch_size: int = 512,
@@ -133,16 +187,17 @@ def make_predictor(file: str = None, model_spec: dict = None,
     after. Outputs are f32, except ``argmax``, which takes the index on
     the model's own logits (the argmax of bf16 logits is the argmax of
     their f32 cast) and returns int32 as the JAX package does.
+
+    ``quantize='int8'`` swaps the large 2-D ``Dense`` projections for
+    weight-only int8 ones (module docstring); ``predict.quantized`` is
+    the number swapped (0 keeps the model as it is, as JAX keeps its
+    plain apply).
     """
     if activation not in _ACTIVATIONS:
         raise ValueError(f'activation must be one of {_ACTIVATIONS}')
     if quantize not in (None, 'int8'):
         raise ValueError(f"quantize must be None or 'int8', "
                          f'got {quantize!r}')
-    if quantize == 'int8':
-        raise NotImplementedError(
-            "quantize='int8' serving is not ported yet (ROADMAP.md, queue "
-            'A: the int8 serving path with the int8 matmul kernel)')
     if variables is None:
         if file is None:
             raise ValueError('need file= or variables=')
@@ -150,6 +205,10 @@ def make_predictor(file: str = None, model_spec: dict = None,
         model_spec = model_spec or file_spec
     model = build_model(variables, model_spec, device)
     dev = next(model.parameters()).device
+    quantized = 0
+    if quantize == 'int8':
+        quantized = quantize_model(model,
+                                   quantized_modules(variables['params']))
 
     @torch.inference_mode()
     def apply(batch: np.ndarray) -> np.ndarray:
@@ -178,8 +237,10 @@ def make_predictor(file: str = None, model_spec: dict = None,
         return np.concatenate(outs) if outs else np.empty((0,))
 
     predict.model = model
+    predict.quantized = quantized
     return predict
 
 
 __all__ = ['export_model', 'export_from_checkpoint', 'export_base',
-           'load_export', 'load_export_meta', 'build_model', 'make_predictor']
+           'load_export', 'load_export_meta', 'build_model', 'make_predictor',
+           'quantized_modules', 'quantize_model', 'QUANTIZE_MIN_SIZE']

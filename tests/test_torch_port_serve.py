@@ -616,8 +616,17 @@ class TestDeviceAndUnported:
             port_export.make_predictor(file=export)
 
     def test_int8_quantize_not_ported(self, export):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ModelServer(export, port=0, quantize='int8', device='cpu')
+        """int8 serving is ported now (tests/test_torch_port_int8.py):
+        the server builds with it — this small export has no kernel of
+        65,536 elements, so nothing is swapped, as JAX's interceptor
+        quantizes nothing — and any other value still raises."""
+        srv = ModelServer(export, port=0, quantize='int8', device='cpu')
+        try:
+            assert srv.primary.predict.quantized == 0
+        finally:
+            srv.shutdown()
+        with pytest.raises(ValueError, match="'int8'"):
+            ModelServer(export, port=0, quantize='int4', device='cpu')
 
     def test_heartbeat_not_ported(self, export):
         srv = ModelServer(export, port=0, device='cpu')
@@ -627,8 +636,9 @@ class TestDeviceAndUnported:
         finally:
             srv.shutdown()
 
+    # --quantize int8 is ported: with it, --register is still refused
     @pytest.mark.parametrize('flags', [['--register'],
-                                       ['--quantize', 'int8']])
+                                       ['--quantize', 'int8', '--register']])
     def test_cli_refuses_unported_options(self, export, flags, capsys):
         from mlcomp_tpu_torch.server.__main__ import main
         with pytest.raises(SystemExit) as e:
