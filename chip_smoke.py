@@ -86,6 +86,41 @@ last line:
 14. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
+Phases of the int8 training slice, run among the above (ce-kernels and
+int8-train after the int8 kernels, train-wide-int8 after train,
+step-wide after step):
+
+- int8-train: ``int8_train_matmul`` (``torch._int_mm`` on the card: a
+  library call, no kernel of the port's) and both its gradients against
+  autograd through its STE oracle run in f32, by relative L2 error
+  (``kernel_check.INT8_TRAIN_SHAPES``: the wide step's ``qkv`` with bf16
+  masters, its ``wo`` with f32 params);
+- ce-kernels: the blocked cross-entropy's forward and backward kernels
+  against their plain versions run in f64 (``kernel_check.CE_SHAPES``:
+  the wide LM step's 8191 × 32768 bf16 with each (z, ε) of {0, 1e-4} ×
+  {0, 0.1}, bench_fused_ce's 8192 × 32768, ragged shapes in fp16 and
+  f32, strided rows; labels partly out of range; NaN canaries after
+  loss, lse and dx), timed at the step's shape beside their bounds,
+  their plain versions and ``F.cross_entropy`` (its autograd for the
+  backward);
+- train-wide-int8: ``Executor.from_config('train', config)`` on the
+  wide LM of ``bench_lm`` (d_model 2048, 32 heads, d_ff 8192, 8 layers,
+  T=8192, 687,900,672 parameters) with ``matmul_precision: int8``,
+  ``param_dtype: bfloat16``, AdamW with ``master_dtype: bfloat16`` and
+  ``loss: {name: lm_ce, impl: pallas, z_loss: 1e-4, label_smoothing:
+  0.1}``: one epoch over an npz of random tokens, checkpoints, the
+  export loaded by ``make_predictor``; launch counts zeroed just before
+  and read just after (per step 1 CE forward and 1 backward, 8 flash
+  forwards and 8 of each backward; no serving int8 launch);
+- step-wide: ``bench_lm``'s wide legs on the same weights, timed in
+  turns: (a) bf16, (b) int8 with bf16 masters (``lm_wide_int8_vs_bf16``),
+  (c) int8 with the fused-CE kernels, z-loss and smoothing, (d) that
+  loss dense; step ms, tokens/s, MFU; the CE kernels' and ``_int_mm``'s
+  device time in (c) (profiler), the quantize passes, the dense CE and
+  the two [N, V] passes around the kernels (CUDA events); checks (c)
+  against (d) (logits-gradient cosine, loss) and (a) against (b) (every
+  parameter's gradient cosine).
+
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
 """
@@ -1612,6 +1647,495 @@ def phase_serving_int8(seed: int) -> dict:
     return {'launches': launches, 'numbers': out}
 
 
+# ----------------------------------------------------------- cross-entropy
+#: the step's CE operands, timed: B(T-1) = 8191 rows at B = 1, T = 8192,
+#: the wide LM's vocabulary, bf16, with the loss's z-loss and smoothing
+CE_TIMED = [(8191, 32768, torch.bfloat16, 1e-4, 0.1),
+            (8192, 32768, torch.bfloat16, 1e-4, 0.1)]
+
+
+def ce_bound_ms(n, v, dtype, backward: bool):
+    """Least time for a CE kernel: forward, x read once, labels read and
+    loss and lse written; backward, x, labels, lse and g read and dx
+    written — or its f32 operations (forward ~5 an element: max, the
+    exponent's FFMA and ex2, the add, the smoothing sum; backward ~6) at
+    the card's f32 peak outside the tensor cores, whichever is larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    if backward:
+        nbytes, ops = 2 * n * v * size + 3 * n * 4, 6 * n * v
+    else:
+        nbytes, ops = n * v * size + 3 * n * 4, 5 * n * v
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                 else 'bytes')
+
+
+def library_ce(x, labels, z, eps):
+    """One PyTorch call per term as the yardstick: ``F.cross_entropy``
+    with ``label_smoothing`` (the same function: lse − (1−ε)·x[y] −
+    (ε/V)·Σx), plus ``z · logsumexp²`` where z ≠ 0."""
+    import torch.nn.functional as F
+    loss = F.cross_entropy(x, labels, reduction='none', label_smoothing=eps)
+    if z:
+        loss = loss + z * torch.logsumexp(x.float(), dim=-1).square()
+    return loss
+
+
+def phase_ce_kernels(seed: int) -> list:
+    """The CE forward and backward kernels against their plain versions
+    (run in f64) at every CE_SHAPES shape, then timed at the step's and
+    bench_fused_ce's shapes. Returns their kernels-line entries."""
+    from mlcomp_tpu_torch.ops.fused_ce import (
+        ce_backward, ce_forward, reference_ce_bwd, reference_ce_fwd,
+    )
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES, ce_check, ce_inputs, ce_ok,
+    )
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    errors = {}
+    for shape in CE_SHAPES:
+        n, v, dtype, z, eps, pad = shape
+        try:
+            r = ce_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused launch or a fault in the run
+            fail(f'fused_ce at N={n} V={v} {dtype}: {e}')
+        ok = ce_ok(r, dtype)
+        say('ce-kernels', ok=ok, shape=f'{n}x{v}', dtype=str(dtype)[6:],
+            z=z, eps=eps, pad=pad, loss_err=f'{r["loss_err"]:.3e}',
+            lse_err=f'{r["lse_err"]:.3e}', tol=CE_LOSS_TOL,
+            dx_row_err=f'{r["dx_row_err"]:.3e}', dx_tol=CE_ROW_TOL[dtype],
+            canary=r['canary'], finite=r['finite'])
+        if not ok:
+            fail(f'fused_ce disagrees with its plain version at {shape}: '
+                 f'{r}')
+        errors[shape] = r
+        torch.cuda.empty_cache()
+
+    timed = {}
+    for n, v, dtype, z, eps in CE_TIMED:
+        # two copies of 537 MB, ten times the L2: every call reads x from
+        # device memory, as the step's loss does
+        inputs = []
+        for _ in range(2):
+            x, labels, g = ce_inputs(n, v, dtype, gen)
+            labels = labels.clamp(0, v - 1)
+            _, lse = ce_forward(x, labels, z, eps)
+            inputs.append((x, labels, g, lse))
+        fwd_ms = time_rotating_ms(
+            lambda x, y, g, lse: ce_forward(x, y, z, eps), inputs, iters=20)
+        bwd_ms = time_rotating_ms(
+            lambda x, y, g, lse: ce_backward(x, y, lse, g, z, eps), inputs,
+            iters=20)
+        plain_fwd = time_rotating_ms(
+            lambda x, y, g, lse: reference_ce_fwd(x, y, z, eps), inputs,
+            iters=4)
+        plain_bwd = time_rotating_ms(
+            lambda x, y, g, lse: reference_ce_bwd(x, y, lse, g, z, eps),
+            inputs, iters=4)
+        lib_fwd = time_rotating_ms(
+            lambda x, y, g, lse: library_ce(x, y.long(), z, eps), inputs,
+            iters=10)
+        graphs = []
+        for x, y, g, lse in inputs:
+            leaf = x.detach().requires_grad_()
+            graphs.append((leaf, library_ce(leaf, y.long(), z, eps), g))
+        lib_bwd = time_rotating_ms(
+            lambda leaf, out, g: torch.autograd.grad(
+                out, leaf, g.to(out.dtype), retain_graph=True),
+            graphs, iters=10)
+        bounds = {k: ce_bound_ms(n, v, dtype, k == 'bwd')
+                  for k in ('fwd', 'bwd')}
+        timed[n] = {'fwd': dict(ms=fwd_ms, plain_ms=plain_fwd,
+                                library_ms=lib_fwd, bound_ms=bounds['fwd'][0],
+                                bound_by=bounds['fwd'][1]),
+                    'bwd': dict(ms=bwd_ms, plain_ms=plain_bwd,
+                                library_ms=lib_bwd, bound_ms=bounds['bwd'][0],
+                                bound_by=bounds['bwd'][1])}
+        for k, t in timed[n].items():
+            say('ce-kernels', kernel=k, shape=f'{n}x{v}',
+                dtype=str(dtype)[6:], z=z, eps=eps, ms=f'{t["ms"]:.4f}',
+                bound_ms=f'{t["bound_ms"]:.4f}', bound_by=t['bound_by'],
+                bound_share=f'{t["bound_ms"] / t["ms"]:.3f}',
+                plain_ms=f'{t["plain_ms"]:.3f}',
+                library_ms=f'{t["library_ms"]:.4f}',
+                gbytes_per_s=f'{(2 if k == "bwd" else 1) * n * v * 2 / t["ms"] / 1e6:.1f}')
+        del inputs, graphs
+        torch.cuda.empty_cache()
+    step_n, step_v = CE_TIMED[0][:2]
+    err = errors[(*CE_TIMED[0], 0)]
+    library = ('F.cross_entropy(x, y, reduction="none", label_smoothing=eps)'
+               ' + z * logsumexp(x)^2')
+    entries = []
+    for k, name, line in (('fwd', 'fused_ce_fwd', 79),
+                          ('bwd', 'fused_ce_bwd', 124)):
+        entries.append({
+            'name': name, 'route': 'cuda',
+            'source': 'mlcomp_tpu_torch/csrc/fused_ce.cu',
+            'replaces': f'mlcomp_tpu/ops/fused_ce.py:{line}',
+            'max_abs_err': err['loss_err'] if k == 'fwd'
+            else err['max_abs_err'],
+            **timed[step_n][k], 'shape': [step_n, step_v, 'bfloat16'],
+            'library': library if k == 'fwd' else f'autograd of {library}',
+            'shapes': {f'{n}x{step_v}': timed[n][k] for n in timed}})
+    return entries
+
+
+# ------------------------------------------------------- the wide int8 LM
+#: ``bench_lm``'s wide legs (bench.py:636-687): the flagship at d_model
+#: 2048, 32 heads of 64, d_ff 8192 — 687,900,672 parameters
+WIDE = {**FLAGSHIP, 'd_model': 2048, 'n_heads': 32, 'd_ff': 8192}
+WIDE_INT8 = {**WIDE, 'matmul_precision': 'int8', 'param_dtype': 'bfloat16'}
+#: the fused-CE loss as a JAX config writes it
+FUSED_CE_LOSS = {'name': 'lm_ce', 'impl': 'pallas', 'z_loss': 1e-4,
+                 'label_smoothing': 0.1}
+#: rows of 8192 random tokens in the wide phase's npz: 2 train, 1 valid
+WIDE_ROWS = 3
+WIDE_STEP_ITERS = 3
+#: (c) against (d) on the same logits: the kernels' loss and logits
+#: gradient against the dense formulation (f32 sums in another order;
+#: the gradient rounds to bf16 on both sides)
+MIN_CE_GRAD_COSINE = 0.9999
+MAX_CE_LOSS_REL = 1e-3
+#: (a) bf16 against (b) int8 with bf16 masters from the same weights:
+#: the least cosine of any parameter's gradient. STE int8 gradients
+#: round each product's operands to a 127th of their channel's absmax
+#: (and the bf16 masters round the weights): measured 0.9926 on the H100
+#: (the MLP's wi_gate weights; mean 0.995). A cosine does not see a
+#: gradient's scale: ``[int8-train]`` holds the product's gradients
+#: against the STE oracle by relative norm
+MIN_INT8_GRAD_COSINE = 0.98
+
+
+def phase_int8_train_matmul(seed: int):
+    """``int8_train_matmul`` forward and gradients against the STE
+    oracle at the wide step's shapes (``kernel_check``'s bounds)."""
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        INT8_TRAIN_SHAPES, INT8_TRAIN_TOL, int8_train_check, int8_train_ok,
+    )
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    for shape in INT8_TRAIN_SHAPES:
+        try:
+            r = int8_train_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused call or a fault in the run
+            fail(f'int8_train_matmul at {shape}: {e}')
+        ok = int8_train_ok(r)
+        say('int8-train', ok=ok, shape='x'.join(map(str, shape[:3])),
+            weight=str(shape[3])[6:],
+            **{f'{k}_rel_err': f'{r[k]:.3e}' for k in INT8_TRAIN_TOL},
+            tol=INT8_TRAIN_TOL)
+        if not ok:
+            fail(f'int8_train_matmul disagrees with its STE oracle at '
+                 f'{shape}: {r}')
+        torch.cuda.empty_cache()
+
+
+def phase_train_wide_int8(seed: int) -> dict:
+    """The training entry point on the wide LM with int8 training
+    matmuls, bf16 masters and the fused-CE loss; returns the launches of
+    each kernel in its run."""
+    import gc
+    from mlcomp_tpu_torch.ops import flash_attention as fa
+    from mlcomp_tpu_torch.ops import fused_ce
+    from mlcomp_tpu_torch.ops.int8_matmul import int8_matmul
+    from mlcomp_tpu_torch.train.export import make_predictor
+    from mlcomp_tpu_torch.worker.executors import Executor
+
+    t, vocab = WIDE['max_seq_len'], WIDE['vocab_size']
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_wide_')
+    cwd = os.getcwd()
+    try:
+        tokens = np.random.default_rng(seed + 3).integers(
+            0, vocab, (WIDE_ROWS, t), dtype=np.int32)
+        data = os.path.join(work, 'tokens.npz')
+        np.savez(data, x=tokens, y=tokens)
+        ck_dir = os.path.join(work, 'checkpoints')
+        config = {'executors': {'train': {
+            'type': 'train', 'model': dict(WIDE_INT8),
+            'dataset': {'name': 'npz', 'path': data},
+            'loss': dict(FUSED_CE_LOSS), 'batch_size': 1,
+            'stages': [{'name': 'stage1', 'epochs': 1, 'optimizer': {
+                'name': 'adamw', 'lr': 3e-4, 'master_dtype': 'bfloat16',
+                'schedule': {'name': 'warmup_cosine'}}}],
+            'main_metric': 'loss', 'minimize': True,
+            'checkpoint_dir': ck_dir, 'model_name': 'wide_lm_int8',
+            'seed': seed, 'device': 'cuda'}}}
+        os.chdir(work)
+        executor = Executor.from_config('train', config)
+        n_train = int(WIDE_ROWS * 0.8)
+        n_valid = WIDE_ROWS - n_train
+        counters = {'flash_attention_fwd': fa.flash_attention_forward,
+                    'flash_attention_bwd_dq': fa.flash_attention_backward_dq,
+                    'flash_attention_bwd_dkv':
+                        fa.flash_attention_backward_dkv,
+                    'fused_ce_fwd': fused_ce.ce_forward,
+                    'fused_ce_bwd': fused_ce.ce_backward,
+                    'int8_matmul': int8_matmul}
+        # the main path: counts zeroed just before, read just after
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        result = executor(logger=_train_logger())
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        del executor
+        gc.collect()
+        torch.cuda.empty_cache()
+        layers = WIDE['n_layers']
+        # the eval step's loss runs the CE forward too
+        want = {'flash_attention_fwd': layers * (n_train + n_valid),
+                'flash_attention_bwd_dq': layers * n_train,
+                'flash_attention_bwd_dkv': layers * n_train,
+                'fused_ce_fwd': n_train + n_valid,
+                'fused_ce_bwd': n_train, 'int8_matmul': 0}
+        files = sorted(os.listdir(ck_dir))
+        export = os.path.join(work, 'models', 'wide_lm_int8')
+        say('train-wide-int8', steps=n_train, valid_rows=n_valid,
+            seconds=f'{train_s:.1f}', valid_loss=result['best_score'],
+            params=result['n_params'], launches=launches,
+            checkpoints=files)
+        if launches != want:
+            fail(f'expected launches {want} (per step 1 CE forward and 1 '
+                 f'backward, 8 flash forwards and 8 of each backward; 1 CE '
+                 f'forward and 8 flash forwards per valid batch; no '
+                 f'serving int8 launch), got {launches}')
+        if not np.isfinite(result['best_score']):
+            fail(f'train loss is not finite: {result}')
+        if not {'best.msgpack', 'last.msgpack'} <= set(files) \
+                or not os.path.exists(export + '.msgpack'):
+            fail(f'checkpoints {files} or the export {export} missing')
+        predict = make_predictor(export, batch_size=1, activation='argmax',
+                                 device='cuda')
+        weight = predict.model.layers[0].mlp.wo.weight
+        y = predict(tokens[:1])
+        ok = (y.shape == (1, t) and 0 <= y.min() and y.max() < vocab
+              and weight.dtype == torch.bfloat16
+              and type(predict.model.layers[0].mlp.wo).__name__
+              == 'Int8DenseGeneral')
+        say('train-wide-int8', export=os.path.basename(export),
+            param_dtype=str(weight.dtype)[6:],
+            projection=type(predict.model.layers[0].mlp.wo).__name__,
+            predict_shape=y.shape, ok=ok)
+        if not ok:
+            fail(f'the int8-trained export predicts {y.shape} {y.dtype} '
+                 f'with {weight.dtype} weights')
+        del predict, weight
+        return launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _cosine(a, b) -> float:
+    import torch.nn.functional as F
+    return float(F.cosine_similarity(a.flatten().float(),
+                                     b.flatten().float(), dim=0))
+
+
+def phase_step_wide(seed: int) -> dict:
+    """``bench_lm``'s wide legs at B=1, T=8192 on the same weights: (a)
+    bf16 matmuls, f32 params, ``lm_ce``; (b) int8 matmuls with bf16
+    masters, ``lm_ce`` (``lm_wide_int8_vs_bf16``); (c) the same with the
+    fused-CE kernels, z-loss and smoothing; (d) that loss dense. Checks
+    (c) against (d) and (a) against (b), times the four in turns and
+    splits (c)'s step with the profiler. Returns its numbers."""
+    import gc
+    from mlcomp_tpu_torch.models import create_model, param_count
+    from mlcomp_tpu_torch.ops.fused_ce import reference_ce
+    from mlcomp_tpu_torch.ops.int8_matmul import _quantize_rows
+    from mlcomp_tpu_torch.train.loop import (
+        create_train_state, loss_for_task, make_train_step,
+    )
+    from mlcomp_tpu_torch.train.optim import make_optimizer
+
+    t, vocab = WIDE['max_seq_len'], WIDE['vocab_size']
+    layers, d, ff = WIDE['n_layers'], WIDE['d_model'], WIDE['d_ff']
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, vocab, (1, t)).astype(np.int32)).cuda()
+    bf16 = create_model(**WIDE, device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(seed))
+    int8 = create_model(**WIDE_INT8, device='cuda')
+    int8.load_state_dict(bf16.state_dict())
+    n_params = param_count(bf16)
+    losses = {'lm_ce': loss_for_task('lm_ce'),
+              'kernel': loss_for_task({**FUSED_CE_LOSS, 'impl': 'cuda'}),
+              'dense': loss_for_task({**FUSED_CE_LOSS, 'impl': 'dense'})}
+
+    def grads(model):
+        loss, _ = losses['lm_ce'](model(tokens, train=True), tokens)
+        return dict(zip((n for n, _ in model.named_parameters()),
+                        torch.autograd.grad(loss, list(model.parameters()))))
+
+    # (a) against (b): every parameter's gradient from the same weights
+    ga = grads(bf16)
+    gb = grads(int8)
+    cosines = {n: _cosine(ga[n], gb[n]) for n in ga}
+    worst = min(cosines, key=cosines.get)
+    del ga, gb
+    # (c) against (d): the loss and its gradient on the same logits
+    logits = int8(tokens, train=True).detach()
+    ce = {}
+    for impl in ('kernel', 'dense'):
+        leaf = logits.clone().requires_grad_()
+        loss, _ = losses[impl](leaf, tokens)
+        ce[impl] = (float(loss.detach()), torch.autograd.grad(loss, leaf)[0])
+    ce_cos = _cosine(ce['kernel'][1], ce['dense'][1])
+    ce_rel = abs(ce['kernel'][0] - ce['dense'][0]) / abs(ce['dense'][0])
+    say('step-wide', params=n_params, grad_min_cosine_int8_vs_bf16=
+        f'{cosines[worst]:.6f}', worst=worst,
+        mean_cosine=f'{sum(cosines.values()) / len(cosines):.6f}',
+        bound=MIN_INT8_GRAD_COSINE, ce_logits_grad_cosine=f'{ce_cos:.7f}',
+        ce_cos_bound=MIN_CE_GRAD_COSINE, ce_loss_kernel=f'{ce["kernel"][0]:.6f}',
+        ce_loss_dense=f'{ce["dense"][0]:.6f}', ce_loss_rel=f'{ce_rel:.2e}',
+        ce_loss_bound=MAX_CE_LOSS_REL)
+    for n in sorted(cosines, key=cosines.get)[:4]:
+        say('step-wide-grad', tensor=n, cosine=f'{cosines[n]:.6f}')
+    del logits, ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cosines[worst] >= MIN_INT8_GRAD_COSINE:
+        fail(f'int8 gradients disagree with bf16: {worst} cosine '
+             f'{cosines[worst]}')
+    if not (ce_cos >= MIN_CE_GRAD_COSINE and ce_rel <= MAX_CE_LOSS_REL):
+        fail(f'the fused CE disagrees with the dense CE on the step: '
+             f'cosine {ce_cos}, loss relative difference {ce_rel}')
+
+    opt_a, _ = make_optimizer({'name': 'adamw', 'lr': 3e-4}, 1000)
+    opt_i, _ = make_optimizer({'name': 'adamw', 'lr': 3e-4,
+                               'master_dtype': 'bfloat16'}, 1000)
+    state_a = create_train_state(bf16, opt_a, seed=seed)
+    state_i = create_train_state(int8, opt_i, seed=seed)
+    variants = {
+        'a_bf16': (state_a, make_train_step(bf16, opt_a, losses['lm_ce'],
+                                            self_supervised=True)),
+        'b_int8': (state_i, make_train_step(int8, opt_i, losses['lm_ce'],
+                                            self_supervised=True)),
+        'c_int8_fused_ce': (state_i, make_train_step(
+            int8, opt_i, losses['kernel'], self_supervised=True)),
+        'd_int8_dense_ce': (state_i, make_train_step(
+            int8, opt_i, losses['dense'], self_supervised=True)),
+    }
+    for state, step in variants.values():
+        for _ in range(2):                   # warm-up
+            step(state, tokens, None)
+    times = {k: [] for k in variants}
+    for _ in range(2):                       # in turns: a b c d a b c d
+        for name, (state, step) in variants.items():
+            times[name].append(time_ms(lambda: step(state, tokens, None),
+                                       iters=WIDE_STEP_ITERS, warmup=0))
+    flops_per_token = 6 * n_params + 6 * layers * t * d
+    out = {}
+    for name, ts in times.items():
+        ms = min(ts)
+        tok_s = t / (ms / 1e3)
+        out[name] = {'step_ms': ms, 'step_ms_all': ts, 'tokens_per_s': tok_s,
+                     'mfu': tok_s * flops_per_token
+                     / PEAK_OPS_PER_S[torch.bfloat16]}
+        say('step-wide', variant=name, step_ms=f'{ms:.2f}',
+            runs=[f'{x:.2f}' for x in ts], tokens_per_s=f'{tok_s:.1f}',
+            mfu=f'{out[name]["mfu"]:.4f}')
+    out['lm_wide_int8_vs_bf16'] = (out['b_int8']['tokens_per_s']
+                                   / out['a_bf16']['tokens_per_s'])
+    loss = float(variants['c_int8_fused_ce'][1](state_i, tokens,
+                                                None)[1]['loss'])
+    if not np.isfinite(loss):
+        fail(f'the wide int8 step loss is not finite: {loss}')
+
+    # where (c)'s step goes: the CE kernels, the int8 GEMMs (profiler)
+    state, step = variants['c_int8_fused_ce']
+    fields = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(state, tokens, None)
+            torch.cuda.synchronize()
+        from torch.autograd import DeviceType
+        events = prof.events()
+        kernels = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA and not getattr(
+                    e, 'is_user_annotation', False):
+                kernels[e.name] = kernels.get(e.name, 0.0) \
+                    + e.device_time_total
+        total_us = sum(kernels.values())
+        if total_us <= 0:
+            raise RuntimeError('the profile holds no device time')
+        ce_us = sum(us for name, us in kernels.items()
+                    if 'ce_fwd_kernel' in name or 'ce_bwd_kernel' in name)
+        # the kernels each aten::_int_mm call launched
+        int_mm_us = sum(e.device_time_total for e in events
+                        if e.name == 'aten::_int_mm'
+                        and e.device_type == DeviceType.CPU)
+        by_name = sorted(((us, name) for name, us in kernels.items()),
+                         reverse=True)
+        for us, name in by_name[:TOP_KERNELS]:
+            say('step-wide-kernel', ms_per_step=f'{us / 2e3:.3f}',
+                share=f'{us / total_us:.4f}', name=repr(name[:90]))
+        fields.update(device_ms=total_us / 2e3, ce_kernels_ms=ce_us / 2e3,
+                      int_mm_ms=int_mm_us / 2e3,
+                      device_busy=total_us / 2e3
+                      / out['c_int8_fused_ce']['step_ms'])
+    except Exception as e:      # a profiler that reads no device time
+        fields.update(device_ms='not measured', profiler=repr(str(e)[:80]))
+
+    # the quantize passes of one step (CUDA events at the step's shapes:
+    # per layer x of qkv, wi_gate, wi_up and out [T, d], of wo [T, ff];
+    # the five weights), the dense CE's forward and backward, and the two
+    # [N, V] passes around the kernels: the accuracy's f32 argmax and
+    # the slice's gradient padded back to [B, T, V]
+    x_d = torch.randn((t, d), device='cuda').to(torch.bfloat16)
+    x_f = torch.randn((t, ff), device='cuda').to(torch.bfloat16)
+    q_ms = layers * (4 * time_ms(lambda: _quantize_rows(x_d), iters=10)
+                     + time_ms(lambda: _quantize_rows(x_f), iters=10))
+    w_ms = 0.0
+    for name, p in int8.named_parameters():
+        if p.dim() == 2 and 'layers.' in name:
+            w_ms += time_ms(lambda: _quantize_rows(p.detach()), iters=10)
+    logits = torch.randn((1, t, vocab), device='cuda').to(torch.bfloat16)
+    lg = logits[:, :-1]
+    labels = tokens[:, 1:].reshape(-1).long()
+
+    def dense_ce():
+        leaf = lg.reshape(-1, vocab).detach().requires_grad_()
+        loss = reference_ce(leaf, labels, 1e-4, 0.1).mean()
+        torch.autograd.grad(loss, leaf)
+
+    dense_ce_ms = time_ms(dense_ce, iters=5)
+    argmax_ms = time_ms(lambda: lg.float().argmax(-1), iters=5)
+    grad = torch.empty((1, t - 1, vocab), device='cuda',
+                       dtype=torch.bfloat16)
+
+    def pad_grad():
+        full = torch.zeros_like(logits)
+        full[:, :-1].copy_(grad)
+
+    pad_ms = time_ms(pad_grad, iters=5)
+    fields.update(quantize_x_ms=q_ms, quantize_w_ms=w_ms,
+                  dense_ce_fwd_bwd_ms=dense_ce_ms, argmax_f32_ms=argmax_ms,
+                  slice_grad_pad_ms=pad_ms)
+    say('step-wide-split', **{k: (f'{v:.3f}' if isinstance(v, float) else v)
+                              for k, v in fields.items()})
+    out['split'] = fields
+    out['checks'] = {'grad_min_cosine_int8_vs_bf16': cosines[worst],
+                     'worst': worst, 'ce_logits_grad_cosine': ce_cos,
+                     'ce_loss_rel': ce_rel}
+    say('step-wide', lm_wide_int8_vs_bf16=f'{out["lm_wide_int8_vs_bf16"]:.3f}',
+        fused_vs_dense_ce=f'{out["d_int8_dense_ce"]["step_ms"] / out["c_int8_fused_ce"]["step_ms"]:.3f}',
+        loss=f'{loss:.4f}')
+    del variants, state_a, state_i, state, step, bf16, int8, logits, lg, grad
+    del x_d, x_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1640,25 +2164,38 @@ def main():
         norm = phase_norm_kernel(args.seed)
         int8 = phase_int8_kernel(args.seed)
         stack = phase_stack_kernel(args.seed)
+        ce = phase_ce_kernels(args.seed)
+        phase_int8_train_matmul(args.seed)
         serve_launches = phase_serving(args.seed)
         int8_serve = phase_serve_int8(args.seed)
         leg = phase_serving_int8(args.seed)
         train_launches = phase_train(args.seed)
+        wide_launches = phase_train_wide_int8(args.seed)
         norm['launches'] = phase_cifar_train(args.seed)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, and the launch-bound ResNet step before the LM's
         step_norm_ms = phase_cifar_step(args.seed)
         phase_step(args.seed)
+        step_wide = phase_step_wide(args.seed)
         norm['device_ms'] = profile_norm_sites(args.seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fwd['launches_by_path'] = {
         'serve': serve_launches,
-        'train': train_launches['flash_attention_fwd']}
+        'train': train_launches['flash_attention_fwd'],
+        'train_wide_int8': wide_launches['flash_attention_fwd']}
     fwd['launches'] = sum(fwd['launches_by_path'].values())
     for entry in backward:
-        entry['launches'] = train_launches[entry['name']]
+        entry['launches_by_path'] = {
+            'train': train_launches[entry['name']],
+            'train_wide_int8': wide_launches[entry['name']]}
+        entry['launches'] = sum(entry['launches_by_path'].values())
+    for entry in ce:
+        entry['launches_by_path'] = {
+            'train_wide_int8': wide_launches[entry['name']]}
+        entry['launches'] = wide_launches[entry['name']]
+    ce[0]['step_wide'] = step_wide
     # the 20 norm sites of a batch-512 train step as the profiler reads
     # them (absent if it read no device time)
     norm['step_device_ms'] = step_norm_ms.get('fused')
@@ -1671,7 +2208,7 @@ def main():
         'serving_int8': leg['launches']['serving_stack']}
     stack['launches'] = sum(stack['launches_by_path'].values())
     stack['serving_int8'] = leg['numbers']
-    kernels = [fwd] + backward + [norm, int8, stack]
+    kernels = [fwd] + backward + [norm, int8, stack] + ce
     for entry in kernels:
         if entry['launches'] <= 0:
             fail(f'the main path launched no {entry["name"]}')

@@ -79,9 +79,10 @@ def _leaf_count(tree) -> int:
 
 def params_from_jax(tree) -> dict:
     """JAX transformer_lm params (stacked or per-layer) → the port's
-    ``state_dict`` of CPU tensors. Raises on a leaf it does not know
-    (e.g. MoE or int8-quantised layers, which the port does not
-    implement)."""
+    ``state_dict`` of CPU tensors (an int8-trained model's too: its
+    ``Int8DenseGeneral`` keeps ``DenseGeneral``'s ``kernel``). Raises on
+    a tree of another structure (e.g. MoE layers, which the port does
+    not implement)."""
     if STACKED_KEY in tree:
         tree = unstack_layer_tree(tree)
     layers = sorted((k for k in tree if k.startswith('layer_')),
@@ -91,7 +92,7 @@ def params_from_jax(tree) -> dict:
         raise ValueError(
             f'JAX params hold {_leaf_count(tree)} leaves, a dense '
             f'{len(layers)}-layer transformer_lm has {expected} — '
-            f'MoE or int8 layers are not ported')
+            f'MoE layers are not ported')
     sd = {'embed': to_tensor(tree['embed']),
           'pos_embed': to_tensor(tree['pos_embed'])}
     for i, name in enumerate(layers):
@@ -127,33 +128,60 @@ def port_module_name(path) -> str:
     return '.'.join(path)
 
 
+def lm_kernel_shapes(state_dict, n_heads: int) -> dict:
+    """{parameter name: the shape of its JAX ``kernel``} for each
+    projection of a transformer_lm ``state_dict``: the JAX kernel is
+    ``weight.t().reshape(shape)`` (``qkv`` [M, 3, H, D], ``out``
+    [H, D, M], the MLP's and the head [in, out])."""
+    shapes = {}
+    for name, w in state_dict.items():
+        if not name.endswith('.weight'):
+            continue
+        d_out, d_in = w.shape
+        if name.endswith('attn.qkv.weight'):
+            shapes[name] = (d_in, 3, n_heads, d_out // (3 * n_heads))
+        elif name.endswith('attn.out.weight'):
+            shapes[name] = (n_heads, d_in // n_heads, d_out)
+        else:
+            shapes[name] = (d_in, d_out)
+    return shapes
+
+
+def jax_kernel_shapes(model) -> dict:
+    """``lm_kernel_shapes`` of a port transformer_lm; {} for the image
+    models, whose kernels keep their own two largest dims. Adafactor
+    factors its second moments over these shapes, as optax does over
+    the JAX tree."""
+    cfg = getattr(model, 'cfg', None)
+    if cfg is None:
+        return {}
+    return lm_kernel_shapes(model.state_dict(), cfg.n_heads)
+
+
 def params_to_jax(state_dict, n_heads: int, stacked: bool = True) -> dict:
     """The port's ``state_dict`` → a JAX transformer_lm params tree, in
     the stacked (``stacked=True``) or per-layer layout."""
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+    shapes = lm_kernel_shapes(sd, n_heads)
+
+    def kernel(name):
+        return _to_leaf(sd[name].T.reshape(shapes[name]))
+
     n_layers = 1 + max((int(k.split('.')[1]) for k in sd
                         if k.startswith('layers.')), default=-1)
     tree = {'embed': _to_leaf(sd['embed']),
             'pos_embed': _to_leaf(sd['pos_embed'])}
     for i in range(n_layers):
         pre = f'layers.{i}.'
-        qkv = sd[pre + 'attn.qkv.weight']          # [3HD, M]
-        out = sd[pre + 'attn.out.weight']          # [M, HD]
-        m = qkv.shape[1]
-        d = qkv.shape[0] // (3 * n_heads)
         tree[f'layer_{i}'] = {
             'norm_attn': {'scale': _to_leaf(sd[pre + 'norm_attn.scale'])},
-            'attn': {
-                'qkv': {'kernel': _to_leaf(
-                    qkv.T.reshape(m, 3, n_heads, d))},
-                'out': {'kernel': _to_leaf(
-                    out.T.reshape(n_heads, d, out.shape[0]))}},
+            'attn': {proj: {'kernel': kernel(f'{pre}attn.{proj}.weight')}
+                     for proj in ('qkv', 'out')},
             'norm_mlp': {'scale': _to_leaf(sd[pre + 'norm_mlp.scale'])},
-            'mlp': {proj: {'kernel': _to_leaf(
-                sd[pre + f'mlp.{proj}.weight'].T)}
-                for proj in ('wi_gate', 'wi_up', 'wo')}}
+            'mlp': {proj: {'kernel': kernel(f'{pre}mlp.{proj}.weight')}
+                    for proj in ('wi_gate', 'wi_up', 'wo')}}
     tree['norm_final'] = {'scale': _to_leaf(sd['norm_final.scale'])}
-    tree['lm_head'] = {'kernel': _to_leaf(sd['lm_head.weight'].T)}
+    tree['lm_head'] = {'kernel': kernel('lm_head.weight')}
     return stack_layer_tree(tree) if stacked else tree
 
 
@@ -222,9 +250,21 @@ def image_variables_to_jax(state_dict) -> dict:
     return variables
 
 
+def unwrap_value_nodes(tree):
+    """Collapse flax Partitioned state-dict nodes ({'value': leaf}) left
+    by serializing logically-partitioned params (a JAX checkpoint's
+    ``params`` hold them)."""
+    if isinstance(tree, dict):
+        if set(tree.keys()) == {'value'}:
+            return unwrap_value_nodes(tree['value'])
+        return {k: unwrap_value_nodes(v) for k, v in tree.items()}
+    return tree
+
+
 def state_dict_from_jax(variables: dict, name: str) -> dict:
     """A JAX export's or checkpoint's variables → the ``state_dict`` of
     the port's model ``name``."""
+    variables = unwrap_value_nodes(variables)
     if name.lower() == 'transformer_lm':
         return params_from_jax(variables['params'])
     return image_state_dict_from_jax(variables)
@@ -259,5 +299,6 @@ def input_shape_from_params(name: str, params: dict):
 __all__ = ['params_from_jax', 'params_to_jax', 'port_module_name',
            'to_tensor',
            'image_state_dict_from_jax', 'image_variables_to_jax',
+           'jax_kernel_shapes', 'lm_kernel_shapes',
            'state_dict_from_jax', 'variables_to_jax',
            'input_shape_from_params', 'STAT_LEAVES']

@@ -25,10 +25,17 @@ masks), and with ``remat`` each ``DecoderLayer`` under
 ``torch.utils.checkpoint`` (non-reentrant), whose recompute launches the
 attention forward again. At eval both have no effect, as in JAX.
 
+``matmul_precision: int8`` builds ``models/quant.py``'s
+``Int8DenseGeneral`` for ``qkv``, ``out``, ``wi_gate``, ``wi_up`` and
+``wo`` (the same ``weight`` parameter as ``Dense``; its product is the
+dynamic int8 training matmul), and keeps ``lm_head`` a ``Dense``, as the
+JAX package does.
+
 Weights are stored the PyTorch way (a projection's ``weight`` is
 ``[out, in]``); ``convert.py`` maps them to and from the JAX trees in
-both ``scan_layers`` layouts. Knobs this port does not implement yet
-raise: ``n_experts > 0`` (MoE), ``matmul_precision='int8'`` and a mesh.
+both ``scan_layers`` layouts (``lm_kernel_shapes`` there names the JAX
+kernel's shape of each projection). Knobs this port does not implement
+yet raise: ``n_experts > 0`` (MoE) and a mesh.
 """
 
 import dataclasses
@@ -40,6 +47,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from mlcomp_tpu_torch.models.base import register_model
+from mlcomp_tpu_torch.models.quant import Int8DenseGeneral
 from mlcomp_tpu_torch.ops.flash_attention import (
     fused_attention, resolve_impl,
 )
@@ -96,10 +104,6 @@ def check_config(cfg: TransformerConfig):
         raise ValueError(
             f"matmul_precision must be 'bf16' or 'int8', "
             f'got {cfg.matmul_precision!r}')
-    if cfg.matmul_precision == 'int8':
-        raise NotImplementedError(
-            "matmul_precision='int8' is not ported yet (ROADMAP.md, "
-            'A3: int8_train_matmul and Int8DenseGeneral)')
     if cfg.n_experts:
         raise NotImplementedError(
             'n_experts > 0 (MoE) is not ported yet (ROADMAP.md, queue A: '
@@ -138,6 +142,15 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
+def projection(cfg: 'TransformerConfig', d_in: int, d_out: int, device=None):
+    """A bias-free projection of the layers: ``Dense``, or at
+    ``matmul_precision: int8`` ``Int8DenseGeneral`` (the JAX ``_dense``'s
+    choice; the same parameter either way)."""
+    cls = Int8DenseGeneral if cfg.matmul_precision == 'int8' else Dense
+    return cls(d_in, d_out, torch_dtype(cfg.dtype),
+               torch_dtype(cfg.param_dtype), device)
+
+
 class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm``: ``x * (rsqrt(mean(x²) + eps) * scale)`` in
     f32, cast to ``dtype``."""
@@ -174,10 +187,9 @@ class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
         h, d = cfg.n_heads, cfg.head_dim
-        self.qkv = Dense(cfg.d_model, 3 * h * d, dtype, pdtype, device)
-        self.out = Dense(h * d, cfg.d_model, dtype, pdtype, device)
+        self.qkv = projection(cfg, cfg.d_model, 3 * h * d, device)
+        self.out = projection(cfg, h * d, cfg.d_model, device)
 
     def forward(self, x, generator=None):
         cfg = self.cfg
@@ -195,10 +207,9 @@ class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
-        self.wi_gate = Dense(cfg.d_model, cfg.d_ff, dtype, pdtype, device)
-        self.wi_up = Dense(cfg.d_model, cfg.d_ff, dtype, pdtype, device)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, dtype, pdtype, device)
+        self.wi_gate = projection(cfg, cfg.d_model, cfg.d_ff, device)
+        self.wi_up = projection(cfg, cfg.d_model, cfg.d_ff, device)
+        self.wo = projection(cfg, cfg.d_ff, cfg.d_model, device)
 
     def forward(self, x, generator=None):
         y = self.wo(F.silu(self.wi_gate(x)) * self.wi_up(x))
@@ -256,7 +267,7 @@ class TransformerLM(nn.Module):
         self.embed.normal_(0.0, 0.02, generator=generator)
         self.pos_embed.normal_(0.0, 0.02, generator=generator)
         for module in self.modules():
-            if isinstance(module, Dense):
+            if isinstance(module, (Dense, Int8DenseGeneral)):
                 fan_in = module.weight.shape[1]
                 module.weight.normal_(0.0, fan_in ** -0.5,
                                       generator=generator)
@@ -301,5 +312,6 @@ def _transformer(mesh=None, device=None, generator=None, **kwargs):
 
 
 __all__ = ['TransformerConfig', 'TransformerLM', 'DecoderLayer',
-           'Attention', 'MlpBlock', 'RMSNorm', 'Dense', 'dropout',
+           'Attention', 'MlpBlock', 'RMSNorm', 'Dense', 'Int8DenseGeneral',
+           'projection', 'dropout',
            'embed_lookup', 'torch_dtype']

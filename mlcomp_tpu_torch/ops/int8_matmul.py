@@ -28,8 +28,9 @@ what the design does about that)::
   bias as buffers; ``int8_matmul``, the bias added in f32, the result
   cast to the module's dtype — ``_quantized_interceptor``'s numerics.
 
-``int8_train_matmul`` (the dynamic int8 training product) is not ported
-yet (ROADMAP.md, A3).
+The training half (``_quantize_rows``, ``reference_int8_train_matmul``,
+``Int8TrainMatmul`` and ``int8_train_matmul``: the dynamic int8 product
+of ``matmul_precision: int8`` training) follows under "training" below.
 """
 
 import ctypes
@@ -193,5 +194,118 @@ class Int8Dense(nn.Module):
         return y.to(self.dtype or y.dtype)
 
 
+# --------------------------------------------------------------- training
+# Port of ``int8_train_matmul`` (``mlcomp_tpu/ops/int8_matmul.py``
+# :186-274), a jnp custom_vjp there and no Pallas kernel: both operands
+# of ``x [M, K] @ w`` are quantized to int8 dynamically, every step, per
+# channel — x per ROW, the weight per OUTPUT channel (a column of JAX's
+# [K, N] kernel, a row of the port's [N, K] weight) — the int8 values are
+# multiplied exactly with int32/f32 sums and both scales are applied once
+# to the f32 [M, N] product. Gradients are straight-through on the
+# quantizer and contract the SAME int8 residuals the forward saved:
+#
+#     dx = (dy * sw) @ qw        dw = (dy * sx)^T @ qx      (port layout)
+#
+# so what is held for the backward is int8 plus f32 scales, never x or w.
+
+
+def _quantize_rows(x):
+    """Per-ROW symmetric int8 quantization of [M, K] (the JAX package's
+    ``_quantize_rows``, bit for bit): the values upcast to f32, scale
+    ``absmax / 127`` per row (1 for an all-zero row), round half to even,
+    clip to ±127. Returns (int8 [M, K], f32 scale [M])."""
+    x = x.float()
+    absmax = x.abs().amax(dim=1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(x / scale[:, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int_product(qx, qw):
+    """``qx [M, K] @ qw [N, K]^T`` of int8 values, f32 [M, N].
+
+    On the card ``torch._int_mm`` (the int8 tensor cores, exact int32
+    sums) where its shape rule holds — M > 16, K and N multiples of 8,
+    decided on the shapes before the call; qw is passed as the
+    column-major view ``qw.t()`` of the row-major weight, the layout the
+    int8 GEMM takes without a copy. Elsewhere (the CPU, or shapes outside
+    that rule) the exact int8 values in f32, f32 sums, as the JAX
+    package's ``_accum_dot`` computes them."""
+    m, k = qx.shape
+    n = qw.shape[0]
+    if qx.device.type == 'cuda' and m > 16 and k % 8 == 0 and n % 8 == 0:
+        return torch._int_mm(qx, qw.t()).float()
+    return qx.float() @ qw.float().t()
+
+
+def reference_int8_train_matmul(x, w, compute_dtype=torch.bfloat16):
+    """The STE oracle: ``dequant(q(x)) @ dequant(q(w))^T`` with each
+    quantizer straight-through (``v + (dq(q(v)) - v).detach()``), so
+    autograd of this function gives the gradients ``Int8TrainMatmul``
+    must emit. ``w`` is the port's [N, K] weight; f32 [M, N] out."""
+    def ste(v):
+        v32 = v.float()
+        absmax = v32.abs().amax(dim=1, keepdim=True)
+        scale = torch.where(absmax > 0, absmax / 127.0,
+                            torch.ones_like(absmax))
+        dq = torch.clamp(torch.round(v32 / scale), -127, 127) * scale
+        return v32 + (dq - v32).detach()
+
+    return (ste(x).to(compute_dtype).float()
+            @ ste(w).to(compute_dtype).float().t())
+
+
+def _accum_product(a, b, dtype):
+    """``a @ b`` of ``compute_dtype`` operands with f32 sums, returned in
+    ``dtype`` (JAX's ``_accum_dot`` with ``preferred_element_type=f32``,
+    then the cast to the gradient's dtype). An f32 result of 16-bit
+    operands is ``torch.mm(..., out_dtype=float32)`` on the card and the
+    exact operand values in f32 on the CPU (where that form is not
+    implemented); any other result is the product in the operands' dtype
+    (f32 sums, rounded once), cast."""
+    if dtype == torch.float32 and a.dtype != torch.float32:
+        if a.device.type == 'cuda':
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return a.float() @ b.float()
+    return torch.matmul(a, b).to(dtype)
+
+
+class Int8TrainMatmul(torch.autograd.Function):
+    """``x [M, K] @ w [N, K]^T -> f32 [M, N]`` with both operands
+    quantized to int8 per channel and straight-through gradients (the
+    JAX package's ``int8_train_matmul`` custom_vjp). Saves only the int8
+    residuals and their f32 scales (qx, sx, qw, sw). The backward folds
+    each scale into dy so that the int8 operand is cast exactly to
+    ``compute_dtype`` and contracted there with f32 sums
+    (``_accum_product``: bf16 operands on the card, as JAX's
+    ``_accum_dot``; the CPU tests pass f32); dx comes back in x's dtype,
+    dw in w's, each rounded once from the f32 sums."""
+
+    @staticmethod
+    def forward(ctx, x, w, compute_dtype=torch.bfloat16):
+        qx, sx = _quantize_rows(x)
+        qw, sw = _quantize_rows(w)
+        y = int_product(qx, qw) * sx[:, None] * sw[None, :]
+        ctx.save_for_backward(qx, sx, qw, sw)
+        ctx.meta = (x.dtype, w.dtype, compute_dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        qx, sx, qw, sw = ctx.saved_tensors
+        x_dtype, w_dtype, cd = ctx.meta
+        dy = dy.float()
+        dx = _accum_product((dy * sw[None, :]).to(cd), qw.to(cd), x_dtype)
+        dw = _accum_product((dy * sx[:, None]).to(cd).t(), qx.to(cd),
+                           w_dtype)
+        return dx, dw, None
+
+
+def int8_train_matmul(x, w, compute_dtype=torch.bfloat16):
+    """``Int8TrainMatmul`` on x [M, K] and the port's weight w [N, K]."""
+    return Int8TrainMatmul.apply(x, w, compute_dtype)
+
+
 __all__ = ['quantize_int8', 'int8_matmul', 'reference_int8_matmul',
-           'Int8Dense', 'check_int8_inputs']
+           'Int8Dense', 'check_int8_inputs', 'int8_train_matmul',
+           'Int8TrainMatmul', 'reference_int8_train_matmul', 'int_product']

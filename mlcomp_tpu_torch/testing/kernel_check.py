@@ -1,7 +1,10 @@
 """How the card-side checks hold the kernels against their plain
 versions (``chip_smoke.py`` and ``kernel_faults``): the attention
 kernels first, then the fused batch-norm+ReLU ("Fused norm"), then the
-weight-only int8 matmul and the serving stack ("Int8 serving").
+weight-only int8 matmul and the serving stack ("Int8 serving"), the
+int8 training product, a library call held against its STE oracle by
+relative norm ("int8 training"), then the blocked softmax cross-entropy
+("Cross-entropy").
 
 The measure is the relative L2 error of each output row (one query
 position of one head, D values), ``|out - ref| / |ref|``, its maximum
@@ -25,11 +28,14 @@ import torch
 
 #: (B, T, H, D, dtype, causal) at which the card-side checks hold the
 #: kernel against its plain version: the flagship LM's serving shape
-#: first (batch 4, T=8192, 16 heads of 64, causal, bf16), then long
-#: sequences causal and not, ragged T, every head dim, fp16, f32 (the
-#: SIMT path), T=1 and a T just past one K/V tile
+#: first (batch 4, T=8192, 16 heads of 64, causal, bf16), the wide LM's
+#: training shape (batch 1, T=8192, 32 heads of 64: q, k, v rows
+#: 3·32·64 apart), then long sequences causal and not, ragged T, every
+#: head dim, fp16, f32 (the SIMT path), T=1 and a T just past one K/V
+#: tile
 ATTENTION_SHAPES = [
     (4, 8192, 16, 64, torch.bfloat16, True),
+    (1, 8192, 32, 64, torch.bfloat16, True),
     (1, 8192, 16, 64, torch.bfloat16, True),
     (1, 8192, 16, 64, torch.bfloat16, False),
     (2, 1000, 16, 64, torch.bfloat16, True),
@@ -51,10 +57,12 @@ ATTENTION_ROW_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
 #: (B, T, H, D, dtype, causal) at which the card-side checks hold the
 #: backward kernels (and the forward's lse) against their plain versions:
 #: the flagship LM's training shape first (batch 1, T=8192, 16 heads of
-#: 64, causal, bf16), then non-causal, ragged T, every head dim, fp16,
-#: f32 (the SIMT path, both head-dim extremes) and T=1
+#: 64, causal, bf16), the wide LM's (32 heads of 64), then non-causal,
+#: ragged T, every head dim, fp16, f32 (the SIMT path, both head-dim
+#: extremes) and T=1
 BACKWARD_SHAPES = [
     (1, 8192, 16, 64, torch.bfloat16, True),
+    (1, 8192, 32, 64, torch.bfloat16, True),
     (1, 8192, 16, 64, torch.bfloat16, False),
     (2, 1000, 16, 64, torch.bfloat16, True),
     (1, 2048, 8, 128, torch.bfloat16, True),
@@ -320,6 +328,157 @@ def stack_ok(result: dict, layers: int) -> bool:
             and result['row_err'] <= stack_tol(layers))
 
 
+# ------------------------------------------------------------ int8 training
+#: (M, K, N, weight dtype) at which the card-side checks hold
+#: ``int8_train_matmul`` (``torch._int_mm`` on the card, no kernel of the
+#: port's own) against its STE oracle: the wide LM's ``qkv`` in its
+#: training step (T = 8192 tokens, d_model 2048, 3·32·64 outputs, bf16
+#: masters) and its ``wo`` with f32 params, whose gradients stay f32
+INT8_TRAIN_SHAPES = [(8192, 2048, 6144, torch.bfloat16),
+                     (8192, 8192, 2048, torch.float32)]
+#: bounds on the relative L2 error of y, dx and dw against
+#: ``reference_int8_train_matmul`` run in f32:
+#: - y: the int32 sums are exact and the scales apply once in f32, so
+#:   only the oracle's f32 sums round (~1e-6);
+#: - dx, dw: the backward rounds the scale-folded dy to bf16 (the
+#:   compute dtype, as JAX does): ~1.6e-3 rms relative (half a bf16 ulp
+#:   is 2^-8); a bf16 gradient is rounded once more on each side, 2.8e-3
+#:   in all (2.6e-3 read on the CPU at 64×128×96, 1.7e-3 for an f32 dw).
+#:   A gradient scaled 1% off reads 1e-2, which a cosine does not see
+INT8_TRAIN_TOL = {'y': 1e-5, 'dx': 5e-3, 'dw': 5e-3}
+
+
+def int8_train_check(shape, gen, device='cuda', fn=None) -> dict:
+    """``fn`` (``int8_train_matmul`` by default, bf16 compute) at
+    ``shape`` (as ``INT8_TRAIN_SHAPES`` lists them) on x bf16 standard
+    normal, a weight of std 0.02 and dy standard normal from ``gen``,
+    against autograd through the STE oracle in f32: the relative L2
+    error of y, dx and dw and whether all are finite."""
+    from mlcomp_tpu_torch.ops.int8_matmul import (
+        int8_train_matmul, reference_int8_train_matmul,
+    )
+    m, k, n, wdtype = shape
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device=device) * 0.02).to(wdtype)
+    dy = torch.randn((m, n), generator=gen, device=device)
+    outs = []
+    for f, cd in ((fn or int8_train_matmul, torch.bfloat16),
+                  (reference_int8_train_matmul, torch.float32)):
+        leaves = [t.clone().requires_grad_() for t in (x, w)]
+        y = f(*leaves, cd)
+        outs.append((y.detach(), *torch.autograd.grad(y, leaves, dy)))
+    result = {name: float((got.float() - want.float()).norm()
+                          / want.float().norm())
+              for name, got, want in zip(('y', 'dx', 'dw'), *outs)}
+    result['finite'] = all(bool(torch.isfinite(t).all()) for t in outs[0])
+    return result
+
+
+def int8_train_ok(result: dict) -> bool:
+    """Every bound of ``int8_train_check``'s result holds (NaN fails)."""
+    return result['finite'] and all(result[name] <= tol
+                                    for name, tol in INT8_TRAIN_TOL.items())
+
+
+# ----------------------------------------------------------- cross-entropy
+#: (N, V, dtype, z_loss, label_smoothing, pad) at which the card-side
+#: checks hold the CE kernels against their plain versions run in f64,
+#: rows ``pad`` elements wider than V (a view into wider rows): the wide
+#: LM's training step first (N = B(T-1) = 8191 at B = 1, T = 8192;
+#: V = 32768; bf16) with every (z, ε) of {0, 1e-4} × {0, 0.1}, then
+#: ``bench_fused_ce``'s 8192 × 32768, then ragged shapes in fp16 and f32
+#: — one row; V = 50257, whose rows start off 16-byte boundaries; V = 127
+#: and V = 1, below a vector — and rows read at a stride
+CE_SHAPES = ([(8191, 32768, torch.bfloat16, z, e, 0)
+              for z in (0.0, 1e-4) for e in (0.0, 0.1)]
+             + [(8192, 32768, torch.bfloat16, 1e-4, 0.1, 0)]
+             + [(n, v, dtype, 1e-4, 0.1, 0)
+                for dtype in (torch.float16, torch.float32)
+                for n, v in ((1, 32768), (7, 50257), (1000, 127), (300, 1))]
+             + [(64, 1000, torch.float32, 1e-4, 0.1, 3),
+                (33, 999, torch.bfloat16, 1e-4, 0.1, 5)])
+#: the logits' scale: standard normal times this (an LM's logits spread
+#: over a few units; the running max changes along a row)
+CE_LOGIT_SCALE = 2.0
+#: bound on max |loss - ref| and |lse - ref| against f64 (absolute: both
+#: are ~10-20 at V = 32768, where one f32 ulp is ~1e-6). The kernel sums
+#: exp in f32 in another order than f64 with ex2.approx (2^-22 relative
+#: an element) and rounds m + log(s) and the loss's terms to f32: a few
+#: 1e-6 in all; 2e-5 is the margin
+CE_LOSS_TOL = 2e-5
+#: bound on the max over rows of |dx - ref| / max(|ref|, |g|) against
+#: the f64 plain version fed the kernel's own lse, by dtype: the output's
+#: rounding (bf16 2^-9, fp16 2^-12 an element) and, in f32, ex2.approx.
+#: A row is measured against |g| at least: dx's entries are O(g), and
+#: where they nearly cancel (V = 1: dx = 2z·lse·g) f32 rounding of p·c1
+#: against the target is all that is left
+CE_ROW_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
+              torch.float32: 1e-5}
+#: elements of NaN after loss, lse and dx that a store past the end would
+#: overwrite (a row's unmasked tail reaches 7 past it)
+CE_CANARY = 1024
+
+
+def ce_inputs(n, v, dtype, gen, device='cuda', pad=0):
+    """logits [N, V] (a view into rows of V + pad, CE_CANARY more values
+    after them in the same buffer, so that a read past the last row stays
+    inside it) of ``dtype``, labels [N] int64 in [-3, V + 3) — some out
+    of range, as the wrappers clamp them — and the loss's gradient g [N]
+    f32, all from ``gen``."""
+    w = v + pad
+    x = (torch.randn((n * w + CE_CANARY,), generator=gen, device=device)
+         * CE_LOGIT_SCALE).to(dtype)[:n * w].view(n, w)[:, :v]
+    labels = torch.randint(-3, v + 3, (n,), generator=gen, device=device)
+    g = torch.randn((n,), generator=gen, device=device)
+    return x, labels, g
+
+
+def ce_check(shape, gen, device='cuda') -> dict:
+    """Both CE kernels once at ``shape`` (as ``CE_SHAPES`` lists them)
+    against their plain versions in f64 — the backward's fed the forward
+    kernel's lse: the loss, lse and dx row errors, whether all are finite
+    and whether the NaN canaries after each output are intact."""
+    from mlcomp_tpu_torch.ops.fused_ce import (
+        ce_backward, ce_forward, reference_ce_bwd, reference_ce_fwd,
+    )
+    n, v, dtype, z, eps, pad = shape
+    x, labels, g = ce_inputs(n, v, dtype, gen, device, pad)
+    bufs = [torch.full((n + CE_CANARY,), float('nan'), device=device)
+            for _ in range(2)]
+    loss, lse = (b[:n] for b in bufs)
+    ce_forward(x, labels, z, eps, impl='cuda', out=(loss, lse))
+    dx_buf = torch.full((n * v + CE_CANARY,), float('nan'), dtype=dtype,
+                        device=device)
+    dx = dx_buf[:n * v].view(n, v)
+    ce_backward(x, labels, lse, g, z, eps, impl='cuda', out=dx)
+    lab = labels.clamp(0, v - 1)
+    ref_loss, ref_lse = reference_ce_fwd(x.double(), lab, z, eps)
+    ref_dx = reference_ce_bwd(x.double(), lab, lse.double(), g.double(), z,
+                              eps)
+    err = torch.linalg.vector_norm(dx.double() - ref_dx, dim=-1)
+    size = torch.maximum(torch.linalg.vector_norm(ref_dx, dim=-1),
+                         g.double().abs()).clamp_min(1e-30)
+    result = {
+        'loss_err': float((loss.double() - ref_loss).abs().max()),
+        'lse_err': float((lse.double() - ref_lse).abs().max()),
+        'dx_row_err': float((err / size).max()),
+        'max_abs_err': float((dx.double() - ref_dx).abs().max()),
+        'finite': all(bool(torch.isfinite(t).all()) for t in (loss, lse, dx)),
+        'canary': all(bool(torch.isnan(b[n:]).all()) for b in bufs)
+        and bool(torch.isnan(dx_buf[n * v:]).all()),
+    }
+    del x, dx, dx_buf, ref_dx, err
+    return result
+
+
+def ce_ok(result: dict, dtype) -> bool:
+    """Every bound of ``ce_check``'s result holds (NaN fails them)."""
+    return (result['finite'] and result['canary']
+            and result['loss_err'] <= CE_LOSS_TOL
+            and result['lse_err'] <= CE_LOSS_TOL
+            and result['dx_row_err'] <= CE_ROW_TOL[dtype])
+
+
 def lse_error(lse: torch.Tensor, ref: torch.Tensor) -> float:
     """max of |lse - ref| / max(1, |ref|); NaN when not finite."""
     ref = ref.float()
@@ -424,11 +583,15 @@ def row_relative_error(out: torch.Tensor, ref: torch.Tensor,
     return float((err / size.clamp_min(max(least, 1e-30))).max())
 
 
-__all__ = ['ATTENTION_ROW_TOL', 'ATTENTION_SHAPES', 'AUTOGRAD_HEAD_TOL',
+__all__ = ['CE_CANARY', 'CE_LOGIT_SCALE', 'CE_LOSS_TOL', 'CE_ROW_TOL',
+           'CE_SHAPES', 'ce_check', 'ce_inputs', 'ce_ok',
+           'ATTENTION_ROW_TOL', 'ATTENTION_SHAPES', 'AUTOGRAD_HEAD_TOL',
            'BACKWARD_HEAD_TOL', 'BACKWARD_ROW_FLOOR', 'BACKWARD_ROW_TOL',
            'BACKWARD_SHAPES', 'CANARY_ROWS', 'CIFAR_SITE_ACTS',
-           'INT8_ROW_TOL', 'INT8_SHAPES', 'LSE_TOL', 'STACK_ROW_TOL',
+           'INT8_ROW_TOL', 'INT8_SHAPES', 'INT8_TRAIN_SHAPES',
+           'INT8_TRAIN_TOL', 'LSE_TOL', 'STACK_ROW_TOL',
            'STACK_SHAPES', 'int8_check', 'int8_inputs', 'int8_ok',
+           'int8_train_check', 'int8_train_ok',
            'stack_check', 'stack_inputs', 'stack_ok', 'stack_tol',
            'NORM_COLUMN_FLOOR', 'NORM_SHAPES', 'NORM_STAT_TOL', 'NORM_Y_TOL',
            'backward_check', 'backward_ok', 'cifar_norm_sites',

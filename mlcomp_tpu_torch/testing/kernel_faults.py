@@ -7,14 +7,15 @@ Needs one CUDA card and ``nvcc``. First the kernels as they stand run at
 every shape of ``kernel_check.ATTENTION_SHAPES`` (forward),
 ``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward),
 ``kernel_check.NORM_SHAPES`` (fused norm), ``kernel_check.INT8_SHAPES``
-(int8 matmul) and ``kernel_check.STACK_SHAPES`` (serving stack) for each
-seed, which shows the margin of each tolerance. Then each fault below, a
+(int8 matmul), ``kernel_check.STACK_SHAPES`` (serving stack) and
+``kernel_check.CE_SHAPES`` (cross-entropy, forward and backward) for
+each seed, which shows the margin of each tolerance. Then each fault below, a
 textual edit of a kernel's ``csrc/*.cu`` (or of a header it includes,
 copied beside it) written to a temporary directory (the checkout is not
 touched) and built with the package's nvcc flags, runs at the serving
 shape (forward faults), the training shape (backward faults) or every
-shape of its kernel (norm, int8 and stack faults: caught if any shape
-fails a bound). Each line gives the errors against their bounds. Exits 1
+shape of its kernel (norm, int8, stack and CE faults: caught if any
+shape fails a bound). Each line gives the errors against their bounds. Exits 1
 if a kernel as it stands fails a bound or a planted fault passes them
 all.
 """
@@ -32,9 +33,10 @@ from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
     ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
-    BACKWARD_SHAPES, INT8_ROW_TOL, INT8_SHAPES, NORM_SHAPES, NORM_STAT_TOL,
-    NORM_Y_TOL, STACK_ROW_TOL, STACK_SHAPES, backward_check, backward_ok,
-    int8_check, int8_ok, norm_check, norm_ok, qkv_views, row_relative_error,
+    BACKWARD_SHAPES, CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES, INT8_ROW_TOL,
+    INT8_SHAPES, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL, STACK_ROW_TOL,
+    STACK_SHAPES, backward_check, backward_ok, ce_check, ce_ok, int8_check,
+    int8_ok, norm_check, norm_ok, qkv_views, row_relative_error,
     stack_check, stack_ok, stack_tol,
 )
 
@@ -189,6 +191,32 @@ STACK_FAULTS = {
 }
 
 
+CE_KERNEL = 'fused_ce'
+#: name -> edits of the CE kernels' source, as INT8_FAULTS
+CE_FAULTS = {
+    # the backward's p without its z-loss factor 1 + 2z·lse
+    'z_term_dropped_from_backward': [(
+        'const float c1 = 1.f + p.two_z * lse;', 'const float c1 = 1.f;')],
+    # ε/V with V rounded up to a multiple of 128 (the TPU's vocab tile)
+    'smoothing_over_rounded_up_v': [(
+        'p.eps_per_v = static_cast<float>(eps / V);',
+        'p.eps_per_v = static_cast<float>(eps / ((V + 127) / 128 * 128));')],
+    # the last partial vector of a row read (and, backward, written) in
+    # full: up to 7 values past the row
+    'v_tail_unmasked': [(
+        's.nvec = (V - s.head) / VEC;',
+        's.nvec = (V - s.head + VEC - 1) / VEC;')],
+    # the label's logit read one to the right
+    'label_pick_off_by_one': [(
+        'const float picked = to_f(xr[lab]);',
+        'const float picked = to_f(xr[min(lab + 1, p.V - 1)]);')],
+    # a thread's running sum not rescaled when its max grows
+    'max_correction_skipped': [(
+        's *= exp2f((m - cm) * LOG2E);  // rescale the sum to the new max',
+        '// (no rescale)')],
+}
+
+
 def build_faults(out_dir: str, kernel: str, faults: dict) -> dict:
     """{fault: library path} for ``faults`` ({name: [(old, new), ...]})
     planted in ``csrc/<kernel>.cu`` — or, for an edit ``(header, old,
@@ -287,6 +315,20 @@ def check_stack(shape, seed: int) -> dict:
     return result
 
 
+def check_ce(shape, seed: int) -> dict:
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    result = ce_check(shape, gen)
+    torch.cuda.empty_cache()
+    return result
+
+
+def _ce_line(r: dict, dtype) -> str:
+    return (f'loss_err={r["loss_err"]:.3e} lse_err={r["lse_err"]:.3e} '
+            f'tol={CE_LOSS_TOL} dx_row_err={r["dx_row_err"]:.3e} '
+            f'tol={CE_ROW_TOL[dtype]} canary={r["canary"]} '
+            f'finite={r["finite"]}')
+
+
 def _int8_line(r: dict) -> str:
     return (f'row_err={r["row_err"]:.3e} tol={INT8_ROW_TOL} '
             f'canary={r["canary"]} finite={r["finite"]}')
@@ -367,6 +409,15 @@ def main() -> int:
                   f'tol={stack_tol(shape[0])} step_err={r["step_err"]:.3e} '
                   f'step_tol={STACK_ROW_TOL["step"]} ok={ok}', flush=True)
 
+    for shape in CE_SHAPES:
+        for seed in args.seeds:
+            r = check_ce(shape, seed)
+            ok = ce_ok(r, shape[2])
+            holes += not ok
+            print(f'[ce] shape={shape[:2]} dtype={str(shape[2])[6:]} '
+                  f'z={shape[3]} eps={shape[4]} pad={shape[5]} seed={seed} '
+                  f'{_ce_line(r, shape[2])} ok={ok}', flush=True)
+
     serving = ATTENTION_SHAPES[0]
     tol = ATTENTION_ROW_TOL[serving[4]]
     training = BACKWARD_SHAPES[0]
@@ -424,6 +475,18 @@ def main() -> int:
                             if 'canary' in first[1] else
                             f' step_err={first[1]["step_err"]:.3e}')
                          if first else ''), flush=True)
+        for name, so in build_faults(tmp, CE_KERNEL, CE_FAULTS).items():
+            failed = _with_library(CE_KERNEL, so, lambda: _failing(
+                CE_SHAPES, check_ce, lambda r, shape: ce_ok(r, shape[2]),
+                args.seeds[0]))
+            holes += not failed
+            first = failed[0] if failed else None
+            print(f'[fault] {CE_KERNEL}.{name} caught={bool(failed)} '
+                  f'failing_shapes={len(failed)}/{len(CE_SHAPES)}'
+                  + (f' first={first[0][:2]} {str(first[0][2])[6:]} '
+                     f'z={first[0][3]} eps={first[0][4]} '
+                     f'{_ce_line(first[1], first[0][2])}'
+                     if first else ''), flush=True)
     print(f'[done] holes={holes}', flush=True)
     return 1 if holes else 0
 

@@ -39,7 +39,9 @@ import time
 import numpy as np
 import torch
 
-from mlcomp_tpu_torch.convert import state_dict_from_jax, variables_to_jax
+from mlcomp_tpu_torch.convert import (
+    jax_kernel_shapes, state_dict_from_jax, variables_to_jax,
+)
 from mlcomp_tpu_torch.models import create_model, param_count
 from mlcomp_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter, checkpoint_exists, load_meta, restore_checkpoint,
@@ -289,15 +291,20 @@ class Train(Executor):
         if meta and meta.get('stage') in stage_names:
             target_stage = self.stages[stage_names.index(meta['stage'])]
 
+        def stage_optimizer(stage, model):
+            # adafactor factors over the model's JAX kernel shapes
+            optimizer, _ = make_optimizer(
+                stage_opt_spec(stage), stage_steps(stage),
+                kernel_shapes=jax_kernel_shapes(model))
+            return optimizer
+
         def fresh_state(stage):
-            optimizer, _ = make_optimizer(stage_opt_spec(stage),
-                                          stage_steps(stage))
             model = create_model(
                 **self.model_spec, input_shape=x_train.shape[1:],
                 device=device,
                 generator=torch.Generator(device).manual_seed(self.seed))
-            return create_train_state(model, optimizer, seed=self.seed,
-                                      with_dropout_rng=True)
+            return create_train_state(model, stage_optimizer(stage, model),
+                                      seed=self.seed, with_dropout_rng=True)
 
         state = fresh_state(target_stage)
         model = state.model
@@ -334,8 +341,7 @@ class Train(Executor):
         for stage in remaining:
             stage_name = stage['name']
             stage_idx = stage_names.index(stage_name)
-            optimizer, _ = make_optimizer(
-                stage_opt_spec(stage), stage_steps(stage))
+            optimizer = stage_optimizer(stage, model)
             if use_device_data:
                 train_step = make_device_train_step(
                     model, optimizer, loss_fn, augment=dev_augment,

@@ -24,6 +24,11 @@ with at least 65,536 elements (``quantized_modules``). So a stacked
 are 3-D), a per-layer one each layer's ``wi_gate``, ``wi_up`` and ``wo``
 too; attention's ``qkv`` and ``out`` kernels are 4-D and 3-D there and
 never quantize, and the CIFAR ResNet-18's 512×10 head is too small.
+An int8-trained export (``matmul_precision: int8`` in its spec) builds
+its projections as ``Int8DenseGeneral``, whose forward is the dynamic
+int8 training product, as JAX's predictor runs it; the interceptor
+reroutes ``nn.Dense`` modules only, so ``quantize='int8'`` swaps its
+``lm_head`` alone, whatever the layout.
 """
 
 import json
@@ -33,18 +38,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from mlcomp_tpu_torch.convert import unwrap_value_nodes
 from mlcomp_tpu_torch.utils.device import resolve_device
 from mlcomp_tpu_torch.utils.msgpack_io import msgpack_chunks, msgpack_restore
-
-
-def _unwrap_value_nodes(tree):
-    """Collapse flax Partitioned state-dict nodes ({'value': leaf}) left
-    by serializing logically-partitioned params."""
-    if isinstance(tree, dict):
-        if set(tree.keys()) == {'value'}:
-            return _unwrap_value_nodes(tree['value'])
-        return {k: _unwrap_value_nodes(v) for k, v in tree.items()}
-    return tree
 
 
 def export_base(path: str) -> str:
@@ -57,9 +53,9 @@ def export_model(out_path: str, params, model_spec: dict,
     """Write ``<out_path>.msgpack`` + ``<out_path>.json``; returns the
     msgpack path. ``params`` is a JAX-layout tree of numpy arrays or CPU
     tensors (a port model's weights: ``convert.params_to_jax``)."""
-    variables = {'params': _unwrap_value_nodes(params)}
+    variables = {'params': unwrap_value_nodes(params)}
     if batch_stats is not None:
-        variables['batch_stats'] = _unwrap_value_nodes(batch_stats)
+        variables['batch_stats'] = unwrap_value_nodes(batch_stats)
     base = export_base(os.fspath(out_path))
     os.makedirs(os.path.dirname(base) or '.', exist_ok=True)
     blob_path = base + '.msgpack'
@@ -85,10 +81,10 @@ def export_from_checkpoint(ck_path: str, model_spec: dict, out_path: str,
     with open(ck_path, 'rb') as fh:
         raw = msgpack_restore(fh.read())
     stats = raw.get('batch_stats')
-    return export_model(out_path, _unwrap_value_nodes(raw['params']),
+    return export_model(out_path, unwrap_value_nodes(raw['params']),
                         model_spec, meta=meta,
                         batch_stats=None if stats is None
-                        else _unwrap_value_nodes(stats))
+                        else unwrap_value_nodes(stats))
 
 
 def load_export_meta(path: str) -> dict:
@@ -108,7 +104,7 @@ def load_export(path: str) -> Tuple[dict, dict]:
     with open(base + '.msgpack', 'rb') as fh:
         variables = msgpack_restore(fh.read())
     spec = load_export_meta(base).get('model', {})
-    return _unwrap_value_nodes(variables), spec
+    return unwrap_value_nodes(variables), spec
 
 
 def build_model(variables: dict, model_spec: dict, device='cuda'):

@@ -99,7 +99,14 @@ def seg_ce(logits, labels, weights=None):
 
 def lm_ce_with(z_loss: float = 0.0, label_smoothing: float = 0.0,
                impl: str = 'auto') -> Callable:
-    """lm_ce with z-loss / label smoothing (``ops/fused_ce.py``)."""
+    """lm_ce with z-loss / label smoothing through
+    ``ops/fused_ce.py``'s ``softmax_ce_per_example``: ``impl`` ``auto``
+    (the default) or ``cuda`` (a JAX config's ``pallas``) runs the
+    hand-written CE kernels (``csrc/fused_ce.cu``: one forward and one
+    backward launch a step) on the card and their plain versions on the
+    CPU; ``dense`` the dense formulation. At batch 1 the kernels read
+    ``logits[:, :-1]`` in place; the accuracy's ``argmax`` of the f32
+    logits stays outside them, as in the JAX package."""
 
     def loss_fn(logits, tokens, weights=None):
         lg = logits[:, :-1]
@@ -122,7 +129,8 @@ LOSSES = {'softmax_ce': softmax_ce, 'lm_ce': lm_ce, 'seg_ce': seg_ce}
 
 def loss_for_task(task) -> Callable:
     """``task``: a registered loss name, or a dict spec — e.g.
-    ``{name: lm_ce, z_loss: 1e-4, label_smoothing: 0.1}``."""
+    ``{name: lm_ce, impl: pallas, z_loss: 1e-4, label_smoothing: 0.1}``
+    builds ``lm_ce_with`` (the fused-CE lm loss)."""
     if isinstance(task, dict):
         spec = dict(task)
         name = spec.pop('name', None)

@@ -11,8 +11,8 @@ them as they are (``state_to_host`` / ``state_to_device``).
 The same spec keys and the same ``ValueError``s as the JAX package::
 
     optimizer:
-      name: adamw            # sgd | adam | adamw (lamb, adafactor: not
-      lr: 0.001              #   ported yet)
+      name: adamw            # sgd | adam | adamw | lamb | adafactor
+      lr: 0.001
       weight_decay: 0.01
       grad_clip: 1.0
       accum_steps: 4
@@ -31,6 +31,25 @@ the scheduled lr; the schedule read at the count before it increments;
 between, schedule counts in microbatch steps converted to updates);
 ``master_dtype`` as ``master_weight_update`` (f32 update arithmetic for
 low-precision masters). Schedules are evaluated in f32, as jnp does.
+
+``lamb`` is ``optax.lamb(sched, weight_decay=wd)``: adam (eps 1e-6),
+the decayed weights added, each update scaled by its trust ratio
+``|p| / |u|`` (1 where either norm is 0), then by the scheduled lr.
+``adafactor`` is ``optax.adafactor(sched)`` with optax's defaults:
+``scale_by_factored_rms`` (second moments factored into a row and a
+column vector over the two largest dims of a leaf when the smaller of
+them is ≥ 128, else kept whole; decay ``1 - (count+1)^-0.8``, epsilon
+1e-30), the update clipped to block rms 1, times the scheduled lr, times
+the parameter's rms (at least 1e-3), negated. Its state is optax's
+``FactoredState`` as a dict: ``{'count', 'v_row', 'v_col', 'v'}``, each
+tree keyed by parameter name, a (1,)-shaped zero where a leaf does not
+use it. Where the JAX kernel shape of a parameter is given
+(``kernel_shapes``, from ``convert.jax_kernel_shapes``: the
+transformer's projections, whose JAX kernel is
+``weight.t().reshape(shape)``), adafactor factors over that shape and
+keeps its state in it, as optax does over the JAX tree: a fused ``qkv``
+[M, 3, H, D] whose two largest dims are M and D factors only when
+D ≥ 128.
 """
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -197,6 +216,173 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def scale(step_size: float) -> GradientTransformation:
+    def init(params):
+        return {}
+
+    def update(updates, state, params=None):
+        return _scale_all(updates, step_size), state
+    return GradientTransformation(init, update)
+
+
+def scale_by_trust_ratio() -> GradientTransformation:
+    """optax's ``scale_by_trust_ratio()``: each update times
+    ``|p| / |u|`` (L2 over the whole leaf), 1 where either is 0."""
+    def init(params):
+        return {}
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError('scale_by_trust_ratio needs params')
+        out = {}
+        for n, u in updates.items():
+            p_norm = torch.linalg.vector_norm(params[n].detach())
+            u_norm = torch.linalg.vector_norm(u)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            out[n] = u * ratio.to(u.dtype)
+        return out, state
+    return GradientTransformation(init, update)
+
+
+def _decay_rate_pow(count: int, exponent: float = 0.8) -> np.float32:
+    """Adafactor's second-moment decay at step ``count``, in f32."""
+    t = _f32(count + 1)
+    return _f32(1) - t ** _f32(-exponent)
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """(d1, d0): the second largest and the largest dim of ``shape``, or
+    None where the leaf is kept whole (optax's rule)."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+def scale_by_factored_rms(decay_rate: float = 0.8,
+                          min_dim_size_to_factor: int = 128,
+                          epsilon: float = 1e-30,
+                          kernel_shapes: Optional[dict] = None
+                          ) -> GradientTransformation:
+    """optax's ``scale_by_factored_rms`` (module docstring); a leaf named
+    in ``kernel_shapes`` is read as ``t.t().reshape(shape)``."""
+    shapes = dict(kernel_shapes or {})
+
+    def view(name, t):
+        return t.t().reshape(shapes[name]) if name in shapes else t
+
+    def unview(name, t, like):
+        if name not in shapes:
+            return t
+        return t.reshape(like.shape[1], like.shape[0]).t()
+
+    def init(params):
+        state = {'count': 0, 'v_row': {}, 'v_col': {}, 'v': {}}
+        for n, p in params.items():
+            shape, dtype = tuple(view(n, p.detach()).shape), p.dtype
+            one = torch.zeros((1,), dtype=dtype, device=p.device)
+            dims = _factored_dims(shape, min_dim_size_to_factor)
+            if dims is not None:
+                d1, d0 = dims
+                state['v_row'][n] = torch.zeros(
+                    tuple(np.delete(shape, d0)), dtype=dtype, device=p.device)
+                state['v_col'][n] = torch.zeros(
+                    tuple(np.delete(shape, d1)), dtype=dtype, device=p.device)
+                state['v'][n] = one
+            else:
+                state['v_row'][n] = one
+                state['v_col'][n] = one.clone()
+                state['v'][n] = torch.zeros(shape, dtype=dtype,
+                                            device=p.device)
+        return state
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError('scale_by_factored_rms needs params')
+        decay = _decay_rate_pow(state['count'], decay_rate)
+        keep, new = float(decay), float(_f32(1) - decay)
+        out, v_row, v_col, v = {}, {}, {}, {}
+        for n, u in updates.items():
+            g = view(n, u)
+            dtype = params[n].dtype
+            dims = _factored_dims(tuple(g.shape), min_dim_size_to_factor)
+            g_sqr = g * g + epsilon
+            if dims is not None:
+                d1, d0 = dims
+                v_row[n] = (keep * state['v_row'][n]
+                            + new * g_sqr.mean(dim=d0)).to(dtype)
+                v_col[n] = (keep * state['v_col'][n]
+                            + new * g_sqr.mean(dim=d1)).to(dtype)
+                v[n] = state['v'][n]
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = v_row[n].mean(dim=reduced_d1, keepdim=True)
+                row_factor = (v_row[n] / row_col_mean) ** -0.5
+                col_factor = v_col[n] ** -0.5
+                step = (g * row_factor.unsqueeze(d0)
+                        * col_factor.unsqueeze(d1))
+            else:
+                v_row[n], v_col[n] = state['v_row'][n], state['v_col'][n]
+                v[n] = (keep * state['v'][n] + new * g_sqr).to(dtype)
+                step = g * v[n] ** -0.5
+            out[n] = unview(n, step, u)
+        return out, {'count': state['count'] + 1, 'v_row': v_row,
+                     'v_col': v_col, 'v': v}
+    return GradientTransformation(init, update)
+
+
+def clip_by_block_rms(threshold: float) -> GradientTransformation:
+    """optax's ``clip_by_block_rms``: each leaf divided by
+    ``max(1, rms(u) / threshold)``."""
+    def init(params):
+        return {}
+
+    def update(updates, state, params=None):
+        return {n: u / torch.clamp_min(u.square().mean().sqrt() / threshold,
+                                       1.0)
+                for n, u in updates.items()}, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_param_block_rms(min_scale: float = 1e-3
+                             ) -> GradientTransformation:
+    """optax's ``scale_by_param_block_rms``: each leaf times the rms of
+    its parameter, at least ``min_scale``."""
+    def init(params):
+        return {}
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError('scale_by_param_block_rms needs params')
+        out = {}
+        for n, u in updates.items():
+            rms = params[n].detach().square().mean().sqrt()
+            out[n] = u * torch.clamp_min(rms, min_scale).to(u.dtype)
+        return out, state
+    return GradientTransformation(init, update)
+
+
+def lamb(schedule, weight_decay: float = 0.0) -> GradientTransformation:
+    """``optax.lamb(schedule, weight_decay=weight_decay)``."""
+    return chain(scale_by_adam(0.9, 0.999, eps=1e-6),
+                 add_decayed_weights(weight_decay),
+                 scale_by_trust_ratio(),
+                 scale_by_learning_rate(schedule))
+
+
+def adafactor(schedule, kernel_shapes: Optional[dict] = None
+              ) -> GradientTransformation:
+    """``optax.adafactor(schedule)`` with optax's defaults (module
+    docstring)."""
+    return chain(scale_by_factored_rms(kernel_shapes=kernel_shapes),
+                 clip_by_block_rms(1.0),
+                 scale_by_schedule(schedule),
+                 scale_by_param_block_rms(1e-3),
+                 scale(-1.0))
+
+
 def global_norm(updates: dict) -> torch.Tensor:
     return torch.sqrt(sum(u.float().square().sum()
                           for u in updates.values()))
@@ -357,8 +543,11 @@ def make_schedule(lr: float, spec: Optional[dict],
 
 
 def make_optimizer(spec: Optional[dict],
-                   total_steps: Optional[int] = None):
-    """``(GradientTransformation, schedule)`` from an optimizer spec."""
+                   total_steps: Optional[int] = None,
+                   kernel_shapes: Optional[dict] = None):
+    """``(GradientTransformation, schedule)`` from an optimizer spec.
+    ``kernel_shapes`` (``convert.jax_kernel_shapes(model)``) is read by
+    ``adafactor`` alone (module docstring)."""
     spec = dict(spec or {})
     name = spec.get('name', 'adam').lower()
     if name in _OPT_KEYS:
@@ -412,10 +601,10 @@ def make_optimizer(spec: Optional[dict],
                     add_decayed_weights(float(spec.get('weight_decay',
                                                        1e-2))),
                     scale_by_learning_rate(sched))
-    elif name in ('lamb', 'adafactor'):
-        raise NotImplementedError(
-            f'optimizer {name!r} is not ported yet (ROADMAP.md, queue A: '
-            f'lamb and adafactor); use sgd, adam or adamw')
+    elif name == 'lamb':
+        opt = lamb(sched, weight_decay=wd)
+    elif name == 'adafactor':
+        opt = adafactor(sched, kernel_shapes=kernel_shapes)
     else:
         raise ValueError(f'unknown optimizer {name!r}')
 
@@ -459,5 +648,5 @@ def state_to_device(tree, device):
 
 
 __all__ = ['GradientTransformation', 'make_optimizer', 'make_schedule',
-           'master_weight_update', 'apply_updates', 'global_norm',
+           'master_weight_update', 'lamb', 'adafactor', 'apply_updates', 'global_norm',
            'state_to_host', 'state_to_device']

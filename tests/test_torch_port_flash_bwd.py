@@ -300,7 +300,10 @@ class TestDenseCe:
 
     @pytest.mark.parametrize('impl', ['pallas', 'cuda'])
     def test_kernel_impl_is_not_ported(self, impl):
-        with pytest.raises(NotImplementedError, match='B5'):
+        """The kernel impls (a JAX config's ``pallas`` reads as ``cuda``)
+        launch the CE kernels of ``csrc/fused_ce.cu`` and refuse a CPU
+        tensor: there is no fallback to the plain version."""
+        with pytest.raises(ValueError, match='needs CUDA tensors'):
             port_ce.softmax_ce_per_example(torch.zeros(2, 4),
                                            torch.zeros(2), impl=impl)
 

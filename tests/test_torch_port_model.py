@@ -175,7 +175,7 @@ class TestConversion:
         params = dict(params)
         params['layer_1'] = {**params['layer_1'],
                              'moe': {'router': {'kernel': np.zeros(2)}}}
-        with pytest.raises(ValueError, match='MoE or int8'):
+        with pytest.raises(ValueError, match='MoE layers are not ported'):
             params_from_jax(params)
 
 
@@ -212,7 +212,7 @@ class TestLayerStack:
 class TestConfig:
     @pytest.mark.parametrize('override,exc,match', [
         ({'n_experts': 4}, NotImplementedError, 'MoE'),
-        ({'matmul_precision': 'int8'}, NotImplementedError, 'int8'),
+        ({'matmul_precision': 'int4'}, ValueError, 'matmul_precision'),
         ({'matmul_precision': 'fp8'}, ValueError, 'matmul_precision'),
         ({'attn_impl': 'triton'}, ValueError, 'attn_impl'),
         ({'dtype': 'int8'}, ValueError, 'dtype'),

@@ -284,8 +284,20 @@ class TestOptimizers:
 
     @pytest.mark.parametrize('name', ['lamb', 'adafactor'])
     def test_lamb_and_adafactor_are_not_ported(self, name):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            port_optim.make_optimizer({'name': name})
+        """lamb and adafactor are ported (``tests/
+        test_torch_port_int8_train.py`` holds them against optax); like
+        JAX they take the common keys only and refuse adam's ``b1``."""
+        with pytest.raises(ValueError) as want:
+            jax_optim.make_optimizer({'name': name, 'b1': 0.9})
+        with pytest.raises(ValueError) as got:
+            port_optim.make_optimizer({'name': name, 'b1': 0.9})
+        assert str(got.value) == str(want.value)
+        opt, _ = port_optim.make_optimizer({'name': name, 'lr': 1e-2,
+                                            'grad_clip': 1.0})
+        params = {'w': torch.ones(3, 2)}
+        updates, _ = opt.update({'w': torch.ones(3, 2)}, opt.init(params),
+                                params)
+        assert updates['w'].shape == (3, 2) and bool((updates['w'] < 0).all())
 
     def test_state_moves_between_host_and_device(self):
         opt, _ = port_optim.make_optimizer({'name': 'adamw'}, 10)
