@@ -12,7 +12,9 @@ last line:
 1. device: the card's name and power limit (``nvidia-smi``), torch, CUDA
    and nvcc versions;
 2. build: every kernel under ``mlcomp_tpu_torch/csrc/`` with nvcc, timed,
-   with ptxas's register / spill report;
+   with ptxas's register / spill report, and the HGMMA (wgmma)
+   instructions in the SASS of every instantiation of the two backward
+   kernels (cuobjdump; none fails the run);
 3. kernels: each kernel's wrapper on tensors on the card against its
    plain PyTorch version at several shapes (the main path's shape first),
    by the largest relative error of an output row (see
@@ -22,7 +24,9 @@ last line:
    3.35 TB/s or operations over the dtype's peak): the forward at the
    serving shapes, then the forward's lse and the two backward kernels
    at the training shapes (also held against torch autograd through the
-   plain version, per head);
+   plain version, per head), timed at both training shapes (the
+   flagship's 16 heads and the wide LM's 32) beside SDPA's backward, and
+   run twice there for bitwise-equal gradients;
 4. norm kernel: the fused batch-norm+ReLU kernel against its plain
    version (run in f64) at the CIFAR ResNet-18's norm sites at batch 512
    and 256 (the step's and the executor's; with and without the ReLU)
@@ -240,6 +244,42 @@ def phase_device():
     return smi
 
 
+#: the wgmma kernels by their kernels-line entry, and the HGMMA
+#: instructions in their SASS ({'instantiations', 'min_hgmma'}), which
+#: phase_build reads with cuobjdump
+WGMMA_KERNELS = {'flash_attention_bwd_dq': 'fa_bwd_dq_wgmma_kernel',
+                 'flash_attention_bwd_dkv': 'fa_bwd_dkv_wgmma_kernel'}
+SASS_COUNTS = {}
+
+
+def sass_hgmma(path: str):
+    """{SASS function name: HGMMA instructions} of a built library, from
+    the toolkit's cuobjdump (or Triton's copy); None without one."""
+    from mlcomp_tpu_torch.ops import _build
+    tools = [os.path.join(os.path.dirname(_build.nvcc()), 'cuobjdump')]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__),
+                                  'backends', 'nvidia', 'bin', 'cuobjdump'))
+    except ImportError:
+        pass
+    tool = next((x for x in tools if os.path.exists(x)), None)
+    if tool is None:
+        return None
+    out = subprocess.run([tool, '-sass', path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f'cuobjdump -sass {path}: {out.stderr.strip()[:500]}')
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :')[-1].strip()
+            counts[name] = 0
+        elif name is not None and 'HGMMA' in line:
+            counts[name] += 1
+    return counts
+
+
 def phase_build():
     from mlcomp_tpu_torch.ops import _build
     t0 = time.monotonic()
@@ -256,6 +296,18 @@ def phase_build():
             library=os.path.relpath(path, HERE))
         for ln in lines:
             print(f'    ptxas: {ln}', flush=True)
+    # proof that wgmma was emitted: HGMMA in every instantiation's SASS
+    counts = sass_hgmma(libs['flash_attention_bwd'])
+    if counts is None:
+        say('sass', hgmma='not measured (no cuobjdump)')
+    for entry, kernel in WGMMA_KERNELS.items() if counts else ():
+        found = [c for f, c in counts.items() if kernel in f]
+        say('sass', kernel=kernel, instantiations=len(found),
+            hgmma_min=min(found, default=0), hgmma_max=max(found, default=0))
+        if not found or min(found) == 0:
+            fail(f'{kernel}: no HGMMA in the SASS of some instantiation')
+        SASS_COUNTS[entry] = {'instantiations': len(found),
+                              'min_hgmma': min(found)}
     return libs
 
 
@@ -353,12 +405,13 @@ def _fields(errors: dict) -> str:
 
 def phase_backward_kernels(seed: int):
     """The forward's lse and both backward kernels against their plain
-    versions at every backward shape; the training shape timed. Returns
-    the kernels line's entries for the two backward kernels."""
+    versions at every backward shape; both training shapes timed, and
+    each run twice for bitwise-equal gradients. Returns the kernels
+    line's entries for the two backward kernels."""
     from mlcomp_tpu_torch.ops import flash_attention as fa
     from mlcomp_tpu_torch.testing.kernel_check import (
         AUTOGRAD_HEAD_TOL, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
-        BACKWARD_SHAPES, LSE_TOL, backward_check, backward_ok, qkv_views,
+        BACKWARD_SHAPES, LSE_TOL, backward_check, backward_ok,
     )
     import torch.nn.functional as F
     gen = torch.Generator(device='cuda').manual_seed(seed)
@@ -386,16 +439,68 @@ def phase_backward_kernels(seed: int):
             main = r
         torch.cuda.empty_cache()
 
-    # the training shape, timed: forward with lse, each backward kernel,
+    # both training shapes (the flagship's 16 heads, the wide LM's 32),
+    # timed: forward with lse, each backward kernel, the whole backward,
     # the plain versions, and scaled_dot_product_attention forward and
-    # backward as the library yardstick
+    # backward as the library yardstick; each also run twice for
+    # bitwise-equal gradients
+    timed = {}
+    for shape in BACKWARD_SHAPES[:2]:
+        timed[shape[2]] = _time_backward(shape, gen, fa, F)
     b, t, h, d, dtype, causal = BACKWARD_SHAPES[0]
+    flagship, wide = timed[h], timed[BACKWARD_SHAPES[1][2]]
+    entries = []
+    for name, products, n_out, grads in (
+            ('flash_attention_bwd_dq', 3, 1, ('dq',)),
+            ('flash_attention_bwd_dkv', 4, 2, ('dk', 'dv'))):
+        ms_key = 'dq_ms' if n_out == 1 else 'dkv_ms'
+        kb, kb_by = backward_bound_ms(b, t, h, d, dtype, causal, products,
+                                      4, n_out)
+        wb, _ = backward_bound_ms(*BACKWARD_SHAPES[1], products, 4, n_out)
+        entries.append({
+            'name': name, 'route': 'cuda',
+            'source': 'mlcomp_tpu_torch/csrc/flash_attention_bwd.cu',
+            'replaces': 'mlcomp_tpu/ops/flash_attention.py:'
+                        + ('309' if n_out == 1 else '336'),
+            'redesigned': 'PR 6',
+            'max_abs_err': max(main['max_abs_err'][g] for g in grads),
+            'row_err': max(main['row_err'][g] for g in grads),
+            'ms': flagship[ms_key], 'plain_ms': flagship['plain_bwd_ms'],
+            'bound_ms': kb, 'bound_by': kb_by, 'library_ms': None,
+            'sdpa_bwd_ms': flagship['sdpa_bwd_ms'],
+            'bwd_ms': flagship['bwd_ms'],
+            'bitwise_equal_over_two_runs': flagship['bitwise_equal'],
+            'sass_hgmma': SASS_COUNTS.get(name),
+            'shape': [b, t, h, d], 'dtype': str(dtype)[6:],
+            'causal': causal,
+            'wide': {'shape': list(BACKWARD_SHAPES[1][:4]),
+                     'ms': wide[ms_key], 'bound_ms': wb,
+                     'plain_ms': wide['plain_bwd_ms'],
+                     'sdpa_bwd_ms': wide['sdpa_bwd_ms'],
+                     'bwd_ms': wide['bwd_ms']}})
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _time_backward(shape, gen, fa, F) -> dict:
+    """Times of the backward at a training shape (CUDA events), and
+    whether two runs of it give bitwise-equal dq, dk and dv."""
+    from mlcomp_tpu_torch.testing.kernel_check import qkv_views
+    b, t, h, d, dtype, causal = shape
     q, k, v = qkv_views(b, t, h, d, dtype, gen)
     do = torch.randn((b, t, h, d), generator=gen, device='cuda',
                      dtype=torch.float32).to(dtype)
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
                                           with_lse=True)
     delta = fa.attention_delta(out, do)
+    first = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    again = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in zip(first, again))
+    if not bitwise:
+        fail(f'the backward kernels gave different gradients in two runs '
+             f'at {shape}')
+    del first, again
     fwd_ms = time_ms(lambda: fa.flash_attention_forward(
         q, k, v, causal=causal, with_lse=True), iters=20)
     dq_ms = time_ms(lambda: fa.flash_attention_backward_dq(
@@ -406,8 +511,10 @@ def phase_backward_kernels(seed: int):
         q, k, v, out, lse, do, causal=causal), iters=20)
     plain_fwd_ms = time_ms(lambda: fa.reference_attention(
         q, k, v, causal=causal, with_lse=True), iters=2)
+    torch.cuda.empty_cache()
     plain_bwd_ms = time_ms(lambda: fa.reference_attention_backward(
         q, k, v, out, lse, do, causal=causal), iters=2)
+    torch.cuda.empty_cache()
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -430,27 +537,12 @@ def phase_backward_kernels(seed: int):
         fwd_bwd_ms=f'{fwd_ms + bwd_ms:.4f}',
         sdpa_fwd_bwd_ms=f'{sdpa_ms:.4f}', sdpa_bwd_ms=f'{sdpa_bwd_ms:.4f}',
         plain_fwd_lse_ms=f'{plain_fwd_ms:.3f}',
-        plain_bwd_ms=f'{plain_bwd_ms:.3f}')
-    entries = []
-    for name, ms, products, n_out, grads in (
-            ('flash_attention_bwd_dq', dq_ms, 3, 1, ('dq',)),
-            ('flash_attention_bwd_dkv', dkv_ms, 4, 2, ('dk', 'dv'))):
-        kb, kb_by = backward_bound_ms(b, t, h, d, dtype, causal, products,
-                                      4, n_out)
-        entries.append({
-            'name': name, 'route': 'cuda',
-            'source': 'mlcomp_tpu_torch/csrc/flash_attention_bwd.cu',
-            'replaces': 'mlcomp_tpu/ops/flash_attention.py:'
-                        + ('309' if n_out == 1 else '336'),
-            'max_abs_err': max(main['max_abs_err'][g] for g in grads),
-            'row_err': max(main['row_err'][g] for g in grads),
-            'ms': ms, 'plain_ms': plain_bwd_ms, 'bound_ms': kb,
-            'bound_by': kb_by, 'library_ms': None,
-            'shape': [b, t, h, d], 'dtype': str(dtype)[6:],
-            'causal': causal})
+        plain_bwd_ms=f'{plain_bwd_ms:.3f}', bitwise_equal=bitwise)
     del q, k, v, do, out, lse, delta, qt, kt, vt, dot, o_lib
     torch.cuda.empty_cache()
-    return entries
+    return {'dq_ms': dq_ms, 'dkv_ms': dkv_ms, 'bwd_ms': bwd_ms,
+            'plain_bwd_ms': plain_bwd_ms, 'sdpa_bwd_ms': sdpa_bwd_ms,
+            'bitwise_equal': bitwise}
 
 
 # ---------------------------------------------------------------- phase 4

@@ -14,18 +14,19 @@
 //   dQ = dS K * scale,  dK = dS^T Q * scale,  dV = P^T dO
 // written as fresh contiguous [B, T, H, D] tensors in the input dtype.
 // Numerics follow the TPU kernels: both score products accumulate in f32,
-// P and dS are rounded to the input dtype before the gradient products
-// (f32 accumulation), and the scale is applied after the dQ and dK
-// products, once, to the f32 sums.
+// P is rebuilt from the lse with one FFMA and one ex2, P and dS are
+// rounded to the input dtype before the gradient products (f32
+// accumulation), and the scale is applied after the dQ and dK products,
+// once, to the f32 sums.
 //
 // Two kernels, as on the TPU, so that no two blocks write one output row
-// and no atomics are needed (the gradients are deterministic):
-// - dq: a block owns 128 query rows (64 for D = 128) and loops over the
-//   64-row K/V tiles up to the last one the causal mask leaves live
-//   (`_last_live_k`, :147);
-// - dkv: a block owns 128 key rows (64 for D = 128) and loops over the
-//   64-row Q/dO tiles from the first live one (`_first_live_q`, :156) to
-//   the end.
+// and no atomics are needed (the gradients are deterministic, bit for
+// bit from run to run):
+// - dq: a block owns 128 query rows and loops over the 64-key K/V tiles
+//   up to the last one the causal mask leaves live (`_last_live_k`, :147);
+// - dkv: a block owns 128 keys and loops over the Q/dO tiles (64
+//   queries; 32 for D = 128) from the first live one (`_first_live_q`,
+//   :156) to the end.
 //
 // Bound on the card (H100 SXM): five products of 2*D FLOPs for every live
 // (query, key) pair (S and dP in both kernels would be seven; the least
@@ -37,18 +38,41 @@
 // dP in both kernels (7 products per pair instead of 5), the price of
 // needing no atomics.
 //
-// What the design does about that bound: the [T, T] P and dS tiles never
-// leave registers. Each warp owns 32 rows (16 for D = 128: registers),
-// so each fragment of the streamed tile feeds two MMAs; all five
-// products run on the tensor cores with mma.sync m16n8k16 (bf16 or fp16
-// in, f32 accumulate),
-// and the S/dP accumulator fragments are re-packed in registers as the A
-// operand of the gradient products, rounded to the input dtype there. The
-// streamed tiles (K/V for dq, Q/dO with their lse/delta rows for dkv)
-// arrive by cp.async into two stages, the next tile's copy overlapping
-// this tile's math, zero-filled past T, so any T works. A warp skips a
-// tile (or pass) that is dead for all its rows. wgmma/TMA and
-// warp specialisation are later work.
+// What the design does about that bound: every product is a warpgroup
+// wgmma (the only way to the tensor cores' full rate on Hopper), and the
+// [T, T] P and dS tiles never leave registers. A block is three
+// warpgroups: two consumers of 64 rows each and one producer, whose one
+// thread (and, in dkv, one warp) only loads; setmaxnreg moves registers
+// from the producer to the consumers. The tiles arrive by TMA into
+// swizzled shared memory (128-byte swizzle for D = 64, two such column
+// blocks a row for D = 128, 64-byte swizzle for D = 32), zero-filled past
+// T, so any T works. The block's own rows (Q and dO for dq, K and V for
+// dkv) stay resident; the streamed tiles pass through a ring of three
+// stages, each with a full and an empty mbarrier, so a consumer waits
+// only for its next tile, never for the other warpgroup. S = Q K^T and
+// dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dkv) read both
+// operands from shared memory, K-major. P and dS are rebuilt in the
+// accumulator registers, rounded to the input dtype and repacked as the
+// register A operand of the gradient products: dQ += dS K, dV += P^T dO
+// and dK += dS^T Q read their B operand (K, dO, Q) MN-major from the same
+// tiles, with wgmma's transpose bit. In dkv the lse and delta rows of a Q
+// tile come by cp.async into the same stage, on the same full barrier. A
+// warpgroup skips the products of a tile that is causally dead for all
+// its rows, applies the causal and ragged-end mask in a pass of its own
+// only on the tiles that need it, and issues the next tile's S and dP
+// products before it releases the current stage; blocks start
+// heavy-first (the longest loops first).
+//
+// What holds it back (H100 80GB HBM3 at 700 W: chip_smoke.py and
+// testing/kernel_variants.py, recorded in PERF.md): at the
+// flagship shape dq runs at ~40% and dkv at ~35% of the tensor-core peak
+// for their own products. ptxas reports no spills at D = 32 and 64, but
+// serializes the dkv kernel's wgmmas (C7515 at D <= 64, C7512 with the
+// gradient products waited on): its dK and dV accumulators, S^T, dP^T
+// and the repacked P and dS do not leave the wgmma pipeline registers
+// enough. The variants that avoid it (32-query tiles, the gradient
+// products waited on) measured slower. At D = 128 both kernels spill a
+// little (not on a main path).
 //
 // A plain SIMT path serves f32 inputs: the same two kernels with 32-row
 // blocks, 8-row streamed tiles and f32 FMAs outside the tensor cores.
@@ -58,7 +82,16 @@
 // cudaError_t as an int; 0 means launched. Like the forward they take a
 // positive scale for the scores; `dq_scale` multiplies the dQ sums (the
 // wrapper passes the caller's own scale there, which undoes its moving a
-// negative scale's sign onto q).
+// negative scale's sign onto q). For bf16 and fp16 they encode the TMA
+// descriptors of q, k, v and dO on the host, for each call, with the
+// CUDA cuTensorMapEncodeTiled, fetched through the runtime
+// (cudaGetDriverEntryPoint), so the library links the runtime only. TMA
+// needs each operand's base 16-byte aligned and its strides multiples of
+// 16 bytes; the wrapper copies an operand that is not.
+
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -86,449 +119,496 @@ struct Params {
   int causal;
 };
 
-// ------------------------------------------------------------------ MMA path
-constexpr int BLOCK = 64;  // rows of a streamed tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+// ---------------------------------------------------------------- wgmma path
+// The tensor maps of q, k, v and dO, each over [B, T, H, D] as dims
+// (D, H, T, B), innermost first; a box is one column block of `rows` rows
+// of one (b, h). Passed as a __grid_constant__ kernel parameter, so TMA
+// reads them from parameter space.
+struct TmaParams {
+  CUtensorMap q, k, v, dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, T, H;
+  float scale;
+  float dq_scale;
+  int causal;
+};
 
-// m16 row tiles per warp: two for D <= 64, so every K and V fragment
-// (dq) or Q and dO fragment (dk/dv) read from shared memory feeds two
-// MMAs; one for D = 128, where two would not fit the registers. The
-// dk/dv kernel walks each 64-query tile in MT passes, which keeps its
-// S^T and dP^T accumulators at one tile's size.
+constexpr int STAGES = 3;        // ring of streamed tiles
+constexpr int CONSUMERS = 2;     // consumer warpgroups, 64 rows each
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int OWN_ROWS = CONSUMERS * 64;   // rows a block owns
+constexpr int TMA_THREADS = (CONSUMERS + 1) * WG;
+// 128 x 40 + 256 x 232 registers fit the SM's 65,536
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int DQ_BLOCK_N = 64;   // keys of a streamed K/V tile (dq)
+
+// queries of a streamed Q/dO tile (dkv): 32 for D = 128 keeps its dK and
+// dV accumulators (2 x 64 registers a thread) and the S^T/dP^T tiles
+// inside the consumers' registers
 template <int D>
-__host__ __device__ constexpr int dq_m_tiles() { return D <= 64 ? 2 : 1; }
+__host__ __device__ constexpr int dkv_block_m() { return D == 128 ? 32 : 64; }
+
+// A tile of `rows` rows x D in shared memory, as TMA writes it: column
+// blocks of CB elements (one swizzle row of ROW_BYTES), each `rows` rows
+// x ROW_BYTES, swizzled in groups of 8 rows.
+template <int D>
+struct Tile {
+  static constexpr int CB = D >= 64 ? 64 : 32;
+  static constexpr int NCB = D / CB;
+  static constexpr int ROW_BYTES = CB * 2;
+  static constexpr uint32_t SWIZZLE = CB == 64 ? 1 : 2;  // 128B / 64B
+  static constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;
+  __host__ __device__ static constexpr int bytes(int rows) {
+    return rows * D * 2;
+  }
+
+  // the 64 rows from row0 (or the whole tile as B), columns 16 kk ..
+  // 16 kk + 15, read K-major (the rows' D values contiguous)
+  static __device__ __forceinline__ uint64_t k_major(const unsigned char* t,
+                                                     int rows, int row0,
+                                                     int kk) {
+    const int col = kk * 16;
+    return smem_desc(t + (col / CB) * rows * ROW_BYTES + row0 * ROW_BYTES +
+                         (col % CB) * 2,
+                     16, GROUP_BYTES, SWIZZLE);
+  }
+
+  // rows 16 kk .. 16 kk + 15 as the K of a B operand read MN-major (its N
+  // = D contiguous): the leading offset steps column blocks, the stride
+  // offset 8-row groups
+  static __device__ __forceinline__ uint64_t mn_major(const unsigned char* t,
+                                                      int rows, int kk) {
+    return smem_desc(t + kk * 16 * ROW_BYTES, rows * ROW_BYTES, GROUP_BYTES,
+                     SWIZZLE);
+  }
+
+  // TMA: rows t0 .. t0 + rows - 1 of head h, batch b into t
+  static __device__ __forceinline__ void load(unsigned char* t,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int rows,
+                                              int t0, int h, int b) {
+#pragma unroll
+    for (int c = 0; c < NCB; ++c)
+      tma_load_4d(t + c * rows * ROW_BYTES, map, bar, c * CB, h, t0, b);
+  }
+};
 
 template <int D>
-__host__ __device__ constexpr int dkv_m_tiles() { return D <= 64 ? 2 : 1; }
-
-template <int D>
-__host__ __device__ constexpr int dq_block_m() {
-  return WARPS * 16 * dq_m_tiles<D>();
+__host__ __device__ constexpr int dq_smem_bytes() {
+  // Q and dO resident, STAGES of K and V, the barriers, the alignment
+  return 2 * Tile<D>::bytes(OWN_ROWS) +
+         2 * STAGES * Tile<D>::bytes(DQ_BLOCK_N) + 8 * (2 * STAGES + 1) +
+         1024;
 }
 
 template <int D>
-__host__ __device__ constexpr int dkv_block_n() {
-  return WARPS * 16 * dkv_m_tiles<D>();
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  // K and V resident, STAGES of Q, dO and their lse and delta rows
+  return 2 * Tile<D>::bytes(OWN_ROWS) +
+         2 * STAGES * Tile<D>::bytes(dkv_block_m<D>()) +
+         2 * STAGES * dkv_block_m<D>() * 4 + 8 * (2 * STAGES + 1) + 1024;
 }
 
-template <int D>
-__host__ __device__ constexpr int dq_smem_bytes(int elem) {
-  // Q and dO tiles, two stages of K and V
-  return (2 * dq_block_m<D>() + 4 * BLOCK) * (D + SMEM_PAD) * elem;
+// S = A B^T and dP = A2 B2^T for the 64 rows of A and A2 (resident
+// OWN_ROWS-row tiles) from row0 and the N rows of the streamed tiles B and
+// B2, over D; both operands K-major from shared memory, one commit group
+template <typename T, int D, int N>
+__device__ __forceinline__ void score_products(
+    float (&sc)[N / 2], float (&dp)[N / 2], const unsigned char* a,
+    const unsigned char* a2, int row0, const unsigned char* b,
+    const unsigned char* b2) {
+  using Tl = Tile<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Wgmma<T, N>::ss(sc, Tl::k_major(a, OWN_ROWS, row0, kk),
+                    Tl::k_major(b, N, 0, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Wgmma<T, N>::ss(dp, Tl::k_major(a2, OWN_ROWS, row0, kk),
+                    Tl::k_major(b2, N, 0, kk), kk > 0);
+  wgmma_commit();
 }
 
-template <int D>
-__host__ __device__ constexpr int dkv_smem_bytes(int elem) {
-  // K and V, two stages of Q and dO, two stages of their lse and delta
-  return (2 * dkv_block_n<D>() + 4 * BLOCK) * (D + SMEM_PAD) * elem +
-         4 * BLOCK * 4;
-}
-
-// dQ for dq_block_m<D>() query rows of one (b, h)
+// dQ for 128 query rows of one (b, h)
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    fa_bwd_dq_mma_kernel(const Params p) {
-  constexpr int MT = dq_m_tiles<D>();
-  constexpr int BLOCK_M = dq_block_m<D>();
-  constexpr int LD = D + SMEM_PAD;
-  constexpr int TILE = BLOCK * LD;    // elements of one K or V stage
-  constexpr int N_TILES = BLOCK / 8;  // n8 tiles of S per m16 tile
-  constexpr int D_TILES = D / 8;      // n8 tiles of dQ per m16 tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + BLOCK_M * LD;
-  T* Ks = dOs + BLOCK_M * LD;  // [2][TILE]
-  T* Vs = Ks + 2 * TILE;       // [2][TILE]
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    fa_bwd_dq_wgmma_kernel(const __grid_constant__ TmaParams p) {
+  using Tl = Tile<D>;
+  constexpr int BLOCK_N = DQ_BLOCK_N;
+  constexpr int N_TILES = BLOCK_N / 8;  // n8 column blocks of S
+  constexpr int RES = Tl::bytes(OWN_ROWS);
+  constexpr int KV = Tl::bytes(BLOCK_N);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align_1024(smem_raw);
+  unsigned char* dOs = Qs + RES;
+  unsigned char* Ks = dOs + RES;            // [STAGES]
+  unsigned char* Vs = Ks + STAGES * KV;     // [STAGES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * KV);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
 
   // causal q-tiles late in the sequence carry the most k-tiles: start
   // them first so the short ones fill the tail of the grid
   const int q_tile = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int q0 = q_tile * BLOCK_M;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int64_t row_stats = (static_cast<int64_t>(b) * p.H + h) * p.T;
-  const int64_t o_st = static_cast<int64_t>(p.H) * D;
-  T* dqg = static_cast<T*>(p.dq) + b * p.T * o_st + h * D;
+  const int q0 = q_tile * OWN_ROWS;
+  const int kv_end = p.causal ? min(p.T, q0 + OWN_ROWS) : p.T;
+  const int n_k_tiles = (kv_end + BLOCK_N - 1) / BLOCK_N;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // fragment row group
-  const int tq = lane % 4;  // thread within the group
-  const int wrow0 = q0 + warp * 16 * MT;  // the warp's first query row
-
-  const int kv_end = p.causal ? min(p.T, q0 + BLOCK_M) : p.T;
-  const int n_k_tiles = (kv_end + BLOCK - 1) / BLOCK;
-
-  // copy groups in flight: Q and dO, then K/V tile 0 (stage 0)
-  load_rows<T, D, BLOCK_M, THREADS>(Qs, qg, p.q_st, q0, p.T);
-  load_rows<T, D, BLOCK_M, THREADS>(dOs, dog, p.do_st, q0, p.T);
-  cp_async_commit();
-  load_rows<T, D, BLOCK, THREADS>(Ks, kg, p.k_st, 0, p.T);
-  load_rows<T, D, BLOCK, THREADS>(Vs, vg, p.v_st, 0, p.T);
-  cp_async_commit();
-
-  // this thread's rows (g and g + 8 of each m16 tile): their lse in log2
-  // units, and delta (rows past T read 0; they are never written)
-  int rows[MT][2];
-  float lse_r[MT][2], dl_r[MT][2];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * WG);
+    }
+    mbar_init(resident, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == CONSUMERS) {
+    // producer: one thread issues every copy
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * WG) {
+      mbar_arrive_expect_tx(resident, 2 * RES);
+      Tl::load(Qs, &p.q, resident, OWN_ROWS, q0, h, b);
+      Tl::load(dOs, &p.dout, resident, OWN_ROWS, q0, h, b);
+      for (int kt = 0; kt < n_k_tiles; ++kt) {
+        const int s = kt % STAGES;
+        // the stage's last tile released by both consumers
+        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * KV);
+        Tl::load(Ks + s * KV, &p.k, &full[s], BLOCK_N, kt * BLOCK_N, h, b);
+        Tl::load(Vs + s * KV, &p.v, &full[s], BLOCK_N, kt * BLOCK_N, h, b);
+      }
+    }
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;   // accumulator row group
+    const int tq = lane % 4;  // thread within the group
+    const int row0 = wg * 64;                 // the warpgroup's rows
+    const int wrow0 = q0 + row0 + warp * 16;  // the warp's first query
+    const int last_row = q0 + row0 + 63;      // the warpgroup's last
+    const int64_t row_stats = (static_cast<int64_t>(b) * p.H + h) * p.T;
+
+    // this thread's rows (g and g + 8 of the warp's 16): their lse in
+    // log2 units, and delta (rows past T read 0; they are never written)
+    int rows[2];
+    float lse_r[2], dl_r[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = wrow0 + mt * 16 + g + 8 * i;
-      rows[mt][i] = r;
-      lse_r[mt][i] = r < p.T ? p.lse[row_stats + r] * LOG2E : 0.f;
-      dl_r[mt][i] = r < p.T ? p.delta[row_stats + r] : 0.f;
+      const int r = wrow0 + g + 8 * i;
+      rows[i] = r;
+      lse_r[i] = r < p.T ? p.lse[row_stats + r] * LOG2E : 0.f;
+      dl_r[i] = r < p.T ? p.delta[row_stats + r] : 0.f;
     }
-  }
-  const float scale_log2 = p.scale * LOG2E;
+    const float scale_log2 = p.scale * LOG2E;
 
-  float dq[MT][D_TILES][4];
+    float dq[D / 2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int n = 0; n < D_TILES; ++n)
-      dq[mt][n][0] = dq[mt][n][1] = dq[mt][n][2] = dq[mt][n][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  for (int kt = 0; kt < n_k_tiles; ++kt) {
-    const int k0 = kt * BLOCK;
-    const T* Kc = Ks + (kt & 1) * TILE;
-    const T* Vc = Vs + (kt & 1) * TILE;
-    // prefetch the next K/V tile into the other stage (freed by the
-    // barrier that ended iteration kt - 1)
-    if (kt + 1 < n_k_tiles) {
-      load_rows<T, D, BLOCK, THREADS>(Ks + ((kt + 1) & 1) * TILE, kg, p.k_st,
-                                      k0 + BLOCK, p.T);
-      load_rows<T, D, BLOCK, THREADS>(Vs + ((kt + 1) & 1) * TILE, vg, p.v_st,
-                                      k0 + BLOCK, p.T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // causal: a warp whose rows all precede this tile has nothing live
-    // in it (its other warps may)
-    if (!p.causal || k0 <= wrow0 + 16 * MT - 1) {
-      // S = Q K^T and dP = dO V^T, f32 accumulators; each K and V
-      // fragment feeds MT tiles
-      float s[MT][N_TILES][4], dp[MT][N_TILES][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int n = 0; n < N_TILES; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[mt][n][e] = dp[mt][n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[MT][4], da[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int a_off = (warp * 16 * MT + mt * 16 + (lane % 16)) * LD +
-                            kk * 16 + (lane / 16) * 8;
-          ldmatrix_x4(qa[mt], Qs + a_off);
-          ldmatrix_x4(da[mt], dOs + a_off);
-        }
-#pragma unroll
-        for (int np = 0; np < N_TILES / 2; ++np) {
-          const int b_off = (np * 16 + (lane % 8) + (lane / 16) * 8) * LD +
-                            kk * 16 + ((lane / 8) % 2) * 8;
-          uint32_t kb[4], vb[4];
-          ldmatrix_x4(kb, Kc + b_off);
-          ldmatrix_x4(vb, Vc + b_off);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            Mma<T>::run(s[mt][2 * np], qa[mt], kb[0], kb[1]);
-            Mma<T>::run(s[mt][2 * np + 1], qa[mt], kb[2], kb[3]);
-            Mma<T>::run(dp[mt][2 * np], da[mt], vb[0], vb[1]);
-            Mma<T>::run(dp[mt][2 * np + 1], da[mt], vb[2], vb[3]);
-          }
-        }
-      }
-
-      // P = exp(scale * S - lse), one FFMA and one ex2 per score; 0 on
-      // the causal triangle and past T; dS = P (dP - delta), into s
-      const bool need_mask =
-          (k0 + BLOCK > p.T) || (p.causal && k0 + BLOCK - 1 > wrow0);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
+    // tile kt + 1's S and dP products are issued before tile kt's stage
+    // is released, so the tensor cores start on them at once
+    float sc[BLOCK_N / 2], dp[BLOCK_N / 2];
+    mbar_wait(resident, 0);
+    mbar_wait(&full[0], 0);
+    score_products<T, D, BLOCK_N>(sc, dp, Qs, dOs, row0, Ks, Vs);
+    for (int kt = 0; kt < n_k_tiles; ++kt) {
+      const int s = kt % STAGES;
+      const int k0 = kt * BLOCK_N;
+      wgmma_wait<0>();  // S and dP of tile kt
+      fence_regs(sc);
+      fence_regs(dp);
+      fence_regs(dq);
+      // tile kt - 1's stage is free: its dQ product read K there and is
+      // done
+      if (kt > 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+      // causal: a warpgroup whose rows all precede this tile has nothing
+      // live in it (the other may); its products were never issued
+      if (!p.causal || k0 <= last_row) {
+        // P = exp(scale * S - lse), one FFMA and one ex2 per score;
+        // dS = P (dP - delta), into sc
 #pragma unroll
         for (int n = 0; n < N_TILES; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = e / 2;  // row g or g + 8
-            float pe = fast_exp2(fmaf(s[mt][n][e], scale_log2, -lse_r[mt][i]));
-            const int kc = k0 + n * 8 + tq * 2 + (e & 1);
-            if (need_mask && (kc >= p.T || (p.causal && kc > rows[mt][i])))
-              pe = 0.f;
-            s[mt][n][e] = pe * (dp[mt][n][e] - dl_r[mt][i]);
+            const float pe =
+                fast_exp2(fmaf(sc[4 * n + e], scale_log2, -lse_r[i]));
+            sc[4 * n + e] = pe * (dp[4 * n + e] - dl_r[i]);
           }
         }
-      }
+        // 0 on the causal triangle and past T (P = 0 there), a pass of
+        // its own on the tiles that hold such pairs
+        if ((k0 + BLOCK_N > p.T) || (p.causal && k0 + BLOCK_N - 1 > wrow0)) {
+#pragma unroll
+          for (int n = 0; n < N_TILES; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kc = k0 + n * 8 + tq * 2 + (e & 1);
+              if (kc >= p.T || (p.causal && kc > rows[e / 2]))
+                sc[4 * n + e] = 0.f;
+            }
+          }
+        }
 
-      // dQ += dS K: dS rounded to the input dtype straight from the
-      // accumulator fragments; K read transposed as the B operand, each
-      // fragment feeding MT tiles
+        // dQ += dS K: dS rounded to the input dtype, repacked from the
+        // accumulator layout as the register A operand (16 keys a step);
+        // K read MN-major from the same tile
+        uint32_t a[BLOCK_N / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BLOCK / 16; ++kk) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          a[mt][0] = Mma<T>::pack(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-          a[mt][1] = Mma<T>::pack(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-          a[mt][2] = Mma<T>::pack(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-          a[mt][3] = Mma<T>::pack(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+          a[kk][0] = Mma<T>::pack(sc[8 * kk + 0], sc[8 * kk + 1]);
+          a[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+          a[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+          a[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
         }
+        const unsigned char* Kc = Ks + s * KV;
+        wgmma_fence();
 #pragma unroll
-        for (int dc = 0; dc < D / 16; ++dc) {
-          uint32_t kb[4];
-          ldmatrix_x4_trans(kb, Kc + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                                    dc * 16 + (lane / 16) * 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            Mma<T>::run(dq[mt][2 * dc], a[mt], kb[0], kb[1]);
-            Mma<T>::run(dq[mt][2 * dc + 1], a[mt], kb[2], kb[3]);
-          }
+        for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+          Wgmma<T, D>::template rs<1>(dq, a[kk], Tl::mn_major(Kc, BLOCK_N, kk));
         }
+        wgmma_commit();
+        // overlapping it with the next tile's S and dP products makes
+        // ptxas serialize every wgmma of the kernel (C7515): measured
+        // slower
+        wgmma_wait<0>();
+      }
+      if (kt + 1 < n_k_tiles) {
+        const int s1 = (kt + 1) % STAGES;
+        mbar_wait(&full[s1], ((kt + 1) / STAGES) & 1);
+        if (!p.causal || k0 + BLOCK_N <= last_row)
+          score_products<T, D, BLOCK_N>(sc, dp, Qs, dOs, row0, Ks + s1 * KV,
+                                        Vs + s1 * KV);
       }
     }
-    __syncthreads();  // every warp is done with this stage before refill
-  }
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(&empty[(n_k_tiles - 1) % STAGES]);
 
+    const int64_t o_st = static_cast<int64_t>(p.H) * D;
+    T* dqg = static_cast<T*>(p.dq) + b * p.T * o_st + h * D;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int n = 0; n < D_TILES; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + tq * 2;
-      if (rows[mt][0] < p.T)
-        *reinterpret_cast<uint32_t*>(dqg + rows[mt][0] * o_st + col) =
-            Mma<T>::pack(dq[mt][n][0] * p.dq_scale, dq[mt][n][1] * p.dq_scale);
-      if (rows[mt][1] < p.T)
-        *reinterpret_cast<uint32_t*>(dqg + rows[mt][1] * o_st + col) =
-            Mma<T>::pack(dq[mt][n][2] * p.dq_scale, dq[mt][n][3] * p.dq_scale);
+      if (rows[0] < p.T)
+        *reinterpret_cast<uint32_t*>(dqg + rows[0] * o_st + col) =
+            Mma<T>::pack(dq[4 * n] * p.dq_scale, dq[4 * n + 1] * p.dq_scale);
+      if (rows[1] < p.T)
+        *reinterpret_cast<uint32_t*>(dqg + rows[1] * o_st + col) =
+            Mma<T>::pack(dq[4 * n + 2] * p.dq_scale,
+                         dq[4 * n + 3] * p.dq_scale);
     }
   }
 }
 
-// dK and dV for dkv_block_n<D>() key rows of one (b, h)
+// dK and dV for 128 keys of one (b, h)
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    fa_bwd_dkv_mma_kernel(const Params p) {
-  constexpr int MT = dkv_m_tiles<D>();
-  constexpr int BLOCK_N = dkv_block_n<D>();
-  constexpr int QW = BLOCK / MT;        // queries of one pass over a tile
-  constexpr int LD = D + SMEM_PAD;
-  constexpr int TILE = BLOCK * LD;      // elements of one Q or dO stage
-  constexpr int N_TILES = QW / 8;       // n8 tiles of S^T per m16 tile
-  constexpr int D_TILES = D / 8;        // n8 tiles of dK, dV per m16 tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + BLOCK_N * LD;
-  T* Qs = Vs + BLOCK_N * LD;  // [2][TILE]
-  T* dOs = Qs + 2 * TILE;     // [2][TILE]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][BLOCK]
-  float* dl_s = lse_s + 2 * BLOCK;                          // [2][BLOCK]
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    fa_bwd_dkv_wgmma_kernel(const __grid_constant__ TmaParams p) {
+  using Tl = Tile<D>;
+  constexpr int BLOCK_M = dkv_block_m<D>();  // queries of a streamed tile
+  constexpr int N_TILES = BLOCK_M / 8;       // n8 column blocks of S^T
+  constexpr int RES = Tl::bytes(OWN_ROWS);
+  constexpr int QT = Tl::bytes(BLOCK_M);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align_1024(smem_raw);
+  unsigned char* Vs = Ks + RES;
+  unsigned char* Qs = Vs + RES;              // [STAGES]
+  unsigned char* dOs = Qs + STAGES * QT;     // [STAGES]
+  float* lse_s = reinterpret_cast<float*>(dOs + STAGES * QT);  // [STAGES][BLOCK_M]
+  float* dl_s = lse_s + STAGES * BLOCK_M;                      // [STAGES][BLOCK_M]
+  uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + STAGES * BLOCK_M);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
 
   // causal: early key tiles meet the most q-tiles; they come first
   const int k_tile = blockIdx.x;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int k0 = k_tile * BLOCK_N;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int k0 = k_tile * OWN_ROWS;
   const int64_t row_stats = (static_cast<int64_t>(b) * p.H + h) * p.T;
-  const float* lse_g = p.lse + row_stats;
-  const float* dl_g = p.delta + row_stats;
-  const int64_t o_st = static_cast<int64_t>(p.H) * D;
-  T* dkg = static_cast<T*>(p.dk) + b * p.T * o_st + h * D;
-  T* dvg = static_cast<T*>(p.dv) + b * p.T * o_st + h * D;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int wk0 = k0 + warp * 16 * MT;  // the warp's first key row
-  int keys[MT][2];                        // this thread's key rows
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    keys[mt][0] = wk0 + mt * 16 + g;
-    keys[mt][1] = keys[mt][0] + 8;
-  }
-
   // the q-tile holding the block's first key: no earlier query sees any
   // of its keys
-  const int first_qt = p.causal ? k0 / BLOCK : 0;
-  const int n_q_tiles = (p.T + BLOCK - 1) / BLOCK;
+  const int first_qt = p.causal ? k0 / BLOCK_M : 0;
+  const int n_q_tiles = (p.T + BLOCK_M - 1) / BLOCK_M;
 
-  // copy groups in flight: K and V, then the first Q/dO tile (stage 0)
-  load_rows<T, D, BLOCK_N, THREADS>(Ks, kg, p.k_st, k0, p.T);
-  load_rows<T, D, BLOCK_N, THREADS>(Vs, vg, p.v_st, k0, p.T);
-  cp_async_commit();
-  load_rows<T, D, BLOCK, THREADS>(Qs, qg, p.q_st, first_qt * BLOCK, p.T);
-  load_rows<T, D, BLOCK, THREADS>(dOs, dog, p.do_st, first_qt * BLOCK, p.T);
-  load_floats<BLOCK, THREADS>(lse_s, lse_g, first_qt * BLOCK, p.T);
-  load_floats<BLOCK, THREADS>(dl_s, dl_g, first_qt * BLOCK, p.T);
-  cp_async_commit();
-
-  const float scale_log2 = p.scale * LOG2E;
-  float dk[MT][D_TILES][4], dv[MT][D_TILES][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int n = 0; n < D_TILES; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[mt][n][e] = dv[mt][n][e] = 0.f;
-
-  for (int qt = first_qt; qt < n_q_tiles; ++qt) {
-    const int stage = (qt - first_qt) & 1;
-    const T* Qc = Qs + stage * TILE;
-    const T* dOc = dOs + stage * TILE;
-    const float* lse_c = lse_s + stage * BLOCK;
-    const float* dl_c = dl_s + stage * BLOCK;
-    if (qt + 1 < n_q_tiles) {
-      const int nxt = stage ^ 1;
-      const int q1 = (qt + 1) * BLOCK;
-      load_rows<T, D, BLOCK, THREADS>(Qs + nxt * TILE, qg, p.q_st, q1, p.T);
-      load_rows<T, D, BLOCK, THREADS>(dOs + nxt * TILE, dog, p.do_st, q1, p.T);
-      load_floats<BLOCK, THREADS>(lse_s + nxt * BLOCK, lse_g, q1, p.T);
-      load_floats<BLOCK, THREADS>(dl_s + nxt * BLOCK, dl_g, q1, p.T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's TMA arrival and its warp's 32 cp.async arrivals
+      mbar_init(&full[s], 1 + 32);
+      mbar_init(&empty[s], CONSUMERS * WG);
     }
-    __syncthreads();
+    mbar_init(resident, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // the tile in passes of QW queries
-#pragma unroll
-    for (int pass = 0; pass < MT; ++pass) {
-      const int c0 = pass * QW;        // the pass's first query in the tile
-      const int q0 = qt * BLOCK + c0;
-      // causal: a warp whose keys all follow these queries has nothing
-      // live in them (its other warps may)
-      if (p.causal && wk0 > q0 + QW - 1) continue;
-
-      // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys,
-      // columns the pass's queries; each Q and dO fragment feeds MT tiles
-      float s[MT][N_TILES][4], dp[MT][N_TILES][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int n = 0; n < N_TILES; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[mt][n][e] = dp[mt][n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[MT][4], va[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int a_off = (warp * 16 * MT + mt * 16 + (lane % 16)) * LD +
-                            kk * 16 + (lane / 16) * 8;
-          ldmatrix_x4(ka[mt], Ks + a_off);
-          ldmatrix_x4(va[mt], Vs + a_off);
-        }
-#pragma unroll
-        for (int np = 0; np < N_TILES / 2; ++np) {
-          const int b_off = (c0 + np * 16 + (lane % 8) + (lane / 16) * 8) * LD +
-                            kk * 16 + ((lane / 8) % 2) * 8;
-          uint32_t qb[4], ob[4];
-          ldmatrix_x4(qb, Qc + b_off);
-          ldmatrix_x4(ob, dOc + b_off);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            Mma<T>::run(s[mt][2 * np], ka[mt], qb[0], qb[1]);
-            Mma<T>::run(s[mt][2 * np + 1], ka[mt], qb[2], qb[3]);
-            Mma<T>::run(dp[mt][2 * np], va[mt], ob[0], ob[1]);
-            Mma<T>::run(dp[mt][2 * np + 1], va[mt], ob[2], ob[3]);
-          }
-        }
+  const int wg = threadIdx.x / WG;
+  if (wg == CONSUMERS) {
+    // producer: one warp; its lane 0 issues the TMA copies, every lane
+    // copies lse and delta rows
+    regs_dec<PRODUCER_REGS>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < CONSUMERS * WG + 32) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(resident, 2 * RES);
+        Tl::load(Ks, &p.k, resident, OWN_ROWS, k0, h, b);
+        Tl::load(Vs, &p.v, resident, OWN_ROWS, k0, h, b);
       }
+      const float* lse_g = p.lse + row_stats;
+      const float* dl_g = p.delta + row_stats;
+      for (int qt = first_qt; qt < n_q_tiles; ++qt) {
+        const int i = qt - first_qt;
+        const int s = i % STAGES;
+        const int qs = qt * BLOCK_M;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * QT);
+          Tl::load(Qs + s * QT, &p.q, &full[s], BLOCK_M, qs, h, b);
+          Tl::load(dOs + s * QT, &p.dout, &full[s], BLOCK_M, qs, h, b);
+        }
+        for (int j = lane; j < BLOCK_M; j += 32) {
+          const int t = qs + j;
+          const bool valid = t < p.T;  // zero-filled past T
+          cp_async4(lse_s + s * BLOCK_M + j, valid ? lse_g + t : lse_g, valid);
+          cp_async4(dl_s + s * BLOCK_M + j, valid ? dl_g + t : dl_g, valid);
+        }
+        mbar_arrive_cp_async(&full[s]);
+      }
+    }
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    const int row0 = wg * 64;                // the warpgroup's keys
+    const int wk0 = k0 + row0 + warp * 16;   // the warp's first key
+    const int keys[2] = {wk0 + g, wk0 + g + 8};  // this thread's keys
+    const float scale_log2 = p.scale * LOG2E;
 
-      // P^T into s, dS^T into dp; 0 where the query precedes the key
-      // (causal) or lies past T
-      const bool need_mask =
-          (q0 + QW > p.T) || (p.causal && wk0 + 16 * MT - 1 > q0);
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    // causal: a warpgroup whose keys all follow a tile's queries has
+    // nothing live in it (the other may); its products are not issued.
+    // Tile i + 1's S^T and dP^T products are issued right behind tile i's
+    // dV and dK products, so the tensor cores drain once a tile
+    float sc[BLOCK_M / 2], dp[BLOCK_M / 2];
+    mbar_wait(resident, 0);
+    mbar_wait(&full[0], 0);
+    if (!p.causal || k0 + row0 <= first_qt * BLOCK_M + BLOCK_M - 1)
+      score_products<T, D, BLOCK_M>(sc, dp, Ks, Vs, row0, Qs, dOs);
+    for (int qt = first_qt; qt < n_q_tiles; ++qt) {
+      const int i = qt - first_qt;
+      const int s = i % STAGES;
+      const int qs = qt * BLOCK_M;
+      wgmma_wait<0>();  // S^T and dP^T of tile i, dV and dK of tile i - 1
+      fence_regs(sc);
+      fence_regs(dp);
+      fence_regs(dk);
+      fence_regs(dv);
+      // tile i - 1's stage is free: its dV and dK products read dO and Q
+      if (i > 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+      if (!p.causal || k0 + row0 <= qs + BLOCK_M - 1) {
+        const float* lse_c = lse_s + s * BLOCK_M;
+        const float* dl_c = dl_s + s * BLOCK_M;
+        // P^T into sc, dS^T into dp: rows are this warpgroup's keys,
+        // columns the tile's queries
 #pragma unroll
         for (int n = 0; n < N_TILES; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int qi = c0 + n * 8 + tq * 2 + (e & 1);
-            float pe = fast_exp2(fmaf(s[mt][n][e], scale_log2, -lse_c[qi] * LOG2E));
-            const int qc = qt * BLOCK + qi;
-            const int key = keys[mt][e / 2];
-            if (need_mask && (qc >= p.T || (p.causal && key > qc)))
-              pe = 0.f;
-            s[mt][n][e] = pe;
-            dp[mt][n][e] = pe * (dp[mt][n][e] - dl_c[qi]);
+            const int qi = n * 8 + tq * 2 + (e & 1);
+            const float pe = fast_exp2(
+                fmaf(sc[4 * n + e], scale_log2, -lse_c[qi] * LOG2E));
+            sc[4 * n + e] = pe;
+            dp[4 * n + e] = pe * (dp[4 * n + e] - dl_c[qi]);
           }
         }
-      }
+        // 0 where the query precedes the key (causal) or lies past T, a
+        // pass of its own on the tiles that hold such pairs
+        if ((qs + BLOCK_M > p.T) || (p.causal && wk0 + 15 > qs)) {
+#pragma unroll
+          for (int n = 0; n < N_TILES; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = qs + n * 8 + tq * 2 + (e & 1);
+              const int key = keys[e / 2];
+              if (qc >= p.T || (p.causal && key > qc))
+                sc[4 * n + e] = dp[4 * n + e] = 0.f;
+            }
+          }
+        }
 
-      // dV += P^T dO and dK += dS^T Q: P and dS rounded to the input
-      // dtype straight from the accumulator fragments; dO and Q read
-      // transposed, each fragment feeding MT tiles
+        // dV += P^T dO and dK += dS^T Q: P and dS rounded to the input
+        // dtype, repacked as register A operands (16 queries a step); dO
+        // and Q read MN-major from the same stage. Issuing dV alone first,
+        // to run while dS is computed, measured slower
+        uint32_t pa[BLOCK_M / 16][4], sa[BLOCK_M / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < QW / 16; ++kk) {
-        uint32_t pa[MT][4], sa[MT][4];
+        for (int kk = 0; kk < BLOCK_M / 16; ++kk) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          pa[mt][0] = Mma<T>::pack(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-          pa[mt][1] = Mma<T>::pack(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-          pa[mt][2] = Mma<T>::pack(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-          pa[mt][3] = Mma<T>::pack(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-          sa[mt][0] = Mma<T>::pack(dp[mt][2 * kk][0], dp[mt][2 * kk][1]);
-          sa[mt][1] = Mma<T>::pack(dp[mt][2 * kk][2], dp[mt][2 * kk][3]);
-          sa[mt][2] = Mma<T>::pack(dp[mt][2 * kk + 1][0], dp[mt][2 * kk + 1][1]);
-          sa[mt][3] = Mma<T>::pack(dp[mt][2 * kk + 1][2], dp[mt][2 * kk + 1][3]);
-        }
-#pragma unroll
-        for (int dc = 0; dc < D / 16; ++dc) {
-          const int t_off = (c0 + kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                            dc * 16 + (lane / 16) * 8;
-          uint32_t ob[4], qb[4];
-          ldmatrix_x4_trans(ob, dOc + t_off);
-          ldmatrix_x4_trans(qb, Qc + t_off);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            Mma<T>::run(dv[mt][2 * dc], pa[mt], ob[0], ob[1]);
-            Mma<T>::run(dv[mt][2 * dc + 1], pa[mt], ob[2], ob[3]);
-            Mma<T>::run(dk[mt][2 * dc], sa[mt], qb[0], qb[1]);
-            Mma<T>::run(dk[mt][2 * dc + 1], sa[mt], qb[2], qb[3]);
+          for (int j = 0; j < 4; ++j) {
+            pa[kk][j] = Mma<T>::pack(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+            sa[kk][j] = Mma<T>::pack(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
           }
         }
+        const unsigned char* Qc = Qs + s * QT;
+        const unsigned char* dOc = dOs + s * QT;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BLOCK_M / 16; ++kk) {
+          Wgmma<T, D>::template rs<1>(dv, pa[kk], Tl::mn_major(dOc, BLOCK_M, kk));
+          Wgmma<T, D>::template rs<1>(dk, sa[kk], Tl::mn_major(Qc, BLOCK_M, kk));
+        }
+        wgmma_commit();
+      }
+      if (qt + 1 < n_q_tiles) {
+        const int s1 = (i + 1) % STAGES;
+        mbar_wait(&full[s1], ((i + 1) / STAGES) & 1);
+        if (!p.causal || k0 + row0 <= qs + 2 * BLOCK_M - 1)
+          score_products<T, D, BLOCK_M>(sc, dp, Ks, Vs, row0, Qs + s1 * QT,
+                                        dOs + s1 * QT);
       }
     }
-    __syncthreads();  // every warp is done with this stage before refill
-  }
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    mbar_arrive(&empty[(n_q_tiles - 1 - first_qt) % STAGES]);
 
+    const int64_t o_st = static_cast<int64_t>(p.H) * D;
+    T* dkg = static_cast<T*>(p.dk) + b * p.T * o_st + h * D;
+    T* dvg = static_cast<T*>(p.dv) + b * p.T * o_st + h * D;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int key0 = keys[mt][0];
-    const int key1 = keys[mt][1];
-#pragma unroll
-    for (int n = 0; n < D_TILES; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + tq * 2;
-      if (key0 < p.T) {
-        *reinterpret_cast<uint32_t*>(dkg + key0 * o_st + col) =
-            Mma<T>::pack(dk[mt][n][0] * p.scale, dk[mt][n][1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvg + key0 * o_st + col) =
-            Mma<T>::pack(dv[mt][n][0], dv[mt][n][1]);
-      }
-      if (key1 < p.T) {
-        *reinterpret_cast<uint32_t*>(dkg + key1 * o_st + col) =
-            Mma<T>::pack(dk[mt][n][2] * p.scale, dk[mt][n][3] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvg + key1 * o_st + col) =
-            Mma<T>::pack(dv[mt][n][2], dv[mt][n][3]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (keys[i] < p.T) {
+          *reinterpret_cast<uint32_t*>(dkg + keys[i] * o_st + col) =
+              Mma<T>::pack(dk[4 * n + 2 * i] * p.scale,
+                           dk[4 * n + 2 * i + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(dvg + keys[i] * o_st + col) =
+              Mma<T>::pack(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+        }
       }
     }
   }
@@ -720,22 +800,102 @@ __global__ void __launch_bounds__(F32_THREADS)
   }
 }
 
+
 // ------------------------------------------------------------------ launch
-template <typename T, int D, bool DQ>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  constexpr int smem = DQ ? dq_smem_bytes<D>(sizeof(T))
-                          : dkv_smem_bytes<D>(sizeof(T));
-  constexpr int rows = DQ ? dq_block_m<D>() : dkv_block_n<D>();
-  static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = DQ
-      ? opt_in_smem(fa_bwd_dq_mma_kernel<T, D>, smem, opted_in)
-      : opt_in_smem(fa_bwd_dkv_mma_kernel<T, D>, smem, opted_in);
+// cuTensorMapEncodeTiled, fetched once through the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::atomic<EncodeTiled> cached{nullptr};
+  EncodeTiled f = cached.load(std::memory_order_acquire);
+  if (f == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || ptr == nullptr)
+      return cudaErrorNotSupported;
+    f = reinterpret_cast<EncodeTiled>(ptr);
+    cached.store(f, std::memory_order_release);
+  }
+  *fn = f;
+  return cudaSuccess;
+}
+
+// The tensor map of one [B, T, H, D] operand (strides in elements) for
+// boxes of `rows` rows of one column block: dims (D, H, T, B), the
+// column blocks swizzled as Tile<D> reads them; out-of-bounds rows read 0.
+template <typename T, int D>
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int T_len,
+                       int H, int64_t sb, int64_t st, int64_t sh, int rows) {
+  EncodeTiled encode;
+  cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.T + rows - 1) / rows, p.B * p.H);
+  using Tl = Tile<D>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T_len),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * sizeof(T),
+                                 static_cast<cuuint64_t>(st) * sizeof(T),
+                                 static_cast<cuuint64_t>(sb) * sizeof(T)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tl::CB), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      Tl::CB == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int D, bool DQ>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  TmaParams tp;
+  // dq streams K/V tiles past resident Q/dO rows, dkv the other way
+  const int q_rows = DQ ? OWN_ROWS : dkv_block_m<D>();
+  const int kv_rows = DQ ? DQ_BLOCK_N : OWN_ROWS;
+  cudaError_t err;
+  if ((err = tensor_map<T, D>(&tp.q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st,
+                              p.q_sh, q_rows)) != cudaSuccess ||
+      (err = tensor_map<T, D>(&tp.dout, p.dout, p.B, p.T, p.H, p.do_sb,
+                              p.do_st, p.do_sh, q_rows)) != cudaSuccess ||
+      (err = tensor_map<T, D>(&tp.k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st,
+                              p.k_sh, kv_rows)) != cudaSuccess ||
+      (err = tensor_map<T, D>(&tp.v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st,
+                              p.v_sh, kv_rows)) != cudaSuccess)
+    return err;
+  tp.lse = p.lse;
+  tp.delta = p.delta;
+  tp.dq = p.dq;
+  tp.dk = p.dk;
+  tp.dv = p.dv;
+  tp.B = p.B;
+  tp.T = p.T;
+  tp.H = p.H;
+  tp.scale = p.scale;
+  tp.dq_scale = p.dq_scale;
+  tp.causal = p.causal;
+  constexpr int smem = DQ ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
+  static std::atomic<unsigned long long> opted_in{0};
+  err = DQ ? opt_in_smem(fa_bwd_dq_wgmma_kernel<T, D>, smem, opted_in)
+           : opt_in_smem(fa_bwd_dkv_wgmma_kernel<T, D>, smem, opted_in);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.T + OWN_ROWS - 1) / OWN_ROWS, p.B * p.H);
   if (DQ)
-    fa_bwd_dq_mma_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+    fa_bwd_dq_wgmma_kernel<T, D><<<grid, TMA_THREADS, smem, stream>>>(tp);
   else
-    fa_bwd_dkv_mma_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+    fa_bwd_dkv_wgmma_kernel<T, D><<<grid, TMA_THREADS, smem, stream>>>(tp);
   return cudaGetLastError();
 }
 
@@ -753,8 +913,8 @@ template <int D, bool DQ>
 cudaError_t dispatch_dtype(const Params& p, int dtype, cudaStream_t stream) {
   switch (dtype) {
     case 0: return launch_f32<D, DQ>(p, stream);
-    case 1: return launch_mma<__nv_bfloat16, D, DQ>(p, stream);
-    case 2: return launch_mma<__half, D, DQ>(p, stream);
+    case 1: return launch_wgmma<__nv_bfloat16, D, DQ>(p, stream);
+    case 2: return launch_wgmma<__half, D, DQ>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -779,7 +939,9 @@ int launch(const Params& p, int D, int dtype, void* stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Strides in elements;
-// the head_dim stride must be 1. lse and delta: contiguous [B, H, T] f32.
+// the head_dim stride must be 1 (and, for the 16-bit types, the base
+// 16-byte aligned and the other strides multiples of 8 elements: TMA's
+// rule). lse and delta: contiguous [B, H, T] f32.
 // dq (dk, dv): contiguous [B, T, H, D] outputs in the input dtype.
 // Returns the cudaError_t of the launch.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,

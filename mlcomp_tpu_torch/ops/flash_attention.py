@@ -164,12 +164,16 @@ def _kernel_scale(q, scale: float):
 
 def _kernel_operand(x):
     """x itself when the kernel can read it through its strides: unit
-    head_dim stride and, for the 16-bit path's 16-byte copies, rows
-    aligned to 16 bytes. Otherwise a contiguous copy."""
+    head_dim stride and, for the 16-bit types, TMA's rule (the backward
+    kernels load their tiles by TMA, the forward by 16-byte copies): the
+    base 16-byte aligned and every other stride a positive multiple of
+    16 bytes (8 elements). Otherwise a contiguous copy. The fused qkv's
+    q, k and v views (rows 3·H·D elements apart) pass as they are."""
     if x.stride(-1) == 1:
         if x.dtype == torch.float32:
             return x
-        if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+        if x.data_ptr() % 16 == 0 and all(
+                s > 0 and s % 8 == 0 for s in x.stride()[:3]):
             return x
     return x.clone(memory_format=torch.contiguous_format)
 

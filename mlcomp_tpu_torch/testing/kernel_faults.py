@@ -65,25 +65,19 @@ FAULTS = {
 }
 
 BACKWARD_KERNEL = 'flash_attention_bwd'
-_DQ_MASK = ('if (need_mask && (kc >= p.T || (p.causal && kc > '
-            'rows[mt][i])))')
-_DKV_MASK = ('if (need_mask && (qc >= p.T || (p.causal && key > qc)))')
-_DQ_A = '        uint32_t a[MT][4];\n'
-_DQ_MMA = ('            Mma<T>::run(dq[mt][2 * dc], a[mt], kb[0], kb[1]);\n'
-           '            Mma<T>::run(dq[mt][2 * dc + 1], a[mt], kb[2], '
-           'kb[3]);\n')
-_DQ_PACK = ('          a[mt][3] = Mma<T>::pack(s[mt][2 * kk + 1][2], '
-            's[mt][2 * kk + 1][3]);\n')
+_DQ_MASK = 'if (kc >= p.T || (p.causal && kc > rows[e / 2]))'
+_DKV_MASK = 'if (qc >= p.T || (p.causal && key > qc))'
+_DQ_A = '        uint32_t a[BLOCK_N / 16][4];\n'
+_DQ_PACK = ('          a[kk][3] = Mma<T>::pack(sc[8 * kk + 6], '
+            'sc[8 * kk + 7]);\n')
+_DQ_WGMMA = ('          Wgmma<T, D>::template rs<1>(dq, a[kk], '
+             'Tl::mn_major(Kc, BLOCK_N, kk));\n')
+_DV_WGMMA = 'Wgmma<T, D>::template rs<1>(dv, pa[kk],'
 
 
-def _residue(i: str, j: int) -> str:
-    """The part of s[mt][i][j] that rounding to T drops."""
-    return f's[mt][{i}][{j}] - float(T(s[mt][{i}][{j}]))'
-
-
-def _residue_pack(slot: int, i: str, j: int) -> str:
-    return (f'          lo[mt][{slot}] = Mma<T>::pack({_residue(i, j)}, '
-            f'{_residue(i, j + 1)});\n')
+def _residue(j: int) -> str:
+    """The part of dS element sc[8 kk + j] that rounding to T drops."""
+    return f'sc[8 * kk + {j}] - float(T(sc[8 * kk + {j}]))'
 
 
 #: name -> [(text of the backward kernels' source, its replacement), ...]
@@ -94,21 +88,27 @@ BACKWARD_FAULTS = {
         _DKV_MASK[:-1] + ' || (qt == first_qt + 1 && k0 >= p.T - 512))')],
     # dq: each query also takes a gradient from the key after it
     'dq_causal_mask_lets_next_key_in': [(
-        _DQ_MASK, _DQ_MASK.replace('rows[mt][i]', 'rows[mt][i] + 1'))],
+        _DQ_MASK, _DQ_MASK.replace('rows[e / 2]', 'rows[e / 2] + 1'))],
     # dk/dv: each key loses its own query
     'dkv_causal_mask_hides_the_diagonal': [(
         _DKV_MASK, _DKV_MASK.replace('> qc', '>= qc'))],
     # dq: dS not rounded to the input dtype before dS K (its rounding
     # residue goes through a second product)
     'dq_ds_not_rounded': [
-        (_DQ_A, '        uint32_t a[MT][4], lo[MT][4];\n'),
-        (_DQ_PACK, _DQ_PACK + _residue_pack(0, '2 * kk', 0)
-         + _residue_pack(1, '2 * kk', 2) + _residue_pack(2, '2 * kk + 1', 0)
-         + _residue_pack(3, '2 * kk + 1', 2)),
-        (_DQ_MMA, _DQ_MMA + _DQ_MMA.replace('a[mt]', 'lo[mt]'))],
+        (_DQ_A, '        uint32_t a[BLOCK_N / 16][4], lo[BLOCK_N / 16][4];\n'),
+        (_DQ_PACK, _DQ_PACK + ''.join(
+            f'          lo[kk][{j}] = Mma<T>::pack({_residue(2 * j)}, '
+            f'{_residue(2 * j + 1)});\n' for j in range(4))),
+        (_DQ_WGMMA, _DQ_WGMMA + _DQ_WGMMA.replace('a[kk]', 'lo[kk]'))],
     # dk/dv: the lse multiplied by the scale once more
     'dkv_lse_off_by_the_scale': [(
         '-lse_c[qi] * LOG2E', '-lse_c[qi] * LOG2E * p.scale')],
+    # dv: wgmma's transpose bit dropped, with a K-major descriptor over
+    # the same dO tile (in bounds at D = 64), so dV = P^T dO^T
+    'dv_transpose_bit_dropped': [(
+        _DV_WGMMA + ' Tl::mn_major(dOc, BLOCK_M, kk));',
+        _DV_WGMMA.replace('rs<1>', 'rs<0>')
+        + ' Tl::k_major(dOc, BLOCK_M, 0, kk));')],
 }
 
 
@@ -217,12 +217,14 @@ CE_FAULTS = {
 }
 
 
-def build_faults(out_dir: str, kernel: str, faults: dict) -> dict:
+def build_faults(out_dir: str, kernel: str, faults: dict,
+                 logs: dict = None) -> dict:
     """{fault: library path} for ``faults`` ({name: [(old, new), ...]})
     planted in ``csrc/<kernel>.cu`` — or, for an edit ``(header, old,
     new)``, in a copy of that ``csrc/`` header beside the fault's source,
     where its ``#include "..."`` finds it first — one nvcc per fault, all
-    started together."""
+    started together. ``logs``, if given, receives each build's output
+    (ptxas's report)."""
     src = os.path.join(_build.CSRC_DIR, kernel + '.cu')
     running = {}
     for name, edits in faults.items():
@@ -256,6 +258,8 @@ def build_faults(out_dir: str, kernel: str, faults: dict) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f'fault {name} did not build:\n{log}')
+        if logs is not None:
+            logs[name] = log
         built[name] = so
     return built
 

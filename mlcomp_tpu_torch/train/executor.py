@@ -67,11 +67,11 @@ from mlcomp_tpu_torch.worker.executors import Executor
 
 #: constructor keys whose feature is not ported yet -> ROADMAP.md item
 _NOT_PORTED = {
-    'epoch_scan': 'A2 (one dispatch per epoch)',
+    'epoch_scan': 'A0 (one dispatch per epoch)',
     'profile': 'A6 (device traces)',
     'infer_valid': 'A5 (validation predictions for Valid/ensembles)',
-    'report_imgs': 'slice 4 (report images need the DB)',
-    'stage_per_dispatch': 'slice 4 (requeue needs the DB)',
+    'report_imgs': 'A0 (report images need the DB)',
+    'stage_per_dispatch': 'A0 (requeue needs the DB)',
     'params_file': 'A5 (pretrained.py head-swap)',
     'telemetry': 'A6 (device telemetry)',
 }

@@ -66,10 +66,20 @@ def _weighted(per_example, correct, weights):
 
 def _ce(logits, labels):
     """optax's ``softmax_cross_entropy_with_integer_labels`` in f32 over
-    the last axis."""
+    the last axis, with its ``take_along_axis`` label rule: a label in
+    [-V, 0) wraps to label + V, one outside [-V, V) gives NaN. The gather
+    index is clamped into [0, V), so nothing indexes out of range (on
+    CUDA that would be a device-side assert) and nothing syncs the
+    host."""
     logits = logits.float()
-    picked = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
-    return torch.logsumexp(logits, dim=-1) - picked
+    v = logits.shape[-1]
+    labels = labels.long()
+    wrapped = torch.where(labels < 0, labels + v, labels)
+    index = wrapped.clamp(0, v - 1)
+    picked = logits.gather(-1, index.unsqueeze(-1)).squeeze(-1)
+    per = torch.logsumexp(logits, dim=-1) - picked
+    in_range = (wrapped >= 0) & (wrapped < v)
+    return torch.where(in_range, per, torch.full_like(per, float('nan')))
 
 
 def softmax_ce(logits, labels, weights=None):

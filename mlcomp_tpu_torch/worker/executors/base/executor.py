@@ -10,7 +10,7 @@ calling it runs ``work()``.
 Without a DB session (the only mode ported so far) the call runs
 ``work()`` with a step tracker that logs instead of writing task steps;
 the DB-backed ``StepWrap`` and the data-sync barrier come with the DB
-layer (ROADMAP.md, slice 4).
+layer (ROADMAP.md, A0).
 """
 
 import logging
@@ -196,7 +196,7 @@ class Executor(ABC):
         if self.session is not None:
             raise NotImplementedError(
                 'a DB session (task step tracking, data sync) is not ported '
-                'yet (ROADMAP.md, slice 4); call the executor without one')
+                'yet (ROADMAP.md, A0); call the executor without one')
         self.step = step or LogSteps(self.logger)
         try:
             return self.work()

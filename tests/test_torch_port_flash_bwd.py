@@ -19,7 +19,9 @@ import torch
 from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as port_fa
 from mlcomp_tpu_torch.ops import fused_ce as port_ce
-from mlcomp_tpu_torch.testing import kernel_check, kernel_faults
+from mlcomp_tpu_torch.testing import (
+    kernel_check, kernel_faults, kernel_variants,
+)
 
 #: f32 on both sides: summation order only (measured max |diff| of the
 #: gradients ~3e-6, of the lse ~5e-7)
@@ -299,7 +301,7 @@ class TestDenseCe:
                                    rtol=1e-5, atol=1e-5)
 
     @pytest.mark.parametrize('impl', ['pallas', 'cuda'])
-    def test_kernel_impl_is_not_ported(self, impl):
+    def test_kernel_impl_refuses_a_cpu_tensor(self, impl):
         """The kernel impls (a JAX config's ``pallas`` reads as ``cuda``)
         launch the CE kernels of ``csrc/fused_ce.cu`` and refuse a CPU
         tensor: there is no fallback to the plain version."""
@@ -311,3 +313,150 @@ class TestDenseCe:
         with pytest.raises(ValueError, match='unknown impl'):
             port_ce.softmax_ce_per_example(torch.zeros(2, 4),
                                            torch.zeros(2), impl='triton')
+
+
+def _c_argtypes(source: str, name: str) -> list:
+    """The ctypes types of the ``extern "C"`` function ``name``'s
+    parameters, read from its declaration in ``source``."""
+    import ctypes
+    import re
+    decl = re.search(r'\bint ' + name + r'\(([^)]*)\)', source).group(1)
+    types = []
+    for param in decl.split(','):
+        words = param.split()[:-1]
+        if param.strip().endswith('*') or any('*' in w for w in param.split()):
+            types.append(ctypes.c_void_p)
+        elif words[-2:] == ['long', 'long']:
+            types.append(ctypes.c_longlong)
+        elif words[-1] == 'float':
+            types.append(ctypes.c_float)
+        else:
+            assert words[-1] == 'int', param
+            types.append(ctypes.c_int)
+    return types
+
+
+class TestTmaOperands:
+    """``_kernel_operand``: TMA reads a 16-bit operand through its
+    strides only from a 16-byte aligned base with every stride a
+    positive multiple of 16 bytes; anything else is copied first."""
+
+    @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+    def test_aligned_qkv_views_are_read_in_place(self, dtype):
+        qkv = torch.zeros((2, 16, 3, 4, 64), dtype=dtype)
+        assert qkv.data_ptr() % 16 == 0
+        for x in qkv.unbind(2):       # rows 3·H·D elements apart
+            assert x.stride() == (16 * 3 * 4 * 64, 3 * 4 * 64, 64, 1)
+            assert port_fa._kernel_operand(x).data_ptr() == x.data_ptr()
+
+    def test_misaligned_base_is_copied(self):
+        flat = torch.zeros(2 * 16 * 4 * 64 + 1, dtype=torch.bfloat16)
+        odd = flat[1:].view(2, 16, 4, 64)
+        assert odd.data_ptr() % 16 != 0
+        copied = port_fa._kernel_operand(odd)
+        assert copied.data_ptr() != odd.data_ptr()
+        assert copied.is_contiguous() and copied.data_ptr() % 16 == 0
+        assert torch.equal(copied, odd)
+
+    @pytest.mark.parametrize('width', [68, 72 + 1])
+    def test_stride_off_16_bytes_is_copied(self, width):
+        """A head stride of 68 elements (136 bytes) or 73 is no multiple
+        of 16 bytes; 72 (144 bytes) is."""
+        wide = torch.zeros((1, 8, 4, width), dtype=torch.bfloat16)
+        x = wide[..., :64]
+        copied = port_fa._kernel_operand(x)
+        assert copied.data_ptr() != x.data_ptr() and copied.is_contiguous()
+        ok = torch.zeros((1, 8, 4, 72), dtype=torch.bfloat16)[..., :64]
+        assert port_fa._kernel_operand(ok).data_ptr() == ok.data_ptr()
+
+    def test_broadcast_view_is_copied(self):
+        row = torch.zeros((1, 1, 4, 64), dtype=torch.bfloat16)
+        x = row.expand(2, 8, 4, 64)     # stride 0 over B and T
+        copied = port_fa._kernel_operand(x)
+        assert copied.is_contiguous() and copied.shape == x.shape
+
+    def test_f32_takes_any_unit_stride_view(self):
+        x = torch.zeros(2 * 8 * 4 * 33 + 1)[1:].view(2, 8, 4, 33)[..., :32]
+        assert port_fa._kernel_operand(x).data_ptr() == x.data_ptr()
+
+
+class TestCInterface:
+    @pytest.mark.parametrize('kernel,name,counts', [
+        ('flash_attention_bwd', 'flash_attention_bwd_dq', (7, 5, 12, 2)),
+        ('flash_attention_bwd', 'flash_attention_bwd_dkv', (8, 5, 12, 1)),
+        ('flash_attention_fwd', 'flash_attention_fwd', (5, 5, 12, 1))])
+    def test_declared_argtypes_match_the_c_signature(self, kernel, name,
+                                                     counts):
+        """The wrappers' ``_declare`` calls give ctypes the C functions'
+        parameter types (a pointer or stride passed as a 32-bit int would
+        be cut). The TMA descriptors are encoded inside the C functions,
+        so the interface takes no descriptor argument."""
+        import inspect
+        wrapper = inspect.getsource(port_fa)
+        assert f'_declare(lib.{name}, {", ".join(map(str, counts))})' \
+            in wrapper
+
+        class Fn:
+            argtypes = None
+            restype = None
+
+        fn = port_fa._declare(Fn(), *counts)
+        with open(os.path.join(_build.CSRC_DIR, kernel + '.cu')) as fh:
+            assert fn.argtypes == _c_argtypes(fh.read(), name)
+
+    def test_backward_shapes_start_with_both_training_shapes(self):
+        """The flagship's step (16 heads) and the wide LM's (32 heads),
+        both B=1, T=8192, D=64, bf16, causal, are held and timed
+        first."""
+        assert kernel_check.BACKWARD_SHAPES[:2] == [
+            (1, 8192, 16, 64, torch.bfloat16, True),
+            (1, 8192, 32, 64, torch.bfloat16, True)]
+
+    def test_backward_kernels_are_wgmma_with_tma(self):
+        """The 16-bit backward runs on wgmma with TMA loads and a
+        producer warpgroup; the mma.sync pair is gone."""
+        with open(os.path.join(_build.CSRC_DIR,
+                               'flash_attention_bwd.cu')) as fh:
+            source = fh.read()
+        for name in ('fa_bwd_dq_wgmma_kernel', 'fa_bwd_dkv_wgmma_kernel',
+                     'Wgmma<T, D>::template rs<1>', 'Tl::load(',
+                     'regs_dec<PRODUCER_REGS>', 'regs_inc<CONSUMER_REGS>',
+                     'cuTensorMapEncodeTiled', '__grid_constant__'):
+            assert name in source
+        for gone in ('fa_bwd_dq_mma_kernel', 'fa_bwd_dkv_mma_kernel',
+                     'Mma<T>::run', 'ldmatrix'):
+            assert gone not in source
+
+    def test_backward_faults_keep_their_classes_and_add_the_transpose(self):
+        faults = set(kernel_faults.BACKWARD_FAULTS)
+        assert len(faults) >= 6
+        assert {'dkv_q_tile_skipped_in_last_512_keys',
+                'dq_causal_mask_lets_next_key_in',
+                'dkv_causal_mask_hides_the_diagonal', 'dq_ds_not_rounded',
+                'dkv_lse_off_by_the_scale',
+                'dv_transpose_bit_dropped'} <= faults
+
+
+class TestKernelVariants:
+    @pytest.mark.parametrize('variant', sorted(kernel_variants.VARIANTS))
+    def test_variant_edits_the_shipped_source_once(self, variant):
+        with open(os.path.join(_build.CSRC_DIR,
+                               kernel_faults.BACKWARD_KERNEL + '.cu')) as fh:
+            source = fh.read()
+        for old, new in kernel_variants.VARIANTS[variant][1]:
+            assert source.count(old) == 1 and new != old
+
+    def test_advisories_name_the_code_kernel_and_head_dim(self):
+        log = ("ptxas info    : (C7515) Potential Performance Loss: wgmma."
+               "mma_async instructions are serialized due to non wgmma "
+               "instructions defining accumulator registers in the function "
+               "'_ZN12_GLOBAL__N_123fa_bwd_dkv_wgmma_kernelI13__nv_bfloat16"
+               "Li64EEEvNS_9TmaParamsE'\n"
+               "    216 bytes stack frame, 636 bytes spill stores, 432 bytes "
+               "spill loads\n"
+               "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+               "loads")
+        assert kernel_variants._advisories(log) == [
+            'C7515 fa_bwd_dkv_wgmma_kernel<13__nv_bfloat16, 64>',
+            '216 bytes stack frame, 636 bytes spill stores, 432 bytes '
+            'spill loads']
