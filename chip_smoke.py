@@ -12,9 +12,10 @@ last line:
 1. device: the card's name and power limit (``nvidia-smi``), torch, CUDA
    and nvcc versions;
 2. build: every kernel under ``mlcomp_tpu_torch/csrc/`` with nvcc, timed,
-   with ptxas's register / spill report, and the HGMMA (wgmma)
-   instructions in the SASS of every instantiation of the two backward
-   kernels (cuobjdump; none fails the run);
+   with ptxas's register / spill report and wgmma advisories, and the
+   HGMMA (wgmma) instructions in the SASS of every 16-bit instantiation
+   of the attention forward and the two backward kernels (cuobjdump;
+   none fails the run);
 3. kernels: each kernel's wrapper on tensors on the card against its
    plain PyTorch version at several shapes (the main path's shape first),
    by the largest relative error of an output row (see
@@ -22,7 +23,10 @@ last line:
    plain version's time, one PyTorch library call's time as a
    yardstick, and the least time the card could take (bytes over
    3.35 TB/s or operations over the dtype's peak): the forward at the
-   serving shapes, then the forward's lse and the two backward kernels
+   serving shapes (timed at the serving shape, and with its lse at B=1
+   with the flagship's 16 heads and the wide LM's 32, each beside SDPA
+   and as a share of the card's peak), then the forward's lse and the
+   two backward kernels
    at the training shapes (also held against torch autograd through the
    plain version, per head), timed at both training shapes (the
    flagship's 16 heads and the wide LM's 32) beside SDPA's backward, and
@@ -132,6 +136,7 @@ of the repository, it exits non-zero and prints no result.
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -244,11 +249,15 @@ def phase_device():
     return smi
 
 
-#: the wgmma kernels by their kernels-line entry, and the HGMMA
-#: instructions in their SASS ({'instantiations', 'min_hgmma'}), which
-#: phase_build reads with cuobjdump
-WGMMA_KERNELS = {'flash_attention_bwd_dq': 'fa_bwd_dq_wgmma_kernel',
-                 'flash_attention_bwd_dkv': 'fa_bwd_dkv_wgmma_kernel'}
+#: the wgmma kernels by their kernels-line entry: (library, kernel); and
+#: the HGMMA instructions in their SASS ({'instantiations', 'min_hgmma'}),
+#: which phase_build reads with cuobjdump
+WGMMA_KERNELS = {
+    'flash_attention_fwd': ('flash_attention_fwd', 'fa_fwd_wgmma_kernel'),
+    'flash_attention_bwd_dq': ('flash_attention_bwd',
+                               'fa_bwd_dq_wgmma_kernel'),
+    'flash_attention_bwd_dkv': ('flash_attention_bwd',
+                                'fa_bwd_dkv_wgmma_kernel')}
 SASS_COUNTS = {}
 
 
@@ -290,17 +299,23 @@ def phase_build():
     seconds = time.monotonic() - t0
     for name, path in libs.items():
         log = _build.BUILD_LOGS.get(name, {}).get('log', '(cached)')
+        # the register and spill report, and every wgmma advisory
+        # (C7512, C7515, ...)
         lines = [ln.split('ptxas info    : ')[-1] for ln in log.splitlines()
-                 if 'registers' in ln or 'spill' in ln]
+                 if 'registers' in ln or 'spill' in ln
+                 or 'entry function' in ln or re.search(r'\(C75\d\d\)', ln)]
         say('build', kernel=name, seconds=f'{seconds:.1f}',
             library=os.path.relpath(path, HERE))
         for ln in lines:
             print(f'    ptxas: {ln}', flush=True)
     # proof that wgmma was emitted: HGMMA in every instantiation's SASS
-    counts = sass_hgmma(libs['flash_attention_bwd'])
-    if counts is None:
+    sass = {lib: sass_hgmma(libs[lib]) for lib, _ in WGMMA_KERNELS.values()}
+    if None in sass.values():
         say('sass', hgmma='not measured (no cuobjdump)')
-    for entry, kernel in WGMMA_KERNELS.items() if counts else ():
+    for entry, (lib, kernel) in WGMMA_KERNELS.items():
+        counts = sass[lib]
+        if counts is None:
+            continue
         found = [c for f, c in counts.items() if kernel in f]
         say('sass', kernel=kernel, instantiations=len(found),
             hgmma_min=min(found, default=0), hgmma_max=max(found, default=0))
@@ -365,10 +380,14 @@ def phase_kernels(seed: int):
                 qt, kt, vt, is_causal=causal), iters=20)
             fields.update(ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.3f}',
                           library_ms=f'{library_ms:.4f}',
-                          bound_ms=f'{bound:.4f}', bound_by=bound_by)
+                          bound_ms=f'{bound:.4f}', bound_by=bound_by,
+                          pct_of_peak=f'{100 * bound / ms:.1f}')
             main = {'name': 'flash_attention_fwd', 'route': 'cuda',
                     'source': 'mlcomp_tpu_torch/csrc/flash_attention_fwd.cu',
                     'replaces': 'mlcomp_tpu/ops/flash_attention.py:83',
+                    'design': 'wgmma + TMA, three consumer warpgroups '
+                              'taking turns',
+                    'sass_hgmma': SASS_COUNTS.get('flash_attention_fwd'),
                     'max_abs_err': err, 'row_err': row_err,
                     'ms': ms, 'plain_ms': plain_ms,
                     'bound_ms': bound, 'bound_by': bound_by,
@@ -380,6 +399,25 @@ def phase_kernels(seed: int):
             fail(f'flash_attention_fwd disagrees with reference_attention '
                  f'at {fields}')
         del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    # the training steps' forward: with lse at B=1, the flagship's 16
+    # heads and the wide LM's 32
+    main['lse_b1'] = {}
+    for b, t, h, d, dtype, causal in ((1, 8192, 16, 64, torch.bfloat16, True),
+                                      (1, 8192, 32, 64, torch.bfloat16, True)):
+        q, k, v = qkv_views(b, t, h, d, dtype, gen)
+        bound, _ = attention_bound_ms(b, t, h, d, dtype, causal)
+        ms = time_ms(lambda: flash_attention_forward(
+            q, k, v, causal=causal, with_lse=True), iters=20)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), iters=20)
+        say('kernel-lse', shape=f'{b}x{t}x{h}x{d}', dtype=str(dtype)[6:],
+            causal=causal, ms=f'{ms:.4f}', sdpa_ms=f'{library_ms:.4f}',
+            bound_ms=f'{bound:.4f}', pct_of_peak=f'{100 * bound / ms:.1f}')
+        main['lse_b1'][f'H={h}'] = {'ms': ms, 'library_ms': library_ms,
+                                    'bound_ms': bound}
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return main
 

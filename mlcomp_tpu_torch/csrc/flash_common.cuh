@@ -1,8 +1,8 @@
-// Device helpers shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): cp.async copies into
-// shared memory, ldmatrix, the mma.sync m16n8k16 tensor-core product for
-// bf16 and fp16, a one-instruction exp2, and the shared-memory opt-in;
-// then Hopper's own (sm_90a): mbarriers, TMA tile loads, wgmma with its
+// Device helpers shared by the port's kernels (the flash-attention
+// kernels, int8_gemm.cuh): cp.async copies into shared memory, ldmatrix,
+// the mma.sync m16n8k16 tensor-core product for bf16 and fp16, a
+// one-instruction exp2, and the shared-memory opt-in; then Hopper's own
+// (sm_90a): mbarriers, named barriers, TMA tile loads, wgmma with its
 // shared-memory descriptors, and setmaxnreg.
 #pragma once
 
@@ -54,15 +54,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
       : "r"(s));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 // 2^x on the MUFU unit, one instruction (max relative error ~2^-22)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -106,25 +97,6 @@ struct Mma<__half> {
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
-
-// ROWS rows x D columns from global (row stride `st` elements, rows from
-// `row0`) into shared memory with row stride D + SMEM_PAD, by cp.async
-// with THREADS threads; rows at or past T are zero-filled.
-template <typename T, int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(T* s, const T* g, int64_t st,
-                                          int row0, int T_len) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int LD = D + SMEM_PAD;
-#pragma unroll
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    const int t = row0 + r;
-    const bool valid = t < T_len;
-    const T* src = valid ? g + static_cast<int64_t>(t) * st + col : g;
-    cp_async16(s + r * LD + col, src, valid);
-  }
-}
 
 // Above 48 KB of dynamic shared memory a kernel needs an opt-in: once per
 // device for each kernel (bit i of `opted_in` = device i), not per launch.
@@ -219,6 +191,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// named barrier `id` (1-15; 0 is __syncthreads') over `count` threads:
+// wait for all of them, or only count this warp's arrival
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // one TMA copy of a box of a 4-D tensor map into shared memory; the bytes
 // land on `bar`'s transaction count
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
@@ -261,6 +243,15 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for register A operands (packed 16-bit pairs)
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // wgmma's 64-bit shared-memory matrix descriptor: start address, leading

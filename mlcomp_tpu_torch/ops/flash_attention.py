@@ -164,10 +164,10 @@ def _kernel_scale(q, scale: float):
 
 def _kernel_operand(x):
     """x itself when the kernel can read it through its strides: unit
-    head_dim stride and, for the 16-bit types, TMA's rule (the backward
-    kernels load their tiles by TMA, the forward by 16-byte copies): the
-    base 16-byte aligned and every other stride a positive multiple of
-    16 bytes (8 elements). Otherwise a contiguous copy. The fused qkv's
+    head_dim stride and, for the 16-bit types, TMA's rule (the forward
+    and backward kernels load their tiles by TMA): the base 16-byte
+    aligned and every other stride a positive multiple of 16 bytes (8
+    elements). Otherwise a contiguous copy. The fused qkv's
     q, k and v views (rows 3·H·D elements apart) pass as they are."""
     if x.stride(-1) == 1:
         if x.dtype == torch.float32:
@@ -229,22 +229,38 @@ def _stream(device) -> int:
 
 def flash_attention_forward(q, k, v, causal: bool = True,
                             scale: Optional[float] = None,
-                            with_lse: bool = False):
+                            with_lse: bool = False,
+                            lse_out: Optional[torch.Tensor] = None):
     """Flash forward over [B, T, H, D] (any T). ``with_lse`` also returns
-    the row logsumexp [B, H, T] f32 the backward needs. A CPU tensor
-    takes the plain version; a CUDA tensor launches
-    ``flash_attention_fwd``."""
+    the row logsumexp [B, H, T] f32 the backward needs, written into
+    ``lse_out`` when given (a contiguous f32 tensor of that shape on q's
+    device). A CPU tensor takes the plain version; a CUDA tensor
+    launches ``flash_attention_fwd``."""
     check_attention_inputs(q, k, v)
-    if q.device.type == 'cpu':
-        return reference_attention(q, k, v, causal=causal, scale=scale,
-                                   with_lse=with_lse)
-    _on_card(q, 'flash_attention_forward')
     b, t, h, d = q.shape
+    if lse_out is not None and not (
+            with_lse and lse_out.shape == (b, h, t)
+            and lse_out.dtype == torch.float32 and lse_out.is_contiguous()
+            and lse_out.device == q.device):
+        raise ValueError(
+            f'lse_out must be a contiguous float32 [B, H, T] = '
+            f'[{b}, {h}, {t}] tensor on {q.device}, with with_lse=True; '
+            f'got {tuple(lse_out.shape)} {lse_out.dtype} on '
+            f'{lse_out.device}')
+    if q.device.type == 'cpu':
+        result = reference_attention(q, k, v, causal=causal, scale=scale,
+                                     with_lse=with_lse)
+        if lse_out is None:
+            return result
+        return result[0], lse_out.copy_(result[1])
+    _on_card(q, 'flash_attention_forward')
     q, scale = _kernel_scale(q, scale if scale is not None else d ** -0.5)
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    lse = None
+    if with_lse:
+        lse = lse_out if lse_out is not None else torch.empty(
+            (b, h, t), dtype=torch.float32, device=q.device)
     lib, error_string = _library('flash_attention_fwd')
     fn = _declare(lib.flash_attention_fwd, 5, 5, 12, 1)
     with torch.cuda.device(q.device):

@@ -28,13 +28,15 @@ import torch
 
 #: (B, T, H, D, dtype, causal) at which the card-side checks hold the
 #: kernel against its plain version: the flagship LM's serving shape
-#: first (batch 4, T=8192, 16 heads of 64, causal, bf16), the wide LM's
-#: training shape (batch 1, T=8192, 32 heads of 64: q, k, v rows
-#: 3·32·64 apart), then long sequences causal and not, ragged T, every
-#: head dim, fp16, f32 (the SIMT path), T=1 and a T just past one K/V
-#: tile
+#: first (batch 4, T=8192, 16 heads of 64, causal, bf16), the long-context
+#: leg of ``bench.py``'s ``bench_lm`` (batch 1, T=32768, 8 heads of 64:
+#: d_model 512), the wide LM's training shape (batch 1, T=8192, 32 heads
+#: of 64: q, k, v rows 3·32·64 apart), then long sequences causal and
+#: not, ragged T, every head dim, fp16, f32 (the SIMT path), T=1 and a T
+#: just past one K/V tile
 ATTENTION_SHAPES = [
     (4, 8192, 16, 64, torch.bfloat16, True),
+    (1, 32768, 8, 64, torch.bfloat16, True),
     (1, 8192, 32, 64, torch.bfloat16, True),
     (1, 8192, 16, 64, torch.bfloat16, True),
     (1, 8192, 16, 64, torch.bfloat16, False),
@@ -495,10 +497,22 @@ def qkv_views(b, t, h, d, dtype, gen, device='cuda'):
     return qkv.unbind(dim=2)
 
 
+def forward_with_lse(q, k, v, causal: bool):
+    """The forward kernel's out and lse, the lse written into a buffer
+    filled with NaN first: a row the kernel leaves unwritten stays NaN,
+    and ``lse_error`` reports NaN, which fails ``LSE_TOL``."""
+    from mlcomp_tpu_torch.ops import flash_attention as fa
+    b, t, h, _ = q.shape
+    lse = torch.full((b, h, t), float('nan'), device=q.device)
+    return fa.flash_attention_forward(q, k, v, causal=causal, with_lse=True,
+                                      lse_out=lse)
+
+
 def backward_check(shape, gen, device='cuda') -> dict:
     """Forward with lse and both backward kernels once at ``shape`` (as
     ``BACKWARD_SHAPES`` lists them) on inputs from ``gen``; returns the
-    lse error, the row errors of dq, dk, dv against
+    lse error (``forward_with_lse``: an unwritten row fails it), the row
+    errors of dq, dk, dv against
     ``reference_attention_backward`` (fed the kernel forward's out and
     lse), their head and row errors against torch autograd through
     ``reference_attention`` (the row errors for information), their
@@ -508,8 +522,7 @@ def backward_check(shape, gen, device='cuda') -> dict:
     q, k, v = qkv_views(b, t, h, d, dtype, gen, device)
     do = torch.randn((b, t, h, d), generator=gen, device=device,
                      dtype=torch.float32).to(dtype)
-    out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
-                                          with_lse=True)
+    out, lse = forward_with_lse(q, k, v, causal)
     grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
     _, ref_lse = fa.reference_attention(q, k, v, causal=causal,
                                         with_lse=True)
@@ -595,5 +608,6 @@ __all__ = ['CE_CANARY', 'CE_LOGIT_SCALE', 'CE_LOSS_TOL', 'CE_ROW_TOL',
            'stack_check', 'stack_inputs', 'stack_ok', 'stack_tol',
            'NORM_COLUMN_FLOOR', 'NORM_SHAPES', 'NORM_STAT_TOL', 'NORM_Y_TOL',
            'backward_check', 'backward_ok', 'cifar_norm_sites',
-           'head_relative_error', 'lse_error', 'norm_check', 'norm_inputs',
-           'norm_ok', 'qkv_views', 'row_relative_error']
+           'forward_with_lse', 'head_relative_error', 'lse_error',
+           'norm_check', 'norm_inputs', 'norm_ok', 'qkv_views',
+           'row_relative_error']

@@ -13,7 +13,8 @@ each seed, which shows the margin of each tolerance. Then each fault below, a
 textual edit of a kernel's ``csrc/*.cu`` (or of a header it includes,
 copied beside it) written to a temporary directory (the checkout is not
 touched) and built with the package's nvcc flags, runs at the serving
-shape (forward faults), the training shape (backward faults) or every
+shape (forward faults; their lse also at the training shape), the
+training shape (backward faults) or every
 shape of its kernel (norm, int8, stack and CE faults: caught if any
 shape fails a bound). Each line gives the errors against their bounds. Exits 1
 if a kernel as it stands fails a bound or a planted fault passes them
@@ -34,34 +35,64 @@ from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
     ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
     BACKWARD_SHAPES, CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES, INT8_ROW_TOL,
-    INT8_SHAPES, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL, STACK_ROW_TOL,
-    STACK_SHAPES, backward_check, backward_ok, ce_check, ce_ok, int8_check,
-    int8_ok, norm_check, norm_ok, qkv_views, row_relative_error,
-    stack_check, stack_ok, stack_tol,
+    INT8_SHAPES, LSE_TOL, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL,
+    STACK_ROW_TOL, STACK_SHAPES, backward_check, backward_ok, ce_check,
+    ce_ok, forward_with_lse, int8_check, int8_ok, lse_error, norm_check,
+    norm_ok, qkv_views, row_relative_error, stack_check, stack_ok,
+    stack_tol,
 )
 
 KERNEL = 'flash_attention_fwd'
-_LIVE_TILE = '    if (!p.causal || k0 <= wrow0 + 16 * MT - 1) {\n'
-_MASK = 'if (kc >= p.T || (p.causal && kc > qr)) s[mt][n][e] = NEG_INF;'
+_MASK = '            if (kc >= p.T || (p.causal && kc > rows[e / 2]))\n'
+#: the mask pass, from its test of the tile to its test of a score
+_MASK_PASS = (
+    '      if (k0 + BLOCK_N > p.T || (p.causal && k0 + BLOCK_N - 1 > '
+    'wrow0)) {\n'
+    '#pragma unroll\n'
+    '        for (int n = 0; n < N_TILES; ++n) {\n'
+    '#pragma unroll\n'
+    '          for (int e = 0; e < 4; ++e) {\n'
+    '            const int kc = k0 + n * 8 + tq * 2 + (e & 1);\n' + _MASK)
+_PV_WGMMA = ('    Wgmma<T, D>::template rs<1>(o, pa[kk], '
+             'Tl::mn_major(v, BLOCK_N, kk));\n')
+_LSE_ROW = '          lg[rows[i]] = (m_r[i] + log2f(norm[i])) * LN2;\n'
+
+
+def _tile_skipped(cond: str) -> tuple:
+    """The edit that masks every score of a K/V tile where ``cond``
+    holds (the mask pass runs there, and each score takes NEG_INF): the
+    tile then adds nothing to the rows, as if it were skipped."""
+    new = _MASK_PASS.replace(') {\n', f' || ({cond})) {{\n', 1)
+    return _MASK_PASS, new.replace(
+        '))\n', f') ||\n                ({cond}))\n')
+
 
 #: name -> (text of the forward kernel's source, its faulty replacement)
 FAULTS = {
-    # rows from 4096 on lose keys 64..127: ~1% of their keys
-    'k_tile_skipped_from_row_4096': (
-        _LIVE_TILE,
-        '    if ((!p.causal || k0 <= wrow0 + 16 * MT - 1) &&\n'
-        '        !(kt == 1 && q0 >= 4096)) {\n'),
+    # rows from 4096 on lose keys 128..255 (tile 1): ~2% of their keys
+    'k_tile_skipped_from_row_4096': _tile_skipped(
+        'kt == 1 && tc.q0 >= 4096'),
     # the last 512 rows lose the middle K/V tile
-    'mid_k_tile_skipped_in_last_512_rows': (
-        _LIVE_TILE,
-        '    if ((!p.causal || k0 <= wrow0 + 16 * MT - 1) &&\n'
-        '        !(kt == n_k_tiles / 2 && q0 >= p.T - 512)) {\n'),
+    'mid_k_tile_skipped_in_last_512_rows': _tile_skipped(
+        'kt == n_k / 2 && tc.q0 >= p.T - 512'),
     # each row also sees the key after it
     'causal_mask_lets_next_key_in': (
-        _MASK, _MASK.replace('kc > qr', 'kc > qr + 1')),
+        _MASK, _MASK.replace('kc > rows[e / 2]', 'kc > rows[e / 2] + 1')),
     # each row loses its own key
     'causal_mask_hides_the_diagonal': (
-        _MASK, _MASK.replace('kc > qr', 'kc >= qr')),
+        _MASK, _MASK.replace('kc > rows[e / 2]', 'kc >= rows[e / 2]')),
+    # wgmma's transpose bit dropped, with a K-major descriptor over the
+    # same V tile (in bounds at D = 64): O += P V^T's first D keys
+    'v_transpose_bit_dropped': (
+        _PV_WGMMA,
+        _PV_WGMMA.replace('rs<1>', 'rs<0>').replace(
+            'Tl::mn_major(v, BLOCK_N, kk)',
+            'Tl::k_major(v, BLOCK_N, 0, kk % (D / 16))')),
+    # the second consumer writes its rows' lse over the first's (its own
+    # rows are left unwritten)
+    'second_consumer_lse_rows_64_off': (
+        _LSE_ROW,
+        _LSE_ROW.replace('lg[rows[i]]', 'lg[rows[i] - (wg == 1 ? 64 : 0)]')),
 }
 
 BACKWARD_KERNEL = 'flash_attention_bwd'
@@ -282,6 +313,21 @@ def check(shape, seed: int) -> tuple:
     return row_relative_error(out, ref), scaled_error(out, ref)
 
 
+def check_lse(shape, seed: int) -> float:
+    """The lse error of the loaded forward kernel at ``shape``, as
+    ``backward_check`` (the smoke's check) takes it: through
+    ``forward_with_lse``, so a row the kernel does not write fails."""
+    b, t, h, d, dtype, causal = shape
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    q, k, v = qkv_views(b, t, h, d, dtype, gen)
+    _, lse = forward_with_lse(q, k, v, causal)
+    _, ref = fa.reference_attention(q, k, v, causal=causal, with_lse=True)
+    err = lse_error(lse, ref)
+    del q, k, v, lse, ref
+    torch.cuda.empty_cache()
+    return err
+
+
 def _fmt(errors: dict) -> str:
     return ','.join(f'{n}:{e:.3e}' for n, e in errors.items())
 
@@ -429,12 +475,15 @@ def main() -> int:
         forward = build_faults(tmp, KERNEL, {
             name: [edit] for name, edit in FAULTS.items()})
         for name, so in forward.items():
-            row, scaled = _with_library(
-                KERNEL, so, lambda: check(serving, args.seeds[0]))
-            holes += row <= tol
+            row, scaled, lse_err = _with_library(KERNEL, so, lambda: (
+                *check(serving, args.seeds[0]),
+                check_lse(training, args.seeds[0])))
+            caught = not (row <= tol and lse_err <= LSE_TOL)
+            holes += not caught
             print(f'[fault] {name} shape={serving[:4]} row_err={row:.3e} '
-                  f'tol={tol} caught={not row <= tol} '
-                  f'scaled_err={scaled:.3e}', flush=True)
+                  f'tol={tol} lse_shape={training[:4]} '
+                  f'lse_err={lse_err:.3e} lse_tol={LSE_TOL} '
+                  f'caught={caught} scaled_err={scaled:.3e}', flush=True)
         backward = build_faults(tmp, BACKWARD_KERNEL, BACKWARD_FAULTS)
         for name, so in backward.items():
             r = _with_library(BACKWARD_KERNEL, so, lambda: check_backward(

@@ -1,25 +1,33 @@
-"""Time design variants of the flash-attention backward kernels against
-the shipped ones, to show what holds them back.
+"""Time design variants of the flash-attention kernels against the
+shipped ones, to show what holds them back.
 
     python -m mlcomp_tpu_torch.testing.kernel_variants [--iters 20]
+        [--only forward|backward]
+        [--baseline OTHER/csrc/flash_attention_fwd.cu]
         [--baseline OTHER/csrc/flash_attention_bwd.cu]
 
 Needs one CUDA card and ``nvcc``. Each variant below is a textual edit of
-``csrc/flash_attention_bwd.cu``, built in a temporary directory as
-``kernel_faults`` builds its faults (the checkout is not touched), and
-so is the shipped source itself; ``--baseline`` adds another version of
-the file with the same C interface (an earlier commit's, say), built
-beside its own ``.cuh`` headers. For each library it prints ptxas's
-performance advisories (wgmma serialized: C7512 for register resources,
-C7515 for non-wgmma definitions of accumulator registers) and any
-spills, then the dq and dkv kernels' times at both training shapes
+``csrc/flash_attention_fwd.cu`` (``FORWARD_VARIANTS``) or
+``csrc/flash_attention_bwd.cu`` (``VARIANTS``), built in a temporary
+directory as ``kernel_faults`` builds its faults (the checkout is not
+touched), and so is the shipped source itself; ``--baseline`` adds
+another version of either file with the same C interface (an earlier
+commit's, say), built beside its own ``.cuh`` headers. For each library
+it prints ptxas's performance advisories (wgmma serialized: C7512 for
+register resources, C7515 for non-wgmma definitions of accumulator
+registers) and any spills, then the kernels' times (CUDA events), every
+library in turns and twice: shipped, baseline, variants, then backwards.
+The forward runs at the serving shape (``kernel_check.ATTENTION_SHAPES[0]``)
+and with its lse at the flagship's training shape
+(``kernel_check.BACKWARD_SHAPES[0]``); dq and dkv at both training shapes
 (``kernel_check.BACKWARD_SHAPES[:2]``: the flagship's 16 heads, the wide
-LM's 32; CUDA events), every library in turns and twice: shipped,
-baseline, variants, then backwards. Variants marked ``wrong`` drop work
-and give wrong gradients; they time what the dropped work costs. The
-others are held by ``backward_check`` at the flagship shape, and their
-line says whether the bounds hold.
+LM's 32). Variants marked ``wrong`` drop work and give wrong results;
+they time what the dropped work costs. The others are held by the
+card-side checks (the forward's row error at the serving shape and its
+lse at the training shape; ``backward_check`` at the flagship shape),
+and their line says whether the bounds hold.
 """
+
 
 import argparse
 import os
@@ -32,11 +40,63 @@ import torch
 from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
-    BACKWARD_SHAPES, backward_check, backward_ok, qkv_views,
+    ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_SHAPES, LSE_TOL,
+    backward_check, backward_ok, qkv_views,
 )
 from mlcomp_tpu_torch.testing.kernel_faults import (
-    BACKWARD_KERNEL, _with_library, build_faults,
+    BACKWARD_KERNEL, KERNEL, _with_library, build_faults, check, check_lse,
 )
+
+_FWD_MASK_PASS = ('      if (k0 + BLOCK_N > p.T || (p.causal && k0 + BLOCK_N '
+                  '- 1 > wrow0)) {')
+_FWD_PV = ('for (int kk = 0; kk < BLOCK_N / 16; ++kk)\n'
+           '    Wgmma<T, D>::template rs<1>')
+_FWD_S = ('for (int kk = 0; kk < D / 16; ++kk)\n'
+          '    Wgmma<T, N>::ss(sc,')
+
+# the softmax of tile kt after tile kt - 1's PV product is done
+_OVERLAP = ('      wgmma_wait<1>();\n', '      wgmma_wait<0>();\n')
+# the consumers issue their products without taking turns
+_TURNS = [('  named_bar_sync(TURN_BAR + wg, 2 * WG);\n}', '}'),
+          ('  named_bar_arrive(TURN_BAR + wg, 2 * WG);\n}', '}')]
+
+#: name -> (gives the right output, [(text of the forward source, its
+#: replacement), ...]); the shipped forward overlaps each consumer's
+#: softmax with its own PV product and has its three consumers take turns
+FORWARD_VARIANTS = {
+    # FA3's intra-warpgroup overlap alone, the turns alone, neither
+    'fwd_overlap_only': (True, _TURNS),
+    'fwd_pingpong_only': (True, [_OVERLAP]),
+    'fwd_neither': (True, [_OVERLAP, *_TURNS]),
+    # 64-key K/V tiles at every head dim (half the S and P registers)
+    'fwd_block_n_64': (True, [('return D == 128 ? 64 : 128;',
+                               'return 64;')]),
+    'fwd_two_stages': (True, [('constexpr int STAGES = 4;',
+                               'constexpr int STAGES = 2;')]),
+    'fwd_three_stages': (True, [('constexpr int STAGES = 4;',
+                                 'constexpr int STAGES = 3;')]),
+    'fwd_five_stages': (True, [('constexpr int STAGES = 4;',
+                                'constexpr int STAGES = 5;')]),
+    # two consumers: 128 query rows a block, each K/V tile read by half
+    # as many blocks again
+    'fwd_two_consumers': (True, [('constexpr int CONSUMERS = 3;',
+                                  'constexpr int CONSUMERS = 2;')]),
+    # the consumers' branch after setmaxnreg dropped (it never returns)
+    'fwd_no_branch_after_setmaxnreg': (True, [(
+        '    if (blockIdx.x >= n_q_tiles * p.B * p.H) return;\n', '')]),
+    # cost probes: the mask pass, the ex2 (P = S), the PV product, both
+    # products dropped
+    'fwd_no_mask_pass': (False, [(_FWD_MASK_PASS, '      if (false) {')]),
+    'fwd_no_exp': (False, [(
+        'fast_exp2(fmaf(sc[4 * n + e], scale_log2, -mx[e / 2]))',
+        'sc[4 * n + e]')]),
+    'fwd_no_pv_product': (False, [(
+        _FWD_PV, _FWD_PV.replace('kk < BLOCK_N / 16', 'kk < 0'))]),
+    'fwd_no_products': (False, [
+        (_FWD_PV, _FWD_PV.replace('kk < BLOCK_N / 16', 'kk < 0')),
+        (_FWD_S, _FWD_S.replace('kk < D / 16', 'kk < 0'))]),
+}
+
 
 _DQ_WAIT = '''        // overlapping it with the next tile's S and dP products makes
         // ptxas serialize every wgmma of the kernel (C7515): measured
@@ -82,11 +142,12 @@ VARIANTS = {
 
 
 def _advisories(log: str) -> list:
-    """ptxas's serialization advisories and nonzero spills, shortened to
-    (code, kernel, D) and the spill line."""
+    """ptxas's wgmma advisories (serialized: C7512, C7515, C7518; a wait
+    it injected: C7517) and nonzero spills, shortened to (code, kernel,
+    D) and the spill line."""
     out = []
     for line in log.splitlines():
-        m = re.search(r'\((C75\d\d)\).*(fa_bwd_\w+?_kernel)I(\w+?)Li(\d+)E',
+        m = re.search(r'\((C75\d\d)\).*(fa_\w+?_kernel)I(\w+?)Li(\d+)E',
                       line)
         if m:
             out.append(f'{m.group(1)} {m.group(2)}<{m.group(3)}, '
@@ -110,9 +171,9 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _build_baseline(source: str, out_dir: str, logs: dict) -> str:
-    """The library of another version of the backward source, compiled
-    with the package's flags beside its own headers."""
-    so = os.path.join(out_dir, 'baseline.so')
+    """The library of another version of a kernel source, compiled with
+    the package's flags beside its own headers."""
+    so = os.path.join(out_dir, os.path.basename(source) + '.baseline.so')
     proc = subprocess.run(
         [_build.nvcc(), *_build.NVCC_FLAGS, '-I',
          os.path.dirname(os.path.abspath(source)), '-o', so, source],
@@ -127,40 +188,113 @@ def _build_baseline(source: str, out_dir: str, logs: dict) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--iters', type=int, default=20)
-    parser.add_argument('--baseline', default=None,
-                        help='another flash_attention_bwd.cu to time')
+    parser.add_argument('--only', choices=('forward', 'backward'),
+                        default=None, help='time one kernel source only')
+    parser.add_argument('--baseline', action='append', default=[],
+                        help='another flash_attention_fwd.cu or '
+                             'flash_attention_bwd.cu to time')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('FAIL: no CUDA card', flush=True)
         return 1
+    baselines = {}
+    for path in args.baseline:
+        kernel = os.path.splitext(os.path.basename(path))[0]
+        if kernel not in (KERNEL, BACKWARD_KERNEL):
+            parser.error(f'--baseline {path}: not a flash attention source')
+        baselines[kernel] = path
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True).stdout
     print(f'[variants] card={card.strip()!r}', flush=True)
     gen = torch.Generator(device='cuda').manual_seed(0)
     with tempfile.TemporaryDirectory(prefix='kernel_variants_') as tmp:
-        logs = {}
-        libs = build_faults(tmp, BACKWARD_KERNEL, {
-            'shipped': [], **{n: e for n, (_, e) in VARIANTS.items()}}, logs)
-        if args.baseline:
-            libs = {'shipped': libs.pop('shipped'),
-                    'baseline': _build_baseline(args.baseline, tmp, logs),
-                    **libs}
-        for name in libs:
-            lines = _advisories(logs[name])
-            print(f'[variants] {name} ptxas: '
-                  + ('; '.join(lines) if lines else 'no advisory, no spill'),
-                  flush=True)
-        for name, (right, _) in VARIANTS.items():
-            if right:
-                r = _with_library(BACKWARD_KERNEL, libs[name],
-                                  lambda: backward_check(BACKWARD_SHAPES[0],
-                                                         gen))
-                print(f'[variants] {name} bounds_hold='
-                      f'{backward_ok(r, BACKWARD_SHAPES[0][4])}', flush=True)
-        for shape in BACKWARD_SHAPES[:2]:
-            _time_shape(shape, libs, gen, args.iters)
+        if args.only != 'backward':
+            libs = _libraries(tmp, KERNEL, FORWARD_VARIANTS,
+                              baselines.get(KERNEL))
+            _check_variants(libs, KERNEL, FORWARD_VARIANTS, _forward_bounds)
+            _time_forward(libs, gen, args.iters)
+        if args.only != 'forward':
+            libs = _libraries(tmp, BACKWARD_KERNEL, VARIANTS,
+                              baselines.get(BACKWARD_KERNEL))
+            _check_variants(libs, BACKWARD_KERNEL, VARIANTS,
+                            lambda: _backward_bounds(gen))
+            for shape in BACKWARD_SHAPES[:2]:
+                _time_shape(shape, libs, gen, args.iters)
     return 0
+
+
+def _forward_bounds() -> str:
+    """The forward's row error at the serving shape and its lse error at
+    the flagship's training shape, against their bounds."""
+    row, _ = check(ATTENTION_SHAPES[0], 0)
+    lse_err = check_lse(BACKWARD_SHAPES[0], 0)
+    ok = row <= ATTENTION_ROW_TOL[ATTENTION_SHAPES[0][4]] and \
+        lse_err <= LSE_TOL
+    return f'row_err={row:.3e} lse_err={lse_err:.3e} bounds_hold={ok}'
+
+
+def _backward_bounds(gen) -> str:
+    """Whether ``backward_check``'s bounds hold at the flagship shape."""
+    r = backward_check(BACKWARD_SHAPES[0], gen)
+    return f'bounds_hold={backward_ok(r, BACKWARD_SHAPES[0][4])}'
+
+
+def _check_variants(libs: dict, kernel: str, variants: dict, bounds):
+    """``bounds()``'s line for each variant that gives the right
+    result, with its library loaded."""
+    for name, (right, _) in variants.items():
+        if right:
+            print(f'[variants] {name} '
+                  + _with_library(kernel, libs[name], bounds), flush=True)
+
+
+def _libraries(tmp: str, kernel: str, variants: dict, baseline) -> dict:
+    """{name: library} of the shipped source, the baseline (if any) and
+    each variant of ``kernel``, with each build's ptxas advisories
+    printed."""
+    logs = {}
+    libs = build_faults(tmp, kernel, {
+        'shipped': [], **{n: e for n, (_, e) in variants.items()}}, logs)
+    if baseline:
+        libs = {'shipped': libs.pop('shipped'),
+                'baseline': _build_baseline(baseline, tmp, logs), **libs}
+    for name in libs:
+        lines = _advisories(logs[name])
+        print(f'[variants] {kernel} {name} ptxas: '
+              + ('; '.join(lines) if lines else 'no advisory, no spill'),
+              flush=True)
+    return libs
+
+
+def _time_in_turns(libs: dict, kernel: str, fn) -> dict:
+    """{name: [result, result]} of ``fn()`` with each library of
+    ``kernel`` loaded, every library in turns, then in reverse order."""
+    runs = {}
+    for name in list(libs) + list(libs)[::-1]:
+        runs.setdefault(name, []).append(
+            _with_library(kernel, libs[name], fn))
+    return runs
+
+
+def _time_forward(libs: dict, gen, iters: int):
+    """The forward's times of every library, in turns, twice: at the
+    serving shape without lse, at the flagship's training shape with."""
+    for shape, with_lse in ((ATTENTION_SHAPES[0], False),
+                            (BACKWARD_SHAPES[0], True)):
+        b, t, h, d, dtype, causal = shape
+        q, k, v = qkv_views(b, t, h, d, dtype, gen)
+        ms = _time_in_turns(libs, KERNEL, lambda: _time_ms(
+            lambda: fa.flash_attention_forward(
+                q, k, v, causal=causal, with_lse=with_lse), iters))
+        for name, runs in ms.items():
+            wrong = '' if name not in FORWARD_VARIANTS or \
+                FORWARD_VARIANTS[name][0] else ' (wrong output: a cost probe)'
+            print(f'[variants] {name} shape={shape[:4]} lse={with_lse} '
+                  f'fwd_ms={",".join(f"{r:.4f}" for r in runs)}{wrong}',
+                  flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def _time_shape(shape, libs: dict, gen, iters: int):
@@ -172,17 +306,11 @@ def _time_shape(shape, libs: dict, gen, iters: int):
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
                                           with_lse=True)
     delta = fa.attention_delta(out, do)
-
-    def times() -> tuple:
-        return (_time_ms(lambda: fa.flash_attention_backward_dq(
-                    q, k, v, do, lse, delta, causal=causal), iters),
-                _time_ms(lambda: fa.flash_attention_backward_dkv(
-                    q, k, v, do, lse, delta, causal=causal), iters))
-
-    ms = {}
-    for name in list(libs) + list(libs)[::-1]:
-        ms.setdefault(name, []).append(_with_library(
-            BACKWARD_KERNEL, libs[name], times))
+    ms = _time_in_turns(libs, BACKWARD_KERNEL, lambda: (
+        _time_ms(lambda: fa.flash_attention_backward_dq(
+            q, k, v, do, lse, delta, causal=causal), iters),
+        _time_ms(lambda: fa.flash_attention_backward_dkv(
+            q, k, v, do, lse, delta, causal=causal), iters)))
     for name, runs in ms.items():
         wrong = '' if name not in VARIANTS or VARIANTS[name][0] \
             else ' (wrong gradients: a cost probe)'

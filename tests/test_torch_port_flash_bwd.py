@@ -446,6 +446,35 @@ class TestKernelVariants:
         for old, new in kernel_variants.VARIANTS[variant][1]:
             assert source.count(old) == 1 and new != old
 
+    @pytest.mark.parametrize('variant',
+                             sorted(kernel_variants.FORWARD_VARIANTS))
+    def test_forward_variant_edits_the_shipped_source_once(self, variant):
+        with open(os.path.join(_build.CSRC_DIR,
+                               kernel_faults.KERNEL + '.cu')) as fh:
+            source = fh.read()
+        for old, new in kernel_variants.FORWARD_VARIANTS[variant][1]:
+            assert source.count(old) == 1 and new != old
+
+    def test_forward_variants_cover_the_design_choices(self):
+        """The schedule (overlap, turns), the tile and ring sizes and the
+        consumers are each timed against the shipped forward, beside cost
+        probes that give wrong output."""
+        variants = kernel_variants.FORWARD_VARIANTS
+        for name in ('fwd_overlap_only', 'fwd_pingpong_only', 'fwd_neither',
+                     'fwd_block_n_64', 'fwd_two_stages', 'fwd_three_stages',
+                     'fwd_two_consumers', 'fwd_no_branch_after_setmaxnreg'):
+            assert variants[name][0]
+        assert not variants['fwd_no_exp'][0]
+
+    def test_advisories_name_the_forward_and_its_injected_waits(self):
+        log = ("ptxas info    : (C7517) warpgroup.wait is injected in around "
+               "line 10723 by compiler to allow use of registers defined by "
+               "GMMA in function '_ZN55_GLOBAL__N__a2080d67_22_flash_attention"
+               "_fwd_cu_2c13897919fa_fwd_wgmma_kernelI13__nv_bfloat16Li64EEEv"
+               "NS_9TmaParamsE'")
+        assert kernel_variants._advisories(log) == [
+            'C7517 fa_fwd_wgmma_kernel<13__nv_bfloat16, 64>']
+
     def test_advisories_name_the_code_kernel_and_head_dim(self):
         log = ("ptxas info    : (C7515) Potential Performance Loss: wgmma."
                "mma_async instructions are serialized due to non wgmma "

@@ -100,6 +100,28 @@ class TestWrapper:
         ref = torch.einsum('bhqk,bkhd->bqhd', s.softmax(-1), v)
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
 
+    def test_lse_is_written_into_the_given_buffer(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(b=1, t=64, h=2, d=16))
+        buf = torch.full((1, 2, 64), float('nan'))
+        out, lse = port_fa.flash_attention_forward(q, k, v, with_lse=True,
+                                                   lse_out=buf)
+        ref_out, ref_lse = port_fa.reference_attention(q, k, v,
+                                                       with_lse=True)
+        assert lse is buf
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
+        torch.testing.assert_close(out, ref_out, rtol=0, atol=0)
+
+    @pytest.mark.parametrize('buf,with_lse', [
+        (torch.empty((1, 64, 2)), True),
+        (torch.empty((1, 2, 64), dtype=torch.float64), True),
+        (torch.empty((1, 4, 64))[:, ::2], True),
+        (torch.empty((1, 2, 64)), False)])
+    def test_a_wrong_lse_buffer_raises(self, buf, with_lse):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(b=1, t=64, h=2, d=16))
+        with pytest.raises(ValueError, match='lse_out must be'):
+            port_fa.flash_attention_forward(q, k, v, with_lse=with_lse,
+                                            lse_out=buf)
+
     def test_other_devices_raise_instead_of_falling_back(self):
         q = torch.empty((1, 8, 2, 64), device='meta')
         with pytest.raises(ValueError, match='runs on cuda'):
@@ -247,6 +269,22 @@ class TestKernelCheck:
         bad[0, 5, 1, 3] = float('nan')
         assert not kernel_check.row_relative_error(bad, ref) <= 1.0
 
+    def test_forward_lse_starts_from_nan(self, monkeypatch):
+        """The card-side lse check hands the forward a buffer of NaN, so
+        a row the kernel leaves unwritten fails ``LSE_TOL``."""
+        q, k, v = (torch.from_numpy(a) for a in _qkv(b=1, t=32, h=2, d=16))
+        _, ref = port_fa.reference_attention(q, k, v, with_lse=True)
+        _, lse = kernel_check.forward_with_lse(q, k, v, True)
+        assert kernel_check.lse_error(lse, ref) == 0.0
+
+        def skips_a_row(q, k, v, causal, with_lse, lse_out):
+            lse_out[:, :, 1:] = ref[:, :, 1:]
+            return None, lse_out
+
+        monkeypatch.setattr(port_fa, 'flash_attention_forward', skips_a_row)
+        _, lse = kernel_check.forward_with_lse(q, k, v, True)
+        assert not kernel_check.lse_error(lse, ref) <= kernel_check.LSE_TOL
+
     def test_shapes_start_with_the_serving_shape(self):
         assert kernel_check.ATTENTION_SHAPES[0] == (
             4, 8192, 16, 64, torch.bfloat16, True)
@@ -268,6 +306,33 @@ class TestKernelCheck:
             source = fh.read()
         old, new = kernel_faults.FAULTS[fault]
         assert source.count(old) == 1 and new != old
+
+    def test_shapes_hold_the_long_context_forward(self):
+        """``bench.py``'s long-context leg (B=1, T=32768, 8 heads of 64)
+        is held right after the serving shape."""
+        assert kernel_check.ATTENTION_SHAPES[1] == (
+            1, 32768, 8, 64, torch.bfloat16, True)
+
+    def test_forward_faults_keep_their_classes_and_add_two(self):
+        """The four classes of the earlier forward's faults, planted in the
+        wgmma kernel, and two of its own: V's transpose bit and the second
+        consumer's lse rows."""
+        assert set(kernel_faults.FAULTS) >= {
+            'k_tile_skipped_from_row_4096',
+            'mid_k_tile_skipped_in_last_512_rows',
+            'causal_mask_lets_next_key_in', 'causal_mask_hides_the_diagonal',
+            'v_transpose_bit_dropped', 'second_consumer_lse_rows_64_off'}
+
+    def test_tile_skip_faults_reach_the_mask_pass(self):
+        """A tile-skip fault must open the mask pass on the tiles it masks
+        (a tile off the diagonal skips the pass) and mask their scores."""
+        for name in ('k_tile_skipped_from_row_4096',
+                     'mid_k_tile_skipped_in_last_512_rows'):
+            old, new = kernel_faults.FAULTS[name]
+            assert new.splitlines()[0] != old.splitlines()[0]
+            assert 'kt == ' in new.splitlines()[-1]
+            assert new.splitlines()[-2] != old.splitlines()[-1]
+            assert new.count('kt == ') == 2 and 'kt == ' not in old
 
 
 class TestBuild:
@@ -298,6 +363,46 @@ class TestBuild:
             pytest.skip('a CUDA toolkit is installed at /usr/local/cuda')
         with pytest.raises(RuntimeError, match='nvcc not found'):
             _build.build(['flash_attention_fwd'])
+
+    def test_forward_kernel_is_wgmma_with_tma(self):
+        """The 16-bit forward runs on wgmma with TMA loads and a producer
+        warpgroup; the mma.sync kernel is gone, with no path back to it."""
+        with open(os.path.join(_build.CSRC_DIR,
+                               'flash_attention_fwd.cu')) as fh:
+            source = fh.read()
+        for name in ('fa_fwd_wgmma_kernel', 'Wgmma<T, D>::template rs<1>',
+                     'Wgmma<T, N>::ss', 'Tl::load(', 'regs_dec<PRODUCER_REGS>',
+                     'regs_inc<CONSUMER_REGS>', '__grid_constant__',
+                     'case 1: return launch_wgmma<__nv_bfloat16, D>',
+                     'case 2: return launch_wgmma<__half, D>'):
+            assert name in source
+        for gone in ('fa_fwd_mma_kernel', 'launch_mma', 'Mma<T>::run',
+                     'ldmatrix', 'cp_async'):
+            assert gone not in source
+
+    def test_tma_plumbing_lives_in_one_header(self):
+        """``Tile``, ``encode_tiled`` and ``tensor_map`` are defined once,
+        in ``flash_tma.cuh``, which both attention sources include."""
+        texts = {}
+        for name in ('flash_tma.cuh', 'flash_attention_fwd.cu',
+                     'flash_attention_bwd.cu'):
+            with open(os.path.join(_build.CSRC_DIR, name)) as fh:
+                texts[name] = fh.read()
+        for definition in ('struct Tile {', 'cudaError_t encode_tiled(',
+                           'cudaError_t tensor_map('):
+            assert [n for n, t in texts.items() if definition in t] == [
+                'flash_tma.cuh']
+        for name in ('flash_attention_fwd.cu', 'flash_attention_bwd.cu'):
+            assert '#include "flash_tma.cuh"' in texts[name]
+
+    def test_smoke_counts_hgmma_in_the_forward(self):
+        """``chip_smoke.py`` fails unless every 16-bit instantiation of
+        the forward has HGMMA in its SASS, as for the backward's."""
+        with open(os.path.join(os.path.dirname(_build.PACKAGE_DIR),
+                               'chip_smoke.py')) as fh:
+            smoke = fh.read()
+        assert ("'flash_attention_fwd': ('flash_attention_fwd', "
+                "'fa_fwd_wgmma_kernel')") in smoke
 
     def test_kernel_source_names_what_it_replaces(self):
         with open(os.path.join(_build.CSRC_DIR,
