@@ -14,7 +14,8 @@ last line:
 2. build: every kernel under ``mlcomp_tpu_torch/csrc/`` with nvcc, timed,
    with ptxas's register / spill report and wgmma advisories, and the
    HGMMA (wgmma) instructions in the SASS of every 16-bit instantiation
-   of the attention forward and the two backward kernels (cuobjdump;
+   of the attention forward and the two backward kernels and of every
+   instantiation of the int8 matmul and the serving stack (cuobjdump;
    none fails the run);
 3. kernels: each kernel's wrapper on tensors on the card against its
    plain PyTorch version at several shapes (the main path's shape first),
@@ -41,11 +42,15 @@ last line:
    against its bound, its plain version and
    ``F.batch_norm(training=True)`` + ``F.relu``;
 5. int8 kernels: the int8 matmul against its plain version run in f64
-   at the bench's shape, the served LM's and ragged ones
-   (``kernel_check.INT8_SHAPES``, a NaN canary after the output), timed
-   beside its bound, the plain version and ``torch.matmul`` on bf16
-   weights; the serving stack per layer against f64 and over the chain
-   against ``reference_stack`` (``kernel_check.STACK_SHAPES``), timed at
+   at the bench's shape, the served LM's and ragged ones, and at the
+   wgmma tiles' edges (``kernel_check.INT8_SHAPES``, a NaN canary after
+   the output), its fused ``Int8Dense`` epilogue (bias, bf16 / fp16 out)
+   bit for bit against the unfused formula
+   (``kernel_check.INT8_EPILOGUE_SHAPES``), timed at the four main-path
+   shapes beside its bound, the plain version and ``torch.matmul`` on
+   bf16 weights; the serving stack per layer against f64 and over the
+   chain against ``reference_stack`` (``kernel_check.STACK_SHAPES``),
+   run twice at the bench's shape for bitwise-equal outputs, timed at
    8 × 8192² at M = 64 in int8 and bf16 beside the bf16 chain;
 6. serving: the flagship transformer LM (vocab 32768, d_model 1024, 16
    heads, d_ff 4096, 8 layers, T=8192, bf16 activations, f32 params;
@@ -58,7 +63,10 @@ last line:
    ``quantize='int8'`` (25 int8 launches a dispatch), then the stacked
    export (the head alone: 1); counts zeroed just before the requests,
    read just after; one row against the same int8 weights through the
-   plain product and against the unquantized model; weight bytes;
+   plain product and against the unquantized model; weight bytes; where
+   one dispatch of the per-layer export goes (``[serve-int8-split]``,
+   profiler: the int8 kernel by shape, ``Int8Dense``'s passes around
+   it, attention, the rest, the device's busy share);
 8. ``serving_int8``: ``bench.py``'s leg (8 layers of 8192² at M = 64, 7
    interleaved trials × 100 stacks through ``make_chain_runner``): bf16
    chain, plain int8 chain, per-layer int8 kernel, int8 and bf16 stack
@@ -257,7 +265,9 @@ WGMMA_KERNELS = {
     'flash_attention_bwd_dq': ('flash_attention_bwd',
                                'fa_bwd_dq_wgmma_kernel'),
     'flash_attention_bwd_dkv': ('flash_attention_bwd',
-                                'fa_bwd_dkv_wgmma_kernel')}
+                                'fa_bwd_dkv_wgmma_kernel'),
+    'int8_matmul': ('int8_matmul', 'int8_wgmma_kernel'),
+    'serving_stack': ('serving_stack', 'stack_wgmma_kernel')}
 SASS_COUNTS = {}
 
 
@@ -1348,7 +1358,8 @@ def phase_int8_kernel(seed: int) -> dict:
         int8_matmul, reference_int8_matmul,
     )
     from mlcomp_tpu_torch.testing.kernel_check import (
-        INT8_ROW_TOL, INT8_SHAPES, int8_check, int8_inputs, int8_ok,
+        INT8_EPILOGUE_SHAPES, INT8_ROW_TOL, INT8_SHAPES, int8_check,
+        int8_epilogue_check, int8_epilogue_ok, int8_inputs, int8_ok,
     )
     gen = torch.Generator(device='cuda').manual_seed(seed)
     errors = {}
@@ -1366,6 +1377,20 @@ def phase_int8_kernel(seed: int) -> dict:
             fail(f'int8_matmul disagrees with its plain version at {shape}: '
                  f'{r}')
         errors[shape] = r
+        torch.cuda.empty_cache()
+    # the fused Int8Dense epilogue, bit for bit
+    for shape in INT8_EPILOGUE_SHAPES:
+        try:
+            r = int8_epilogue_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused launch or a fault in the run
+            fail(f'int8_matmul epilogue at (M, K, N)={shape}: {e}')
+        ok = int8_epilogue_ok(r)
+        say('kernel-int8-epilogue', ok=ok, shape='x'.join(map(str, shape)),
+            differing_elements=r)
+        if not ok:
+            fail(f'the fused int8 epilogue differs from the unfused formula '
+                 f'at {shape}: {r}')
         torch.cuda.empty_cache()
 
     timed = {}
@@ -1402,6 +1427,10 @@ def phase_int8_kernel(seed: int) -> dict:
     return {'name': 'int8_matmul', 'route': 'cuda',
             'source': 'mlcomp_tpu_torch/csrc/int8_matmul.cu',
             'replaces': 'mlcomp_tpu/ops/int8_matmul.py:87',
+            'design': 'wgmma + TMA, the int8 weight as the register A '
+                      'operand (swap AB), a producer thread, two consumer '
+                      'warpgroups, fused Int8Dense epilogue',
+            'sass_hgmma': SASS_COUNTS.get('int8_matmul'),
             'max_abs_err': errors[main]['max_abs_err'],
             'row_err': errors[main]['row_err'], **timed[main],
             'shape': list(main), 'library': 'torch.matmul(x, w_bf16.t()) '
@@ -1440,7 +1469,7 @@ def phase_stack_kernel(seed: int) -> dict:
     STACK_SHAPES shape; timed at the bench's 8 × 8192² at M = 64, int8
     and bf16. Returns its kernels-line entry."""
     from mlcomp_tpu_torch.ops.serving_stack import (
-        reference_stack, serving_stack,
+        reference_stack, serving_stack, stack_grid,
     )
     from mlcomp_tpu_torch.testing.kernel_check import (
         STACK_ROW_TOL, STACK_SHAPES, stack_check, stack_inputs, stack_ok,
@@ -1471,6 +1500,17 @@ def phase_stack_kernel(seed: int) -> dict:
     for shape in STACK_SHAPES[:2]:
         layers, m, k, wdtype, feed = shape
         x, w, scales = stack_inputs(layers, m, k, wdtype, gen)
+        # deterministic: two runs bitwise equal (no float atomics)
+        runs = [serving_stack(x, w, scales, feed=feed, block_n=1024,
+                              block_k=2048) for _ in range(2)]
+        bitwise = bool(torch.equal(runs[0], runs[1]))
+        grid = stack_grid(k, wdtype)
+        say('kernel-stack', layers=layers, shape=f'{m}x{k}',
+            w=str(wdtype)[6:], bitwise_equal_runs=bitwise, grid=grid,
+            clusters=grid // 8)
+        if not bitwise:
+            fail(f'serving_stack is not deterministic at {shape}')
+        del runs
         ms = time_ms(lambda: serving_stack(x, w, scales, feed=feed,
                                            block_n=1024, block_k=2048),
                      iters=50)
@@ -1488,7 +1528,7 @@ def phase_stack_kernel(seed: int) -> dict:
         # the bench's bf16 chain is the yardstick
         timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                            bf16_chain_ms=chain_ms, bound_ms=bound,
-                           bound_by=bound_by)
+                           bound_by=bound_by, grid=grid)
         wbytes = layers * k * k * w.element_size()
         say('kernel-stack', layers=layers, shape=f'{m}x{k}', w=name,
             ms=f'{ms:.4f}', bound_ms=f'{bound:.4f}', bound_by=bound_by,
@@ -1500,6 +1540,11 @@ def phase_stack_kernel(seed: int) -> dict:
     return {'name': 'serving_stack', 'route': 'cuda',
             'source': 'mlcomp_tpu_torch/csrc/serving_stack.cu',
             'replaces': 'mlcomp_tpu/ops/serving_stack.py:67',
+            'design': 'one cooperative launch of 8-CTA clusters splitting '
+                      'K, x slices resident, the wgmma tile with TMA-'
+                      'streamed weights, partial sums reduced through '
+                      'distributed shared memory by reducer warps',
+            'sass_hgmma': SASS_COUNTS.get('serving_stack'),
             'max_abs_err': errors[main]['max_abs_err'],
             'row_err': errors[main]['row_err'],
             'step_err': errors[main]['step_err'], **timed['int8'],
@@ -1534,6 +1579,119 @@ def _serve_rows(server, requests, counter) -> tuple:
                  f'for {x.shape} tokens')
         served.append(y)
     return latencies, served, per_dispatch
+
+
+def _kernels_under(event) -> list:
+    """[(kernel name, device us)] of a profiler event and its CPU
+    descendants."""
+    out = [(k.name, k.duration) for k in event.kernels]
+    for child in event.cpu_children:
+        out += _kernels_under(child)
+    return out
+
+
+def _is_int8_kernel(name: str) -> bool:
+    return 'int8' in name or 'splitk_reduce' in name
+
+
+#: the profiler label around each Int8Dense.forward (no 'int8' in it: its
+#: device-side span must not read as a kernel)
+SPLIT_LABEL = 'Int8Dense.forward'
+
+
+def int8_dispatch_split(predict, batch) -> dict:
+    """Where one served dispatch of the per-layer int8 export goes:
+    ``predict(batch)`` (batch 4) under ``torch.profiler``. Device time by
+    kernel name, from the kernel events themselves (``key_averages``
+    would count an op's kernels under the op's key too): the int8 kernel
+    (names with int8 or split-K), the attention forward (``fa_fwd``),
+    the rest; the int8 kernel by M x K x N, its launches taken in order
+    against the order of the ``Int8Dense`` calls; the passes
+    ``Int8Dense.forward`` adds around the kernel (bias add, cast: the
+    PyTorch ops under a ``record_function`` around each call). The
+    device's busy share is the kernel time over the dispatch's time
+    without the profiler (host clock after a synchronise, best of 3).
+    Prints facts; decides nothing."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mlcomp_tpu_torch.ops.int8_matmul import Int8Dense
+
+    forward = Int8Dense.forward
+    shapes = []
+
+    def labelled(self, x):
+        shapes.append(f'{x.numel() // x.shape[-1]}x{x.shape[-1]}x'
+                      f'{self.w_qt.shape[0]}')
+        with record_function(SPLIT_LABEL):
+            return forward(self, x)
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    fields = {'batch': len(batch), 'wall_ms': min(walls)}
+    Int8Dense.forward = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            predict(batch)
+            torch.cuda.synchronize()
+        from torch.autograd import DeviceType
+        # the kernels themselves (not the label's device-side span, a
+        # user annotation; not the ops' keys, which carry their kernels'
+        # time too), by name
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False)]
+        per_name = {}
+        for e in kernels:
+            us, n = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        by_name = sorted(((us, k, n) for k, (us, n) in per_name.items()),
+                         reverse=True)
+        total_us = sum(us for us, _, _ in by_name)
+        if total_us <= 0:
+            raise RuntimeError('the profile holds no device time')
+        int8_us = sum(us for us, k, _ in by_name if _is_int8_kernel(k))
+        attention_us = sum(us for us, k, _ in by_name if 'fa_fwd' in k)
+        launches = sum(n for _, k, n in by_name if _is_int8_kernel(k))
+        passes_us = sum(us for e in prof.events()
+                        if e.device_type == DeviceType.CPU
+                        and e.name == SPLIT_LABEL
+                        for name, us in _kernels_under(e)
+                        if not _is_int8_kernel(name))
+        # the int8 launches in the order they ran, against the calls'
+        int8_events = sorted((e for e in kernels if _is_int8_kernel(e.name)),
+                             key=lambda e: e.time_range.start)
+        by_shape = {}
+        if len(int8_events) == len(shapes):
+            for shape, e in zip(shapes, int8_events):
+                entry = by_shape.setdefault(shape, [0, 0.0])
+                entry[0] += 1
+                entry[1] += e.time_range.elapsed_us() / 1e3
+        fields.update(
+            device_ms=total_us / 1e3, busy=total_us / 1e3 / min(walls),
+            int8_kernel_ms=int8_us / 1e3, int8_launches=launches,
+            int8dense_calls=len(shapes),
+            int8dense_passes_ms=passes_us / 1e3,
+            attention_ms=attention_us / 1e3,
+            rest_ms=(total_us - int8_us - passes_us - attention_us) / 1e3,
+            int8_by_shape={s: [n, round(ms, 4)]
+                           for s, (n, ms) in sorted(by_shape.items())}
+            if by_shape else f'not attributed ({len(int8_events)} '
+                             f'events, {len(shapes)} calls)')
+        for us, name, count in by_name[:8]:
+            say('serve-int8-split-kernel', ms=f'{us / 1e3:.3f}',
+                launches=count, name=repr(name[:90]))
+    except Exception as e:      # a profiler that reads no device time
+        fields.update(device_ms='not measured', profiler=repr(str(e)[:80]))
+    finally:
+        Int8Dense.forward = forward
+    say('serve-int8-split', **{k: (f'{v:.4f}' if isinstance(v, float)
+                                   else v) for k, v in fields.items()})
+    return fields
 
 
 def phase_serve_int8(seed: int) -> dict:
@@ -1610,6 +1768,7 @@ def phase_serve_int8(seed: int) -> dict:
         if name != 'flagship_lm_layers':
             del server, predict, model
             continue
+        split = int8_dispatch_split(predict, requests[1])
 
         # one row: the kernel against the plain product on the same int8
         # weights, and against the unquantized model
@@ -1665,7 +1824,7 @@ def phase_serve_int8(seed: int) -> dict:
                  f'cosine {cos_full}')
         del kern, dense, ref, tokens
         torch.cuda.empty_cache()
-    return launches
+    return launches, split
 
 
 def phase_serving_int8(seed: int) -> dict:
@@ -2297,7 +2456,7 @@ def main():
         ce = phase_ce_kernels(args.seed)
         phase_int8_train_matmul(args.seed)
         serve_launches = phase_serving(args.seed)
-        int8_serve = phase_serve_int8(args.seed)
+        int8_serve, int8_split = phase_serve_int8(args.seed)
         leg = phase_serving_int8(args.seed)
         train_launches = phase_train(args.seed)
         wide_launches = phase_train_wide_int8(args.seed)
@@ -2334,6 +2493,7 @@ def main():
         'serve_int8_stacked': int8_serve['flagship_lm'],
         'serving_int8': leg['launches']['int8_matmul']}
     int8['launches'] = sum(int8['launches_by_path'].values())
+    int8['dispatch_split'] = int8_split
     stack['launches_by_path'] = {
         'serving_int8': leg['launches']['serving_stack']}
     stack['launches'] = sum(stack['launches_by_path'].values())

@@ -21,12 +21,16 @@ what the design does about that)::
   JAX caller's ``pallas`` / ``interpret`` read as ``cuda`` / ``auto``.
   There is no fallback from the kernel. The JAX package's ``auto →
   dense`` was a TPU measurement and does not carry over, nor does its
-  tile gate (M % 8, K % 128, N % 128): the kernel takes any M, N, K ≥ 1.
-  ``int8_matmul.launches`` counts the calls that launched it.
+  tile gate (M % 8, K % 128, N % 128): the kernel takes any M, N, K ≥ 1
+  (TMA's rule, K a multiple of 16 and aligned bases, is met here by
+  zero-padding K). ``bias`` and ``out_dtype`` fuse ``Int8Dense``'s
+  epilogue into the launch. ``int8_matmul.launches`` counts the calls
+  that launched it.
 - ``Int8Dense``: the serving predictor's stand-in for a ``Dense`` module
   (``train/export.py`` swaps them in): the int8 weight, the scale and the
-  bias as buffers; ``int8_matmul``, the bias added in f32, the result
-  cast to the module's dtype — ``_quantized_interceptor``'s numerics.
+  bias as buffers; ``int8_matmul`` with the bias added in f32 and the
+  result cast to the module's dtype — ``_quantized_interceptor``'s
+  numerics (``reference_epilogue``), in one launch.
 
 The training half (``_quantize_rows``, ``reference_int8_train_matmul``,
 ``Int8TrainMatmul`` and ``int8_train_matmul``: the dynamic int8 product
@@ -77,8 +81,9 @@ def _library():
     fn = lib.int8_matmul
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        # x, w, scale, out, partial (pointers); M, N, K; stream
-        fn.argtypes = [ptr] * 5 + [i] * 3 + [ptr]
+        # x, w, scale, bias, out (pointers); out type; partial; M, N, K;
+        # stream
+        fn.argtypes = [ptr] * 5 + [i, ptr] + [i] * 3 + [ptr]
         fn.restype = i
         ws = lib.int8_matmul_workspace
         ws.argtypes = [i, i, i]
@@ -89,32 +94,54 @@ def _library():
     return lib
 
 
-def _launch(x, w_qt, scale, out):
-    """The kernel on CUDA tensors: ``out`` (f32 [M, N], contiguous) or a
-    new one."""
+#: the kernel's output types (its C interface's codes)
+OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: TMA's rule for the kernel's operands: rows of whole 16-byte chunks
+#: (K a multiple of 16 for the int8 weight) and 16-byte aligned bases
+TMA_K = 16
+
+
+def tma_operand(t, k_pad: int):
+    """``t`` [rows, K] as the kernel's TMA loads take it: contiguous, its
+    base 16-byte aligned, K zero-padded to ``k_pad`` (zeros add nothing
+    to the sums). ``t`` itself where it already is."""
+    if t.shape[-1] != k_pad:
+        return torch.nn.functional.pad(t, (0, k_pad - t.shape[-1]))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, w_qt, scale, out, bias=None, out_dtype=torch.float32):
+    """The kernel on CUDA tensors: ``out`` (``out_dtype`` [M, N],
+    contiguous) or a new one."""
     m, k = x.shape
     n = w_qt.shape[0]
     if w_qt.dtype != torch.int8 or not w_qt.is_contiguous():
         raise ValueError(f'int8_matmul takes a contiguous int8 w_qt, got '
                          f'{w_qt.dtype} with strides {w_qt.stride()}')
-    x = x.to(torch.bfloat16).contiguous()
+    k_pad = -(-k // TMA_K) * TMA_K
+    x = tma_operand(x.to(torch.bfloat16), k_pad)
+    w_qt = tma_operand(w_qt, k_pad)
     scale = scale.float().contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
     if out is None:
-        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    elif out.shape != (m, n) or out.dtype != torch.float32 \
-            or not out.is_contiguous() or out.device != x.device \
-            or out.data_ptr() % 8:
-        raise ValueError(f'out must be a contiguous, 8-byte aligned f32 '
-                         f'[{m}, {n}] on {x.device}')
+        out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    elif out.shape != (m, n) or out.dtype != out_dtype \
+            or not out.is_contiguous() or out.device != x.device:
+        raise ValueError(f'out must be a contiguous {out_dtype} [{m}, {n}] '
+                         f'on {x.device}')
     lib = _library()
     with torch.cuda.device(x.device):
         # the scratch is sized from this device's plan
-        need = lib.int8_matmul_workspace(m, n, k)
+        need = lib.int8_matmul_workspace(m, n, k_pad)
         partial = torch.empty(need, dtype=torch.float32, device=x.device) \
             if need else None
         err = lib.int8_matmul(
-            x.data_ptr(), w_qt.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), m, n, k,
+            x.data_ptr(), w_qt.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            OUT_DTYPES[out_dtype],
+            None if partial is None else partial.data_ptr(), m, n, k_pad,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(
@@ -125,8 +152,17 @@ def _launch(x, w_qt, scale, out):
     return out
 
 
+def reference_epilogue(y, bias=None, out_dtype=torch.float32):
+    """``Int8Dense``'s epilogue on the f32 product: the bias added in f32,
+    then the cast (``_quantized_interceptor``'s numerics)."""
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
 def int8_matmul(x, w_qt, scale, impl: str = 'auto',
-                out: Optional[torch.Tensor] = None):
+                out: Optional[torch.Tensor] = None, bias=None,
+                out_dtype=None):
     """``x [M, K] @ dequant(w_qt [N, K]).T -> f32 [M, N]``.
 
     - ``auto``: the kernel for a CUDA tensor, the plain version for a CPU
@@ -135,10 +171,22 @@ def int8_matmul(x, w_qt, scale, impl: str = 'auto',
     - ``dense``: the plain version on any device
     - ``pallas`` / ``interpret``: ``cuda`` / ``auto``
 
-    ``out`` (the kernel only): a contiguous f32 [M, N], 8-byte aligned
-    (the kernel stores column pairs), to write into.
+    ``bias`` (f32 [N]) and ``out_dtype`` (f32, bf16 or fp16) fuse
+    ``Int8Dense``'s epilogue: ``((y * scale) + bias)`` in f32, cast to
+    ``out_dtype`` — bit for bit the product followed by
+    ``reference_epilogue``. Without them the result is the JAX
+    signature's f32 product. ``out`` (the kernel only): a contiguous
+    ``out_dtype`` [M, N] to write into.
     """
     check_int8_inputs(x, w_qt, scale)
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f'out_dtype must be one of '
+                         f'{sorted(map(str, OUT_DTYPES))}, got {out_dtype}')
+    if bias is not None and (tuple(bias.shape) != (w_qt.shape[0],)
+                             or bias.device != x.device):
+        raise ValueError(f'bias must be [{w_qt.shape[0]}] on {x.device}, '
+                         f'got {tuple(bias.shape)} on {bias.device}')
     impl = _build.resolve_impl(impl, 'impl')
     if impl == 'cuda' and x.device.type != 'cuda':
         raise ValueError(
@@ -148,11 +196,12 @@ def int8_matmul(x, w_qt, scale, impl: str = 'auto',
         if out is not None:
             raise ValueError('out= is the kernel\'s; the plain version '
                              'returns a new tensor')
-        return reference_int8_matmul(x, w_qt, scale)
+        return reference_epilogue(reference_int8_matmul(x, w_qt, scale),
+                                  bias, out_dtype)
     if x.device.type != 'cuda':
         raise ValueError(f'int8_matmul runs on cuda (or cpu: plain '
                          f'version), got device {x.device}')
-    return _launch(x, w_qt, scale, out)
+    return _launch(x, w_qt, scale, out, bias, out_dtype)
 
 
 int8_matmul.launches = 0
@@ -161,8 +210,10 @@ int8_matmul.launches = 0
 class Int8Dense(nn.Module):
     """A ``Dense`` with its weight quantized once: buffers ``w_qt`` (int8
     [out, in]), ``scale`` (f32 [out]) and ``bias`` (or None). Forward:
-    ``int8_matmul`` over the flattened leading dims, the bias added in
-    f32, the result cast to ``dtype`` (left f32 where it is None)."""
+    ``int8_matmul`` over the flattened leading dims with the bias added in
+    f32 and the result cast to ``dtype`` (left f32 where it is None) —
+    ``_quantized_interceptor``'s numerics, in the kernel's one launch
+    where ``dtype`` is one of its output types."""
 
     #: ``int8_matmul``'s impl; ``'dense'`` runs the plain product on any
     #: device (the card-side comparison sets it)
@@ -186,12 +237,13 @@ class Int8Dense(nn.Module):
                    getattr(module, 'dtype', None))
 
     def forward(self, x):
+        dtype = self.dtype or torch.float32
+        fused = dtype in OUT_DTYPES
         y = int8_matmul(x.reshape(-1, x.shape[-1]), self.w_qt, self.scale,
-                        impl=self.impl)
+                        impl=self.impl, bias=self.bias if fused else None,
+                        out_dtype=dtype if fused else None)
         y = y.reshape(*x.shape[:-1], self.w_qt.shape[0])
-        if self.bias is not None:
-            y = y + self.bias.float()
-        return y.to(self.dtype or y.dtype)
+        return y if fused else reference_epilogue(y, self.bias, dtype)
 
 
 # --------------------------------------------------------------- training
@@ -307,5 +359,6 @@ def int8_train_matmul(x, w, compute_dtype=torch.bfloat16):
 
 
 __all__ = ['quantize_int8', 'int8_matmul', 'reference_int8_matmul',
-           'Int8Dense', 'check_int8_inputs', 'int8_train_matmul',
-           'Int8TrainMatmul', 'reference_int8_train_matmul', 'int_product']
+           'reference_epilogue', 'Int8Dense', 'check_int8_inputs',
+           'int8_train_matmul', 'Int8TrainMatmul',
+           'reference_int8_train_matmul', 'int_product', 'OUT_DTYPES']

@@ -3,10 +3,13 @@ an L-layer chain at small batch, and its plain PyTorch version.
 
 Port of ``mlcomp_tpu/ops/serving_stack.py``. The TPU's Pallas kernel
 ``_stack_kernel`` (launched by ``serving_stack``) becomes
-``csrc/serving_stack.cu``: one persistent cooperative launch whose
-blocks each own 64-column tiles of y, stream their weight rows against
-the activation read through L2, and meet at a grid barrier for the
-feed's global max (the file's header says what bounds it on the card).
+``csrc/serving_stack.cu``: one persistent cooperative launch of
+8-block clusters that split K, each block keeping its slice of the
+activation in shared memory and streaming its slab of each layer's
+weights on the wgmma tile of ``int8_gemm.cuh``; the cluster adds its
+partial sums through distributed shared memory, and the grid meets at a
+barrier for the feed's global max (the file's header says what bounds
+it on the card).
 
 - ``reference_stack``: the plain version, ``y_l = x_l @ dequant(W_l).T
   (· s_l)``, ``x_{l+1} = stack_feed(y_l)`` (or y in bf16 without the
@@ -18,7 +21,8 @@ feed's global max (the file's header says what bounds it on the card).
   version on any device).
   ``block_n`` / ``block_k`` are the TPU kernel's tiling contract,
   checked as there (a call the JAX package refuses is refused here); the
-  CUDA kernel tiles by its own 64 columns and takes any N = K.
+  CUDA kernel tiles by its own 128-channel chunks and takes any N = K
+  (zero-padded to a multiple of 16, TMA's rule).
   ``serving_stack.launches`` counts the launches.
 - ``quantize_stack``, ``stack_feed``, ``FEED_EPS``: as in the JAX
   package; ``stack_feed`` is the one definition of the feed the kernel,
@@ -35,7 +39,9 @@ from typing import Sequence, Tuple
 import torch
 
 from mlcomp_tpu_torch.ops import _build
-from mlcomp_tpu_torch.ops.int8_matmul import quantize_int8
+from mlcomp_tpu_torch.ops.int8_matmul import (
+    TMA_K, quantize_int8, tma_operand,
+)
 
 FEED_EPS = 1e-6
 _WDTYPE_CODES = {torch.int8: 0, torch.bfloat16: 1}
@@ -93,6 +99,8 @@ def _library():
         fn.restype = i
         lib.serving_stack_slots.argtypes = [i]
         lib.serving_stack_slots.restype = i
+        lib.serving_stack_grid.argtypes = [i, i]
+        lib.serving_stack_grid.restype = i
         err = lib.serving_stack_error_string
         err.argtypes = [i]
         err.restype = ctypes.c_char_p
@@ -106,19 +114,30 @@ def _launch(x, w_stack, scales, feed: bool):
         raise ValueError(f'serving_stack takes a contiguous int8 or bf16 '
                          f'w_stack, got {w_stack.dtype} with strides '
                          f'{w_stack.stride()}')
-    x = x.to(torch.bfloat16).contiguous()
+    # TMA's rule (int8_matmul.TMA_K): the width zero-padded to a multiple
+    # of 16 — padded channels come out 0, add 0 to the feed's max and
+    # feed 0 on
+    k_pad = -(-k // TMA_K) * TMA_K
+    x = tma_operand(x.to(torch.bfloat16), k_pad)
+    if k_pad != k:
+        w_stack = torch.nn.functional.pad(w_stack,
+                                          (0, k_pad - k, 0, k_pad - k))
+        if scales is not None:
+            scales = torch.nn.functional.pad(scales.float(), (0, k_pad - k))
+    elif w_stack.data_ptr() % 16:
+        w_stack = w_stack.clone()
     if scales is not None:
         scales = scales.float().contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    lib = _library()
+    out = torch.empty((m, k_pad), dtype=torch.float32, device=x.device)
     x_buf = torch.empty_like(x)
-    scratch = torch.empty(lib.serving_stack_slots(k), dtype=torch.float32,
-                          device=x.device)
+    lib = _library()
     with torch.cuda.device(x.device):
+        scratch = torch.empty(lib.serving_stack_slots(k_pad),
+                              dtype=torch.float32, device=x.device)
         err = lib.serving_stack(
             x.data_ptr(), x_buf.data_ptr(), w_stack.data_ptr(),
             None if scales is None else scales.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), n_l, m, k, _WDTYPE_CODES[w_stack.dtype],
+            scratch.data_ptr(), n_l, m, k_pad, _WDTYPE_CODES[w_stack.dtype],
             int(bool(feed)), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(
@@ -126,7 +145,18 @@ def _launch(x, w_stack, scales, feed: bool):
             f'({lib.serving_stack_error_string(err).decode()}) at L={n_l} '
             f'M={m} K={k} {w_stack.dtype}')
     serving_stack.launches += 1
-    return out
+    return out if k_pad == k else out[:, :k].contiguous()
+
+
+def stack_grid(k: int, wdtype=torch.int8) -> int:
+    """The CTAs the kernel launches for width ``k`` on the current card
+    (clusters of 8 CTAs, as many as the card holds at once)."""
+    k_pad = -(-k // TMA_K) * TMA_K
+    grid = _library().serving_stack_grid(k_pad, _WDTYPE_CODES[wdtype])
+    if grid <= 0:
+        raise RuntimeError(f'serving_stack occupancy query failed: CUDA '
+                           f'error {-grid}')
+    return grid
 
 
 def serving_stack(x, w_stack, scales=None, feed: bool = True,
@@ -185,5 +215,5 @@ def make_chain_runner(step, args, x0, reps: int, recorder=None,
 
 
 __all__ = ['serving_stack', 'reference_stack', 'quantize_stack',
-           'stack_feed', 'make_chain_runner', 'FEED_EPS',
+           'stack_grid', 'stack_feed', 'make_chain_runner', 'FEED_EPS',
            'check_stack_inputs']

@@ -192,13 +192,24 @@ def norm_ok(result: dict, dtype) -> bool:
 #: (M, K, N) at which the card-side checks hold the int8 matmul kernel
 #: against its plain version run in f64: the bench's weight-bound shape
 #: (K split over the SMs), the served flagship LM's projections and its
-#: head at batch 4 (M = 4·8192), then ragged shapes: K on the scalar
-#: path with a split (5×1000×999), one row and one K tile (1×64×10),
-#: M and N tails without a split (200×64×1000), and a split K with an
-#: N tail (37×4096×1000)
+#: head at batch 4 (M = 4·8192), then ragged shapes: K not a multiple of
+#: 16 (zero-padded for TMA) with a split (5×1000×999), one row and one K
+#: tile (1×64×10), M and N tails without a split (200×64×1000), and a
+#: split K with an N tail (37×4096×1000); then the wgmma tiles' edges: M
+#: one past the small configuration's 64 tokens (65), past the large
+#: one's 128 and 256 (129, 257), N off the 128- and 256-channel tiles
+#: and off whole 4-column stores (1000, 1090), K padded on the large
+#: path (129×1000×1000) and K = 8192 summed whole at large M
 INT8_SHAPES = [(64, 8192, 8192), (32768, 1024, 4096), (32768, 4096, 1024),
                (32768, 1024, 32768), (5, 1000, 999), (1, 64, 10),
-               (200, 64, 1000), (37, 4096, 1000)]
+               (200, 64, 1000), (37, 4096, 1000), (65, 1024, 4096),
+               (129, 1000, 1000), (257, 4096, 1090), (4096, 8192, 2048)]
+#: (M, K, N) at which the card-side checks hold the fused Int8Dense
+#: epilogue (bias added, bf16 / fp16 out) bit for bit against the
+#: unfused formula: the served LM's d_ff projection, the split-K path,
+#: and tails with scalar stores
+INT8_EPILOGUE_SHAPES = [(32768, 1024, 4096), (64, 8192, 8192),
+                        (257, 4096, 1090), (5, 1000, 999)]
 #: bound on the max over rows of |out - ref| / |ref| against the f64
 #: plain version: the products are exact (bf16 × int8 fits f32), so
 #: only the f32 sums over K ≤ 8192 (and the scale's one rounding) round
@@ -212,13 +223,19 @@ CANARY_ROWS = 128
 #: serving-stack kernel against ``reference_stack`` on the card: the
 #: bench's 8 layers of 8192² at M = 64 in int8 and bf16, one layer (no
 #: feed at all), bf16 layers without the feed, and small ragged cases
-#: (M = 5; M = 7 with K = N = 1000, the scalar load path)
+#: (M = 5; M = 7 with K = N = 1000, zero-padded for TMA); then the
+#: cluster's K split: a width it does not divide (1040: ranks past K
+#: idle), two token tiles (M = 100), and K = 16384, where each rank's
+#: slice is two resident pieces
 STACK_SHAPES = [(8, 64, 8192, torch.int8, True),
                 (8, 64, 8192, torch.bfloat16, True),
                 (1, 64, 8192, torch.int8, False),
                 (3, 64, 1024, torch.bfloat16, False),
                 (3, 5, 1024, torch.int8, True),
-                (2, 7, 1000, torch.int8, True)]
+                (2, 7, 1000, torch.int8, True),
+                (3, 64, 1040, torch.int8, True),
+                (2, 100, 1024, torch.bfloat16, True),
+                (1, 16, 16384, torch.int8, False)]
 #: bounds on the serving stack's row errors:
 #: - ``step``: each layer of the kernel against that layer in f64, fed
 #:   the kernel's own previous output (through ``stack_feed``, which the
@@ -273,6 +290,35 @@ def int8_check(shape, gen, device='cuda') -> dict:
 def int8_ok(result: dict) -> bool:
     return (result['finite'] and result['canary']
             and result['row_err'] <= INT8_ROW_TOL)
+
+
+def int8_epilogue_check(shape, gen, device='cuda') -> dict:
+    """The fused ``Int8Dense`` epilogue once at ``shape`` (M, K, N): for
+    each (bias, output dtype) of (f32 bias, bf16), (none, bf16), (f32
+    bias, fp16), the elements where the kernel's one launch differs in
+    its bits from the f32 product followed by ``reference_epilogue`` (the
+    bias added in f32, then the cast) — 0 when they are bit for bit
+    equal. On the CPU both sides are the plain version."""
+    from mlcomp_tpu_torch.ops.int8_matmul import (
+        int8_matmul, reference_epilogue,
+    )
+    m, k, n = shape
+    x, w_qt, scale = int8_inputs(m, k, n, gen, device)
+    bias = torch.randn((n,), generator=gen, device=device)
+    y = int8_matmul(x, w_qt, scale)
+    result = {}
+    for b, dtype in ((bias, torch.bfloat16), (None, torch.bfloat16),
+                     (bias, torch.float16)):
+        fused = int8_matmul(x, w_qt, scale, bias=b, out_dtype=dtype)
+        want = reference_epilogue(y, b, dtype)
+        name = f'{"bias" if b is not None else "none"}_{str(dtype)[6:]}'
+        result[name] = int((fused.view(torch.int16)
+                            != want.view(torch.int16)).sum())
+    return result
+
+
+def int8_epilogue_ok(result: dict) -> bool:
+    return all(v == 0 for v in result.values())
 
 
 def stack_inputs(layers, m, k, wdtype, gen, device='cuda'):
@@ -601,7 +647,8 @@ __all__ = ['CE_CANARY', 'CE_LOGIT_SCALE', 'CE_LOSS_TOL', 'CE_ROW_TOL',
            'ATTENTION_ROW_TOL', 'ATTENTION_SHAPES', 'AUTOGRAD_HEAD_TOL',
            'BACKWARD_HEAD_TOL', 'BACKWARD_ROW_FLOOR', 'BACKWARD_ROW_TOL',
            'BACKWARD_SHAPES', 'CANARY_ROWS', 'CIFAR_SITE_ACTS',
-           'INT8_ROW_TOL', 'INT8_SHAPES', 'INT8_TRAIN_SHAPES',
+           'INT8_EPILOGUE_SHAPES', 'INT8_ROW_TOL', 'INT8_SHAPES',
+           'INT8_TRAIN_SHAPES', 'int8_epilogue_check', 'int8_epilogue_ok',
            'INT8_TRAIN_TOL', 'LSE_TOL', 'STACK_ROW_TOL',
            'STACK_SHAPES', 'int8_check', 'int8_inputs', 'int8_ok',
            'int8_train_check', 'int8_train_ok',

@@ -7,7 +7,9 @@ Needs one CUDA card and ``nvcc``. First the kernels as they stand run at
 every shape of ``kernel_check.ATTENTION_SHAPES`` (forward),
 ``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward),
 ``kernel_check.NORM_SHAPES`` (fused norm), ``kernel_check.INT8_SHAPES``
-(int8 matmul), ``kernel_check.STACK_SHAPES`` (serving stack) and
+(int8 matmul; its fused epilogue, bit for bit, at
+``kernel_check.INT8_EPILOGUE_SHAPES``), ``kernel_check.STACK_SHAPES``
+(serving stack) and
 ``kernel_check.CE_SHAPES`` (cross-entropy, forward and backward) for
 each seed, which shows the margin of each tolerance. Then each fault below, a
 textual edit of a kernel's ``csrc/*.cu`` (or of a header it includes,
@@ -34,10 +36,12 @@ from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
     ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
-    BACKWARD_SHAPES, CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES, INT8_ROW_TOL,
-    INT8_SHAPES, LSE_TOL, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL,
+    BACKWARD_SHAPES, CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES,
+    INT8_EPILOGUE_SHAPES, INT8_ROW_TOL, INT8_SHAPES, LSE_TOL, NORM_SHAPES,
+    NORM_STAT_TOL, NORM_Y_TOL,
     STACK_ROW_TOL, STACK_SHAPES, backward_check, backward_ok, ce_check,
-    ce_ok, forward_with_lse, int8_check, int8_ok, lse_error, norm_check,
+    ce_ok, forward_with_lse, int8_check, int8_epilogue_check,
+    int8_epilogue_ok, int8_ok, lse_error, norm_check,
     norm_ok, qkv_views, row_relative_error, stack_check, stack_ok,
     stack_tol,
 )
@@ -170,55 +174,98 @@ NORM_FAULTS = {
 
 
 GEMM_HEADER = 'int8_gemm.cuh'
-_DROP_K_TILE = (
-    GEMM_HEADER, '      const int st = kt % STAGES;\n',
-    '      if (kt == n_k / 2) continue;\n      const int st = kt % STAGES;\n')
+#: the weight fragment's two K halves swapped (k 2t.. and 2t + 8..), the
+#: products then pair each weight with the wrong x column
+_K_PAIR_SWAPPED = [
+    (GEMM_HEADER, '  a[0] = b_pair(tile + at);\n',
+     '  a[0] = b_pair(tile + at + 8);\n'),
+    (GEMM_HEADER, '  a[2] = b_pair(tile + at + 8);\n',
+     '  a[2] = b_pair(tile + at);\n')]
 
 INT8_KERNEL = 'int8_matmul'
+_STORE_SCALE = '    y[j] = __fmul_rn(v[j], p.scale[n]);\n'
 #: name -> [(text of the int8 matmul's source, its replacement), or
 #: (header, text, replacement)]
 INT8_FAULTS = {
-    # the middle K tile of every tile product skipped
-    'k_tile_dropped': [_DROP_K_TILE],
-    # the unsplit epilogue scales each column by its neighbour's scale
+    # the middle K tile of every block's range skipped (its stage still
+    # released)
+    'k_tile_dropped': [(
+        '    mbar_wait(&full[s], (i / C::STAGES) & 1);\n',
+        '    mbar_wait(&full[s], (i / C::STAGES) & 1);\n'
+        '    if (i == n_k / 2) {\n      mbar_arrive(&empty[s]);\n'
+        '      continue;\n    }\n')],
+    # the epilogue (and the split-K sum) scales each column by its
+    # neighbour's scale
     'scale_of_next_channel': [(
-        'const float s0 = col < p.N ? p.scale[col] : 0.f;',
-        'const float s0 = col + 1 < p.N ? p.scale[col + 1] : 0.f;')],
-    # the split-K sum scales by the neighbour's scale
-    'split_sum_scale_of_next_channel': [(
-        'p.out[i] = s * p.scale[n];',
-        'p.out[i] = s * p.scale[n + 1 < p.N ? n + 1 : n];')],
-    # the tiles' rows past M are stored
-    'unmasked_m_tail_store': [(GEMM_HEADER, '  if (row >= M) return;\n', '')],
-    # the columns past N of a tile's last pair are stored
+        _STORE_SCALE,
+        _STORE_SCALE.replace('p.scale[n]', 'p.scale[n + 1 < p.N ? n + 1 : n]'))],
+    # the split-K sum drops the last split
+    'split_sum_drops_last_split': [(
+        'for (int j = 0; j < p.splits; ++j) {',
+        'for (int j = 0; j < p.splits - 1; ++j) {')],
+    # the transposed store writes the tile's rows past M
+    'unmasked_m_tail_store': [(
+        'r < C::BN && m0 + r < p.M; r += STEP',
+        'r < C::BN; r += STEP')],
+    # the last 4-column group of a row is stored whole past N
     'unmasked_n_tail_store': [(
-        GEMM_HEADER,
-        '  if (col < N) p[0] = v0;\n  if (col + 1 < N) p[1] = v1;',
-        '  p[0] = v0;\n  p[1] = v1;')],
-    # the scalar path reads 8 columns past the end of its K range
-    'k_tail_read_past_k': [
-        (GEMM_HEADER, 'xs[r * LDX + kc] = row < M && col < kend',
-         'xs[r * LDX + kc] = row < M && col < kend + 8'),
-        (GEMM_HEADER, 'ws[r * LDW + kc] = n < N && col < kend',
-         'ws[r * LDW + kc] = n < N && col < kend + 8')],
+        '      if (c + j < p.N) o[j] = y[j];', '      o[j] = y[j];')],
+    'weight_fragment_k_pair_swapped': _K_PAIR_SWAPPED,
+    # the consumers read the next ring stage, not the one they waited for
+    'stage_index_off_by_one': [(
+        '    const unsigned char* xs = ring + s * C::STAGE_BYTES;',
+        '    const unsigned char* xs =\n'
+        '        ring + ((i + 1) % C::STAGES) * C::STAGE_BYTES;')],
+    # the bias added by a fused multiply-add (one rounding, not two):
+    # the bf16 / fp16 epilogue is no longer the unfused formula's bits
+    'bias_by_contracted_fma': [(
+        '    if (p.bias != nullptr) y[j] = __fadd_rn(y[j], p.bias[n]);',
+        '    if (p.bias != nullptr)\n'
+        '      y[j] = __fmaf_rn(v[j], p.scale[n], p.bias[n]);')],
 }
 
 STACK_KERNEL = 'serving_stack'
 #: name -> edits, as INT8_FAULTS
 STACK_FAULTS = {
-    'k_tile_dropped': [_DROP_K_TILE],
+    # the middle K tile of each rank's slice skipped (its stage still
+    # released)
+    'k_tile_dropped': [(
+        '            if (k0 + kt * R::W_BK < p.K)\n',
+        '            if (k0 + kt * R::W_BK < p.K && kt != k_tiles / 2)\n')],
     # each block normalises by its own max, not the grid's
     'feed_max_of_own_block': [(
-        'g = fmaxf(g, __ldcg(p.slots + i));',
-        'g = fmaxf(g, __ldcg(p.slots + blockIdx.x));')],
+        'gm = fmaxf(gm, __ldcg(slots + i));',
+        'gm = fmaxf(gm, __ldcg(slots + blockIdx.x));')],
     # the feed passes y through unnormalised
-    'feed_skipped': [(
-        '__float2bfloat16_rn(p.feed ? y / denom : y)',
-        '__float2bfloat16_rn(y)')],
+    'feed_skipped': [('        if (p.feed) {\n', '        if (false) {\n')],
     # each column scaled by its neighbour's scale
     'scale_of_next_channel': [(
-        'v0 *= col < N ? s[col] : 0.f;',
-        'v0 *= col + 1 < N ? s[col + 1] : 0.f;')],
+        'v[e] = __fmul_rn(v[e], s_l[n + e]);',
+        'v[e] = __fmul_rn(v[e], s_l[n + e + 1 < N ? n + e + 1 : n + e]);')],
+    # the cluster's sum leaves out the last rank's partial
+    'cluster_partial_dropped': [(
+        's4[q] = load_cluster(part + tok * LDP + c, h + q);',
+        's4[q] = h + q == CS - 1 ? make_float4(0.f, 0.f, 0.f, 0.f)\n'
+        '                                 : load_cluster(part + tok * LDP + c,'
+        ' h + q);')],
+    # every rank's turn reads this CTA's own partial
+    'cluster_partial_of_own_rank': [(
+        'load_cluster(part + tok * LDP + c, h + q);',
+        'load_cluster(part + tok * LDP + c, rank);')],
+    # the int8 product reads the stage's first x column block twice
+    'x_column_block_repeated': [(
+        'k_major_desc(xt + (kk / 4) * (MT * 128), 0, kk % 4)',
+        'k_major_desc(xt, 0, kk % 4)')],
+    # between layers the last rank of each cluster feeds none of its
+    # shares of y (those columns of the next x keep the last layer's)
+    'feed_of_last_rank_dropped': [(
+        '        if (m >= p.M || n >= N) continue;',
+        '        if (m >= p.M || n >= N || rank == CS - 1) continue;')],
+    'weight_fragment_k_pair_swapped': _K_PAIR_SWAPPED,
+    # the consumers read the next ring stage, not the one they waited for
+    'stage_index_off_by_one': [(
+        'stage_product(acc, ring + s * R::STAGE,',
+        'stage_product(acc, ring + ((it + 1) % R::STAGES) * R::STAGE,')],
 }
 
 
@@ -351,11 +398,27 @@ def _norm_line(r: dict) -> str:
             f'tol={NORM_STAT_TOL} y_err={r["y_err"]:.3e}')
 
 
+#: what the int8 faults run against: every INT8_SHAPES shape, then the
+#: fused epilogue at each INT8_EPILOGUE_SHAPES shape
+INT8_CHECKS = list(INT8_SHAPES) + [('epilogue', s)
+                                   for s in INT8_EPILOGUE_SHAPES]
+
+
 def check_int8(shape, seed: int) -> dict:
+    """``int8_check`` at an (M, K, N), or ``int8_epilogue_check`` at an
+    ('epilogue', (M, K, N))."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
-    result = int8_check(shape, gen)
+    if shape[0] == 'epilogue':
+        result = int8_epilogue_check(shape[1], gen)
+    else:
+        result = int8_check(shape, gen)
     torch.cuda.empty_cache()
     return result
+
+
+def int8_passes(result: dict, shape) -> bool:
+    return int8_epilogue_ok(result) if shape[0] == 'epilogue' \
+        else int8_ok(result)
 
 
 def check_stack(shape, seed: int) -> dict:
@@ -377,6 +440,15 @@ def _ce_line(r: dict, dtype) -> str:
             f'tol={CE_LOSS_TOL} dx_row_err={r["dx_row_err"]:.3e} '
             f'tol={CE_ROW_TOL[dtype]} canary={r["canary"]} '
             f'finite={r["finite"]}')
+
+
+def _fault_result(r: dict) -> str:
+    """An int8, epilogue or stack check's result, shortened."""
+    if 'row_err' not in r:
+        return f'differing_elements={r}'
+    return f'row_err={r["row_err"]:.3e}' + (
+        f' canary={r["canary"]}' if 'canary' in r
+        else f' step_err={r["step_err"]:.3e}')
 
 
 def _int8_line(r: dict) -> str:
@@ -449,6 +521,13 @@ def main() -> int:
             holes += not ok
             print(f'[int8] shape={shape} seed={seed} {_int8_line(r)} '
                   f'max_abs_err={r["max_abs_err"]:.3e} ok={ok}', flush=True)
+    for shape in INT8_EPILOGUE_SHAPES:
+        for seed in args.seeds:
+            r = check_int8(('epilogue', shape), seed)
+            ok = int8_epilogue_ok(r)
+            holes += not ok
+            print(f'[int8-epilogue] shape={shape} seed={seed} '
+                  f'differing_elements={r} ok={ok}', flush=True)
     for shape in STACK_SHAPES:
         for seed in args.seeds:
             r = check_stack(shape, seed)
@@ -511,8 +590,8 @@ def main() -> int:
                      f'act={first[0][3]} {_norm_line(first[1])}'
                      if first else ''), flush=True)
         for kernel, faults, shapes, run, passes in (
-                (INT8_KERNEL, INT8_FAULTS, INT8_SHAPES, check_int8,
-                 lambda r, shape: int8_ok(r)),
+                (INT8_KERNEL, INT8_FAULTS, INT8_CHECKS, check_int8,
+                 int8_passes),
                 (STACK_KERNEL, STACK_FAULTS, STACK_SHAPES, check_stack,
                  lambda r, shape: stack_ok(r, shape[0]))):
             for name, so in build_faults(tmp, kernel, faults).items():
@@ -522,11 +601,7 @@ def main() -> int:
                 first = failed[0] if failed else None
                 print(f'[fault] {kernel}.{name} caught={bool(failed)} '
                       f'failing_shapes={len(failed)}/{len(shapes)}'
-                      + (f' first={first[0]} row_err='
-                         f'{first[1]["row_err"]:.3e}'
-                         + (f' canary={first[1]["canary"]}'
-                            if 'canary' in first[1] else
-                            f' step_err={first[1]["step_err"]:.3e}')
+                      + (f' first={first[0]} {_fault_result(first[1])}'
                          if first else ''), flush=True)
         for name, so in build_faults(tmp, CE_KERNEL, CE_FAULTS).items():
             failed = _with_library(CE_KERNEL, so, lambda: _failing(

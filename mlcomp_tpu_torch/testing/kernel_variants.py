@@ -1,10 +1,13 @@
-"""Time design variants of the flash-attention kernels against the
-shipped ones, to show what holds them back.
+"""Time design variants of the hand-written kernels against the shipped
+ones, to show what holds them back: the flash-attention kernels, the
+weight-only int8 matmul and the serving stack.
 
     python -m mlcomp_tpu_torch.testing.kernel_variants [--iters 20]
-        [--only forward|backward]
+        [--only forward|backward|int8|stack]
         [--baseline OTHER/csrc/flash_attention_fwd.cu]
         [--baseline OTHER/csrc/flash_attention_bwd.cu]
+        [--baseline OTHER/csrc/int8_matmul.cu]
+        [--baseline OTHER/csrc/serving_stack.cu]
 
 Needs one CUDA card and ``nvcc``. Each variant below is a textual edit of
 ``csrc/flash_attention_fwd.cu`` (``FORWARD_VARIANTS``) or
@@ -26,10 +29,23 @@ they time what the dropped work costs. The others are held by the
 card-side checks (the forward's row error at the serving shape and its
 lse at the training shape; ``backward_check`` at the flagship shape),
 and their line says whether the bounds hold.
+
+The int8 matmul (``INT8_VARIANTS`` of ``csrc/int8_matmul.cu``) is timed
+at the four timed shapes of ``chip_smoke.py``'s ``[kernel-int8]``
+(``kernel_check.INT8_SHAPES[:4]``) beside ``torch.matmul`` on a bf16
+weight; the stack (``STACK_VARIANTS`` of ``csrc/serving_stack.cu``) at
+the bench's 8 layers of 8192² at M = 64 in int8 and bf16 and at one
+layer. Each library is called through its own C interface, so a
+baseline from before the fused epilogue (an ``int8_matmul`` without its
+bias and output-type arguments) times the same product. Their variants
+that give the right result are held by ``int8_check`` at every
+``INT8_SHAPES`` shape and ``stack_check`` at every ``STACK_SHAPES``
+shape.
 """
 
 
 import argparse
+import ctypes
 import os
 import re
 import subprocess
@@ -40,11 +56,13 @@ import torch
 from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
-    ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_SHAPES, LSE_TOL,
-    backward_check, backward_ok, qkv_views,
+    ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_SHAPES, INT8_SHAPES,
+    LSE_TOL, STACK_SHAPES, backward_check, backward_ok, int8_check,
+    int8_inputs, int8_ok, qkv_views, stack_check, stack_inputs, stack_ok,
 )
 from mlcomp_tpu_torch.testing.kernel_faults import (
-    BACKWARD_KERNEL, KERNEL, _with_library, build_faults, check, check_lse,
+    BACKWARD_KERNEL, INT8_KERNEL, KERNEL, STACK_KERNEL, _with_library,
+    build_faults, check, check_lse,
 )
 
 _FWD_MASK_PASS = ('      if (k0 + BLOCK_N > p.T || (p.causal && k0 + BLOCK_N '
@@ -141,17 +159,85 @@ VARIANTS = {
 }
 
 
+_INT8_PRODUCTS = '''    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int rg = 0; rg < C::RG; ++rg)
+        Wgmma<bf16, C::BN>::template rs<0>(acc[rg], a[rg][kk],
+                                           k_major_desc(xs, 0, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+'''
+_INT8_CONVERT = ('        a_fragment(a[rg][kk], ws, 64 * (wg * C::RG + rg) + '
+                 '16 * warp + g,\n                   kk, t);')
+
+#: name -> (gives the right output, [(text of csrc/int8_matmul.cu, its
+#: replacement), ...]); the shipped kernel takes 128 channels x 256
+#: tokens with a 5-stage ring at large M, 128 channels x 64 tokens with
+#: an 8-stage ring at M <= 64
+INT8_VARIANTS = {
+    'int8_large_4_stages': (True, [('using Large = Config<1, 256, 5>;',
+                                    'using Large = Config<1, 256, 4>;')]),
+    # 128-token tiles (m64n128k16): half the accumulators, twice the
+    # weight tile's reads per token
+    'int8_large_128_tokens': (True, [('using Large = Config<1, 256, 5>;',
+                                      'using Large = Config<1, 128, 5>;')]),
+    # 256 channels by 128 tokens (two row groups a consumer)
+    'int8_large_256_channels': (True, [(
+        'using Large = Config<1, 256, 5>;',
+        'using Large = Config<2, 128, 6>;')]),
+    'int8_small_4_stages': (True, [('using Small = Config<1, 64, 8>;',
+                                    'using Small = Config<1, 64, 4>;')]),
+    # 256 channels a block at M <= 64 (two row groups a consumer): half
+    # the x tiles for the weight, half the blocks to split K over
+    'int8_small_256_channels': (True, [('using Small = Config<1, 64, 8>;',
+                                        'using Small = Config<2, 64, 8>;')]),
+    # cost probes: the products dropped; the int8 conversion dropped
+    # (zeros multiplied)
+    'int8_no_products': (False, [(_INT8_PRODUCTS, '')]),
+    'int8_no_convert': (False, [(
+        _INT8_CONVERT, '        a[rg][kk][0] = a[rg][kk][1] = a[rg][kk][2] = '
+                       'a[rg][kk][3] = 0u;')]),
+}
+
+_STACK_PRODUCT = '''            if (k0 + kt * R::W_BK < p.K)
+              stage_product(acc, ring + s * R::STAGE,
+                            xs + kt * (R::W_BK / BK) * (MT * 128), row, t,
+                            WT());
+'''
+#: name -> (gives the right output, [(text of csrc/serving_stack.cu, its
+#: replacement), ...]); the shipped stack has a 64 KB weight ring and
+#: two grid barriers a layer (the max, then the fed activation)
+STACK_VARIANTS = {
+    'stack_ring_48k': (True, [('constexpr int RING_BYTES = 64 * 1024;',
+                               'constexpr int RING_BYTES = 48 * 1024;')]),
+    # cost probes: the products dropped; the feed's second grid barrier
+    # dropped (a race); every layer boundary's synchronization dropped
+    'stack_no_products': (False, [(_STACK_PRODUCT, '')]),
+    'stack_no_second_grid_barrier': (False, [(
+        '    feed_shares(p, denom, cluster, clusters, rank, ctid);\n'
+        '    grid_barrier(p.bar, ++arrivals * gridDim.x, ctid);\n',
+        '    feed_shares(p, denom, cluster, clusters, rank, ctid);\n')]),
+}
+
+
 def _advisories(log: str) -> list:
     """ptxas's wgmma advisories (serialized: C7512, C7515, C7518; a wait
     it injected: C7517) and nonzero spills, shortened to (code, kernel,
-    D) and the spill line."""
+    D) — (code, kernel, its configuration) for the int8 kernels — and the
+    spill line."""
     out = []
     for line in log.splitlines():
         m = re.search(r'\((C75\d\d)\).*(fa_\w+?_kernel)I(\w+?)Li(\d+)E',
                       line)
+        g = re.search(r'\((C75\d\d)\).*?\d+((?:int8|stack)_\w+?_kernel)'
+                      r'(\w*)', line)
         if m:
             out.append(f'{m.group(1)} {m.group(2)}<{m.group(3)}, '
                        f'{m.group(4)}>')
+        elif g:
+            out.append(f'{g.group(1)} {g.group(2)} {g.group(3)[:40]}')
         elif 'spill' in line and ' 0 bytes spill stores' not in line:
             out.append(line.strip())
     return out
@@ -188,11 +274,13 @@ def _build_baseline(source: str, out_dir: str, logs: dict) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--iters', type=int, default=20)
-    parser.add_argument('--only', choices=('forward', 'backward'),
+    parser.add_argument('--only',
+                        choices=('forward', 'backward', 'int8', 'stack'),
                         default=None, help='time one kernel source only')
     parser.add_argument('--baseline', action='append', default=[],
-                        help='another flash_attention_fwd.cu or '
-                             'flash_attention_bwd.cu to time')
+                        help='another flash_attention_fwd.cu, '
+                             'flash_attention_bwd.cu, int8_matmul.cu or '
+                             'serving_stack.cu to time')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('FAIL: no CUDA card', flush=True)
@@ -200,8 +288,10 @@ def main() -> int:
     baselines = {}
     for path in args.baseline:
         kernel = os.path.splitext(os.path.basename(path))[0]
-        if kernel not in (KERNEL, BACKWARD_KERNEL):
-            parser.error(f'--baseline {path}: not a flash attention source')
+        if kernel not in (KERNEL, BACKWARD_KERNEL, INT8_KERNEL,
+                          STACK_KERNEL):
+            parser.error(f'--baseline {path}: not a kernel source of '
+                         f'the port')
         baselines[kernel] = path
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -209,18 +299,34 @@ def main() -> int:
     print(f'[variants] card={card.strip()!r}', flush=True)
     gen = torch.Generator(device='cuda').manual_seed(0)
     with tempfile.TemporaryDirectory(prefix='kernel_variants_') as tmp:
-        if args.only != 'backward':
+        if args.only in (None, 'forward'):
             libs = _libraries(tmp, KERNEL, FORWARD_VARIANTS,
                               baselines.get(KERNEL))
             _check_variants(libs, KERNEL, FORWARD_VARIANTS, _forward_bounds)
             _time_forward(libs, gen, args.iters)
-        if args.only != 'forward':
+        if args.only in (None, 'backward'):
             libs = _libraries(tmp, BACKWARD_KERNEL, VARIANTS,
                               baselines.get(BACKWARD_KERNEL))
             _check_variants(libs, BACKWARD_KERNEL, VARIANTS,
                             lambda: _backward_bounds(gen))
             for shape in BACKWARD_SHAPES[:2]:
                 _time_shape(shape, libs, gen, args.iters)
+        if args.only in (None, 'int8'):
+            libs = _libraries(tmp, INT8_KERNEL, INT8_VARIANTS,
+                              baselines.get(INT8_KERNEL))
+            _check_variants(libs, INT8_KERNEL, INT8_VARIANTS,
+                            lambda: _shapes_bounds(INT8_SHAPES, int8_check,
+                                                   lambda r, s: int8_ok(r),
+                                                   gen))
+            _time_int8(libs, gen, args.iters, baselines.get(INT8_KERNEL))
+        if args.only in (None, 'stack'):
+            libs = _libraries(tmp, STACK_KERNEL, STACK_VARIANTS,
+                              baselines.get(STACK_KERNEL))
+            _check_variants(libs, STACK_KERNEL, STACK_VARIANTS,
+                            lambda: _shapes_bounds(
+                                STACK_SHAPES, stack_check,
+                                lambda r, s: stack_ok(r, s[0]), gen))
+            _time_stack(libs, gen, args.iters)
     return 0
 
 
@@ -238,6 +344,14 @@ def _backward_bounds(gen) -> str:
     """Whether ``backward_check``'s bounds hold at the flagship shape."""
     r = backward_check(BACKWARD_SHAPES[0], gen)
     return f'bounds_hold={backward_ok(r, BACKWARD_SHAPES[0][4])}'
+
+
+def _shapes_bounds(shapes, check_fn, ok_fn, gen) -> str:
+    """Whether ``check_fn``'s bounds hold at every shape."""
+    failed = [s for s in shapes if not ok_fn(check_fn(s, gen), s)]
+    torch.cuda.empty_cache()
+    return f'bounds_hold={not failed}' + (f' failing={failed}'
+                                           if failed else '')
 
 
 def _check_variants(libs: dict, kernel: str, variants: dict, bounds):
@@ -319,6 +433,132 @@ def _time_shape(shape, libs: dict, gen, iters: int):
               f'dkv_ms={",".join(f"{r[1]:.4f}" for r in runs)}{wrong}',
               flush=True)
     del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+
+
+def _int8_caller(path: str, fused: bool):
+    """f(x, w_qt, scale, out) launching the int8 library at ``path``
+    through its own C interface: with the fused epilogue's bias and
+    output-type arguments (``fused``; f32 out, no bias) or without them
+    (an earlier source)."""
+    lib = ctypes.CDLL(path)
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.int8_matmul
+    fn.argtypes = ([ptr] * 5 + [i, ptr] + [i] * 3 + [ptr]) if fused \
+        else ([ptr] * 5 + [i] * 3 + [ptr])
+    fn.restype = i
+    lib.int8_matmul_workspace.argtypes = [i, i, i]
+    lib.int8_matmul_workspace.restype = ctypes.c_longlong
+
+    def call(x, w, scale, out):
+        m, k = x.shape
+        n = w.shape[0]
+        need = lib.int8_matmul_workspace(m, n, k)
+        part = torch.empty(max(need, 1), dtype=torch.float32,
+                           device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (x.data_ptr(), w.data_ptr(), scale.data_ptr())
+        if fused:
+            err = fn(*args, None, out.data_ptr(), 0, part.data_ptr(), m, n,
+                     k, stream)
+        else:
+            err = fn(*args, out.data_ptr(), part.data_ptr(), m, n, k, stream)
+        if err:
+            raise RuntimeError(f'int8_matmul at {path}: CUDA error {err}')
+    return call
+
+
+def _time_int8(libs: dict, gen, iters: int, baseline=None):
+    """Each library's int8 product at the smoke's four timed shapes, in
+    turns, twice, beside ``torch.matmul`` on a bf16 weight; ``baseline``
+    is the source the 'baseline' library was built from."""
+    fused = {name: True for name in libs}
+    if baseline:
+        with open(baseline) as fh:
+            fused['baseline'] = 'const float* bias' in fh.read()
+    for shape in INT8_SHAPES[:4]:
+        m, k, n = shape
+        # the bench's 67 MB weight is read from device memory: turns over
+        # copies that together exceed the 50 MB L2
+        copies = 3 if m <= 64 else 1
+        inputs = [int8_inputs(m, k, n, gen) for _ in range(copies)]
+        out = torch.empty((m, n), dtype=torch.float32, device='cuda')
+        n_iter = iters * (5 if m <= 64 else 1)
+        runs = {}
+        for name in list(libs) + list(libs)[::-1]:
+            call = _int8_caller(libs[name], fused[name])
+
+            def rotate():
+                for x, w, s in inputs:
+                    call(x, w, s, out)
+            runs.setdefault(name, []).append(
+                _time_ms(rotate, n_iter) / copies)
+        w_bf16 = [(x, w.to(torch.bfloat16), s) for x, w, s in inputs]
+
+        def library():
+            for x, w, s in w_bf16:
+                torch.matmul(x, w.t()) * s
+        lib_ms = _time_ms(library, n_iter) / copies
+        for name, r in runs.items():
+            wrong = '' if name not in INT8_VARIANTS or \
+                INT8_VARIANTS[name][0] else ' (wrong output: a cost probe)'
+            print(f'[variants] {name} shape={m}x{k}x{n} '
+                  f'ms={",".join(f"{t:.4f}" for t in r)} '
+                  f'library_ms={lib_ms:.4f}{wrong}', flush=True)
+        del inputs, w_bf16, out
+        torch.cuda.empty_cache()
+
+
+def _stack_caller(path: str):
+    """f(x, w, scales, layers) launching the stack library at ``path``
+    (the shipped one's C interface, which its predecessor shares)."""
+    lib = ctypes.CDLL(path)
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.serving_stack
+    fn.argtypes = [ptr] * 6 + [i] * 5 + [ptr]
+    fn.restype = i
+    lib.serving_stack_slots.argtypes = [i]
+    lib.serving_stack_slots.restype = i
+
+    def call(x, w, scales):
+        n_l, _, k = w.shape
+        m = x.shape[0]
+        out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+        x_buf = torch.empty_like(x)
+        scratch = torch.empty(lib.serving_stack_slots(k),
+                              dtype=torch.float32, device=x.device)
+        err = fn(x.data_ptr(), x_buf.data_ptr(), w.data_ptr(),
+                 None if scales is None else scales.data_ptr(),
+                 out.data_ptr(), scratch.data_ptr(), n_l, m, k,
+                 0 if w.dtype == torch.int8 else 1, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'serving_stack at {path}: CUDA error {err}')
+    return call
+
+
+def _time_stack(libs: dict, gen, iters: int):
+    """Each stack library at 8 layers of 8192² at M = 64 (int8, bf16) and
+    at one int8 layer, in turns, twice."""
+    layers, m, k = STACK_SHAPES[0][:3]
+    operands = {str(wd)[6:]: stack_inputs(layers, m, k, wd, gen)
+                for wd in (torch.int8, torch.bfloat16)}
+    runs = {}
+    for name in list(libs) + list(libs)[::-1]:
+        call = _stack_caller(libs[name])
+        t = {wd: _time_ms(lambda: call(x, w, s), iters * 2)
+             for wd, (x, w, s) in operands.items()}
+        x, w, s = operands['int8']
+        w1, s1 = w[:1].contiguous(), s[:1].contiguous()
+        t['int8_1_layer'] = _time_ms(lambda: call(x, w1, s1), iters * 2)
+        runs.setdefault(name, []).append(t)
+    for name, r in runs.items():
+        wrong = '' if name not in STACK_VARIANTS or \
+            STACK_VARIANTS[name][0] else ' (wrong output: a cost probe)'
+        print(f'[variants] {name} stack={layers}x{m}x{k} ' + ' '.join(
+            f'{key}_ms={",".join(f"{t[key]:.4f}" for t in r)}'
+            for key in r[0]) + wrong, flush=True)
+    del operands
     torch.cuda.empty_cache()
 
 

@@ -31,7 +31,9 @@ from mlcomp_tpu_torch.convert import port_module_name
 from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.server.serve import ModelServer
 from mlcomp_tpu_torch.telemetry import MetricRecorder
-from mlcomp_tpu_torch.testing import kernel_check, kernel_faults
+from mlcomp_tpu_torch.testing import (
+    kernel_check, kernel_faults, kernel_variants,
+)
 from mlcomp_tpu_torch.train import export as port_export
 
 # the modules, not the functions of the same name that both ``ops``
@@ -162,6 +164,56 @@ class TestInt8Matmul:
         with pytest.raises(ValueError, match='out='):
             port_int8.int8_matmul(xt, q, s, out=torch.empty(4, 8))
 
+    @pytest.mark.parametrize('with_bias', [True, False])
+    @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16,
+                                       torch.float32])
+    def test_fused_epilogue_matches_jax_interceptor(self, with_bias, dtype):
+        # _quantized_interceptor: int8_matmul, + bias in f32, astype. The
+        # products agree to the f32 summation order (MATMUL_TOL); the
+        # epilogue itself, fed JAX's own f32 product, bit for bit
+        x, w = self._case(m=24, k=256, n=136, seed=11)
+        bias = np.random.RandomState(12).randn(136).astype(np.float32)
+        jq, js = jax_int8.quantize_int8(jnp.asarray(w))
+        jy = jax_int8.int8_matmul(jnp.asarray(x), jq, js)
+        if with_bias:
+            jy = jy + jnp.asarray(bias, jnp.float32)
+        jdtype = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16,
+                  torch.float32: jnp.float32}[dtype]
+        want = np.asarray(jy.astype(jdtype).astype(jnp.float32))
+        q, s = port_int8.quantize_int8(w)
+        tb = torch.from_numpy(bias) if with_bias else None
+        got = port_int8.int8_matmul(torch.from_numpy(x), q, s, bias=tb,
+                                    out_dtype=dtype)
+        assert got.dtype == dtype and got.shape == (24, 136)
+        ulp = {torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11,
+               torch.float32: MATMUL_TOL}[dtype]
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=ulp,
+                                   atol=ulp)
+        y = torch.from_numpy(np.asarray(
+            jax_int8.int8_matmul(jnp.asarray(x), jq, js)))
+        epi = port_int8.reference_epilogue(y, tb, dtype)
+        np.testing.assert_array_equal(epi.float().numpy(), want)
+
+    def test_bad_epilogue_arguments_raise(self):
+        x, w = self._case(m=4, k=64, n=8)
+        q, s = port_int8.quantize_int8(w)
+        xt = torch.from_numpy(x)
+        with pytest.raises(ValueError, match='out_dtype'):
+            port_int8.int8_matmul(xt, q, s, out_dtype=torch.int32)
+        with pytest.raises(ValueError, match='bias'):
+            port_int8.int8_matmul(xt, q, s, bias=torch.zeros(7))
+        with pytest.raises(ValueError, match='bias'):
+            port_int8.int8_matmul(xt, q, s, bias=torch.zeros(8, 1))
+
+    def test_tma_operand_pads_k_with_zeros(self):
+        # the kernel's operands: K zero-padded to a multiple of 16
+        t = torch.arange(15, dtype=torch.int8).reshape(3, 5)
+        got = port_int8.tma_operand(t, 16)
+        assert got.shape == (3, 16) and got.is_contiguous()
+        assert torch.equal(got[:, :5], t) and not got[:, 5:].any()
+        same = torch.zeros((4, 32), dtype=torch.bfloat16)
+        assert port_int8.tma_operand(same, 32) is same
+
 
 class TestInt8Dense:
     @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32, None])
@@ -180,6 +232,18 @@ class TestInt8Dense:
         torch.testing.assert_close(y, want, rtol=0, atol=0)
         assert {n for n, _ in layer.named_buffers()} == {
             'w_qt', 'scale', 'bias'}
+
+    def test_dtype_outside_the_kernels_outputs_casts_after(self):
+        # f64 is not one of the kernel's output types: the f32 product
+        # with the bias, then the cast, as JAX's astype
+        rng = np.random.RandomState(1)
+        x = torch.from_numpy(rng.randn(6, 64).astype(np.float32))
+        q, s = port_int8.quantize_int8(rng.randn(64, 9).astype(np.float32))
+        bias = torch.from_numpy(rng.randn(9).astype(np.float32))
+        y = port_int8.Int8Dense(q, s, bias, torch.float64)(x)
+        want = (port_int8.reference_int8_matmul(x, q, s) + bias).double()
+        assert y.dtype == torch.float64
+        torch.testing.assert_close(y, want, rtol=0, atol=0)
 
 
 # ----------------------------------------------------------- serving stack
@@ -549,6 +613,79 @@ class TestCardChecks:
         assert kernel_check.STACK_SHAPES[0] == (8, 64, 8192, torch.int8,
                                                 True)
         assert kernel_check.stack_tol(1) == kernel_check.STACK_ROW_TOL['step']
+
+    def test_epilogue_check_on_the_cpu(self):
+        # the plain version is the unfused formula: no element differs
+        gen = torch.Generator().manual_seed(0)
+        r = kernel_check.int8_epilogue_check((5, 48, 11), gen, 'cpu')
+        assert set(r) == {'bias_bfloat16', 'none_bfloat16', 'bias_float16'}
+        assert kernel_check.int8_epilogue_ok(r)
+        assert not kernel_check.int8_epilogue_ok({**r, 'none_bfloat16': 1})
+
+    def test_check_shapes_cross_the_tiles_edges(self):
+        shapes = kernel_check.INT8_SHAPES
+        # past the small configuration (64 tokens) and the large one's
+        # 128 and 256; N off the channel tiles and the 4-column stores;
+        # K padded for TMA; K = 8192 at large M
+        assert {65, 129, 257} <= {m for m, _, _ in shapes}
+        assert any(n % 4 for _, _, n in shapes)
+        assert any(n % 128 for m, _, n in shapes if m > 64)
+        assert any(k % 16 for m, k, _ in shapes if m > 64)
+        assert any(k == 8192 for m, k, _ in shapes if m > 64)
+        assert (32768, 1024, 4096) in kernel_check.INT8_EPILOGUE_SHAPES
+        # a width the cluster's 8-way K split does not divide, two token
+        # tiles, two resident pieces
+        stack = kernel_check.STACK_SHAPES
+        assert any(k % (8 * 128) for _, _, k, _, _ in stack)
+        assert any(m > 64 for _, m, _, _, _ in stack)
+        assert any(k > 8 * 1024 for _, _, k, _, _ in stack)
+        # every fault runs against the epilogue too
+        assert kernel_faults.INT8_CHECKS[-len(
+            kernel_check.INT8_EPILOGUE_SHAPES):] == [
+            ('epilogue', sh) for sh in kernel_check.INT8_EPILOGUE_SHAPES]
+
+    def test_faults_cover_the_new_design(self):
+        assert len(kernel_faults.INT8_FAULTS) >= 6
+        assert len(kernel_faults.STACK_FAULTS) >= 4
+        assert {'stage_index_off_by_one', 'weight_fragment_k_pair_swapped',
+                'bias_by_contracted_fma', 'unmasked_n_tail_store',
+                'split_sum_drops_last_split'} <= set(
+            kernel_faults.INT8_FAULTS)
+        assert {'cluster_partial_dropped', 'cluster_partial_of_own_rank',
+                'feed_max_of_own_block'} <= set(kernel_faults.STACK_FAULTS)
+
+    @pytest.mark.parametrize('kernel,variant', [
+        (kernel_faults.INT8_KERNEL, v)
+        for v in sorted(kernel_variants.INT8_VARIANTS)] + [
+        (kernel_faults.STACK_KERNEL, v)
+        for v in sorted(kernel_variants.STACK_VARIANTS)])
+    def test_variant_edits_the_shipped_source_once(self, kernel, variant):
+        table = {kernel_faults.INT8_KERNEL: kernel_variants.INT8_VARIANTS,
+                 kernel_faults.STACK_KERNEL: kernel_variants.STACK_VARIANTS}
+        with open(os.path.join(_build.CSRC_DIR, kernel + '.cu')) as fh:
+            source = fh.read()
+        for old, new in table[kernel][variant][1]:
+            assert source.count(old) == 1 and new != old
+
+    @pytest.mark.parametrize('name,kernel', [
+        ('int8_matmul', 'int8_wgmma_kernel'),
+        ('serving_stack', 'stack_wgmma_kernel')])
+    def test_products_are_wgmma_with_tma(self, name, kernel):
+        # no mma.sync product and no cp.async ring is left in the two
+        # sources or their header; the smoke fails where an instantiation
+        # lacks HGMMA in its SASS
+        texts = []
+        for f in (name + '.cu', 'int8_gemm.cuh'):
+            with open(os.path.join(_build.CSRC_DIR, f)) as fh:
+                texts.append(fh.read())
+        both = '\n'.join(texts)
+        for gone in ('Mma<', 'cp_async', 'ldmatrix'):
+            assert gone not in both
+        for used in ('Wgmma<bf16', 'tma_load_', 'mbar_wait', kernel):
+            assert used in both
+        with open(os.path.join(os.path.dirname(_build.PACKAGE_DIR),
+                               'chip_smoke.py')) as fh:
+            assert f"'{name}': ('{name}', '{kernel}')" in fh.read()
 
     def test_inputs_on_the_cpu(self):
         gen = torch.Generator().manual_seed(0)
