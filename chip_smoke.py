@@ -32,15 +32,22 @@ last line:
    plain version, per head), timed at both training shapes (the
    flagship's 16 heads and the wide LM's 32) beside SDPA's backward, and
    run twice there for bitwise-equal gradients;
-4. norm kernel: the fused batch-norm+ReLU kernel against its plain
+4. norm kernels: the fused batch-norm+ReLU kernel against its plain
    version (run in f64) at the CIFAR ResNet-18's norm sites at batch 512
    and 256 (the step's and the executor's; with and without the ReLU)
    and at ragged shapes in fp16 and f32 (``kernel_check.NORM_SHAPES``),
-   by the mean, var and per-channel y errors, then timed by CUDA events
-   at each site shape of the step (inputs rotated through more than the
-   L2 cache; back-to-back calls, so host launch gaps are included)
-   against its bound, its plain version and
-   ``F.batch_norm(training=True)`` + ``F.relu``;
+   by the mean, var and per-channel y errors, two runs at the largest
+   site bitwise equal, then timed by CUDA events at each site shape of
+   the step (inputs rotated through more than the L2 cache;
+   back-to-back calls, so host launch gaps are included) against its
+   bound, its plain version and ``F.batch_norm(training=True)`` +
+   ``F.relu``; then (``[kernel-norm-bwd]``) the norm's backward kernel
+   against ``norm_act_backward`` run in f64 at the same shapes (dx per
+   channel, dgamma and dbeta; elements whose pre-activation is within
+   rounding of 0 counted and left out, ``kernel_check.norm_bwd_check``),
+   two runs at each site bitwise equal, timed at each site beside its
+   bound, its plain version and autograd's backward of
+   ``F.relu(F.batch_norm(..., training=True))``;
 5. int8 kernels: the int8 matmul against its plain version run in f64
    at the bench's shape, the served LM's and ragged ones, and at the
    wgmma tiles' edges (``kernel_check.INT8_SHAPES``, a NaN canary after
@@ -84,21 +91,23 @@ last line:
    256, AdamW ``warmup_cosine``, ``device_data: auto``, ``mesh: {dp:
    -1}``) for one epoch: checkpoints, the export loaded by
    ``make_predictor`` and served by ``ModelServer`` over HTTP; the norm
-   kernel's launch count zeroed just before and read just after (20 per
-   train step, none in eval);
+   kernels' launch counts zeroed just before and read just after (20
+   forward and 20 backward per train step, none in eval; no dy copied);
 11. CIFAR step: ResNet-18 at batch 512 with SGD (lr 0.1, momentum 0.9)
    as ``bench.py``'s CIFAR legs run it, ``norm: batch`` and ``norm:
    fused`` from the same weights on the same batch: step ms and
-   images/s for each (timed in turns), the norm's share of the step and
-   the longest kernels (profiler), and the cosine of every parameter's
-   gradient between the two variants;
+   images/s for each (timed in turns), the norm kernels' share of the
+   step (forward and backward in both variants) and the longest kernels
+   (profiler), and the cosine of every parameter's gradient between the
+   two variants;
 12. step: the flagship's train step as ``bench.py``'s ``bench_lm``
    measures it (B=1, T=8192, AdamW): tokens/s, MFU, device time, the
    attention share of it and the step's longest kernels (profiler), and
    one step's gradients against the same weights with the plain
    attention (cosine per parameter tensor);
 13. norm device time: the fused norm kernels' own device time per call
-   (profiler) at each site shape of the step, with and without the ReLU;
+   (profiler) at each site shape of the step: the forward with and
+   without the ReLU, the backward with it;
 14. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -853,6 +862,12 @@ def phase_train(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
+def _event_us(event) -> float:
+    """An averaged profiler event's own device time, us."""
+    us = getattr(event, 'self_device_time_total', None)
+    return getattr(event, 'self_cuda_time_total', 0.0) if us is None else us
+
+
 def _device_times_us(prof, is_part) -> tuple:
     """(all kernels' device time in a profile, us; that of the kernels
     whose name ``is_part`` accepts; the kernels by time, [(us, name),
@@ -860,9 +875,7 @@ def _device_times_us(prof, is_part) -> tuple:
     total = part = 0.0
     by_name = []
     for event in prof.key_averages():
-        us = getattr(event, 'self_device_time_total', None)
-        if us is None:
-            us = getattr(event, 'self_cuda_time_total', 0.0)
+        us = _event_us(event)
         total += us
         if is_part(event.key):
             part += us
@@ -982,12 +995,16 @@ def time_rotating_ms(fn, inputs, iters: int) -> float:
     return time_ms(call, iters=iters, warmup=len(inputs))
 
 
+def rotating_copies(r, c) -> int:
+    """Copies of a bf16 [R, C] that make ROTATE_BYTES (at least 8)."""
+    return max(8, -(-ROTATE_BYTES // (r * c * 2)))
+
+
 def rotating_norm_inputs(r, c, gen) -> list:
-    """bf16 norm inputs at [R, C], as many copies as make ROTATE_BYTES
-    (at least 8)."""
+    """bf16 norm inputs at [R, C], ``rotating_copies`` of them."""
     from mlcomp_tpu_torch.testing.kernel_check import norm_inputs
-    copies = max(8, -(-ROTATE_BYTES // (r * c * 2)))
-    return [norm_inputs(r, c, torch.bfloat16, gen) for _ in range(copies)]
+    return [norm_inputs(r, c, torch.bfloat16, gen)
+            for _ in range(rotating_copies(r, c))]
 
 
 def phase_norm_kernel(seed: int) -> dict:
@@ -999,7 +1016,7 @@ def phase_norm_kernel(seed: int) -> dict:
     )
     from mlcomp_tpu_torch.testing.kernel_check import (
         NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL, cifar_norm_sites, norm_check,
-        norm_ok,
+        norm_inputs, norm_ok,
     )
     gen = torch.Generator(device='cuda').manual_seed(seed)
     main = None
@@ -1022,6 +1039,16 @@ def phase_norm_kernel(seed: int) -> dict:
         if main is None:
             main = dict(r, shape=[r_, c], dtype=str(dtype)[6:])
         torch.cuda.empty_cache()
+    # two runs at the largest site: bitwise equal (no float atomics)
+    r_, c, dtype, act = NORM_SHAPES[0]
+    x, g, b = norm_inputs(r_, c, dtype, gen)
+    runs = [norm_act_forward(x, g, b, act=act) for _ in range(2)]
+    same = all(torch.equal(u, v) for u, v in zip(*runs))
+    say('kernel-norm', shape=f'{r_}x{c}', dtype=str(dtype)[6:], act=act,
+        bitwise_equal_runs=same)
+    if not same:
+        fail(f'two fused_norm runs at {r_}x{c} differ')
+    del x, g, b, runs
 
     # timed at each CIFAR site shape of the step (bf16, with the ReLU) by
     # CUDA events over back-to-back calls: host launch gaps included,
@@ -1047,7 +1074,6 @@ def phase_norm_kernel(seed: int) -> dict:
                                   bound_by=bound_by)
         say('kernel-norm', shape=f'{r_}x{c}', dtype='bfloat16', act=True,
             ms=f'{ms:.4f}', bound_ms=f'{bound:.4f}', bound_by=bound_by,
-            two_pass_bound_ms=f'{bound * 1.5:.4f}',
             plain_ms=f'{plain_ms:.4f}', library_ms=f'{library_ms:.4f}',
             gbytes_per_s=f'{2 * r_ * c * 2 / ms / 1e6:.1f}',
             timing='cuda_events_with_host_gaps')
@@ -1063,42 +1089,172 @@ def phase_norm_kernel(seed: int) -> dict:
             'timing': 'cuda_events_with_host_gaps', 'sites': sites}
 
 
+def norm_bwd_bound_ms(r, c, dtype):
+    """Least time for the norm's backward: x and dy read once and dx
+    written once (gamma, beta, mean, var in, dgamma, dbeta out: [C] f32),
+    or ~10 f32 operations per element over the card's f32 peak, whichever
+    is larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 3 * r * c * size + 6 * c * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 10 * r * c / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                 else 'bytes')
+
+
+def phase_norm_bwd_kernel(seed: int) -> dict:
+    """The norm's backward kernel against its plain version run in f64
+    at every norm shape, twice at each CIFAR site for bitwise-equal
+    gradients; timed at the CIFAR sites of the step beside its plain
+    version and the autograd backward of ``F.relu(F.batch_norm(...,
+    training=True))``. Returns its kernels-line entry."""
+    import torch.nn.functional as F
+    from mlcomp_tpu_torch.ops.fused_norm import (
+        norm_act_backward, norm_act_backward_kernel, norm_act_forward,
+    )
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        NORM_DX_TOL, NORM_EPS, NORM_GRAD_TOL, NORM_SHAPES, cifar_norm_sites,
+        norm_bwd_check, norm_bwd_inputs, norm_bwd_ok,
+    )
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    main = None
+    for shape in NORM_SHAPES:
+        r_, c, dtype, act = shape
+        try:
+            r = norm_bwd_check(shape, gen)
+            torch.cuda.synchronize()
+        except Exception as e:  # a refused launch or a fault in the run
+            fail(f'fused_norm_bwd at R={r_} C={c} {dtype} act={act}: {e}')
+        ok = norm_bwd_ok(r, shape)
+        say('kernel-norm-bwd', ok=ok, shape=f'{r_}x{c}',
+            dtype=str(dtype)[6:], act=act, dx_err=f'{r["dx_err"]:.3e}',
+            tol=NORM_DX_TOL[dtype], dgamma_err=f'{r["dgamma_err"]:.3e}',
+            dbeta_err=f'{r["dbeta_err"]:.3e}', grad_tol=NORM_GRAD_TOL,
+            band=r['band'], flips=r['flips'],
+            flips_outside_band=r['flips_outside_band'],
+            max_abs_err=f'{r["max_abs_err"]:.3e}')
+        if not ok:
+            fail(f'fused_norm_bwd disagrees with norm_act_backward in f64 '
+                 f'at {shape}: {r}')
+        if main is None:
+            main = dict(r, shape=[r_, c], dtype=str(dtype)[6:])
+        torch.cuda.empty_cache()
+
+    sites = {}
+    for r_, c in cifar_norm_sites(CIFAR_STEP_BATCH):
+        hw = int(round((r_ / CIFAR_STEP_BATCH) ** 0.5))
+        copies = rotating_copies(r_, c)
+        inputs = []
+        for _ in range(copies):
+            x, g, b, dy = norm_bwd_inputs(r_, c, torch.bfloat16, gen)
+            _, mean, var = norm_act_forward(x, g, b)
+            inputs.append((x, g, b, mean, var, dy))
+        runs = [norm_act_backward_kernel(*inputs[0]) for _ in range(2)]
+        same = all(torch.equal(u, v) for u, v in zip(*runs))
+        del runs
+        if not same:
+            fail(f'two fused_norm_bwd runs at {r_}x{c} differ')
+        ms = time_rotating_ms(norm_act_backward_kernel, inputs,
+                              iters=max(20, 2 * len(inputs)))
+        plain_ms = time_rotating_ms(
+            lambda *a: norm_act_backward(*a, NORM_EPS, True), inputs,
+            iters=max(5, len(inputs)))
+        # the library yardstick: autograd's backward of batch_norm + relu
+        # on the same memory as NCHW channels_last, the graph kept
+        graphs = []
+        for x, g, b, _, _, dy in inputs:
+            leaves = [t.detach().requires_grad_() for t in (x, g, b)]
+            y = F.relu(F.batch_norm(
+                leaves[0].view(CIFAR_STEP_BATCH, hw, hw, c).permute(
+                    0, 3, 1, 2), None, None, leaves[1], leaves[2],
+                training=True, eps=NORM_EPS))
+            graphs.append((y, leaves, dy.view(CIFAR_STEP_BATCH, hw, hw,
+                                              c).permute(0, 3, 1, 2)))
+        library_ms = time_rotating_ms(
+            lambda y, leaves, dy: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True), graphs,
+            iters=max(20, 2 * len(inputs)))
+        bound, bound_by = norm_bwd_bound_ms(r_, c, torch.bfloat16)
+        sites[f'{r_}x{c}'] = dict(ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, bound_ms=bound,
+                                  bound_by=bound_by)
+        say('kernel-norm-bwd', shape=f'{r_}x{c}', dtype='bfloat16',
+            act=True, bitwise_equal_runs=same, ms=f'{ms:.4f}',
+            bound_ms=f'{bound:.4f}', bound_by=bound_by,
+            plain_ms=f'{plain_ms:.4f}', library_ms=f'{library_ms:.4f}',
+            gbytes_per_s=f'{3 * r_ * c * 2 / ms / 1e6:.1f}',
+            timing='cuda_events_with_host_gaps')
+        del inputs, graphs
+        torch.cuda.empty_cache()
+    first = sites[f'{main["shape"][0]}x{main["shape"][1]}']
+    return {'name': 'fused_norm_bwd', 'route': 'cuda',
+            'source': 'mlcomp_tpu_torch/csrc/fused_norm_bwd.cu',
+            'replaces': 'mlcomp_tpu/ops/fused_norm.py:211 (_fused_bwd, '
+                        'jnp: no TPU kernel)',
+            'max_abs_err': main['max_abs_err'], 'dx_err': main['dx_err'],
+            'dgamma_err': main['dgamma_err'],
+            'dbeta_err': main['dbeta_err'], **first,
+            'shape': main['shape'], 'dtype': main['dtype'],
+            'timing': 'cuda_events_with_host_gaps', 'sites': sites}
+
+
 def profile_norm_sites(seed: int) -> dict:
     """The fused norm kernels' own device time per call (profiler) at
-    each CIFAR site shape of the step, with and without the ReLU, on
-    rotating inputs; {'RxC': {'act': ms, 'no_act': ms}}."""
+    each CIFAR site shape of the step, forward with and without the ReLU
+    and the backward with it, on rotating inputs; {'RxC': {'act': ms,
+    'no_act': ms, 'bwd': ms}}."""
     from torch.profiler import ProfilerActivity, profile
-    from mlcomp_tpu_torch.ops.fused_norm import norm_act_forward
-    from mlcomp_tpu_torch.testing.kernel_check import cifar_norm_sites
+    from mlcomp_tpu_torch.ops.fused_norm import (
+        norm_act_backward_kernel, norm_act_forward,
+    )
+    from mlcomp_tpu_torch.testing.kernel_check import (
+        cifar_norm_sites, norm_bwd_inputs,
+    )
     gen = torch.Generator(device='cuda').manual_seed(seed)
     out = {}
     for r_, c in cifar_norm_sites(CIFAR_STEP_BATCH):
-        inputs = rotating_norm_inputs(r_, c, gen)
-        bound, _ = norm_bound_ms(r_, c, torch.bfloat16)
+        copies = rotating_copies(r_, c)
+        inputs = [norm_bwd_inputs(r_, c, torch.bfloat16, gen)
+                  for _ in range(copies)]
+        stats = [norm_act_forward(x, g, b)[1:] for x, g, b, _ in inputs]
+        calls = {
+            'act': lambda x, g, b, dy, m, v: norm_act_forward(x, g, b),
+            'no_act': lambda x, g, b, dy, m, v: norm_act_forward(
+                x, g, b, act=False),
+            'bwd': lambda x, g, b, dy, m, v: norm_act_backward_kernel(
+                x, g, b, m, v, dy)}
+        bounds = {'act': norm_bound_ms(r_, c, torch.bfloat16)[0],
+                  'bwd': norm_bwd_bound_ms(r_, c, torch.bfloat16)[0]}
         out[f'{r_}x{c}'] = {}
-        for act in (True, False):
-            for x, g, b in inputs:                      # warm
-                norm_act_forward(x, g, b, act=act)
+        for key, call in calls.items():
+            args = [(*a, *st) for a, st in zip(inputs, stats)]
+            for a in args:                                 # warm
+                call(*a)
             torch.cuda.synchronize()
-            ms = None
+            ms, captured = None, 0
             try:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for x, g, b in inputs:
-                        norm_act_forward(x, g, b, act=act)
+                    for a in args:
+                        call(*a)
                     torch.cuda.synchronize()
-                _, norm_us, _ = _device_times_us(prof,
-                                                 _is_norm_kernel(True))
-                if norm_us > 0:
-                    ms = norm_us / len(inputs) / 1e3
+                # per kernel record the profiler kept: a window can lose
+                # some of a run of back-to-back launches
+                is_norm = _is_norm_kernel(True)
+                norm_us = 0.0
+                for event in prof.key_averages():
+                    if is_norm(event.key):
+                        norm_us += _event_us(event)
+                        captured += event.count
+                if captured:
+                    ms = norm_us / captured / 1e3
             except Exception as e:      # the profiler's view of the card
                 say('kernel-norm-device', profiler=repr(str(e)[:80]))
-            out[f'{r_}x{c}']['act' if act else 'no_act'] = ms
+            out[f'{r_}x{c}'][key] = ms
             say('kernel-norm-device', shape=f'{r_}x{c}', dtype='bfloat16',
-                act=act, calls=len(inputs),
+                call=key, calls=len(args), kernels_recorded=captured,
                 device_ms='not measured' if ms is None else f'{ms:.4f}',
-                bound_ms=f'{bound:.4f}',
-                two_pass_bound_ms=f'{bound * 1.5:.4f}')
-        del inputs
+                bound_ms=f'{bounds.get(key, bounds["act"]):.4f}')
+        del inputs, stats
         torch.cuda.empty_cache()
     return out
 
@@ -1122,12 +1278,15 @@ def cifar_train_spec() -> dict:
             'schedule': {'name': 'warmup_cosine'}}}]}
 
 
-def phase_cifar_train(seed: int) -> int:
+def phase_cifar_train(seed: int) -> dict:
     """ResNet-18 with the fused norm trained through the executor on the
-    card, its export served; returns the norm kernel's launches."""
+    card, its export served; returns the norm kernels' launches,
+    {'fused_norm': n, 'fused_norm_bwd': n}."""
     import gc
     from mlcomp_tpu_torch import TOKEN
-    from mlcomp_tpu_torch.ops.fused_norm import norm_act_forward
+    from mlcomp_tpu_torch.ops.fused_norm import (
+        norm_act_backward_kernel, norm_act_forward,
+    )
     from mlcomp_tpu_torch.server.serve import ModelServer
     from mlcomp_tpu_torch.train.data import create_dataset
     from mlcomp_tpu_torch.train.export import make_predictor
@@ -1145,11 +1304,15 @@ def phase_cifar_train(seed: int) -> int:
         executor = Executor.from_config('train', config)
         # the main path: counts zeroed just before, read just after
         norm_act_forward.launches = 0
+        norm_act_backward_kernel.launches = 0
+        norm_act_backward_kernel.copies = 0
         t0 = time.monotonic()
         result = executor(logger=_train_logger())
         torch.cuda.synchronize()
         train_s = time.monotonic() - t0
-        launches = norm_act_forward.launches
+        launches = {'fused_norm': norm_act_forward.launches,
+                    'fused_norm_bwd': norm_act_backward_kernel.launches}
+        dy_copies = norm_act_backward_kernel.copies
         del executor
         gc.collect()
         torch.cuda.empty_cache()
@@ -1159,10 +1322,16 @@ def phase_cifar_train(seed: int) -> int:
         say('cifar-train', steps=steps, seconds=f'{train_s:.1f}',
             valid_accuracy=result['best_score'], params=result['n_params'],
             samples_per_s=f'{result["samples_per_sec"]:.1f}',
-            launches=launches, checkpoints=files)
-        if launches != 20 * steps:
-            fail(f'expected {20 * steps} fused_norm launches (20 norm sites '
-                 f'per train step, none in eval), got {launches}')
+            launches=launches['fused_norm'],
+            bwd_launches=launches['fused_norm_bwd'], dy_copies=dy_copies,
+            checkpoints=files)
+        for name, n in launches.items():
+            if n != 20 * steps:
+                fail(f'expected {20 * steps} {name} launches (20 norm sites '
+                     f'per train step, none in eval), got {n}')
+        if dy_copies:
+            fail(f'the norm backward copied {dy_copies} dy to make them '
+                 f'contiguous')
         if not np.isfinite(result['best_score']):
             fail(f'CIFAR valid accuracy is not finite: {result}')
         if not {'best.msgpack', 'last.msgpack'} <= set(files) \
@@ -1232,19 +1401,20 @@ def _open_branches(model):
 
 
 def _is_norm_kernel(fused: bool):
-    """The profile's norm kernels: the three of ``fused_norm.cu``, or
-    the library's batch-norm kernels."""
+    """The profile's norm kernels, forward and backward: those of
+    ``fused_norm.cu`` and ``fused_norm_bwd.cu``, or the library's
+    batch-norm kernels."""
     if fused:
-        return lambda key: any(k in key for k in (
-            'norm_stats_kernel', 'norm_finalize_kernel', 'norm_apply_kernel'))
+        return lambda key: ('fused_norm_fwd_kernel' in key
+                            or 'fused_norm_bwd_kernel' in key)
     return lambda key: 'batch_norm' in key or 'bn_' in key
 
 
 def phase_cifar_step(seed: int) -> dict:
     """ResNet-18's train step at batch 512, ``norm: batch`` against
     ``norm: fused`` from the same weights on the same batch. Returns the
-    profiled device ms per step of each variant's norm kernels (the
-    fused variant's: its 20 launches, three kernels each)."""
+    profiled device ms per step of each variant's norm kernels, forward
+    and backward (the fused variant's: 20 launches of each kernel)."""
     import torch.nn.functional as F
     from mlcomp_tpu_torch.models import create_model, param_count
     from mlcomp_tpu_torch.train.data import create_dataset
@@ -2451,6 +2621,7 @@ def main():
         fwd = phase_kernels(args.seed)
         backward = phase_backward_kernels(args.seed)
         norm = phase_norm_kernel(args.seed)
+        norm_bwd = phase_norm_bwd_kernel(args.seed)
         int8 = phase_int8_kernel(args.seed)
         stack = phase_stack_kernel(args.seed)
         ce = phase_ce_kernels(args.seed)
@@ -2460,14 +2631,14 @@ def main():
         leg = phase_serving_int8(args.seed)
         train_launches = phase_train(args.seed)
         wide_launches = phase_train_wide_int8(args.seed)
-        norm['launches'] = phase_cifar_train(args.seed)
+        cifar_launches = phase_cifar_train(args.seed)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, and the launch-bound ResNet step before the LM's
         step_norm_ms = phase_cifar_step(args.seed)
         phase_step(args.seed)
         step_wide = phase_step_wide(args.seed)
-        norm['device_ms'] = profile_norm_sites(args.seed)
+        norm_device = profile_norm_sites(args.seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fwd['launches_by_path'] = {
@@ -2485,8 +2656,14 @@ def main():
             'train_wide_int8': wide_launches[entry['name']]}
         entry['launches'] = wide_launches[entry['name']]
     ce[0]['step_wide'] = step_wide
-    # the 20 norm sites of a batch-512 train step as the profiler reads
-    # them (absent if it read no device time)
+    norm['launches'] = cifar_launches['fused_norm']
+    norm_bwd['launches'] = cifar_launches['fused_norm_bwd']
+    norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}
+                         for site, ms in norm_device.items()}
+    norm_bwd['device_ms'] = {site: ms['bwd']
+                             for site, ms in norm_device.items()}
+    # the 20 norm sites of a batch-512 train step, forward and backward,
+    # as the profiler reads them (absent if it read no device time)
     norm['step_device_ms'] = step_norm_ms.get('fused')
     int8['launches_by_path'] = {
         'serve_int8_per_layer': int8_serve['flagship_lm_layers'],
@@ -2498,7 +2675,7 @@ def main():
         'serving_int8': leg['launches']['serving_stack']}
     stack['launches'] = sum(stack['launches_by_path'].values())
     stack['serving_int8'] = leg['numbers']
-    kernels = [fwd] + backward + [norm, int8, stack] + ce
+    kernels = [fwd] + backward + [norm, norm_bwd, int8, stack] + ce
     for entry in kernels:
         if entry['launches'] <= 0:
             fail(f'the main path launched no {entry["name"]}')

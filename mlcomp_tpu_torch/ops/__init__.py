@@ -3,7 +3,8 @@ PyTorch versions beside them (counterpart of ``mlcomp_tpu/ops``).
 
 Every TPU kernel of the JAX package has its counterpart here: flash
 attention, forward (with its row logsumexp) and backward, the fused
-batch-norm+ReLU (``fused_norm``), the weight-only int8 matmul of the
+batch-norm+ReLU (``fused_norm``, with a kernel for its backward, which
+the JAX package wrote in jnp), the weight-only int8 matmul of the
 serving path (``int8_matmul``, with ``Int8Dense``), the fused
 multi-layer serving stack (``serving_stack``) and the blocked softmax
 cross-entropy, forward and backward (``fused_ce``). ``int8_matmul`` also
@@ -21,7 +22,8 @@ from mlcomp_tpu_torch.ops.fused_ce import (
     reference_ce_fwd, softmax_ce_per_example,
 )
 from mlcomp_tpu_torch.ops.fused_norm import (
-    fused_norm_act, norm_act_forward, reference_norm_act,
+    fused_norm_act, norm_act_backward, norm_act_backward_kernel,
+    norm_act_forward, reference_norm_act,
 )
 from mlcomp_tpu_torch.ops.int8_matmul import (
     Int8Dense, Int8TrainMatmul, int8_matmul, int8_train_matmul,
@@ -36,6 +38,7 @@ __all__ = ['fused_attention', 'flash_attention_forward',
            'flash_attention_backward', 'FlashAttention',
            'reference_attention', 'reference_attention_backward',
            'resolve_impl', 'fused_norm_act', 'norm_act_forward',
+           'norm_act_backward', 'norm_act_backward_kernel',
            'reference_norm_act', 'int8_matmul', 'quantize_int8',
            'reference_int8_matmul', 'Int8Dense', 'serving_stack',
            'reference_stack', 'quantize_stack', 'stack_feed',

@@ -1,31 +1,36 @@
-"""Fused batch-norm(+ReLU): a hand-written CUDA kernel for Hopper and
-its plain PyTorch version.
+"""Fused batch-norm(+ReLU): hand-written CUDA kernels for Hopper, forward
+and backward, and their plain PyTorch versions.
 
 Port of ``mlcomp_tpu/ops/fused_norm.py``. The TPU's Pallas kernel
 ``_norm_kernel`` (launched by ``_pallas_norm_act``) becomes
-``csrc/fused_norm.cu`` (its header says what bounds it on the card and
-what the design does about that).
+``csrc/fused_norm.cu``; the JAX package's jnp backward ``_fused_bwd``
+becomes ``csrc/fused_norm_bwd.cu`` (their headers say what bounds them on
+the card and what the design does about that: one cooperative launch
+each, rows kept in shared memory between the two passes over them).
 
 - ``reference_norm_act``: the plain version and the eval path — batch
   norm over the rows of ``[R, C]`` with statistics in f32 (E[x²] −
   mean², clipped at 0, the biased variance), or with given ``stats``.
-- ``norm_act_forward``: the kernel's wrapper. A CPU tensor takes the
-  plain version; a CUDA tensor launches the kernel or raises — there is
-  no fallback. ``norm_act_forward.launches`` counts the calls that
-  launched it (one per norm site: the kernel runs as three launches,
-  statistics, finalize and normalize).
-- ``FusedNormAct``: the ``custom_vjp`` as an ``autograd.Function``. Its
-  backward is ``_fused_bwd``'s dense batch-norm backward through the
-  batch statistics in plain torch ops, the ReLU mask recomputed (no
-  kernel, as in the JAX package); mean and var carry no gradient.
+- ``norm_act_forward``: the forward kernel's wrapper. A CPU tensor takes
+  the plain version; a CUDA tensor launches the kernel or raises — there
+  is no fallback. ``norm_act_forward.launches`` counts the calls that
+  launched it (one launch per norm site).
+- ``norm_act_backward``: ``_fused_bwd``'s dense batch-norm backward
+  through the batch statistics in plain torch ops, the ReLU mask
+  recomputed: the backward kernel's plain version.
+- ``norm_act_backward_kernel``: the backward kernel's wrapper, the same
+  rule (``.launches``; ``.copies`` counts the dy it had to make
+  contiguous first).
+- ``FusedNormAct``: the ``custom_vjp`` as an ``autograd.Function``; mean
+  and var carry no gradient.
 - ``fused_norm_act(impl=...)``: the entry point ``models/resnet.py``
-  uses. ``auto`` is the kernel for CUDA tensors and the plain version
-  for CPU tensors; ``cuda`` the kernel (a CPU tensor raises); ``dense``
-  the plain version anywhere. A JAX export's ``pallas`` / ``interpret``
+  uses. ``auto`` is the kernels for CUDA tensors and the plain versions
+  for CPU tensors; ``cuda`` the kernels (a CPU tensor raises); ``dense``
+  the plain versions anywhere. A JAX export's ``pallas`` / ``interpret``
   read as ``cuda`` / ``auto``.
 
 The TPU lane gate (``_use_pallas``: C a multiple of 128 or a divisor of
-it, R a multiple of 8) is not carried over: the CUDA kernel takes any
+it, R a multiple of 8) is not carried over: the CUDA kernels take any
 R ≥ 1 and C ≥ 1.
 """
 
@@ -85,16 +90,73 @@ def _library():
     fn = lib.fused_norm_act
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        # x, gamma, beta, y, mean, var, partial (pointers); R, C, dtype;
-        # eps; act; stream
-        fn.argtypes = [ptr] * 7 + [i] * 3 + [ctypes.c_float, i, ptr]
+        # x, gamma, beta, y, mean, var, scratch, bar (pointers); R, C,
+        # dtype; eps; act; stream
+        fn.argtypes = [ptr] * 8 + [i] * 3 + [ctypes.c_float, i, ptr]
         fn.restype = i
-        lib.fused_norm_scratch_rows.argtypes = [i, i]
-        lib.fused_norm_scratch_rows.restype = i
+        lib.fused_norm_scratch_floats.argtypes = [i, i]
+        lib.fused_norm_scratch_floats.restype = i
         err = lib.fused_norm_error_string
         err.argtypes = [i]
         err.restype = ctypes.c_char_p
     return lib
+
+
+def _backward_library():
+    lib = _build.library('fused_norm_bwd')
+    fn = lib.fused_norm_act_backward
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        # x, dy, gamma, beta, mean, var, dx, dgamma, dbeta, scratch, bar
+        # (pointers); R, C, dtype; eps; act; stream
+        fn.argtypes = [ptr] * 11 + [i] * 3 + [ctypes.c_float, i, ptr]
+        fn.restype = i
+        lib.fused_norm_bwd_scratch_floats.argtypes = [i, i]
+        lib.fused_norm_bwd_scratch_floats.restype = i
+        err = lib.fused_norm_bwd_error_string
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
+    return lib
+
+
+#: (device index, stream) -> the int32 word of the kernels' grid barrier
+#: on that stream: zeroed once; each barrier flips its top bit and leaves
+#: its low bits as they were, so it serves every later launch
+_BARRIERS = {}
+
+
+def _barrier(device) -> torch.Tensor:
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    bar = _BARRIERS.get(key)
+    if bar is None:
+        bar = _BARRIERS[key] = torch.zeros(1, dtype=torch.int32,
+                                           device=device)
+    return bar
+
+
+def _card_operand(x2d, name: str):
+    """Raises unless ``x2d`` is a contiguous CUDA tensor the kernels
+    take."""
+    if x2d.device.type != 'cuda':
+        raise ValueError(f'fused norm runs on cuda (or cpu: plain version), '
+                         f'got device {x2d.device}')
+    if x2d.dtype not in _DTYPE_CODES:
+        raise ValueError(f'{name} takes float32, bfloat16 or float16, '
+                         f'got {x2d.dtype}')
+    if not x2d.is_contiguous():
+        # the model hands over channels_last activations, whose [R, C]
+        # rows are a view; a copy here would add a pass over x
+        raise ValueError(f'{name} takes a contiguous [R, C] x (rows of a '
+                         f'channels_last activation)')
+
+
+def _raise_on(err: int, lib, name: str, x2d):
+    if err:
+        message = getattr(lib, f'{name}_error_string')(err).decode()
+        raise RuntimeError(
+            f'{name} launch failed: CUDA error {err} ({message}) at '
+            f'R={x2d.shape[0]} C={x2d.shape[1]} {x2d.dtype}')
 
 
 def norm_act_forward(x2d, gamma, beta, eps: float = 1e-5, act: bool = True):
@@ -104,17 +166,7 @@ def norm_act_forward(x2d, gamma, beta, eps: float = 1e-5, act: bool = True):
     check_norm_inputs(x2d, gamma, beta)
     if x2d.device.type == 'cpu':
         return reference_norm_act(x2d, gamma, beta, eps=eps, act=act)
-    if x2d.device.type != 'cuda':
-        raise ValueError(f'fused norm runs on cuda (or cpu: plain version), '
-                         f'got device {x2d.device}')
-    if x2d.dtype not in _DTYPE_CODES:
-        raise ValueError(f'fused_norm takes float32, bfloat16 or float16, '
-                         f'got {x2d.dtype}')
-    if not x2d.is_contiguous():
-        # the model hands over channels_last activations, whose [R, C]
-        # rows are a view; a copy here would add a pass over x
-        raise ValueError('fused_norm takes a contiguous [R, C] x (rows of a '
-                         'channels_last activation)')
+    _card_operand(x2d, 'fused_norm')
     r, c = x2d.shape
     gamma = gamma.float().contiguous()
     beta = beta.float().contiguous()
@@ -122,21 +174,17 @@ def norm_act_forward(x2d, gamma, beta, eps: float = 1e-5, act: bool = True):
     mean = torch.empty(c, dtype=torch.float32, device=x2d.device)
     var = torch.empty(c, dtype=torch.float32, device=x2d.device)
     lib = _library()
-    # scratch: the row blocks' sums of x - k and (x - k)², then the
-    # per-channel shift k; the kernel chooses the row blocks
-    partial = torch.empty((lib.fused_norm_scratch_rows(r, c), c),
+    # scratch: the blocks' sums of x - k and (x - k)² per channel
+    scratch = torch.empty(lib.fused_norm_scratch_floats(r, c),
                           dtype=torch.float32, device=x2d.device)
     with torch.cuda.device(x2d.device):
         err = lib.fused_norm_act(
             x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), partial.data_ptr(), r, c,
-            _DTYPE_CODES[x2d.dtype], float(eps), int(bool(act)),
+            mean.data_ptr(), var.data_ptr(), scratch.data_ptr(),
+            _barrier(x2d.device).data_ptr(), r, c, _DTYPE_CODES[x2d.dtype],
+            float(eps), int(bool(act)),
             torch.cuda.current_stream(x2d.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f'fused_norm launch failed: CUDA error {err} '
-            f'({lib.fused_norm_error_string(err).decode()}) at R={r} C={c} '
-            f'{x2d.dtype}')
+    _raise_on(err, lib, 'fused_norm', x2d)
     norm_act_forward.launches += 1
     return y, mean, var
 
@@ -167,10 +215,63 @@ def norm_act_backward(x2d, gamma, beta, mean, var, dy, eps: float,
     return dx.to(x2d.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
 
 
+def norm_act_backward_kernel(x2d, gamma, beta, mean, var, dy,
+                             eps: float = 1e-5, act: bool = True):
+    """``norm_act_backward``'s (dx, dgamma, dbeta). A CPU tensor takes
+    that plain version; a CUDA tensor launches the ``fused_norm_bwd``
+    kernel. dy must be x's shape and dtype; one that is not contiguous
+    is copied once (counted in ``.copies``)."""
+    check_norm_inputs(x2d, gamma, beta)
+    c = x2d.shape[1]
+    if dy.shape != x2d.shape:
+        raise ValueError(f'dy {tuple(dy.shape)} must be x\'s '
+                         f'{tuple(x2d.shape)}')
+    if mean.shape != (c,) or var.shape != (c,):
+        raise ValueError(f'mean {tuple(mean.shape)} and var '
+                         f'{tuple(var.shape)} must be [{c}]')
+    if not (x2d.device == dy.device == mean.device == var.device):
+        raise ValueError(f'x, dy, mean, var devices differ: {x2d.device}, '
+                         f'{dy.device}, {mean.device}, {var.device}')
+    if x2d.dtype not in _DTYPE_CODES or dy.dtype != x2d.dtype:
+        raise ValueError(f'fused_norm_bwd takes x in float32, bfloat16 or '
+                         f'float16 and dy in x\'s dtype, got {x2d.dtype} '
+                         f'and {dy.dtype}')
+    if x2d.device.type == 'cpu':
+        return norm_act_backward(x2d, gamma, beta, mean, var, dy, eps, act)
+    _card_operand(x2d, 'fused_norm_bwd')
+    if not dy.is_contiguous():
+        dy = dy.contiguous()
+        norm_act_backward_kernel.copies += 1
+    r = x2d.shape[0]
+    f32 = [t.float().contiguous() for t in (gamma, beta, mean, var)]
+    dx = torch.empty_like(x2d)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x2d.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x2d.device)
+    lib = _backward_library()
+    # scratch: the blocks' sums of dy' and dy'·xhat per channel
+    scratch = torch.empty(lib.fused_norm_bwd_scratch_floats(r, c),
+                          dtype=torch.float32, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        err = lib.fused_norm_act_backward(
+            x2d.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in f32),
+            dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            scratch.data_ptr(), _barrier(x2d.device).data_ptr(), r, c,
+            _DTYPE_CODES[x2d.dtype], float(eps), int(bool(act)),
+            torch.cuda.current_stream(x2d.device).cuda_stream)
+    _raise_on(err, lib, 'fused_norm_bwd', x2d)
+    norm_act_backward_kernel.launches += 1
+    return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+norm_act_backward_kernel.launches = 0
+norm_act_backward_kernel.copies = 0
+
+
 class FusedNormAct(torch.autograd.Function):
-    """``fused_norm_act``'s custom_vjp: the forward (kernel on CUDA, plain
-    version on the CPU) saves (x, gamma, beta, mean, var); the backward
-    is the dense batch-norm backward."""
+    """``fused_norm_act``'s custom_vjp: the forward saves (x, gamma, beta,
+    mean, var), the backward recomputes xhat and the mask from them; the
+    kernels for CUDA tensors, the plain versions on the CPU or with
+    ``impl='dense'``."""
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, eps: float, act: bool, impl: str):
@@ -181,15 +282,17 @@ class FusedNormAct(torch.autograd.Function):
             y, mean, var = norm_act_forward(x2d, gamma, beta, eps=eps,
                                             act=act)
         ctx.save_for_backward(x2d, gamma, beta, mean, var)
-        ctx.eps, ctx.act = eps, act
+        ctx.eps, ctx.act, ctx.impl = eps, act, impl
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x2d, gamma, beta, mean, var = ctx.saved_tensors
-        dx, dgamma, dbeta = norm_act_backward(x2d, gamma, beta, mean, var,
-                                              dy, ctx.eps, ctx.act)
+        backward = norm_act_backward if ctx.impl == 'dense' \
+            else norm_act_backward_kernel
+        dx, dgamma, dbeta = backward(x2d, gamma, beta, mean, var, dy,
+                                     ctx.eps, ctx.act)
         return dx, dgamma, dbeta, None, None, None
 
 
@@ -199,10 +302,10 @@ def fused_norm_act(x2d, gamma, beta, eps: float = 1e-5, act: bool = True,
     ReLU folded in: ``(y, mean, var)``, differentiable in (x, gamma,
     beta) through the batch statistics.
 
-    - ``auto``: the kernel for a CUDA tensor, the plain version for a
-      CPU tensor — never the plain version for a CUDA tensor
-    - ``cuda``: the kernel; CUDA tensors only
-    - ``dense``: the plain version on any device
+    - ``auto``: the kernels for a CUDA tensor, the plain versions for a
+      CPU tensor — never the plain versions for a CUDA tensor
+    - ``cuda``: the kernels; CUDA tensors only
+    - ``dense``: the plain versions on any device
     - ``pallas`` / ``interpret`` (as JAX exports name them): ``cuda`` /
       ``auto``
     """
@@ -215,5 +318,5 @@ def fused_norm_act(x2d, gamma, beta, eps: float = 1e-5, act: bool = True,
 
 
 __all__ = ['fused_norm_act', 'norm_act_forward', 'norm_act_backward',
-           'reference_norm_act', 'FusedNormAct', 'resolve_norm_impl',
-           'check_norm_inputs']
+           'norm_act_backward_kernel', 'reference_norm_act', 'FusedNormAct',
+           'resolve_norm_impl', 'check_norm_inputs']

@@ -1,6 +1,7 @@
 """How the card-side checks hold the kernels against their plain
 versions (``chip_smoke.py`` and ``kernel_faults``): the attention
-kernels first, then the fused batch-norm+ReLU ("Fused norm"), then the
+kernels first, then the fused batch-norm+ReLU, forward and backward
+("Fused norm"), then the
 weight-only int8 matmul and the serving stack ("Int8 serving"), the
 int8 training product, a library call held against its STE oracle by
 relative norm ("int8 training"), then the blocked softmax cross-entropy
@@ -186,6 +187,136 @@ def norm_ok(result: dict, dtype) -> bool:
     return (result['finite'] and result['mean_err'] <= NORM_STAT_TOL
             and result['var_err'] <= NORM_STAT_TOL
             and result['y_err'] <= NORM_Y_TOL[dtype])
+
+
+#: the eps of every norm site (``models/resnet.py`` EPSILON)
+NORM_EPS = 1e-5
+#: bound on the relative L2 error of each channel of dx ([R] values)
+#: against the plain backward run in f64 (dx rounded to x's dtype), by
+#: dtype: a few roundings of dx as for y; f32 the f32 arithmetic of xhat
+#: and dx (rsqrtf's 2 ulps, fused multiply-adds) and the sums' order.
+#: Elements in the mask band (below) are left out, and a channel is
+#: measured against at least NORM_COLUMN_FLOOR of the rms channel of
+#: inv·gamma·dy, the size dx would have without the centring (at R = 1
+#: the exact dx is 0 and the kernel's holds f32 rounding of xhat alone)
+NORM_DX_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
+               torch.float32: 1e-5}
+#: bound on |dbeta - ref| / |dy'|₂ and |dgamma - ref| / |dy'·xhat|₂ per
+#: channel, the error of f32 sums (per thread and block; double across
+#: blocks) against f64 ones, after the slack of the band's elements and
+#: of xhat's f32 evaluation (NORM_XHAT_REL)
+NORM_GRAD_TOL = 1e-5
+#: The mask band: an element whose f64 pre = xhat·gamma + beta lies
+#: within this share of |x·inv|·|gamma| + |mean·inv|·|gamma| + |beta| of
+#: 0. The f32 pre of the kernel or of the plain version (any order of
+#: its roundings: rsqrtf's 2 ulps, then two fused multiply-adds, at most
+#: 2^-21 of those magnitudes) can have the other sign there, so the
+#: element's mask is a coin toss: it is counted, left out of dx's bound,
+#: and its |dy| (dbeta) and |dy·xhat| (dgamma) are slack in the sums'
+#: bounds. Every element where the plain version's f32 mask and the f64
+#: one differ must lie in the band
+NORM_PRE_BAND = 2.0 ** -20
+#: the band may hold at most this share of the elements (random inputs
+#: put ~1e-5 there), plus NORM_BAND_FLOOR
+NORM_BAND_SHARE = 1e-4
+NORM_BAND_FLOOR = 16
+#: dgamma's slack for xhat evaluated in f32: this share of the L2 norm
+#: over the rows of |dy|·(|x| + |mean|)·inv. Each element's f32 xhat is
+#: off by at most 2^-21 of (|x| + |mean|)·inv (rsqrtf's 2 ulps of inv,
+#: the rounding of -mean·inv and of the fused multiply-add); against
+#: random dy the errors' sum Σdy'·δ grows as that L2 norm, not as the sum
+#: of the magnitudes (at R = 1, where the exact xhat is 0, the f32 one is
+#: that rounding alone)
+NORM_XHAT_REL = 2.0 ** -20
+
+
+def norm_bwd_inputs(r, c, dtype, gen, device='cuda'):
+    """``norm_inputs`` and dy [R, C] standard normal in x's dtype, from
+    ``gen``."""
+    x, gamma, beta = norm_inputs(r, c, dtype, gen, device)
+    dy = torch.randn((r, c), generator=gen, device=device).to(dtype)
+    return x, gamma, beta, dy
+
+
+def norm_bwd_reference(x, gamma, beta, mean, var, dy, act: bool):
+    """The plain backward in f64 on the same inputs (mean, var as given),
+    with the f64 xhat and pre: (dx, dgamma, dbeta, xhat, pre, dy') as
+    f64 tensors; pre is None without the ReLU."""
+    x64, dy64 = x.double(), dy.double()
+    inv = (var.double() + NORM_EPS).rsqrt()
+    xhat = (x64 - mean.double()) * inv
+    pre = xhat * gamma.double() + beta.double() if act else None
+    d = torch.where(pre > 0, dy64, 0.0) if act else dy64
+    r = x.shape[0]
+    dbeta = d.sum(dim=0)
+    dgamma = (d * xhat).sum(dim=0)
+    dx = inv * gamma.double() * (d - dbeta / r - xhat * dgamma / r)
+    return dx, dgamma, dbeta, xhat, pre, d
+
+
+def norm_bwd_check(shape, gen, device='cuda', fn=None) -> dict:
+    """The backward kernel (``fn``, default its wrapper
+    ``norm_act_backward_kernel``) once at ``shape`` (as ``NORM_SHAPES``
+    lists them) on inputs from ``gen``, mean and var from the plain
+    forward, against the plain backward in f64: the worst channel's
+    relative dx error outside the mask band, the dgamma and dbeta
+    errors past their slack, the band's count and the plain version's
+    f32 mask flips outside it, dx's largest absolute error, and whether
+    everything is finite."""
+    from mlcomp_tpu_torch.ops import fused_norm
+    fn = fn or fused_norm.norm_act_backward_kernel
+    r, c, dtype, act = shape
+    x, gamma, beta, dy = norm_bwd_inputs(r, c, dtype, gen, device)
+    _, mean, var = fused_norm.reference_norm_act(x, gamma, beta)
+    dx, dgamma, dbeta = fn(x, gamma, beta, mean, var, dy, NORM_EPS, act)
+    ref_dx, ref_dg, ref_db, xhat, pre, d = norm_bwd_reference(
+        x, gamma, beta, mean, var, dy, act)
+    dy64 = dy.double()
+    inv = (var.double() + NORM_EPS).rsqrt()
+    reach = (x.double().abs() + mean.double().abs()) * inv
+    if act:
+        g64, b64 = gamma.double(), beta.double()
+        band = pre.abs() <= NORM_PRE_BAND * (reach * g64.abs() + b64.abs())
+        # the plain version's f32 mask, in its own order
+        inv32 = torch.rsqrt(var + NORM_EPS)
+        pre32 = torch.addcmul(beta.float(), torch.addcmul(
+            -mean * inv32, x, inv32), gamma.float())
+        flips = (pre32 > 0) != (pre > 0)
+    else:
+        band = flips = torch.zeros_like(dy64, dtype=torch.bool)
+    keep = ~band
+    ref_dx = ref_dx.to(dtype).double()
+    err = ((dx.double() - ref_dx) * keep).norm(dim=0)
+    size = (ref_dx * keep).norm(dim=0)
+    least = NORM_COLUMN_FLOOR * _rms_row((inv * gamma.double() * dy64).t())
+    slack_b = (dy64.abs() * band).sum(dim=0)
+    slack_g = (dy64.abs() * xhat.abs() * band).sum(dim=0) + \
+        NORM_XHAT_REL * (dy64 * reach).norm(dim=0)
+
+    def past(got, want, slack, scale):
+        off = ((got.double() - want).abs() - slack).clamp_min(0.0)
+        return float((off / scale.clamp_min(1e-30)).max())
+    return {
+        'dx_err': float((err / size.clamp_min(max(least, 1e-30))).max()),
+        'dgamma_err': past(dgamma, ref_dg, slack_g, (d * xhat).norm(dim=0)),
+        'dbeta_err': past(dbeta, ref_db, slack_b, d.norm(dim=0)),
+        'band': int(band.sum()),
+        'flips': int(flips.sum()),
+        'flips_outside_band': int((flips & keep).sum()),
+        'max_abs_err': float(((dx.double() - ref_dx) * keep).abs().max()),
+        'finite': all(bool(torch.isfinite(t).all())
+                      for t in (dx, dgamma, dbeta)),
+    }
+
+
+def norm_bwd_ok(result: dict, shape) -> bool:
+    """Every bound of ``norm_bwd_check``'s result at ``shape`` holds."""
+    r, c, dtype, _ = shape
+    return (result['finite'] and result['dx_err'] <= NORM_DX_TOL[dtype]
+            and result['dgamma_err'] <= NORM_GRAD_TOL
+            and result['dbeta_err'] <= NORM_GRAD_TOL
+            and result['flips_outside_band'] == 0
+            and result['band'] <= NORM_BAND_SHARE * r * c + NORM_BAND_FLOOR)
 
 
 # ---------------------------------------------------------- int8 serving
@@ -653,7 +784,11 @@ __all__ = ['CE_CANARY', 'CE_LOGIT_SCALE', 'CE_LOSS_TOL', 'CE_ROW_TOL',
            'STACK_SHAPES', 'int8_check', 'int8_inputs', 'int8_ok',
            'int8_train_check', 'int8_train_ok',
            'stack_check', 'stack_inputs', 'stack_ok', 'stack_tol',
-           'NORM_COLUMN_FLOOR', 'NORM_SHAPES', 'NORM_STAT_TOL', 'NORM_Y_TOL',
+           'NORM_BAND_FLOOR', 'NORM_BAND_SHARE', 'NORM_COLUMN_FLOOR',
+           'NORM_DX_TOL', 'NORM_EPS', 'NORM_GRAD_TOL', 'NORM_PRE_BAND',
+           'NORM_SHAPES', 'NORM_STAT_TOL', 'NORM_XHAT_REL', 'NORM_Y_TOL',
+           'norm_bwd_check', 'norm_bwd_inputs', 'norm_bwd_ok',
+           'norm_bwd_reference',
            'backward_check', 'backward_ok', 'cifar_norm_sites',
            'forward_with_lse', 'head_relative_error', 'lse_error',
            'norm_check', 'norm_inputs', 'norm_ok', 'qkv_views',

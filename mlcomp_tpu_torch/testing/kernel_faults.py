@@ -6,7 +6,8 @@ card-side check, to show the check would catch them.
 Needs one CUDA card and ``nvcc``. First the kernels as they stand run at
 every shape of ``kernel_check.ATTENTION_SHAPES`` (forward),
 ``kernel_check.BACKWARD_SHAPES`` (forward with lse, then backward),
-``kernel_check.NORM_SHAPES`` (fused norm), ``kernel_check.INT8_SHAPES``
+``kernel_check.NORM_SHAPES`` (fused norm, forward and backward),
+``kernel_check.INT8_SHAPES``
 (int8 matmul; its fused epilogue, bit for bit, at
 ``kernel_check.INT8_EPILOGUE_SHAPES``), ``kernel_check.STACK_SHAPES``
 (serving stack) and
@@ -37,12 +38,12 @@ from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
     ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
     BACKWARD_SHAPES, CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES,
-    INT8_EPILOGUE_SHAPES, INT8_ROW_TOL, INT8_SHAPES, LSE_TOL, NORM_SHAPES,
-    NORM_STAT_TOL, NORM_Y_TOL,
+    INT8_EPILOGUE_SHAPES, INT8_ROW_TOL, INT8_SHAPES, LSE_TOL, NORM_DX_TOL,
+    NORM_GRAD_TOL, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL,
     STACK_ROW_TOL, STACK_SHAPES, backward_check, backward_ok, ce_check,
     ce_ok, forward_with_lse, int8_check, int8_epilogue_check,
-    int8_epilogue_ok, int8_ok, lse_error, norm_check,
-    norm_ok, qkv_views, row_relative_error, stack_check, stack_ok,
+    int8_epilogue_ok, int8_ok, lse_error, norm_bwd_check, norm_bwd_ok,
+    norm_check, norm_ok, qkv_views, row_relative_error, stack_check, stack_ok,
     stack_tol,
 )
 
@@ -149,12 +150,14 @@ BACKWARD_FAULTS = {
 
 NORM_KERNEL = 'fused_norm'
 _NORM_VAR = 'double var = q / p.R - d * d;'
+#: the warp's loop over the blocks' partials (both norm kernels)
+_NORM_PARTIALS = 'for (int b = lane; b < G; b += 32) {'
 
 #: name -> [(text of the fused norm kernel's source, its replacement)]
 NORM_FAULTS = {
-    # the statistics lose the last row block's partial sums
-    'last_row_block_dropped': [(
-        'b < p.row_blocks; b += FIN_B', 'b < p.row_blocks - 1; b += FIN_B')],
+    # the statistics lose the last block's partial sums
+    'last_block_partial_dropped': [(
+        _NORM_PARTIALS, 'for (int b = lane; b < G - 1; b += 32) {')],
     # var = E[x²], the mean² term forgotten (the sums are of x - k:
     # E[x²] = E[(x-k)²] + 2k·E[x-k] + k²)
     'var_without_mean_squared': [(
@@ -166,10 +169,45 @@ NORM_FAULTS = {
         'double var = (q / p.R - d * d) * p.R / fmax(p.R - 1.0, 1.0);')],
     # the ReLU applied whether asked for or not
     'relu_when_act_false': [(
-        'if (p.act) v = fmaxf(v, 0.f);', 'v = fmaxf(v, 0.f);')],
+        'if (act) v = fmaxf(v, 0.f);', 'v = fmaxf(v, 0.f);')],
     # gamma and beta swapped
     'gamma_beta_swapped': [(
         'Params p{x, y, gamma, beta,', 'Params p{x, y, beta, gamma,')],
+    # the rows past the shared-memory budget (streamed) left out of the
+    # statistics
+    'streamed_rows_left_out_of_stats': [(
+        'sweep<U>(rows.r0 + rows.res + ty, rows.r1, lanes,',
+        'sweep<U>(rows.r1 + ty, rows.r1, lanes,')],
+    # the normalize pass applies each block's resident tile to the next
+    # block's rows
+    'resident_tile_applied_to_the_next_block': [(
+        'apply(rows.r0 + rr, raw);', 'apply((rows.r1 + rr) % p.R, raw);')],
+}
+
+NORM_BWD_KERNEL = 'fused_norm_bwd'
+_BWD_PRE = 'const float pre = fmaf(xh[i], ch[GAMMA][i], ch[BETA][i]);'
+
+#: name -> [(text of the norm backward kernel's source, its replacement)]
+NORM_BWD_FAULTS = {
+    # dy passed through where the ReLU was off
+    'mask_dropped': [(
+        'if (!(pre > 0.f)) d[i] = 0.f;', '(void)pre;')],
+    # the mask from the sign of y without beta: xhat·gamma > 0
+    'mask_without_beta': [(
+        _BWD_PRE, 'const float pre = xh[i] * ch[GAMMA][i];')],
+    # dx without its -dbeta/R term
+    'dbeta_over_r_dropped': [(
+        'd[i] = (fmaf(xh[i], ch[A][i], d[i]) - ch[B][i]) * sc[i];',
+        'd[i] = fmaf(xh[i], ch[A][i], d[i]) * sc[i];')],
+    # the sums lose the last block's partials
+    'last_block_partial_dropped': [(
+        _NORM_PARTIALS, 'for (int b = lane; b < G - 1; b += 32) {')],
+    # dgamma summed over x instead of xhat
+    'dgamma_over_x': [(
+        'q[i] = fmaf(d[i], xh[i], q[i]);', 'q[i] = fmaf(d[i], xv[i], q[i]);')],
+    # dx scaled by inv alone, gamma missing
+    'gamma_missing_from_dx_scale': [(
+        'sc[i] = ch[INV][i] * ch[GAMMA][i];', 'sc[i] = ch[INV][i];')],
 }
 
 
@@ -398,6 +436,21 @@ def _norm_line(r: dict) -> str:
             f'tol={NORM_STAT_TOL} y_err={r["y_err"]:.3e}')
 
 
+def check_norm_bwd(shape, seed: int) -> dict:
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    result = norm_bwd_check(shape, gen)
+    torch.cuda.empty_cache()
+    return result
+
+
+def _norm_bwd_line(r: dict, dtype) -> str:
+    return (f'dx_err={r["dx_err"]:.3e} tol={NORM_DX_TOL[dtype]} '
+            f'dgamma_err={r["dgamma_err"]:.3e} dbeta_err={r["dbeta_err"]:.3e} '
+            f'tol={NORM_GRAD_TOL} band={r["band"]} flips={r["flips"]} '
+            f'flips_outside_band={r["flips_outside_band"]} '
+            f'finite={r["finite"]}')
+
+
 #: what the int8 faults run against: every INT8_SHAPES shape, then the
 #: fused epilogue at each INT8_EPILOGUE_SHAPES shape
 INT8_CHECKS = list(INT8_SHAPES) + [('epilogue', s)
@@ -513,6 +566,12 @@ def main() -> int:
             print(f'[norm] shape={shape[:2]} dtype={str(shape[2])[6:]} '
                   f'act={shape[3]} seed={seed} {_norm_line(r)} '
                   f'tol={NORM_Y_TOL[shape[2]]} ok={ok}', flush=True)
+            r = check_norm_bwd(shape, seed)
+            ok = norm_bwd_ok(r, shape)
+            holes += not ok
+            print(f'[norm-bwd] shape={shape[:2]} dtype={str(shape[2])[6:]} '
+                  f'act={shape[3]} seed={seed} '
+                  f'{_norm_bwd_line(r, shape[2])} ok={ok}', flush=True)
 
     for shape in INT8_SHAPES:
         for seed in args.seeds:
@@ -588,6 +647,18 @@ def main() -> int:
                   f'failing_shapes={len(failed)}/{len(NORM_SHAPES)}'
                   + (f' first={first[0][:2]} {str(first[0][2])[6:]} '
                      f'act={first[0][3]} {_norm_line(first[1])}'
+                     if first else ''), flush=True)
+        for name, so in build_faults(tmp, NORM_BWD_KERNEL,
+                                     NORM_BWD_FAULTS).items():
+            failed = _with_library(NORM_BWD_KERNEL, so, lambda: _failing(
+                NORM_SHAPES, check_norm_bwd, norm_bwd_ok, args.seeds[0]))
+            holes += not failed
+            first = failed[0] if failed else None
+            print(f'[fault] {NORM_BWD_KERNEL}.{name} caught={bool(failed)} '
+                  f'failing_shapes={len(failed)}/{len(NORM_SHAPES)}'
+                  + (f' first={first[0][:2]} {str(first[0][2])[6:]} '
+                     f'act={first[0][3]} '
+                     f'{_norm_bwd_line(first[1], first[0][2])}'
                      if first else ''), flush=True)
         for kernel, faults, shapes, run, passes in (
                 (INT8_KERNEL, INT8_FAULTS, INT8_CHECKS, check_int8,

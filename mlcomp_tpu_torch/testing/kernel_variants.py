@@ -1,13 +1,14 @@
 """Time design variants of the hand-written kernels against the shipped
 ones, to show what holds them back: the flash-attention kernels, the
-weight-only int8 matmul and the serving stack.
+weight-only int8 matmul, the serving stack and the fused norm.
 
     python -m mlcomp_tpu_torch.testing.kernel_variants [--iters 20]
-        [--only forward|backward|int8|stack]
+        [--only forward|backward|int8|stack|norm]
         [--baseline OTHER/csrc/flash_attention_fwd.cu]
         [--baseline OTHER/csrc/flash_attention_bwd.cu]
         [--baseline OTHER/csrc/int8_matmul.cu]
         [--baseline OTHER/csrc/serving_stack.cu]
+        [--baseline OTHER/csrc/fused_norm.cu]
 
 Needs one CUDA card and ``nvcc``. Each variant below is a textual edit of
 ``csrc/flash_attention_fwd.cu`` (``FORWARD_VARIANTS``) or
@@ -41,6 +42,19 @@ bias and output-type arguments) times the same product. Their variants
 that give the right result are held by ``int8_check`` at every
 ``INT8_SHAPES`` shape and ``stack_check`` at every ``STACK_SHAPES``
 shape.
+
+The fused norm (``NORM_VARIANTS``: edits of ``csrc/norm_common.cuh``,
+which both norm kernels include, so such a variant is built for the
+forward and the backward, or of one kernel's source) is timed at the
+four CIFAR sites of the
+batch-512 step (``kernel_check.cifar_norm_sites(512)``, bf16, with the
+ReLU) on inputs rotated through more than the L2 cache, by CUDA events
+over back-to-back calls (host gaps included) and by the profiler's
+device time; a baseline ``fused_norm.cu`` from before the one-launch
+design (its C interface has no barrier argument) times beside the
+forward. The variants are
+held by ``norm_check`` and ``norm_bwd_check`` at every ``NORM_SHAPES``
+shape.
 """
 
 
@@ -52,17 +66,21 @@ import subprocess
 import tempfile
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
+from mlcomp_tpu_torch.ops import fused_norm
 from mlcomp_tpu_torch.testing.kernel_check import (
     ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_SHAPES, INT8_SHAPES,
-    LSE_TOL, STACK_SHAPES, backward_check, backward_ok, int8_check,
-    int8_inputs, int8_ok, qkv_views, stack_check, stack_inputs, stack_ok,
+    LSE_TOL, NORM_SHAPES, STACK_SHAPES, backward_check, backward_ok,
+    cifar_norm_sites, int8_check, int8_inputs, int8_ok, norm_bwd_check,
+    norm_bwd_inputs, norm_bwd_ok, norm_check, norm_ok, qkv_views,
+    stack_check, stack_inputs, stack_ok,
 )
 from mlcomp_tpu_torch.testing.kernel_faults import (
-    BACKWARD_KERNEL, INT8_KERNEL, KERNEL, STACK_KERNEL, _with_library,
-    build_faults, check, check_lse,
+    BACKWARD_KERNEL, INT8_KERNEL, KERNEL, NORM_BWD_KERNEL, NORM_KERNEL,
+    STACK_KERNEL, _with_library, build_faults, check, check_lse,
 )
 
 _FWD_MASK_PASS = ('      if (k0 + BLOCK_N > p.T || (p.causal && k0 + BLOCK_N '
@@ -222,6 +240,83 @@ STACK_VARIANTS = {
 }
 
 
+NORM_HEADER = 'norm_common.cuh'
+_NORM_FWD = NORM_KERNEL + '.cu'
+#: name -> (right, [(file, text, replacement)]): edits of the header both
+#: norm kernels include, or of one kernel's source (that kernel alone is
+#: built with it)
+NORM_VARIANTS = {
+    # the design the one-launch forward started from: the resident rows
+    # brought into shared memory by bulk asynchronous copies (TMA,
+    # evict_first), in 8 pieces with an mbarrier each, issued by one
+    # thread at the start and waited on before their rows are summed
+    'norm_resident_by_bulk_copies': (True, [
+        (NORM_HEADER, 'constexpr int SMEM_BYTES = 232448;',
+         'constexpr int SMEM_BYTES = 232448 - 128;'),
+        (_NORM_FWD, '  using Row = Row8<T, VECTOR>;\n',
+         '  using Row = Row8<T, VECTOR>;\n'
+         '  __shared__ uint64_t bars[8];\n'
+         '  const int per = (rows.res + 7) / 8;\n'
+         '  if (threadIdx.x == 0) {\n'
+         '    for (int j = 0; j < 8; ++j) flash::mbar_init(bars + j, 1);\n'
+         '    flash::mbar_init_fence();\n'
+         '  }\n'
+         '  __syncthreads();\n'
+         '  if (threadIdx.x == 0 && rows.res > 0) {\n'
+         '    const int rb = C * static_cast<int>(sizeof(T));\n'
+         '    for (int j = 0; j < 8; ++j) {\n'
+         '      const int a = j * per, b = min(rows.res, a + per);\n'
+         '      if (a >= b) break;\n'
+         '      const uint32_t bytes = static_cast<uint32_t>(b - a) * rb;\n'
+         '      flash::mbar_arrive_expect_tx(bars + j, bytes);\n'
+         '      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier'
+         '::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;\\n"'
+         '\n'
+         '          :: "r"(flash::smem_u32(tile + static_cast<size_t>(a) * '
+         'C)),\n'
+         '             "l"(reinterpret_cast<uint64_t>(x + static_cast<size_t>'
+         '(rows.r0 + a) * C)),\n'
+         '             "r"(bytes), "r"(flash::smem_u32(bars + j)), '
+         '"l"(drop) : "memory");\n'
+         '    }\n'
+         '  }\n'),
+        (_NORM_FWD,
+         '      if constexpr (VECTOR)\n'
+         '        sweep<U>(ty, rows.res, lanes, [&](int rr) {\n'
+         '          return load_row<T, VECTOR>(\n'
+         '              x + static_cast<size_t>(rows.r0 + rr) * C + c0, n, '
+         'drop);\n'
+         '        }, [&](int rr, const Row& raw) {\n'
+         '          store_tile(tile + static_cast<size_t>(rr) * C + c0, '
+         'raw);\n'
+         '          add(raw);\n'
+         '        });\n',
+         '      if constexpr (VECTOR) {\n'
+         '        int waited = 0;\n'
+         '        for (int rr = ty; rr < rows.res; rr += lanes) {\n'
+         '          for (const int j = rr / per; waited <= j; ++waited)\n'
+         '            flash::mbar_wait(bars + waited, 0);\n'
+         '          add(load_tile(tile + static_cast<size_t>(rr) * C + '
+         'c0));\n'
+         '        }\n'
+         '      }\n')]),
+    # no row resident in shared memory: every row read twice from
+    # device memory (or L2), as the three-launch design did
+    'norm_no_residency': (True, [(
+        NORM_HEADER,
+        'constexpr int RESIDENT_BYTES = SMEM_BYTES - SCRATCH_BYTES;',
+        'constexpr int RESIDENT_BYTES = 0;')]),
+    # no L2 hints: normal eviction priority for the loads and the stores
+    'norm_no_l2_hints': (True, [
+        (NORM_HEADER, 'createpolicy.fractional.L2::evict_first.b64',
+         'createpolicy.fractional.L2::evict_normal.b64'),
+        (NORM_HEADER, 'createpolicy.fractional.L2::evict_last.b64',
+         'createpolicy.fractional.L2::evict_normal.b64'),
+        (NORM_HEADER, '__stcs(static_cast<uint4*>(p), v);',
+         '*static_cast<uint4*>(p) = v;')]),
+}
+
+
 def _advisories(log: str) -> list:
     """ptxas's wgmma advisories (serialized: C7512, C7515, C7518; a wait
     it injected: C7517) and nonzero spills, shortened to (code, kernel,
@@ -275,12 +370,13 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--iters', type=int, default=20)
     parser.add_argument('--only',
-                        choices=('forward', 'backward', 'int8', 'stack'),
+                        choices=('forward', 'backward', 'int8', 'stack',
+                                 'norm'),
                         default=None, help='time one kernel source only')
     parser.add_argument('--baseline', action='append', default=[],
                         help='another flash_attention_fwd.cu, '
-                             'flash_attention_bwd.cu, int8_matmul.cu or '
-                             'serving_stack.cu to time')
+                             'flash_attention_bwd.cu, int8_matmul.cu, '
+                             'serving_stack.cu or fused_norm.cu to time')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('FAIL: no CUDA card', flush=True)
@@ -289,7 +385,7 @@ def main() -> int:
     for path in args.baseline:
         kernel = os.path.splitext(os.path.basename(path))[0]
         if kernel not in (KERNEL, BACKWARD_KERNEL, INT8_KERNEL,
-                          STACK_KERNEL):
+                          STACK_KERNEL, NORM_KERNEL):
             parser.error(f'--baseline {path}: not a kernel source of '
                          f'the port')
         baselines[kernel] = path
@@ -327,6 +423,13 @@ def main() -> int:
                                 STACK_SHAPES, stack_check,
                                 lambda r, s: stack_ok(r, s[0]), gen))
             _time_stack(libs, gen, args.iters)
+        if args.only in (None, 'norm'):
+            fwd = _libraries(tmp, NORM_KERNEL, _norm_variants(NORM_KERNEL),
+                             baselines.get(NORM_KERNEL))
+            bwd = _libraries(tmp, NORM_BWD_KERNEL,
+                             _norm_variants(NORM_BWD_KERNEL), None)
+            _check_norm_variants(fwd, bwd, gen)
+            _time_norm(fwd, bwd, gen, args.iters)
     return 0
 
 
@@ -560,6 +663,115 @@ def _time_stack(libs: dict, gen, iters: int):
             for key in r[0]) + wrong, flush=True)
     del operands
     torch.cuda.empty_cache()
+
+
+
+def _norm_variants(kernel: str) -> dict:
+    """The norm variants of ``kernel``: those that edit its source, and
+    those that edit the header alone."""
+    return {name: v for name, v in NORM_VARIANTS.items()
+            if kernel + '.cu' in {f for f, _, _ in v[1]}
+            or {f for f, _, _ in v[1]} == {NORM_HEADER}}
+
+
+def _check_norm_variants(fwd: dict, bwd: dict, gen):
+    """Whether each norm variant holds ``norm_check`` and
+    ``norm_bwd_check`` at every ``NORM_SHAPES`` shape."""
+    for name in NORM_VARIANTS:
+        line = []
+        if name in fwd:
+            line.append('forward ' + _with_library(
+                NORM_KERNEL, fwd[name], lambda: _shapes_bounds(
+                    NORM_SHAPES, norm_check, lambda r, s: norm_ok(r, s[2]),
+                    gen)))
+        if name in bwd:
+            line.append('backward ' + _with_library(
+                NORM_BWD_KERNEL, bwd[name], lambda: _shapes_bounds(
+                    NORM_SHAPES, norm_bwd_check, norm_bwd_ok, gen)))
+        print(f'[variants] {name} ' + '; '.join(line), flush=True)
+
+
+def _norm_caller(path: str):
+    """f(x, gamma, beta) launching the forward library at ``path``
+    through its own C interface: the one-launch kernel's (scratch sized
+    by ``fused_norm_scratch_floats``, the grid barrier's words) or the
+    three-launch one's (``fused_norm_scratch_rows``, no barrier)."""
+    lib = ctypes.CDLL(path)
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.fused_norm_act
+    one_launch = hasattr(lib, 'fused_norm_scratch_floats')
+    fn.argtypes = [ptr] * (8 if one_launch else 7) + [i] * 3 + [
+        ctypes.c_float, i, ptr]
+    fn.restype = i
+    size = lib.fused_norm_scratch_floats if one_launch \
+        else lib.fused_norm_scratch_rows
+    size.argtypes = [i, i]
+    size.restype = i
+
+    def call(x, gamma, beta):
+        r, c = x.shape
+        y = torch.empty_like(x)
+        mean, var = (torch.empty(c, device=x.device) for _ in range(2))
+        scratch = torch.empty(size(r, c) * (1 if one_launch else c),
+                              device=x.device)
+        bar = [fused_norm._barrier(x.device).data_ptr()] if one_launch \
+            else []
+        err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 y.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                 scratch.data_ptr(), *bar, r, c, 1, 1e-5, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'fused_norm at {path}: CUDA error {err}')
+    return call
+
+
+def _time_norm(fwd: dict, bwd: dict, gen, iters: int):
+    """The forward of every library and the backward of every library
+    but the baseline at the CIFAR sites, in turns, twice, on inputs
+    rotated through more than the L2 cache."""
+    for r, c in cifar_norm_sites(512):
+        copies = max(8, -(-(256 << 20) // (r * c * 2)))
+        inputs = [norm_bwd_inputs(r, c, torch.bfloat16, gen)
+                  for _ in range(copies)]
+        stats = [fused_norm.norm_act_forward(x, g, b)[1:]
+                 for x, g, b, _ in inputs]
+        n_iter = max(iters, 2 * copies)
+
+        def rotate(fn, args):
+            """(CUDA-event ms a call over back-to-back calls, host gaps
+            included; the kernels' device ms a call, profiler)."""
+            count = [0]
+
+            def step():
+                fn(*args[count[0] % len(args)])
+                count[0] += 1
+            events = _time_ms(step, n_iter)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for a in args:
+                    fn(*a)
+                torch.cuda.synchronize()
+            device_us = sum(getattr(e, 'self_device_time_total', 0.0)
+                            for e in prof.key_averages())
+            return events, device_us / len(args) / 1e3
+        runs = {}
+        for name in list(fwd) + list(fwd)[::-1]:
+            t = {'fwd_ms': rotate(_norm_caller(fwd[name]),
+                                  [a[:3] for a in inputs])}
+            if name in bwd:
+                t['bwd_ms'] = _with_library(
+                    NORM_BWD_KERNEL, bwd[name], lambda: rotate(
+                        fused_norm.norm_act_backward_kernel,
+                        [(x, g, b, m, v, d) for (x, g, b, d), (m, v)
+                         in zip(inputs, stats)]))
+            runs.setdefault(name, []).append(t)
+        for name, r_ in runs.items():
+            print(f'[variants] {name} site={r}x{c} ' + ' '.join(
+                f'{key}={",".join(f"{t[key][0]:.4f}" for t in r_)} '
+                f'{key[:3]}_device_ms='
+                f'{",".join(f"{t[key][1]:.4f}" for t in r_)}'
+                for key in r_[0]), flush=True)
+        del inputs, stats
+        torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':
