@@ -107,7 +107,8 @@ last line:
    attention (cosine per parameter tensor);
 13. norm device time: the fused norm kernels' own device time per call
    (profiler) at each site shape of the step: the forward with and
-   without the ReLU, the backward with it;
+   without the ReLU, the backward with it; then (``[vit-kernels-device]``)
+   the flash kernels' and SDPA's device time per call at the ViT's shape;
 14. the ``{"kernels": [...]}`` line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -145,6 +146,35 @@ step-wide after step):
   the two [N, V] passes around the kernels (CUDA events); checks (c)
   against (d) (logits-gradient cosine, loss) and (a) against (b) (every
   parameter's gradient cosine).
+
+Phases of the MoE and ViT slice, run after train-wide-int8 (the MoE
+step among the step phases, after step):
+
+- moe-train: ``examples/moe``'s knobs (4 experts, every 2nd layer,
+  capacity factor 1.25) at the flagship widths (293,635,072
+  parameters) trained through ``Executor.from_config('train', ...)``
+  for one epoch of ``synthetic_lm`` at B=1 (4 steps, 1 valid row of
+  8192 tokens), checkpoints and the export reloaded; the flash launches
+  zeroed just before and read just after (8 forward per step and valid
+  row, 8 of each backward per step); then the timed step (ms, tokens/s,
+  MFU over the model FLOPs with the dispatch einsums' FLOPs apart,
+  ``moe_aux``, the flash launches per step, the profiler's longest
+  kernels) and one step's gradients against the plain attention
+  (cosine per parameter tensor);
+- moe-serve: the MoE LM's per-layer export served over HTTP at batch 4
+  in bf16 and with ``quantize='int8'`` (13 int8 modules: the dense
+  layers' MLP projections and the head, as JAX's rule counts them on
+  the same tree; the router and the 3-D expert weights stay): p50,
+  launches per dispatch, one row against the plain attention (bf16) or
+  the plain int8 product (int8);
+- vit-train: the flash kernels at ``kernel_check.VIT_SHAPE`` (B=256,
+  64 patches, 3 heads of 64, non-causal) timed beside SDPA and their
+  bounds; ``examples/encoder_grid``'s ViT (3,564,864 parameters) on
+  ``synthetic_images`` at batch 256 through the executor for one epoch
+  (6 non-causal forward launches per batch, 6 of each backward per
+  step), its step timed (ms, images/s), one step's gradients against
+  the plain attention, its export served over HTTP and the served
+  logits against the plain attention.
 
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
@@ -462,13 +492,14 @@ def _fields(errors: dict) -> str:
 
 def phase_backward_kernels(seed: int):
     """The forward's lse and both backward kernels against their plain
-    versions at every backward shape; both training shapes timed, and
-    each run twice for bitwise-equal gradients. Returns the kernels
-    line's entries for the two backward kernels."""
+    versions at every backward shape; both training shapes and the
+    ViT's timed, and each run twice for bitwise-equal gradients.
+    Returns the kernels line's entries for the two backward kernels and
+    the times at the ViT's shape."""
     from mlcomp_tpu_torch.ops import flash_attention as fa
     from mlcomp_tpu_torch.testing.kernel_check import (
-        AUTOGRAD_HEAD_TOL, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
-        BACKWARD_SHAPES, LSE_TOL, backward_check, backward_ok,
+        AUTOGRAD_HEAD_TOL, BACKWARD_ROW_TOL, BACKWARD_SHAPES, LSE_TOL,
+        VIT_SHAPE, backward_check, backward_head_tol, backward_ok,
     )
     import torch.nn.functional as F
     gen = torch.Generator(device='cuda').manual_seed(seed)
@@ -480,13 +511,13 @@ def phase_backward_kernels(seed: int):
         except Exception as e:  # a refused launch or a fault in the run
             fail(f'flash attention backward at B={b} T={t} H={h} D={d} '
                  f'{dtype} causal={causal}: {e}')
-        ok = backward_ok(r, dtype)
+        ok = backward_ok(r, dtype, shape)
         say('kernel-bwd', ok=ok, shape=f'{b}x{t}x{h}x{d}',
             dtype=str(dtype)[6:], causal=causal,
             lse_err=f'{r["lse_err"]:.3e}', lse_tol=LSE_TOL,
             row_err=_fields(r['row_err']), tol=BACKWARD_ROW_TOL[dtype],
             head_err=_fields(r['head_err']),
-            head_tol=BACKWARD_HEAD_TOL[dtype],
+            head_tol=backward_head_tol(shape),
             autograd_head_err=_fields(r['autograd_head_err']),
             autograd_tol=AUTOGRAD_HEAD_TOL[dtype])
         if not ok:
@@ -496,16 +527,14 @@ def phase_backward_kernels(seed: int):
             main = r
         torch.cuda.empty_cache()
 
-    # both training shapes (the flagship's 16 heads, the wide LM's 32),
-    # timed: forward with lse, each backward kernel, the whole backward,
-    # the plain versions, and scaled_dot_product_attention forward and
-    # backward as the library yardstick; each also run twice for
-    # bitwise-equal gradients
-    timed = {}
-    for shape in BACKWARD_SHAPES[:2]:
-        timed[shape[2]] = _time_backward(shape, gen, fa, F)
+    # both training shapes (the flagship's 16 heads, the wide LM's 32)
+    # and the ViT's, timed: forward with lse, each backward kernel, the
+    # whole backward, the plain versions, and scaled_dot_product_attention
+    # forward and backward as the library yardstick; each also run twice
+    # for bitwise-equal gradients
+    flagship, wide, vit = (_time_backward(shape, gen, fa, F) for shape in (
+        BACKWARD_SHAPES[0], BACKWARD_SHAPES[1], VIT_SHAPE))
     b, t, h, d, dtype, causal = BACKWARD_SHAPES[0]
-    flagship, wide = timed[h], timed[BACKWARD_SHAPES[1][2]]
     entries = []
     for name, products, n_out, grads in (
             ('flash_attention_bwd_dq', 3, 1, ('dq',)),
@@ -514,6 +543,7 @@ def phase_backward_kernels(seed: int):
         kb, kb_by = backward_bound_ms(b, t, h, d, dtype, causal, products,
                                       4, n_out)
         wb, _ = backward_bound_ms(*BACKWARD_SHAPES[1], products, 4, n_out)
+        vb, vb_by = backward_bound_ms(*VIT_SHAPE, products, 4, n_out)
         entries.append({
             'name': name, 'route': 'cuda',
             'source': 'mlcomp_tpu_torch/csrc/flash_attention_bwd.cu',
@@ -534,13 +564,20 @@ def phase_backward_kernels(seed: int):
                      'ms': wide[ms_key], 'bound_ms': wb,
                      'plain_ms': wide['plain_bwd_ms'],
                      'sdpa_bwd_ms': wide['sdpa_bwd_ms'],
-                     'bwd_ms': wide['bwd_ms']}})
+                     'bwd_ms': wide['bwd_ms']},
+            'vit': {'shape': list(VIT_SHAPE[:4]), 'causal': VIT_SHAPE[5],
+                    'ms': vit[ms_key], 'bound_ms': vb, 'bound_by': vb_by,
+                    'plain_ms': vit['plain_bwd_ms'],
+                    'sdpa_bwd_ms': vit['sdpa_bwd_ms'],
+                    'bwd_ms': vit['bwd_ms'],
+                    'bitwise_equal_over_two_runs': vit['bitwise_equal']}})
     torch.cuda.empty_cache()
-    return entries
+    return entries, vit
 
 
 def _time_backward(shape, gen, fa, F) -> dict:
-    """Times of the backward at a training shape (CUDA events), and
+    """Times of the forward with lse and the backward at a training
+    shape (CUDA events), beside the plain versions and SDPA's, and
     whether two runs of it give bitwise-equal dq, dk and dv."""
     from mlcomp_tpu_torch.testing.kernel_check import qkv_views
     b, t, h, d, dtype, causal = shape
@@ -581,6 +618,9 @@ def _time_backward(shape, gen, fa, F) -> dict:
         torch.autograd.grad(o, (qt, kt, vt), dot)
 
     sdpa_ms = time_ms(sdpa_fwd_bwd, iters=20)
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), iters=20)
     o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), dot, retain_graph=True), iters=20)
@@ -592,13 +632,15 @@ def _time_backward(shape, gen, fa, F) -> dict:
         dq_ms=f'{dq_ms:.4f}', dkv_ms=f'{dkv_ms:.4f}',
         bwd_bound_ms=f'{bound:.4f}', bwd_bound_by=bound_by,
         fwd_bwd_ms=f'{fwd_ms + bwd_ms:.4f}',
-        sdpa_fwd_bwd_ms=f'{sdpa_ms:.4f}', sdpa_bwd_ms=f'{sdpa_bwd_ms:.4f}',
-        plain_fwd_lse_ms=f'{plain_fwd_ms:.3f}',
+        sdpa_fwd_bwd_ms=f'{sdpa_ms:.4f}', sdpa_fwd_ms=f'{sdpa_fwd_ms:.4f}',
+        sdpa_bwd_ms=f'{sdpa_bwd_ms:.4f}', plain_fwd_lse_ms=f'{plain_fwd_ms:.3f}',
         plain_bwd_ms=f'{plain_bwd_ms:.3f}', bitwise_equal=bitwise)
     del q, k, v, do, out, lse, delta, qt, kt, vt, dot, o_lib
     torch.cuda.empty_cache()
-    return {'dq_ms': dq_ms, 'dkv_ms': dkv_ms, 'bwd_ms': bwd_ms,
-            'plain_bwd_ms': plain_bwd_ms, 'sdpa_bwd_ms': sdpa_bwd_ms,
+    return {'fwd_lse_ms': fwd_ms, 'fwd_bound_ms': fwd_bound,
+            'dq_ms': dq_ms, 'dkv_ms': dkv_ms, 'bwd_ms': bwd_ms,
+            'plain_fwd_ms': plain_fwd_ms, 'plain_bwd_ms': plain_bwd_ms,
+            'sdpa_fwd_ms': sdpa_fwd_ms, 'sdpa_bwd_ms': sdpa_bwd_ms,
             'bitwise_equal': bitwise}
 
 
@@ -653,6 +695,55 @@ def top1_agreement(logits, ref):
     picked = ref.gather(-1, pick.unsqueeze(-1)).squeeze(-1)
     tie = float((picked >= ref_max - TIE_DELTA).float().mean())
     return raw, tie
+
+
+def _cosine(a, b) -> float:
+    import torch.nn.functional as F
+    return float(F.cosine_similarity(a.flatten().float(),
+                                     b.flatten().float(), dim=0))
+
+
+def _grad_cosines(model, dense, loss_of) -> dict:
+    """{parameter: cosine of its gradient in ``model`` (the kernels) and
+    in ``dense`` (the same weights on the plain version)}."""
+    grads = []
+    for m in (model, dense):
+        loss = loss_of(m)
+        grads.append(torch.autograd.grad(loss, list(m.parameters())))
+    names = [n for n, _ in model.named_parameters()]
+    return {n: _cosine(a, b) for n, a, b in zip(names, *grads)}
+
+
+def _say_cosines(phase: str, cosines: dict, least: float):
+    worst = min(cosines, key=cosines.get)
+    say(phase, grad_min_cosine=f'{cosines[worst]:.6f}', worst=worst,
+        mean_cosine=f'{sum(cosines.values()) / len(cosines):.6f}',
+        tensors=len(cosines), min_cosine=least)
+    if not cosines[worst] >= least:
+        fail(f'{phase}: gradients disagree with the plain version: '
+             f'{worst} cosine {cosines[worst]}')
+
+
+def _compare_rows(phase: str, kern, ref, served=None, **extra):
+    """Rows of ``kern`` (the served path) against ``ref`` (its plain
+    version): cosine of all rows, tie-aware top-1 (and of the served
+    picks, when given)."""
+    finite = bool(torch.isfinite(kern).all() and torch.isfinite(ref).all())
+    cos = _cosine(kern, ref)
+    raw, tie = top1_agreement(kern, ref)
+    fields = dict(finite=finite, cosine=f'{cos:.6f}', top1_raw=f'{raw:.4f}',
+                  top1_tie_aware=f'{tie:.4f}')
+    served_tie = 1.0
+    if served is not None:
+        picked = ref.gather(-1, served[..., None]).squeeze(-1)
+        served_tie = float((picked >= ref.max(dim=-1).values - TIE_DELTA)
+                           .float().mean())
+        fields['served_top1_tie_aware'] = f'{served_tie:.4f}'
+    say(phase, **fields, max_abs_err=f'{float((kern - ref).abs().max()):.4f}',
+        min_cosine=MIN_COSINE, min_top1=MIN_TOP1, **extra)
+    if not finite or cos < MIN_COSINE or tie < MIN_TOP1 \
+            or served_tie < MIN_TOP1:
+        fail(f'{phase}: the served rows disagree with the plain version')
 
 
 def phase_serving(seed: int):
@@ -742,22 +833,8 @@ def phase_serving(seed: int):
             kern = model(tokens)[0].float()
             ref = dense(tokens)[0].float()
         del dense
-        finite = bool(torch.isfinite(kern).all() and torch.isfinite(ref).all())
-        cos = float(torch.nn.functional.cosine_similarity(
-            kern.reshape(1, -1), ref.reshape(1, -1)))
-        raw, tie = top1_agreement(kern, ref)
-        served_row = torch.from_numpy(served[0][0]).cuda().long()
-        picked = ref.gather(-1, served_row[:, None]).squeeze(-1)
-        served_tie = float((picked >= ref.max(dim=-1).values - TIE_DELTA)
-                           .float().mean())
-        say('compare', finite=finite, cosine=f'{cos:.6f}',
-            top1_raw=f'{raw:.4f}', top1_tie_aware=f'{tie:.4f}',
-            served_top1_tie_aware=f'{served_tie:.4f}',
-            max_abs_logit_err=f'{float((kern - ref).abs().max()):.4f}',
-            min_cosine=MIN_COSINE, min_top1=MIN_TOP1)
-        if not finite or cos < MIN_COSINE or tie < MIN_TOP1 \
-                or served_tie < MIN_TOP1:
-            fail('served LM disagrees with the plain-attention reference')
+        _compare_rows('compare', kern, ref,
+                      torch.from_numpy(served[0][0]).cuda().long())
         return launches
     finally:
         server.shutdown()
@@ -884,10 +961,42 @@ def _device_times_us(prof, is_part) -> tuple:
     return total, part, sorted(by_name, reverse=True)
 
 
+def _is_attention(key: str) -> bool:
+    return 'fa_fwd' in key or 'fa_bwd' in key
+
+
+def profile_step(tag: str, run, step_ms: float, is_part, part: str,
+                 **extra) -> tuple:
+    """Two train steps (``run``) under the profiler: the longest kernels
+    as ``[{tag}-kernel]`` lines, and (fields, the ms a step of the
+    kernels ``is_part`` accepts): the device ms a step, the part's ms and
+    share (``{part}_ms``, ``{part}_share``) and the busy share against
+    ``step_ms``; 'not measured' (and None) where the profiler reads no
+    device time."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                run()
+            torch.cuda.synchronize()
+        total_us, part_us, by_name = _device_times_us(prof, is_part)
+        if total_us <= 0:
+            raise RuntimeError('the profile holds no device time')
+    except Exception as e:      # the profiler's view of the card
+        return {'device_ms': 'not measured',
+                'profiler': repr(str(e)[:80])}, None
+    for us, name in by_name[:TOP_KERNELS]:
+        say(f'{tag}-kernel', **extra, ms_per_step=f'{us / 2e3:.3f}',
+            share=f'{us / total_us:.4f}', name=repr(name[:90]))
+    return {'device_ms': f'{total_us / 2e3:.3f}',
+            f'{part}_ms': f'{part_us / 2e3:.3f}',
+            f'{part}_share': f'{part_us / total_us:.4f}',
+            'device_busy': f'{total_us / 2e3 / step_ms:.4f}'}, part_us / 2e3
+
+
 def phase_step(seed: int):
     """The flagship's train step at B=1, T=8192 as bench_lm measures it,
     and one step's gradients against the plain attention."""
-    import torch.nn.functional as F
     from mlcomp_tpu_torch.models import create_model, param_count
     from mlcomp_tpu_torch.train.loop import (
         create_train_state, loss_for_task, make_train_step,
@@ -902,25 +1011,14 @@ def phase_step(seed: int):
     model = create_model(**FLAGSHIP, device='cuda',
                          generator=torch.Generator('cuda').manual_seed(seed))
     n_params = param_count(model)
-
-    def grads(m):
-        loss, _ = loss_fn(m(tokens, train=True), tokens)
-        return dict(zip((n for n, _ in m.named_parameters()),
-                        torch.autograd.grad(loss, list(m.parameters()))))
-
-    kernel = grads(model)
     # the plain attention keeps [T, T] f32 scores per layer: remat keeps
     # one layer's at a time
     dense = create_model(**{**FLAGSHIP, 'attn_impl': 'dense',
                             'remat': True}, device='cuda')
     dense.load_state_dict(model.state_dict())
-    plain = grads(dense)
+    cosines = _grad_cosines(model, dense, lambda m: loss_fn(
+        m(tokens, train=True), tokens)[0])
     del dense
-    cosines = {n: float(F.cosine_similarity(
-        kernel[n].flatten().float(), plain[n].flatten().float(), dim=0))
-        for n in kernel}
-    worst = min(cosines, key=cosines.get)
-    del kernel, plain
     torch.cuda.empty_cache()
 
     optimizer, _ = make_optimizer({'name': 'adamw', 'lr': 3e-4}, 1000)
@@ -937,34 +1035,12 @@ def phase_step(seed: int):
     fields = dict(params=n_params, step_ms=f'{step_ms:.2f}',
                   tokens_per_s=f'{tok_s:.1f}', mfu=f'{mfu:.4f}',
                   loss=f'{loss:.4f}')
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                step(state, tokens, None)
-            torch.cuda.synchronize()
-        total_us, attention_us, by_name = _device_times_us(
-            prof, lambda key: 'fa_fwd' in key or 'fa_bwd' in key)
-        if total_us <= 0:
-            raise RuntimeError('the profile holds no device time')
-        for us, name in by_name[:TOP_KERNELS]:
-            say('step-kernel', ms_per_step=f'{us / 2e3:.3f}',
-                share=f'{us / total_us:.4f}', name=repr(name[:90]))
-        fields.update(device_ms=f'{total_us / 2e3:.2f}',
-                      attention_ms=f'{attention_us / 2e3:.2f}',
-                      attention_share=f'{attention_us / total_us:.4f}',
-                      device_busy=f'{total_us / 2e3 / step_ms:.4f}')
-    except Exception as e:      # the profiler is untried on that machine
-        fields.update(device_ms='not measured', profiler=repr(str(e)[:80]))
+    fields.update(profile_step('step', lambda: step(state, tokens, None),
+                               step_ms, _is_attention, 'attention')[0])
     say('step', **fields)
-    say('step', grad_min_cosine=f'{cosines[worst]:.6f}', worst=worst,
-        mean_cosine=f'{sum(cosines.values()) / len(cosines):.6f}',
-        tensors=len(cosines), min_cosine=MIN_GRAD_COSINE)
+    _say_cosines('step', cosines, MIN_GRAD_COSINE)
     if not np.isfinite(loss):
         fail(f'train step loss is not finite: {loss}')
-    if not cosines[worst] >= MIN_GRAD_COSINE:
-        fail(f'gradients disagree with the plain attention: {worst} '
-             f'cosine {cosines[worst]}')
     del state, model, step
     torch.cuda.empty_cache()
 
@@ -1198,12 +1274,37 @@ def phase_norm_bwd_kernel(seed: int) -> dict:
             'timing': 'cuda_events_with_host_gaps', 'sites': sites}
 
 
+def kernel_ms_per_call(tag: str, run, calls: int,
+                       is_kernel=lambda key: True) -> tuple:
+    """Device time per call of the kernels ``is_kernel`` accepts, by the
+    profiler: ``run`` makes ``calls`` calls, once to warm and once in
+    the window. Each kernel's time per record the window kept, times its
+    records a call (a window can lose some records of back-to-back
+    launches). Returns (ms, or None where not measured; records)."""
+    run()
+    torch.cuda.synchronize()
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    except Exception as e:      # the profiler's view of the card
+        say(tag, profiler=repr(str(e)[:80]))
+        return None, 0
+    us, records = 0.0, 0
+    for event in prof.key_averages():
+        if event.count and is_kernel(event.key) and _event_us(event) > 0:
+            us += _event_us(event) / event.count * max(
+                1, round(event.count / calls))
+            records += event.count
+    return (us / 1e3 if records else None), records
+
+
 def profile_norm_sites(seed: int) -> dict:
     """The fused norm kernels' own device time per call (profiler) at
     each CIFAR site shape of the step, forward with and without the ReLU
     and the backward with it, on rotating inputs; {'RxC': {'act': ms,
     'no_act': ms, 'bwd': ms}}."""
-    from torch.profiler import ProfilerActivity, profile
     from mlcomp_tpu_torch.ops.fused_norm import (
         norm_act_backward_kernel, norm_act_forward,
     )
@@ -1226,37 +1327,71 @@ def profile_norm_sites(seed: int) -> dict:
         bounds = {'act': norm_bound_ms(r_, c, torch.bfloat16)[0],
                   'bwd': norm_bwd_bound_ms(r_, c, torch.bfloat16)[0]}
         out[f'{r_}x{c}'] = {}
+        args = [(*a, *st) for a, st in zip(inputs, stats)]
         for key, call in calls.items():
-            args = [(*a, *st) for a, st in zip(inputs, stats)]
-            for a in args:                                 # warm
-                call(*a)
-            torch.cuda.synchronize()
-            ms, captured = None, 0
-            try:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for a in args:
-                        call(*a)
-                    torch.cuda.synchronize()
-                # per kernel record the profiler kept: a window can lose
-                # some of a run of back-to-back launches
-                is_norm = _is_norm_kernel(True)
-                norm_us = 0.0
-                for event in prof.key_averages():
-                    if is_norm(event.key):
-                        norm_us += _event_us(event)
-                        captured += event.count
-                if captured:
-                    ms = norm_us / captured / 1e3
-            except Exception as e:      # the profiler's view of the card
-                say('kernel-norm-device', profiler=repr(str(e)[:80]))
+            ms, captured = kernel_ms_per_call(
+                'kernel-norm-device', lambda: [call(*a) for a in args],
+                len(args), _is_norm_kernel(True))
             out[f'{r_}x{c}'][key] = ms
             say('kernel-norm-device', shape=f'{r_}x{c}', dtype='bfloat16',
                 call=key, calls=len(args), kernels_recorded=captured,
                 device_ms='not measured' if ms is None else f'{ms:.4f}',
                 bound_ms=f'{bounds.get(key, bounds["act"]):.4f}')
-        del inputs, stats
+        del inputs, stats, args
         torch.cuda.empty_cache()
     return out
+
+
+def profile_vit(seed: int, step_ms: float) -> dict:
+    """The ViT's device times by the profiler, after every step timing:
+    the flash kernels' and SDPA's own time per call at
+    ``kernel_check.VIT_SHAPE`` (CUDA events over back-to-back calls of a
+    ~40 us kernel time the host's launch gaps too), and two train steps
+    (``vit_step``): device ms, the attention's share, the busy share
+    against ``step_ms``. {'fwd', 'dq', 'dkv', 'sdpa', 'sdpa_bwd': ms or
+    None, 'step': the step's fields}."""
+    import torch.nn.functional as F
+    from mlcomp_tpu_torch.ops import flash_attention as fa
+    from mlcomp_tpu_torch.testing.kernel_check import VIT_SHAPE, qkv_views
+    b, t, h, d, dtype, causal = VIT_SHAPE
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    q, k, v = qkv_views(b, t, h, d, dtype, gen)
+    do = torch.randn((b, t, h, d), generator=gen, device='cuda').to(dtype)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                          with_lse=True)
+    delta = fa.attention_delta(out, do)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    calls = {
+        'fwd': lambda: fa.flash_attention_forward(q, k, v, causal=causal),
+        'dq': lambda: fa.flash_attention_backward_dq(
+            q, k, v, do, lse, delta, causal=causal),
+        'dkv': lambda: fa.flash_attention_backward_dkv(
+            q, k, v, do, lse, delta, causal=causal),
+        'sdpa': lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal),
+        'sdpa_bwd': lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), dot, retain_graph=True)}
+    n, result = 20, {}
+    for key, call in calls.items():
+        ms, records = kernel_ms_per_call(
+            'vit-kernels-device', lambda: [call() for _ in range(n)], n)
+        result[key] = ms
+        say('vit-kernels-device', shape=f'{b}x{t}x{h}x{d}', call=key,
+            calls=n, kernel_records=records,
+            device_ms='not measured' if ms is None else f'{ms:.4f}')
+    del q, k, v, do, out, lse, delta, qt, kt, vt, dot, o_lib
+    run, _ = vit_step(seed)
+    for _ in range(3):
+        run()
+    result['step'], _ = profile_step('vit-step', run, step_ms, _is_attention,
+                                     'attention')
+    say('vit-step', profiled=True, **result['step'])
+    del run
+    torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1415,7 +1550,6 @@ def phase_cifar_step(seed: int) -> dict:
     ``norm: fused`` from the same weights on the same batch. Returns the
     profiled device ms per step of each variant's norm kernels, forward
     and backward (the fused variant's: 20 launches of each kernel)."""
-    import torch.nn.functional as F
     from mlcomp_tpu_torch.models import create_model, param_count
     from mlcomp_tpu_torch.train.data import create_dataset
     from mlcomp_tpu_torch.train.loop import (
@@ -1435,18 +1569,8 @@ def phase_cifar_step(seed: int) -> dict:
     x = torch.from_numpy(data['x_train']).cuda()
     y = torch.from_numpy(data['y_train']).cuda()
     loss_fn = loss_for_task('softmax_ce')
-
-    def grads(m):
-        loss, _ = loss_fn(m(x, train=True), y)
-        return dict(zip((n for n, _ in m.named_parameters()),
-                        torch.autograd.grad(loss, list(m.parameters()))))
-
-    g_fused, g_plain = grads(fused), grads(plain)
-    cosines = {n: float(F.cosine_similarity(
-        g_fused[n].flatten().float(), g_plain[n].flatten().float(), dim=0))
-        for n in g_fused}
-    worst = min(cosines, key=cosines.get)
-    del g_fused, g_plain
+    cosines = _grad_cosines(fused, plain, lambda m: loss_fn(
+        m(x, train=True), y)[0])
 
     steps, norm_ms = {}, {}
     for name, model in (('batch', plain), ('fused', fused)):
@@ -1471,37 +1595,15 @@ def phase_cifar_step(seed: int) -> dict:
                       runs_ms=[f'{t:.3f}' for t in times[name]],
                       images_per_s=f'{CIFAR_STEP_BATCH / step_ms * 1e3:.1f}',
                       loss=f'{loss:.4f}')
-        try:
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    step(state, x, y)
-                torch.cuda.synchronize()
-            total_us, norm_us, by_name = _device_times_us(
-                prof, _is_norm_kernel(name == 'fused'))
-            if total_us <= 0:
-                raise RuntimeError('the profile holds no device time')
-            for us, kernel in by_name[:TOP_KERNELS]:
-                say('cifar-step-kernel', norm=name,
-                    ms_per_step=f'{us / 2e3:.3f}',
-                    share=f'{us / total_us:.4f}', name=repr(kernel[:90]))
-            norm_ms[name] = norm_us / 2e3
-            fields.update(device_ms=f'{total_us / 2e3:.3f}',
-                          norm_kernel_ms=f'{norm_us / 2e3:.3f}',
-                          norm_kernel_share=f'{norm_us / total_us:.4f}',
-                          device_busy=f'{total_us / 2e3 / step_ms:.4f}')
-        except Exception as e:      # the profiler's view of the card
-            fields.update(device_ms='not measured',
-                          profiler=repr(str(e)[:80]))
-        say('cifar-step', **fields)
+        profiled, ms = profile_step(
+            'cifar-step', lambda: step(state, x, y), step_ms,
+            _is_norm_kernel(name == 'fused'), 'norm_kernel', norm=name)
+        if ms is not None:
+            norm_ms[name] = ms
+        say('cifar-step', **fields, **profiled)
         if not np.isfinite(loss):
             fail(f'CIFAR {name} step loss is not finite: {loss}')
-    say('cifar-step', grad_min_cosine=f'{cosines[worst]:.6f}', worst=worst,
-        mean_cosine=f'{sum(cosines.values()) / len(cosines):.6f}',
-        tensors=len(cosines), min_cosine=MIN_NORM_GRAD_COSINE)
-    if not cosines[worst] >= MIN_NORM_GRAD_COSINE:
-        fail(f'fused and batch norm gradients disagree: {worst} cosine '
-             f'{cosines[worst]}')
+    _say_cosines('cifar-step', cosines, MIN_NORM_GRAD_COSINE)
     del steps, fused, plain, x, y
     torch.cuda.empty_cache()
     return norm_ms
@@ -1964,31 +2066,17 @@ def phase_serve_int8(seed: int) -> dict:
         full_model_bytes = _model_bytes(full.model)
         del full
         torch.cuda.empty_cache()
-        finite = bool(torch.isfinite(kern).all()
-                      and torch.isfinite(dense).all())
-        cos = float(torch.nn.functional.cosine_similarity(
-            kern.reshape(1, -1), dense.reshape(1, -1)))
-        raw, tie = top1_agreement(kern, dense)
-        cos_full = float(torch.nn.functional.cosine_similarity(
-            kern.reshape(1, -1), ref.reshape(1, -1)))
+        cos_full = _cosine(kern, ref)
         raw_full, tie_full = top1_agreement(kern, ref)
-        served_row = torch.from_numpy(served[0][0]).cuda().long()
-        picked = dense.gather(-1, served_row[:, None]).squeeze(-1)
-        served_tie = float((picked >= dense.max(dim=-1).values - TIE_DELTA)
-                           .float().mean())
-        say('compare-int8', finite=finite, cosine_vs_dense=f'{cos:.6f}',
-            top1_tie_aware=f'{tie:.4f}', top1_raw=f'{raw:.4f}',
-            served_top1_tie_aware=f'{served_tie:.4f}',
-            max_abs_logit_err=f'{float((kern - dense).abs().max()):.4f}',
-            min_cosine=MIN_COSINE, min_top1=MIN_TOP1,
-            cosine_vs_unquantized=f'{cos_full:.6f}',
-            top1_raw_vs_unquantized=f'{raw_full:.4f}',
-            top1_tie_aware_vs_unquantized=f'{tie_full:.4f}',
-            min_cosine_vs_unquantized=MIN_INT8_COSINE,
-            full_model_bytes=full_model_bytes, full_allocated_bytes=full_bytes)
-        if not finite or cos < MIN_COSINE or tie < MIN_TOP1 \
-                or served_tie < MIN_TOP1:
-            fail('the int8 kernel disagrees with the plain int8 product')
+        # the kernel against the plain int8 product
+        _compare_rows('compare-int8', kern, dense,
+                      torch.from_numpy(served[0][0]).cuda().long(),
+                      cosine_vs_unquantized=f'{cos_full:.6f}',
+                      top1_raw_vs_unquantized=f'{raw_full:.4f}',
+                      top1_tie_aware_vs_unquantized=f'{tie_full:.4f}',
+                      min_cosine_vs_unquantized=MIN_INT8_COSINE,
+                      full_model_bytes=full_model_bytes,
+                      full_allocated_bytes=full_bytes)
         if cos_full < MIN_INT8_COSINE:
             fail(f'the int8-served LM is too far from the unquantized one: '
                  f'cosine {cos_full}')
@@ -2390,12 +2478,6 @@ def phase_train_wide_int8(seed: int) -> dict:
         torch.cuda.empty_cache()
 
 
-def _cosine(a, b) -> float:
-    import torch.nn.functional as F
-    return float(F.cosine_similarity(a.flatten().float(),
-                                     b.flatten().float(), dim=0))
-
-
 def phase_step_wide(seed: int) -> dict:
     """``bench_lm``'s wide legs at B=1, T=8192 on the same weights: (a)
     bf16 matmuls, f32 params, ``lm_ce``; (b) int8 matmuls with bf16
@@ -2595,6 +2677,505 @@ def phase_step_wide(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------- the MoE LM and the ViT
+#: ``examples/moe``'s MoE knobs at the flagship widths of ``bench.py``
+#: (293,635,072 parameters: 4 of the 8 layers MoE, 4 experts each)
+MOE = {**FLAGSHIP, 'n_experts': 4, 'moe_every': 2, 'capacity_factor': 1.25}
+#: the train phase's ``synthetic_lm``: 4 train rows and 1 valid row of
+#: 8192 tokens over ``examples/moe``'s dataset vocabulary (its Markov
+#: table is [V, V] f64 on the host: at the model's 32768 it is 8.6 GB)
+MOE_DATA = {'name': 'synthetic_lm', 'n_train': 4, 'n_valid': 1,
+            'seq_len': 8192, 'vocab_size': 1024}
+#: ``examples/encoder_grid``'s ViT cell (its model spec; the JAX
+#: defaults: 32x32 images in 4x4 patches, d 192, 6 layers, 3 heads,
+#: d_ff 768; 3,564,864 parameters) on its dataset, batch and optimizer
+VIT_SPEC = {
+    'type': 'train',
+    'model': {'name': 'vit', 'num_classes': 10, 'cifar_stem': True,
+              'dtype': 'bfloat16'},
+    'dataset': {'name': 'synthetic_images', 'n_train': 4096,
+                'n_valid': 512, 'image_size': 32, 'channels': 3,
+                'num_classes': 10},
+    'batch_size': 256, 'mesh': {'dp': -1}, 'main_metric': 'accuracy',
+    'model_name': 'vit_encoder_grid',
+    'stages': [{'name': 'stage1', 'epochs': 1, 'optimizer': {
+        'name': 'adamw', 'lr': 0.001,
+        'schedule': {'name': 'warmup_cosine'}}}]}
+#: the ViT's timed step: windows of steps (CUDA events), each a mean
+VIT_STEP_ITERS = 30
+VIT_STEP_WINDOWS = 3
+
+
+def _flash_counters() -> dict:
+    from mlcomp_tpu_torch.ops import flash_attention as fa
+    return {'flash_attention_fwd': fa.flash_attention_forward,
+            'flash_attention_bwd_dq': fa.flash_attention_backward_dq,
+            'flash_attention_bwd_dkv': fa.flash_attention_backward_dkv}
+
+
+def _run_executor(spec: dict, work: str) -> tuple:
+    """``Executor.from_config('train', ...)`` of ``spec`` on the card in
+    ``work`` (its export lands in models/ under it); the flash kernels'
+    counts zeroed just before the run and read just after. Returns
+    (result, launches, seconds)."""
+    import gc
+    from mlcomp_tpu_torch.worker.executors import Executor
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        executor = Executor.from_config('train', {'executors': {
+            'train': spec}})
+        counters = _flash_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        result = executor(logger=_train_logger())
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        del executor
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result, launches, seconds
+    finally:
+        os.chdir(cwd)
+
+
+def _check_launches(phase: str, launches: dict, want: dict):
+    if launches != want:
+        fail(f'{phase}: expected launches {want}, got {launches}')
+
+
+def moe_flops(spec: dict, n_params: int, t: int) -> dict:
+    """A step's FLOPs at B=1: the model's, 6 per active parameter and
+    token (top-1: one expert a token; the embedding counted as the
+    flagship's MFU counts it) + 6·L·T·d for the causal attention; and
+    apart from them the dispatch and combine einsums, 2·T·X·C·M each
+    (forward: both; backward: dispatch's input gradient, combine's two).
+    The capacity's empty slots (X·C - T) are counted in neither."""
+    x, m, f = spec['n_experts'], spec['d_model'], spec['d_ff']
+    n_moe = sum(i % spec['moe_every'] == spec['moe_every'] - 1
+                for i in range(spec['n_layers']))
+    active = n_params - n_moe * (x - 1) * 2 * m * f
+    capacity = max(1, int(spec['capacity_factor'] * t / x))
+    per_token = 6 * active + 6 * spec['n_layers'] * t * m
+    dispatch = n_moe * 5 * 2 * t * x * capacity * m
+    return {'active_params': active, 'model_flops_per_token': per_token,
+            'model_flops': per_token * t, 'dispatch_flops': dispatch,
+            'capacity': capacity}
+
+
+def phase_moe_train(seed: int) -> dict:
+    """``[moe-train]``: the MoE LM at the flagship widths trained
+    through the executor on the card for one epoch of ``synthetic_lm``
+    at B=1 (4 steps, 1 valid row), checkpoints and the export reloaded;
+    returns the flash kernels' launches in the run."""
+    from mlcomp_tpu_torch.train.export import make_predictor
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_moe_')
+    try:
+        ck_dir = os.path.join(work, 'checkpoints')
+        spec = {'type': 'train', 'model': dict(MOE), 'dataset': MOE_DATA,
+                'loss': 'lm_ce', 'batch_size': 1,
+                'stages': [{'name': 'stage1', 'epochs': 1, 'optimizer': {
+                    'name': 'adamw', 'lr': 3e-4,
+                    'schedule': {'name': 'warmup_cosine'}}}],
+                'main_metric': 'loss', 'minimize': True,
+                'checkpoint_dir': ck_dir, 'model_name': 'moe_lm_trained',
+                'seed': seed, 'device': 'cuda'}
+        result, launches, seconds = _run_executor(spec, work)
+        n_train, n_valid = MOE_DATA['n_train'], MOE_DATA['n_valid']
+        layers = MOE['n_layers']
+        files = sorted(os.listdir(ck_dir))
+        export = os.path.join(work, 'models', 'moe_lm_trained')
+        say('moe-train', param_count=result['n_params'], steps=n_train,
+            valid_rows=n_valid, seconds=f'{seconds:.1f}',
+            valid_loss=result['best_score'], launches=launches,
+            checkpoints=files)
+        _check_launches('moe-train', launches, {
+            'flash_attention_fwd': layers * (n_train + n_valid),
+            'flash_attention_bwd_dq': layers * n_train,
+            'flash_attention_bwd_dkv': layers * n_train})
+        if result['n_params'] != 293_635_072:
+            fail(f'the MoE LM has {result["n_params"]} parameters, not '
+                 f'293,635,072')
+        if not np.isfinite(result['best_score']):
+            fail(f'MoE train loss is not finite: {result}')
+        if not {'best.msgpack', 'last.msgpack'} <= set(files) \
+                or not os.path.exists(export + '.msgpack'):
+            fail(f'checkpoints {files} or the export {export} missing')
+        predict = make_predictor(export, batch_size=1, activation='argmax',
+                                 device='cuda')
+        tokens = np.random.default_rng(seed).integers(
+            0, MOE_DATA['vocab_size'], (1, MOE['max_seq_len']),
+            dtype=np.int32)
+        y = predict(tokens)
+        ok = y.shape == tokens.shape and 0 <= y.min() \
+            and y.max() < MOE['vocab_size']
+        say('moe-train', export=os.path.basename(export),
+            layer_1_is_moe=hasattr(predict.model.layers[1], 'moe'),
+            predict_shape=y.shape, ok=ok)
+        if not ok or not hasattr(predict.model.layers[1], 'moe'):
+            fail(f'the trained MoE export predicts {y.shape} {y.dtype}')
+        del predict
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def quantized_by_jax_rule(params: dict) -> int:
+    """How many kernels the JAX package's int8 serving quantizes in a
+    params tree: ``kernel`` leaves that are 2-D with at least 65,536
+    elements (``mlcomp_tpu/train/export.py`` ``_quantized_interceptor``,
+    restated here)."""
+    if isinstance(params, dict):
+        return sum(quantized_by_jax_rule(v) if k != 'kernel' else int(
+            np.ndim(v) == 2 and np.size(v) >= 65536)
+            for k, v in params.items())
+    return 0
+
+
+def phase_moe_serve(seed: int) -> dict:
+    """``[moe-serve]``: the MoE LM (weights from the seed, exported in
+    the per-layer layout an MoE stack has) served over HTTP at batch 4,
+    in bf16 and with ``quantize='int8'``: p50, the flash and int8
+    launches a dispatch (counts zeroed just before the requests, read
+    just after), the quantized kernels against JAX's rule, and one row
+    against the plain version (bf16: the same weights with the plain
+    attention; int8: the same int8 weights through the plain product).
+    Returns the launches by kernel."""
+    import gc
+    from mlcomp_tpu_torch import MODEL_FOLDER
+    from mlcomp_tpu_torch.convert import variables_to_jax
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.ops.flash_attention import flash_attention_forward
+    from mlcomp_tpu_torch.ops.int8_matmul import Int8Dense, int8_matmul
+    from mlcomp_tpu_torch.server.serve import ModelServer, resolve_model
+    from mlcomp_tpu_torch.train.export import export_model
+
+    model = create_model(**MOE, device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(seed))
+    params = variables_to_jax(model)['params']
+    del model
+    torch.cuda.empty_cache()
+    want_quantized = quantized_by_jax_rule(params)
+    export_model(os.path.join(MODEL_FOLDER, 'smoke', 'moe_lm'), params, MOE,
+                 meta={'input_shape': [MOE['max_seq_len']],
+                       'input_dtype': 'int32'})
+    del params
+    path = resolve_model('moe_lm', 'smoke')
+    rng = np.random.default_rng(seed + 5)
+    t, vocab = MOE['max_seq_len'], MOE['vocab_size']
+    requests = [rng.integers(0, vocab, (n, t), dtype=np.int32)
+                for n in (1, 4, 2, 3)]
+    launches = {}
+    for quantize in (None, 'int8'):
+        gc.collect()
+        server = ModelServer(path, batch_size=SERVE_BATCH,
+                             activation='argmax', port=0, quantize=quantize,
+                             device='cuda')
+        predict = server.primary.predict
+        if not server.warmup():
+            fail('the MoE export carries no input_shape to warm up with')
+        server.bind()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            # the main path: counts zeroed just before, read just after
+            flash_attention_forward.launches = 0
+            int8_matmul.launches = 0
+            latencies, served, per_dispatch = _serve_rows(
+                server, requests, flash_attention_forward)
+            key = 'int8' if quantize else 'bf16'
+            launches[key] = {'flash_attention_fwd':
+                             flash_attention_forward.launches,
+                             'int8_matmul': int8_matmul.launches}
+            health = _http(server.port, '/health')
+        finally:
+            server.shutdown()
+            thread.join(timeout=30)
+        int8_want = want_quantized * len(requests) if quantize else 0
+        say('moe-serve', quantize=quantize or 'none',
+            quantized=predict.quantized, jax_rule_quantizes=want_quantized,
+            requests=len(requests), launches=launches[key],
+            flash_per_dispatch=per_dispatch,
+            p50_ms=f'{float(np.percentile(latencies, 50)):.1f}',
+            max_ms=f'{max(latencies):.1f}', platform=health['platform'])
+        if per_dispatch != [MOE['n_layers']] * len(requests) \
+                or launches[key]['int8_matmul'] != int8_want \
+                or predict.quantized != (want_quantized if quantize else 0):
+            fail(f'moe-serve: expected {MOE["n_layers"]} flash launches a '
+                 f'dispatch, {int8_want} int8 launches and '
+                 f'{want_quantized if quantize else 0} quantized modules; '
+                 f'got {per_dispatch}, {launches[key]}, '
+                 f'{predict.quantized}')
+        if health['platform'] != 'gpu':
+            fail(f'/health disagrees: {health}')
+
+        tokens = torch.from_numpy(requests[0]).cuda()
+        served_row = torch.from_numpy(served[0][0]).cuda().long()
+        model = predict.model
+        with torch.inference_mode():
+            kern = model(tokens)[0].float()
+            if quantize:
+                int8_modules = [m for m in model.modules()
+                                if isinstance(m, Int8Dense)]
+                for m in int8_modules:
+                    m.impl = 'dense'
+                ref = model(tokens)[0].float()
+                for m in int8_modules:
+                    m.impl = 'auto'
+            else:
+                dense = create_model(**{**MOE, 'attn_impl': 'dense'},
+                                     device='cuda')
+                dense.load_state_dict(model.state_dict())
+                ref = dense(tokens)[0].float()
+                del dense
+        batch = torch.from_numpy(np.concatenate(requests[1:3])[
+            :SERVE_BATCH]).cuda()
+        with torch.inference_mode():
+            forward_ms = time_ms(lambda: model(batch).argmax(dim=-1),
+                                 iters=3)
+        say('moe-serve', quantize=quantize or 'none',
+            forward_ms=f'{forward_ms:.2f}', batch=SERVE_BATCH)
+        _compare_rows('moe-serve', kern, ref, served_row,
+                      quantize=quantize or 'none',
+                      plain='int8 plain product' if quantize
+                      else 'plain attention')
+        del server, predict, model, kern, ref
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vit_train(seed: int) -> dict:
+    """``[vit-train]``: ``encoder_grid``'s ViT trained through the
+    executor on the card for one epoch (16 steps of 256 images, 2 valid
+    batches; the flash kernels' non-causal branch forward and backward)
+    and its export served over HTTP, the served rows against the plain
+    attention. Returns the kernels' launches in the epoch."""
+    from mlcomp_tpu_torch import TOKEN
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.server.serve import ModelServer
+    from mlcomp_tpu_torch.train.data import create_dataset
+
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_vit_')
+    try:
+        ck_dir = os.path.join(work, 'checkpoints')
+        spec = dict(VIT_SPEC, checkpoint_dir=ck_dir, seed=seed,
+                    device='cuda')
+        result, launches, seconds = _run_executor(spec, work)
+        data = spec['dataset']
+        steps = data['n_train'] // spec['batch_size']
+        valid = -(-data['n_valid'] // spec['batch_size'])
+        layers = 6
+        say('vit-train', param_count=result['n_params'], steps=steps,
+            seconds=f'{seconds:.1f}', valid_accuracy=result['best_score'],
+            samples_per_s=f'{result["samples_per_sec"]:.1f}',
+            launches=launches,
+            fwd_per_step=launches['flash_attention_fwd'] / (steps + valid),
+            bwd_per_step=launches['flash_attention_bwd_dq'] / steps)
+        _check_launches('vit-train', launches, {
+            'flash_attention_fwd': layers * (steps + valid),
+            'flash_attention_bwd_dq': layers * steps,
+            'flash_attention_bwd_dkv': layers * steps})
+        if result['n_params'] != 3_564_864 \
+                or not 0 <= result['best_score'] <= 1:
+            fail(f'vit-train: {result}')
+
+        ds = create_dataset(**data)
+        model_spec = spec['model']
+        export = os.path.join(work, 'models', spec['model_name'])
+        server = ModelServer(export + '.msgpack', batch_size=64, port=0,
+                             device='cuda')
+        if not server.warmup():
+            fail('the ViT export carries no input_shape to warm up with')
+        server.bind()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        images = ds['x_valid'][:128]
+        try:
+            got, latencies = [], []
+            for start, n in ((0, 1), (1, 64), (65, 63)):
+                t1 = time.monotonic()
+                out = _http(server.port, '/predict',
+                            {'x': images[start:start + n].tolist()}, TOKEN)
+                latencies.append((time.monotonic() - t1) * 1e3)
+                got.append(np.asarray(out['y'], np.float32))
+            health = _http(server.port, '/health')
+            served = server.primary.predict.model
+            dense = create_model(**{**model_spec, 'attn_impl': 'dense'},
+                                 input_shape=images.shape[1:],
+                                 device='cuda')
+            dense.load_state_dict(served.state_dict())
+            with torch.inference_mode():
+                ref = dense(torch.from_numpy(images).cuda()).float()
+        finally:
+            server.shutdown()
+            thread.join(timeout=30)
+        got = torch.from_numpy(np.concatenate(got)).cuda()
+        # the forward alone at the served batch: the requests' time is
+        # mostly their JSON images on the host
+        batch = torch.from_numpy(images[:64]).cuda()
+        with torch.inference_mode():
+            forward_ms = time_ms(lambda: served(batch), iters=10)
+        say('vit-serve', requests=len(latencies), rows=len(got),
+            p50_ms=f'{float(np.percentile(latencies, 50)):.1f}',
+            forward_ms=f'{forward_ms:.3f}', batch=64,
+            platform=health['platform'])
+        if got.shape != (128, 10) or health['platform'] != 'gpu':
+            fail(f'vit-serve: /predict answered {tuple(got.shape)}; '
+                 f'{health}')
+        _compare_rows('vit-serve', got, ref, plain='plain attention')
+        del server, served, dense
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def vit_step(seed: int) -> tuple:
+    """The ViT of VIT_SPEC with weights from ``seed`` on the card, the
+    first batch of its dataset and its train step (the executor's AdamW):
+    (run, parts), ``run()`` one step, ``parts`` the model, loss function
+    and batch."""
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.train.data import create_dataset
+    from mlcomp_tpu_torch.train.loop import (
+        create_train_state, loss_for_task, make_train_step,
+    )
+    from mlcomp_tpu_torch.train.optim import make_optimizer
+    ds = create_dataset(**VIT_SPEC['dataset'])
+    n = VIT_SPEC['batch_size']
+    x = torch.from_numpy(ds['x_train'][:n]).cuda()
+    y = torch.from_numpy(ds['y_train'][:n]).cuda()
+    model = create_model(**VIT_SPEC['model'], input_shape=x.shape[1:],
+                         device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(seed))
+    loss_fn = loss_for_task('softmax_ce')
+    optimizer, _ = make_optimizer(VIT_SPEC['stages'][0]['optimizer'], 100)
+    state = create_train_state(model, optimizer, seed=seed)
+    step = make_train_step(model, optimizer, loss_fn)
+    return (lambda: step(state, x, y)), {'model': model, 'loss_fn': loss_fn,
+                                         'x': x, 'y': y}
+
+
+def phase_vit_step(seed: int) -> dict:
+    """``[vit-train]``'s timed step: the ViT's train step at batch 256,
+    VIT_STEP_WINDOWS windows of VIT_STEP_ITERS steps after 3 to warm
+    (CUDA events; its profile comes after every step timing, in
+    ``profile_vit``), the flash launches per step, and one step's
+    gradients against the plain attention."""
+    from mlcomp_tpu_torch.models import create_model
+    run, parts = vit_step(seed)
+    model, x, y = parts['model'], parts['x'], parts['y']
+    dense = create_model(**{**VIT_SPEC['model'], 'attn_impl': 'dense'},
+                         input_shape=x.shape[1:], device='cuda')
+    dense.load_state_dict(model.state_dict())
+    cosines = _grad_cosines(model, dense, lambda m: parts['loss_fn'](
+        m(x, train=True), y)[0])
+    del dense
+    for _ in range(3):
+        _, metrics = run()
+    counters = _flash_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = [time_ms(run, iters=VIT_STEP_ITERS, warmup=0)
+            for _ in range(VIT_STEP_WINDOWS)]
+    steps = VIT_STEP_ITERS * VIT_STEP_WINDOWS
+    per_step = {n: fn.launches / steps for n, fn in counters.items()}
+    step_ms = sum(runs) / len(runs)
+    batch = VIT_SPEC['batch_size']
+    say('vit-train', timed_step=True, step_ms=f'{step_ms:.3f}',
+        runs_ms=[f'{t:.3f}' for t in runs],
+        images_per_s=f'{batch / (step_ms / 1e3):.1f}', batch=batch,
+        loss=f'{float(metrics["loss"]):.4f}',
+        flash_launches_per_step=per_step)
+    _say_cosines('vit-train', cosines, MIN_GRAD_COSINE)
+    want = dict.fromkeys(counters, float(len(model.layers)))
+    if per_step != want:
+        fail(f'vit-train: expected {want} flash launches a step, got '
+             f'{per_step}')
+    del run, parts, model
+    torch.cuda.empty_cache()
+    return {'step_ms': step_ms, 'runs_ms': runs}
+
+
+def phase_moe_step(seed: int) -> dict:
+    """``[moe-train]``'s timed step: the MoE LM's train step at B=1,
+    T=8192 with AdamW as ``bench_lm`` times the flagship's: ms,
+    tokens/s, MFU over the model FLOPs (``moe_flops``), the dispatch
+    einsums' FLOPs apart, ``moe_aux``, the profiler's split (attention,
+    the dispatch and combine einsums' share is not separable by kernel
+    name: the longest kernels are printed), the flash launches per
+    step, and one step's gradients against the plain attention."""
+    from mlcomp_tpu_torch.models import create_model, param_count
+    from mlcomp_tpu_torch.train.loop import (
+        MOE_AUX_COEF, create_train_state, loss_for_task, make_train_step,
+    )
+    from mlcomp_tpu_torch.train.optim import make_optimizer
+
+    t, vocab = MOE['max_seq_len'], MOE['vocab_size']
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (1, t)).astype(np.int32)).cuda()
+    loss_fn = loss_for_task('lm_ce')
+    model = create_model(**MOE, device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(seed))
+    n_params = param_count(model)
+    flops = moe_flops(MOE, n_params, t)
+
+    def loss_of(m):
+        logits, aux = m(tokens, train=True, return_aux=True)
+        return loss_fn(logits, tokens)[0] + MOE_AUX_COEF * aux
+
+    dense = create_model(**{**MOE, 'attn_impl': 'dense', 'remat': True},
+                         device='cuda')
+    dense.load_state_dict(model.state_dict())
+    cosines = _grad_cosines(model, dense, loss_of)
+    del dense
+    torch.cuda.empty_cache()
+
+    optimizer, _ = make_optimizer({'name': 'adamw', 'lr': 3e-4}, 1000)
+    state = create_train_state(model, optimizer, seed=seed)
+    step = make_train_step(model, optimizer, loss_fn, self_supervised=True)
+    for _ in range(3):
+        state, metrics = step(state, tokens, None)
+    counters = _flash_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms = time_ms(lambda: step(state, tokens, None), iters=STEP_ITERS,
+                      warmup=0)
+    per_step = {n: fn.launches / STEP_ITERS for n, fn in counters.items()}
+    _, metrics = step(state, tokens, None)
+    loss, aux = float(metrics['loss']), float(metrics['moe_aux'])
+    tok_s = t / (step_ms / 1e3)
+    mfu = tok_s * flops['model_flops_per_token'] \
+        / PEAK_OPS_PER_S[torch.bfloat16]
+    fields = dict(param_count=n_params, step_ms=f'{step_ms:.2f}',
+                  tokens_per_s=f'{tok_s:.1f}', mfu=f'{mfu:.4f}',
+                  model_tflop_per_step=f'{flops["model_flops"] / 1e12:.3f}',
+                  dispatch_tflop_per_step=
+                  f'{flops["dispatch_flops"] / 1e12:.3f}',
+                  active_params=flops['active_params'],
+                  capacity=flops['capacity'], loss=f'{loss:.4f}',
+                  moe_aux=f'{aux:.4f}', flash_launches_per_step=per_step)
+    fields.update(profile_step('moe-step', lambda: step(state, tokens, None),
+                               step_ms, _is_attention, 'attention')[0])
+    say('moe-train', timed_step=True, **fields)
+    _say_cosines('moe-train', cosines, MIN_GRAD_COSINE)
+    if not (np.isfinite(loss) and np.isfinite(aux)):
+        fail(f'MoE step loss {loss} or moe_aux {aux} is not finite')
+    want = {'flash_attention_fwd': MOE['n_layers'],
+            'flash_attention_bwd_dq': MOE['n_layers'],
+            'flash_attention_bwd_dkv': MOE['n_layers']}
+    if per_step != want:
+        fail(f'moe-train: expected {want} flash launches a step, got '
+             f'{per_step}')
+    del state, model, step
+    torch.cuda.empty_cache()
+    return {'step_ms': step_ms, 'tokens_per_s': tok_s, 'mfu': mfu,
+            'moe_aux': aux, **flops}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2619,7 +3200,7 @@ def main():
         smi = phase_device()
         phase_build()
         fwd = phase_kernels(args.seed)
-        backward = phase_backward_kernels(args.seed)
+        backward, vit = phase_backward_kernels(args.seed)
         norm = phase_norm_kernel(args.seed)
         norm_bwd = phase_norm_bwd_kernel(args.seed)
         int8 = phase_int8_kernel(args.seed)
@@ -2631,26 +3212,49 @@ def main():
         leg = phase_serving_int8(args.seed)
         train_launches = phase_train(args.seed)
         wide_launches = phase_train_wide_int8(args.seed)
+        moe_launches = phase_moe_train(args.seed)
+        moe_serve = phase_moe_serve(args.seed)
+        vit_launches = phase_vit_train(args.seed)
         cifar_launches = phase_cifar_train(args.seed)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
-        # last, and the launch-bound ResNet step before the LM's
+        # last, the ViT's (timed here, profiled at the end) and the
+        # launch-bound ResNet step before the LM's
+        vit_step = phase_vit_step(args.seed)
         step_norm_ms = phase_cifar_step(args.seed)
         phase_step(args.seed)
+        moe_step = phase_moe_step(args.seed)
         step_wide = phase_step_wide(args.seed)
         norm_device = profile_norm_sites(args.seed)
+        vit_device = profile_vit(args.seed, vit_step['step_ms'])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fwd['launches_by_path'] = {
         'serve': serve_launches,
         'train': train_launches['flash_attention_fwd'],
-        'train_wide_int8': wide_launches['flash_attention_fwd']}
+        'train_wide_int8': wide_launches['flash_attention_fwd'],
+        'moe_train': moe_launches['flash_attention_fwd'],
+        'moe_serve': moe_serve['bf16']['flash_attention_fwd'],
+        'moe_serve_int8': moe_serve['int8']['flash_attention_fwd'],
+        'vit_train': vit_launches['flash_attention_fwd']}
     fwd['launches'] = sum(fwd['launches_by_path'].values())
+    fwd['vit'] = {'shape': [256, 64, 3, 64], 'causal': False,
+                  'with_lse_ms': vit['fwd_lse_ms'],
+                  'bound_ms': vit['fwd_bound_ms'],
+                  'plain_ms': vit['plain_fwd_ms'],
+                  'library_ms': vit['sdpa_fwd_ms'],
+                  'device_ms': vit_device['fwd'],
+                  'library_device_ms': vit_device['sdpa']}
     for entry in backward:
         entry['launches_by_path'] = {
             'train': train_launches[entry['name']],
-            'train_wide_int8': wide_launches[entry['name']]}
+            'train_wide_int8': wide_launches[entry['name']],
+            'moe_train': moe_launches[entry['name']],
+            'vit_train': vit_launches[entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
+        part = 'dq' if entry['name'].endswith('_dq') else 'dkv'
+        entry['vit'].update(device_ms=vit_device[part],
+                            sdpa_bwd_device_ms=vit_device['sdpa_bwd'])
     for entry in ce:
         entry['launches_by_path'] = {
             'train_wide_int8': wide_launches[entry['name']]}
@@ -2668,7 +3272,8 @@ def main():
     int8['launches_by_path'] = {
         'serve_int8_per_layer': int8_serve['flagship_lm_layers'],
         'serve_int8_stacked': int8_serve['flagship_lm'],
-        'serving_int8': leg['launches']['int8_matmul']}
+        'serving_int8': leg['launches']['int8_matmul'],
+        'moe_serve_int8': moe_serve['int8']['int8_matmul']}
     int8['launches'] = sum(int8['launches_by_path'].values())
     int8['dispatch_split'] = int8_split
     stack['launches_by_path'] = {
@@ -2679,6 +3284,10 @@ def main():
     for entry in kernels:
         if entry['launches'] <= 0:
             fail(f'the main path launched no {entry["name"]}')
+    say('moe-vit', moe_step_ms=f'{moe_step["step_ms"]:.2f}',
+        moe_mfu=f'{moe_step["mfu"]:.4f}', moe_aux=moe_step['moe_aux'],
+        vit_step_ms=f'{vit_step["step_ms"]:.3f}',
+        vit_device_busy=vit_device['step'].get('device_busy'))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

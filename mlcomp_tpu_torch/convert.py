@@ -1,8 +1,8 @@
 """Carry weights between JAX variable trees and the port's
-``state_dict``: ``transformer_lm`` below, the image models (``mlp``,
-the ResNets, with their ``batch_stats``) under "image models" further
-down; ``state_dict_from_jax`` and ``variables_to_jax`` dispatch on the
-model.
+``state_dict``: ``transformer_lm`` (dense or MoE) and ``vit`` below, the
+image models (``mlp``, the ResNets, with their ``batch_stats``) under
+"image models" further down; ``state_dict_from_jax`` and
+``variables_to_jax`` dispatch on the model.
 
 A JAX tree (what ``model.init`` returns under ``'params'``, or what an
 export holds) stores each projection as a flax ``DenseGeneral`` kernel,
@@ -20,28 +20,37 @@ pos_embed                  [S, M]                 pos_embed, same
 <l>/mlp/wi_gate/kernel     [M, F]                 layers.i.mlp.wi_gate.weight [F, M]
 <l>/mlp/wi_up/kernel       [M, F]                 layers.i.mlp.wi_up.weight [F, M]
 <l>/mlp/wo/kernel          [F, M]                 layers.i.mlp.wo.weight [M, F]
+<l>/moe/router/kernel      [M, X]                 layers.i.moe.router.weight [X, M]
+<l>/moe/w_in               [X, M, F]              layers.i.moe.w_in, same
+<l>/moe/w_out              [X, F, M]              layers.i.moe.w_out, same
 norm_final/scale           [M]                    norm_final.scale
 lm_head/kernel             [M, V]                 lm_head.weight [V, M]
 =========================  =====================  =======================
 
-``<l>`` is ``layer_i`` in the per-layer layout, or ``layers`` with a
-leading ``[L]`` axis on every leaf in the stacked (``scan_layers``)
-layout. Leaves are numpy arrays or CPU torch tensors; numpy arrays of
-ml_dtypes' bfloat16 (what ``np.asarray`` of a JAX bf16 array gives)
-become ``torch.bfloat16`` tensors, bit for bit.
+An MoE layer (every ``moe_every``-th) holds ``moe`` where a dense one
+holds ``mlp``. ``<l>`` is ``layer_i`` in the per-layer layout, or
+``layers`` with a leading ``[L]`` axis on every leaf in the stacked
+(``scan_layers``) layout, which an MoE stack never has: JAX refuses to
+scan it, and so do both directions here. ``vit`` holds ``patch_embed``
+(kernel [p·p·C, M] → ``patch_embed.weight`` [M, p·p·C]), ``pos_embed``
+[n, M], the per-layer ``layer_i`` as above, ``norm_final`` and ``head``
+(kernel [M, classes] → ``head.weight`` [classes, M]). Leaves are numpy
+arrays or CPU torch tensors; numpy arrays of ml_dtypes' bfloat16 (what
+``np.asarray`` of a JAX bf16 array gives) become ``torch.bfloat16``
+tensors, bit for bit.
 """
 
 import numpy as np
 import torch
 
+from mlcomp_tpu_torch.models.transformer import scan_layers
+from mlcomp_tpu_torch.models.vit import ViT
 from mlcomp_tpu_torch.train.layer_stack import (
     STACKED_KEY, stack_layer_tree, unstack_layer_tree,
 )
 
-_LAYER_LEAVES = (('norm_attn', 'scale'), ('attn', 'qkv', 'kernel'),
-                 ('attn', 'out', 'kernel'), ('norm_mlp', 'scale'),
-                 ('mlp', 'wi_gate', 'kernel'), ('mlp', 'wi_up', 'kernel'),
-                 ('mlp', 'wo', 'kernel'))
+#: leaves of one decoder layer, dense or MoE
+_LAYER_LEAF_COUNT = 7
 
 
 def to_tensor(x) -> torch.Tensor:
@@ -77,24 +86,29 @@ def _leaf_count(tree) -> int:
     return 1
 
 
-def params_from_jax(tree) -> dict:
-    """JAX transformer_lm params (stacked or per-layer) → the port's
-    ``state_dict`` of CPU tensors (an int8-trained model's too: its
-    ``Int8DenseGeneral`` keeps ``DenseGeneral``'s ``kernel``). Raises on
-    a tree of another structure (e.g. MoE layers, which the port does
-    not implement)."""
-    if STACKED_KEY in tree:
-        tree = unstack_layer_tree(tree)
-    layers = sorted((k for k in tree if k.startswith('layer_')),
-                    key=lambda k: int(k.split('_')[1]))
-    expected = 4 + len(layers) * len(_LAYER_LEAVES)
+def _layer_names(tree) -> list:
+    return sorted((k for k in tree if k.startswith('layer_')),
+                  key=lambda k: int(k.split('_')[1]))
+
+
+def _check_leaves(tree, layers, other: int, what: str):
+    expected = other + len(layers) * _LAYER_LEAF_COUNT
     if _leaf_count(tree) != expected:
         raise ValueError(
-            f'JAX params hold {_leaf_count(tree)} leaves, a dense '
-            f'{len(layers)}-layer transformer_lm has {expected} — '
-            f'MoE layers are not ported')
-    sd = {'embed': to_tensor(tree['embed']),
-          'pos_embed': to_tensor(tree['pos_embed'])}
+            f'JAX params hold {_leaf_count(tree)} leaves, a '
+            f'{len(layers)}-layer {what} has {expected}: the tree holds '
+            f'leaves the port does not know')
+
+
+def _dense_weight(layer, path, where) -> torch.Tensor:
+    """A 2-D ``kernel`` [in, out] as the port's [out, in] weight."""
+    return to_tensor(_get(layer, path + ('kernel',), where)).T.contiguous()
+
+
+def _layers_from_jax(tree, layers) -> dict:
+    """The per-layer subtrees ``layers`` of ``tree`` → their port
+    state-dict entries (``layers.i.*``)."""
+    sd = {}
     for i, name in enumerate(layers):
         layer = tree[name]
         pre = f'layers.{i}.'
@@ -108,13 +122,53 @@ def params_from_jax(tree) -> dict:
             out.reshape(-1, out.shape[-1]).T.contiguous()
         sd[pre + 'norm_mlp.scale'] = to_tensor(
             _get(layer, ('norm_mlp', 'scale'), name))
-        for proj in ('wi_gate', 'wi_up', 'wo'):
-            sd[pre + f'mlp.{proj}.weight'] = to_tensor(
-                _get(layer, ('mlp', proj, 'kernel'), name)).T.contiguous()
+        if 'moe' in layer:
+            sd[pre + 'moe.router.weight'] = _dense_weight(
+                layer, ('moe', 'router'), name)
+            for leaf in ('w_in', 'w_out'):
+                sd[pre + f'moe.{leaf}'] = to_tensor(
+                    _get(layer, ('moe', leaf), name))
+        else:
+            for proj in ('wi_gate', 'wi_up', 'wo'):
+                sd[pre + f'mlp.{proj}.weight'] = _dense_weight(
+                    layer, ('mlp', proj), name)
+    return sd
+
+
+def params_from_jax(tree) -> dict:
+    """JAX transformer_lm params (stacked or per-layer; dense or, per
+    layer, MoE) → the port's ``state_dict`` of CPU tensors (an
+    int8-trained model's too: its ``Int8DenseGeneral`` keeps
+    ``DenseGeneral``'s ``kernel``). Raises on a tree of another
+    structure, and on a stacked MoE tree (JAX refuses to scan one)."""
+    if STACKED_KEY in tree:
+        if 'moe' in tree[STACKED_KEY]:
+            raise ValueError(
+                'a stacked (scan_layers) tree with MoE layers: the JAX '
+                'package refuses scan_layers=True with n_experts > 0')
+        tree = unstack_layer_tree(tree)
+    layers = _layer_names(tree)
+    _check_leaves(tree, layers, 4, 'transformer_lm')
+    sd = {'embed': to_tensor(tree['embed']),
+          'pos_embed': to_tensor(tree['pos_embed'])}
+    sd.update(_layers_from_jax(tree, layers))
     sd['norm_final.scale'] = to_tensor(
         _get(tree, ('norm_final', 'scale'), 'params'))
-    sd['lm_head.weight'] = to_tensor(
-        _get(tree, ('lm_head', 'kernel'), 'params')).T.contiguous()
+    sd['lm_head.weight'] = _dense_weight(tree, ('lm_head',), 'params')
+    return sd
+
+
+def vit_params_from_jax(tree) -> dict:
+    """JAX ``vit`` params → the port's ``state_dict`` of CPU tensors."""
+    layers = _layer_names(tree)
+    _check_leaves(tree, layers, 4, 'vit')
+    sd = {'patch_embed.weight': _dense_weight(tree, ('patch_embed',),
+                                              'params'),
+          'pos_embed': to_tensor(tree['pos_embed'])}
+    sd.update(_layers_from_jax(tree, layers))
+    sd['norm_final.scale'] = to_tensor(
+        _get(tree, ('norm_final', 'scale'), 'params'))
+    sd['head.weight'] = _dense_weight(tree, ('head',), 'params')
     return sd
 
 
@@ -130,9 +184,11 @@ def port_module_name(path) -> str:
 
 def lm_kernel_shapes(state_dict, n_heads: int) -> dict:
     """{parameter name: the shape of its JAX ``kernel``} for each
-    projection of a transformer_lm ``state_dict``: the JAX kernel is
-    ``weight.t().reshape(shape)`` (``qkv`` [M, 3, H, D], ``out``
-    [H, D, M], the MLP's and the head [in, out])."""
+    projection of a transformer_lm or vit ``state_dict``: the JAX kernel
+    is ``weight.t().reshape(shape)`` (``qkv`` [M, 3, H, D], ``out``
+    [H, D, M], the MLP's, the MoE router, the head and ``patch_embed``
+    [in, out]). The MoE experts' ``w_in`` / ``w_out`` are stored in the
+    JAX layout and have no entry."""
     shapes = {}
     for name, w in state_dict.items():
         if not name.endswith('.weight'):
@@ -148,41 +204,74 @@ def lm_kernel_shapes(state_dict, n_heads: int) -> dict:
 
 
 def jax_kernel_shapes(model) -> dict:
-    """``lm_kernel_shapes`` of a port transformer_lm; {} for the image
-    models, whose kernels keep their own two largest dims. Adafactor
-    factors its second moments over these shapes, as optax does over
-    the JAX tree."""
+    """``lm_kernel_shapes`` of a port transformer_lm or vit; {} for the
+    image models, whose kernels keep their own two largest dims.
+    Adafactor factors its second moments over these shapes, as optax
+    does over the JAX tree."""
     cfg = getattr(model, 'cfg', None)
     if cfg is None:
         return {}
     return lm_kernel_shapes(model.state_dict(), cfg.n_heads)
 
 
-def params_to_jax(state_dict, n_heads: int, stacked: bool = True) -> dict:
-    """The port's ``state_dict`` → a JAX transformer_lm params tree, in
-    the stacked (``stacked=True``) or per-layer layout."""
-    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-    shapes = lm_kernel_shapes(sd, n_heads)
-
+def _layers_to_jax(sd, shapes) -> dict:
+    """The port's ``layers.i.*`` entries → {``layer_i``: subtree}."""
     def kernel(name):
         return _to_leaf(sd[name].T.reshape(shapes[name]))
 
     n_layers = 1 + max((int(k.split('.')[1]) for k in sd
                         if k.startswith('layers.')), default=-1)
-    tree = {'embed': _to_leaf(sd['embed']),
-            'pos_embed': _to_leaf(sd['pos_embed'])}
+    tree = {}
     for i in range(n_layers):
         pre = f'layers.{i}.'
-        tree[f'layer_{i}'] = {
+        layer = {
             'norm_attn': {'scale': _to_leaf(sd[pre + 'norm_attn.scale'])},
             'attn': {proj: {'kernel': kernel(f'{pre}attn.{proj}.weight')}
                      for proj in ('qkv', 'out')},
-            'norm_mlp': {'scale': _to_leaf(sd[pre + 'norm_mlp.scale'])},
-            'mlp': {proj: {'kernel': kernel(f'{pre}mlp.{proj}.weight')}
-                    for proj in ('wi_gate', 'wi_up', 'wo')}}
-    tree['norm_final'] = {'scale': _to_leaf(sd['norm_final.scale'])}
-    tree['lm_head'] = {'kernel': kernel('lm_head.weight')}
+            'norm_mlp': {'scale': _to_leaf(sd[pre + 'norm_mlp.scale'])}}
+        if pre + 'moe.w_in' in sd:
+            layer['moe'] = {
+                'router': {'kernel': kernel(pre + 'moe.router.weight')},
+                'w_in': _to_leaf(sd[pre + 'moe.w_in']),
+                'w_out': _to_leaf(sd[pre + 'moe.w_out'])}
+        else:
+            layer['mlp'] = {proj: {'kernel': kernel(f'{pre}mlp.{proj}.weight')}
+                            for proj in ('wi_gate', 'wi_up', 'wo')}
+        tree[f'layer_{i}'] = layer
+    return tree
+
+
+def _host(state_dict) -> dict:
+    return {k: v.detach().cpu() for k, v in state_dict.items()}
+
+
+def params_to_jax(state_dict, n_heads: int, stacked: bool = True) -> dict:
+    """The port's ``state_dict`` → a JAX transformer_lm params tree, in
+    the stacked (``stacked=True``) or per-layer layout; an MoE stack has
+    the per-layer layout only (JAX refuses to scan it)."""
+    sd = _host(state_dict)
+    if stacked and any('.moe.' in k for k in sd):
+        raise ValueError(
+            'an MoE stack has no stacked (scan_layers) layout: the JAX '
+            'package refuses scan_layers=True with n_experts > 0')
+    shapes = lm_kernel_shapes(sd, n_heads)
+    tree = {'embed': _to_leaf(sd['embed']),
+            'pos_embed': _to_leaf(sd['pos_embed']),
+            **_layers_to_jax(sd, shapes),
+            'norm_final': {'scale': _to_leaf(sd['norm_final.scale'])},
+            'lm_head': {'kernel': _to_leaf(sd['lm_head.weight'].T)}}
     return stack_layer_tree(tree) if stacked else tree
+
+
+def vit_params_to_jax(state_dict, n_heads: int) -> dict:
+    """The port's ``state_dict`` of a ``vit`` → its JAX params tree."""
+    sd = _host(state_dict)
+    shapes = lm_kernel_shapes(sd, n_heads)
+    return {'patch_embed': {'kernel': _to_leaf(sd['patch_embed.weight'].T)},
+            'pos_embed': _to_leaf(sd['pos_embed']),
+            **_layers_to_jax(sd, shapes),
+            'norm_final': {'scale': _to_leaf(sd['norm_final.scale'])},
+            'head': {'kernel': _to_leaf(sd['head.weight'].T)}}
 
 
 # ------------------------------------------------------------ image models
@@ -267,6 +356,8 @@ def state_dict_from_jax(variables: dict, name: str) -> dict:
     variables = unwrap_value_nodes(variables)
     if name.lower() == 'transformer_lm':
         return params_from_jax(variables['params'])
+    if name.lower() == 'vit':
+        return vit_params_from_jax(variables['params'])
     return image_state_dict_from_jax(variables)
 
 
@@ -276,18 +367,25 @@ def variables_to_jax(model) -> dict:
     next train step's in-place updates leave alone."""
     sd = {k: v.detach().to('cpu', copy=True)
           for k, v in model.state_dict().items()}
+    if isinstance(model, ViT):
+        return {'params': vit_params_to_jax(sd, n_heads=model.cfg.n_heads)}
     cfg = getattr(model, 'cfg', None)
     if cfg is not None:                         # transformer_lm
-        stacked = cfg.scan_layers if cfg.scan_layers != 'auto' else True
         return {'params': params_to_jax(sd, n_heads=cfg.n_heads,
-                                        stacked=bool(stacked))}
+                                        stacked=scan_layers(cfg))}
     return image_variables_to_jax(sd)
 
 
-def input_shape_from_params(name: str, params: dict):
+def input_shape_from_params(name: str, params: dict, spec: dict = None):
     """The input shape an image model's weights imply, for building the
     port's model around an export without one: a ResNet's stem gives its
-    channels, an MLP's first layer its features; None for others."""
+    channels, a ViT's patch projection too (over the spec's
+    ``patch_size``), an MLP's first layer its features; None for
+    others."""
+    if name.lower() == 'vit':
+        p = (spec or {}).get('patch_size', 4)
+        return (None, None, int(to_tensor(params['patch_embed']['kernel'])
+                               .shape[0]) // (p * p))
     if name.lower().startswith('resnet'):
         return (None, None, int(to_tensor(params['conv_stem']['kernel'])
                                .shape[2]))
@@ -297,6 +395,7 @@ def input_shape_from_params(name: str, params: dict):
 
 
 __all__ = ['params_from_jax', 'params_to_jax', 'port_module_name',
+           'vit_params_from_jax', 'vit_params_to_jax',
            'to_tensor',
            'image_state_dict_from_jax', 'image_variables_to_jax',
            'jax_kernel_shapes', 'lm_kernel_shapes',

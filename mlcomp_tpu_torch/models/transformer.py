@@ -25,6 +25,13 @@ masks), and with ``remat`` each ``DecoderLayer`` under
 ``torch.utils.checkpoint`` (non-reentrant), whose recompute launches the
 attention forward again. At eval both have no effect, as in JAX.
 
+``n_experts > 0`` makes every ``moe_every``-th layer (layer ``i`` with
+``i % moe_every == moe_every - 1``) a ``MoeMlpBlock``: Switch top-1
+routing with a static capacity, as the JAX package's. Its load-balance
+loss is not kept on the module: ``forward(..., return_aux=True)``
+returns it with the logits, summed over the MoE layers, and the train
+step adds it (``train/loop.py``).
+
 ``matmul_precision: int8`` builds ``models/quant.py``'s
 ``Int8DenseGeneral`` for ``qkv``, ``out``, ``wi_gate``, ``wi_up`` and
 ``wo`` (the same ``weight`` parameter as ``Dense``; its product is the
@@ -34,8 +41,9 @@ JAX package does.
 Weights are stored the PyTorch way (a projection's ``weight`` is
 ``[out, in]``); ``convert.py`` maps them to and from the JAX trees in
 both ``scan_layers`` layouts (``lm_kernel_shapes`` there names the JAX
-kernel's shape of each projection). Knobs this port does not implement
-yet raise: ``n_experts > 0`` (MoE) and a mesh.
+kernel's shape of each projection; an MoE stack has the per-layer
+layout only). A mesh (sharding, experts over ``ep``) is not ported yet
+and raises.
 """
 
 import dataclasses
@@ -104,15 +112,24 @@ def check_config(cfg: TransformerConfig):
         raise ValueError(
             f"matmul_precision must be 'bf16' or 'int8', "
             f'got {cfg.matmul_precision!r}')
-    if cfg.n_experts:
-        raise NotImplementedError(
-            'n_experts > 0 (MoE) is not ported yet (ROADMAP.md, queue A: '
-            'parallel and distributed)')
+    if cfg.n_experts and scan_layers(cfg):
+        raise ValueError(
+            'scan_layers=True needs a homogeneous stack — the MoE '
+            'interleave (n_experts>0) makes every moe_every-th layer a '
+            "different program; use scan_layers=False or leave it 'auto'")
     resolve_impl(cfg.attn_impl)
     if cfg.d_model % cfg.n_heads:
         raise ValueError(
             f'd_model {cfg.d_model} is not divisible by n_heads '
             f'{cfg.n_heads}')
+
+
+def scan_layers(cfg: TransformerConfig) -> bool:
+    """Does the JAX package stack this config's layers (``nn.scan``)?
+    ``auto`` does unless the stack has MoE layers."""
+    if cfg.scan_layers == 'auto':
+        return not cfg.n_experts
+    return bool(cfg.scan_layers)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -216,24 +233,129 @@ class MlpBlock(nn.Module):
         return dropout(y, self.cfg.dropout, generator)
 
 
-class DecoderLayer(nn.Module):
+class MoeMlpBlock(nn.Module):
+    """Switch-style top-1 mixture-of-experts MLP, the JAX package's
+    dense-dispatch formulation: an f32 router (bias-free, its own f32
+    parameter), softmax, the top expert's probability as the gate (the
+    first index on ties, as ``jnp.argmax``), a static capacity of
+    ``max(1, int(capacity_factor * T / X))`` tokens an expert filled in
+    token order, and overflow tokens left to the residual path. Dispatch
+    and combine are [B, T, X, C] one-hots cast to ``dtype`` before the
+    einsums; the expert MLP is ``silu`` of one input projection.
+    ``w_in`` [X, M, F] and ``w_out`` [X, F, M] are stored as the JAX
+    tree holds them, in ``param_dtype``.
+
+    ``forward`` returns (y, aux): aux is the Switch load-balance loss
+    ``X · Σ_x density_x · mean prob_x`` (f32), which JAX sows."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        x, m, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        pdtype = torch_dtype(cfg.param_dtype)
+        self.router = Dense(m, x, torch.float32, torch.float32, device)
+        self.w_in = nn.Parameter(
+            torch.empty(x, m, f, dtype=pdtype, device=device))
+        self.w_out = nn.Parameter(
+            torch.empty(x, f, m, dtype=pdtype, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """normal(0.02) router; lecun-normal experts over flax's fan-in
+        of a 3-D kernel (the expert axis counts as receptive field)."""
+        x, m, f = self.w_in.shape
+        self.router.weight.normal_(0.0, 0.02, generator=generator)
+        self.w_in.normal_(0.0, (x * m) ** -0.5, generator=generator)
+        self.w_out.normal_(0.0, (x * f) ** -0.5, generator=generator)
+
+    def forward(self, x, generator=None):
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        n_x = cfg.n_experts
+        _, t, _ = x.shape
+        capacity = max(1, int(cfg.capacity_factor * t / n_x))
+
+        probs = torch.softmax(self.router(x.float()), dim=-1)   # [B,T,X]
+        gate = probs.amax(dim=-1)                               # [B,T]
+        one_hot = F.one_hot(probs.argmax(dim=-1), n_x)          # [B,T,X]
+        aux = n_x * (one_hot.float().mean(dim=(0, 1))
+                     * probs.mean(dim=(0, 1))).sum()
+
+        # each token's slot in its expert's buffer (-1 where not routed;
+        # slots past the capacity match no column: the token overflows).
+        # The running count goes along the last dim: a scan over T as
+        # dim 1 of [B, T, X] runs B·X threads serially on the card. pos
+        # is made contiguous again, or the [B, T, X, C] compare below
+        # takes the slow strided path
+        count = one_hot.transpose(1, 2).cumsum(dim=-1).transpose(1, 2)
+        pos = (count * one_hot - 1).contiguous()                 # [B,T,X]
+        slots = torch.arange(capacity, device=x.device)
+        # built in dtype: its values are 0 and 1, so this is JAX's f32
+        # dispatch cast to dtype, and combine (one gate a token) is its
+        # f32 dispatch * gate cast to dtype, bit for bit
+        dispatch = (pos.unsqueeze(-1) == slots).to(dtype)       # [B,T,X,C]
+        combine = dispatch * gate.to(dtype)[..., None, None]
+
+        expert_in = torch.einsum('btxc,btm->xbcm', dispatch, x.to(dtype))
+        h = F.silu(torch.einsum('xbcm,xmf->xbcf', expert_in,
+                                self.w_in.to(dtype)))
+        out = torch.einsum('xbcf,xfm->xbcm', h, self.w_out.to(dtype))
+        y = torch.einsum('btxc,xbcm->btm', combine, out)
+        return dropout(y, cfg.dropout, generator), aux
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 use_moe: bool = False):
         super().__init__()
         dtype, pdtype = torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
         self.norm_attn = RMSNorm(cfg.d_model, dtype, pdtype, device=device)
         self.attn = Attention(cfg, device)
         self.norm_mlp = RMSNorm(cfg.d_model, dtype, pdtype, device=device)
-        self.mlp = MlpBlock(cfg, device)
+        if use_moe:
+            self.moe = MoeMlpBlock(cfg, device)
+        else:
+            self.mlp = MlpBlock(cfg, device)
 
     def forward(self, x, seed: Optional[int] = None):
-        """``seed`` (training with dropout): this layer's dropout masks
-        come from a device generator seeded with it, so a recompute under
-        ``checkpoint`` draws the same ones."""
+        """(x, aux): aux is the MoE block's load-balance loss, None for a
+        dense layer. ``seed`` (training with dropout): this layer's
+        dropout masks come from a device generator seeded with it, so a
+        recompute under ``checkpoint`` draws the same ones."""
         gen = None
         if seed is not None:
             gen = torch.Generator(x.device).manual_seed(seed)
         x = x + self.attn(self.norm_attn(x), gen)
-        return x + self.mlp(self.norm_mlp(x), gen)
+        if hasattr(self, 'moe'):
+            y, aux = self.moe(self.norm_mlp(x), gen)
+            return x + y, aux
+        return x + self.mlp(self.norm_mlp(x), gen), None
+
+
+def run_layers(layers, cfg: TransformerConfig, x, train: bool,
+               generator: Optional[torch.Generator]):
+    """(x, aux) through the decoder ``layers``: aux sums the MoE layers'
+    load-balance losses (None without any). ``train``: dropout with
+    masks from ``generator`` (a CPU ``torch.Generator``; required when
+    ``dropout`` > 0) and ``remat`` checkpointing take effect."""
+    seeds = [None] * len(layers)
+    if train and cfg.dropout:
+        if generator is None:
+            raise ValueError(
+                'train=True with dropout > 0 needs a generator for the '
+                'dropout masks')
+        seeds = torch.randint(0, 2 ** 62, (len(layers),),
+                              generator=generator).tolist()
+    total = None
+    for layer, seed in zip(layers, seeds):
+        if train and cfg.remat and torch.is_grad_enabled():
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer, x, seed, use_reentrant=False)
+        else:
+            x, aux = layer(x, seed)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return x, total
 
 
 class TransformerLM(nn.Module):
@@ -248,8 +370,11 @@ class TransformerLM(nn.Module):
             cfg.vocab_size, cfg.d_model, dtype=pdtype, device=device))
         self.pos_embed = nn.Parameter(torch.empty(
             cfg.max_seq_len, cfg.d_model, dtype=pdtype, device=device))
+        # every moe_every-th layer is MoE (the Switch interleave)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.n_layers))
+            DecoderLayer(cfg, device, use_moe=bool(cfg.n_experts) and (
+                i % cfg.moe_every == cfg.moe_every - 1))
+            for i in range(cfg.n_layers))
         self.norm_final = RMSNorm(cfg.d_model, self.dtype, pdtype,
                                   device=device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size,
@@ -273,38 +398,35 @@ class TransformerLM(nn.Module):
                                       generator=generator)
             elif isinstance(module, RMSNorm):
                 module.scale.fill_(1.0)
+        for module in self.modules():
+            if isinstance(module, MoeMlpBlock):
+                module.reset_parameters(generator)
+
+    @property
+    def has_moe(self) -> bool:
+        return bool(self.cfg.n_experts)
 
     def forward(self, tokens, train: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """Logits [B, T, V]. ``train``: dropout with masks from
-        ``generator`` (a CPU ``torch.Generator``; required when
-        ``dropout`` > 0) and ``remat`` checkpointing take effect."""
-        cfg = self.cfg
-        seeds = [None] * cfg.n_layers
-        if train and cfg.dropout:
-            if generator is None:
-                raise ValueError(
-                    'train=True with dropout > 0 needs a generator for the '
-                    'dropout masks')
-            seeds = torch.randint(0, 2 ** 62, (cfg.n_layers,),
-                                  generator=generator).tolist()
+                generator: Optional[torch.Generator] = None,
+                return_aux: bool = False):
+        """Logits [B, T, V], or with ``return_aux`` (logits, aux): aux is
+        the MoE layers' summed load-balance loss (f32), None for a dense
+        stack. ``train``: dropout and ``remat`` take effect
+        (``run_layers``)."""
         x = embed_lookup(self.embed, tokens).to(self.dtype)
         x = x + self.pos_embed[:tokens.shape[1]].to(self.dtype)
-        for layer, seed in zip(self.layers, seeds):
-            if train and cfg.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(
-                    layer, x, seed, use_reentrant=False)
-            else:
-                x = layer(x, seed)
-        return self.lm_head(self.norm_final(x))
+        x, aux = run_layers(self.layers, self.cfg, x, train, generator)
+        logits = self.lm_head(self.norm_final(x))
+        return (logits, aux) if return_aux else logits
 
 
 @register_model('transformer_lm')
 def _transformer(mesh=None, device=None, generator=None, **kwargs):
     if mesh is not None:
         raise NotImplementedError(
-            'a device mesh (sharded transformer) is not ported yet '
-            '(ROADMAP.md, queue A: parallel and distributed)')
+            'a device mesh (a sharded transformer, MoE experts over ep) is '
+            'not ported yet (ROADMAP.md, queue A: A4 parallel and '
+            'distributed)')
     fields = {f.name for f in dataclasses.fields(TransformerConfig)}
     cfg = TransformerConfig(
         **{k: v for k, v in kwargs.items() if k in fields})
@@ -312,6 +434,7 @@ def _transformer(mesh=None, device=None, generator=None, **kwargs):
 
 
 __all__ = ['TransformerConfig', 'TransformerLM', 'DecoderLayer',
-           'Attention', 'MlpBlock', 'RMSNorm', 'Dense', 'Int8DenseGeneral',
+           'Attention', 'MlpBlock', 'MoeMlpBlock', 'RMSNorm', 'run_layers',
+           'scan_layers', 'check_config', 'Dense', 'Int8DenseGeneral',
            'projection', 'dropout',
            'embed_lookup', 'torch_dtype']

@@ -27,14 +27,17 @@ import math
 
 import torch
 
+#: the ViT classifier's attention at ``encoder_grid``'s batch 256: 64
+#: patches (less than one q tile), 3 heads of 64, bidirectional
+VIT_SHAPE = (256, 64, 3, 64, torch.bfloat16, False)
 #: (B, T, H, D, dtype, causal) at which the card-side checks hold the
 #: kernel against its plain version: the flagship LM's serving shape
 #: first (batch 4, T=8192, 16 heads of 64, causal, bf16), the long-context
 #: leg of ``bench.py``'s ``bench_lm`` (batch 1, T=32768, 8 heads of 64:
 #: d_model 512), the wide LM's training shape (batch 1, T=8192, 32 heads
 #: of 64: q, k, v rows 3·32·64 apart), then long sequences causal and
-#: not, ragged T, every head dim, fp16, f32 (the SIMT path), T=1 and a T
-#: just past one K/V tile
+#: not, ragged T, every head dim, fp16, f32 (the SIMT path), T=1, a T
+#: just past one K/V tile, and the ViT's (VIT_SHAPE)
 ATTENTION_SHAPES = [
     (4, 8192, 16, 64, torch.bfloat16, True),
     (1, 32768, 8, 64, torch.bfloat16, True),
@@ -49,6 +52,7 @@ ATTENTION_SHAPES = [
     (1, 129, 2, 128, torch.float32, False),
     (3, 1, 2, 64, torch.bfloat16, True),
     (1, 65, 3, 32, torch.float16, False),
+    VIT_SHAPE,
 ]
 #: bound on the max over rows of |out - ref| / |ref|, by input dtype; a
 #: few ulps of the output's rounding (bf16 2^-8, fp16 2^-11 relative),
@@ -62,7 +66,7 @@ ATTENTION_ROW_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
 #: the flagship LM's training shape first (batch 1, T=8192, 16 heads of
 #: 64, causal, bf16), the wide LM's (32 heads of 64), then non-causal,
 #: ragged T, every head dim, fp16, f32 (the SIMT path, both head-dim
-#: extremes) and T=1
+#: extremes), T=1 and the ViT's (VIT_SHAPE)
 BACKWARD_SHAPES = [
     (1, 8192, 16, 64, torch.bfloat16, True),
     (1, 8192, 32, 64, torch.bfloat16, True),
@@ -74,6 +78,7 @@ BACKWARD_SHAPES = [
     (1, 300, 4, 64, torch.float32, True),
     (1, 129, 2, 128, torch.float32, False),
     (3, 1, 2, 64, torch.bfloat16, True),
+    VIT_SHAPE,
 ]
 #: bound on the row error of dq, dk and dv against
 #: ``reference_attention_backward`` (the kernels' own numerics: P and dS
@@ -85,6 +90,16 @@ BACKWARD_ROW_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3,
 #: out over a head, a change of the numerics (dS not rounded) does not
 BACKWARD_HEAD_TOL = {torch.bfloat16: 1e-3, torch.float16: 2e-4,
                      torch.float32: 1e-6}
+#: the head bound at the ViT's shape (VIT_SHAPE, bf16) in place of
+#: BACKWARD_HEAD_TOL's 1e-3: a head there is 64 rows, too few for the
+#: flips to average out, and the bound is the max over 768 such heads.
+#: On the H100 the kernels' heads read 3.8e-4 to 1.11e-3 there
+#: (``kernel_faults``' three seeds and the smoke's; rows at most 5.1e-3
+#: of their 1e-2); the faults the head bound exists for
+#: (``kernel_faults.HEAD_BOUND_FAULTS``: dS not rounded before dS K or
+#: dSᵀ Q), which the row bound passes (rows 5.1-5.8e-3), read 3.13 to
+#: 3.21e-3 on the gradient they bend
+VIT_HEAD_TOL = 2e-3
 #: bound on the error of each head's whole dq, dk and dv ([T, D], L2)
 #: against torch autograd through the plain ``reference_attention`` (no
 #: rounding of P or dS), by input dtype: what the rounding the TPU
@@ -732,12 +747,22 @@ def backward_check(shape, gen, device='cuda') -> dict:
     }
 
 
-def backward_ok(result: dict, dtype) -> bool:
-    """Every bound of ``backward_check``'s result holds."""
+def backward_head_tol(shape) -> float:
+    """The head bound at a ``BACKWARD_SHAPES`` shape: VIT_HEAD_TOL at
+    VIT_SHAPE, else BACKWARD_HEAD_TOL by dtype."""
+    return VIT_HEAD_TOL if tuple(shape) == VIT_SHAPE \
+        else BACKWARD_HEAD_TOL[shape[4]]
+
+
+def backward_ok(result: dict, dtype, shape=None) -> bool:
+    """Every bound of ``backward_check``'s result holds (the head bound
+    ``backward_head_tol(shape)`` where the shape is given)."""
+    head_tol = BACKWARD_HEAD_TOL[dtype] if shape is None \
+        else backward_head_tol(shape)
     return (result['finite'] and result['lse_err'] <= LSE_TOL
             and all(e <= BACKWARD_ROW_TOL[dtype]
                     for e in result['row_err'].values())
-            and all(e <= BACKWARD_HEAD_TOL[dtype]
+            and all(e <= head_tol
                     for e in result['head_err'].values())
             and all(e <= AUTOGRAD_HEAD_TOL[dtype]
                     for e in result['autograd_head_err'].values()))
@@ -777,6 +802,7 @@ __all__ = ['CE_CANARY', 'CE_LOGIT_SCALE', 'CE_LOSS_TOL', 'CE_ROW_TOL',
            'CE_SHAPES', 'ce_check', 'ce_inputs', 'ce_ok',
            'ATTENTION_ROW_TOL', 'ATTENTION_SHAPES', 'AUTOGRAD_HEAD_TOL',
            'BACKWARD_HEAD_TOL', 'BACKWARD_ROW_FLOOR', 'BACKWARD_ROW_TOL',
+           'VIT_HEAD_TOL', 'VIT_SHAPE', 'backward_head_tol',
            'BACKWARD_SHAPES', 'CANARY_ROWS', 'CIFAR_SITE_ACTS',
            'INT8_EPILOGUE_SHAPES', 'INT8_ROW_TOL', 'INT8_SHAPES',
            'INT8_TRAIN_SHAPES', 'int8_epilogue_check', 'int8_epilogue_ok',

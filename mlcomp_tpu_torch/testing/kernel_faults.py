@@ -17,7 +17,11 @@ textual edit of a kernel's ``csrc/*.cu`` (or of a header it includes,
 copied beside it) written to a temporary directory (the checkout is not
 touched) and built with the package's nvcc flags, runs at the serving
 shape (forward faults; their lse also at the training shape), the
-training shape (backward faults) or every
+training shape (backward faults), the ViT's shape
+(``kernel_check.VIT_SHAPE``: non-causal, one partial tile; the
+``NON_CAUSAL`` faults, forward and backward, and the
+``HEAD_BOUND_FAULTS`` over every seed, which the head bound alone must
+catch) or every
 shape of its kernel (norm, int8, stack and CE faults: caught if any
 shape fails a bound). Each line gives the errors against their bounds. Exits 1
 if a kernel as it stands fails a bound or a planted fault passes them
@@ -36,12 +40,11 @@ import torch
 from mlcomp_tpu_torch.ops import _build
 from mlcomp_tpu_torch.ops import flash_attention as fa
 from mlcomp_tpu_torch.testing.kernel_check import (
-    ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_HEAD_TOL, BACKWARD_ROW_TOL,
-    BACKWARD_SHAPES, CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES,
-    INT8_EPILOGUE_SHAPES, INT8_ROW_TOL, INT8_SHAPES, LSE_TOL, NORM_DX_TOL,
-    NORM_GRAD_TOL, NORM_SHAPES, NORM_STAT_TOL, NORM_Y_TOL,
-    STACK_ROW_TOL, STACK_SHAPES, backward_check, backward_ok, ce_check,
-    ce_ok, forward_with_lse, int8_check, int8_epilogue_check,
+    ATTENTION_ROW_TOL, ATTENTION_SHAPES, BACKWARD_ROW_TOL, BACKWARD_SHAPES,
+    CE_LOSS_TOL, CE_ROW_TOL, CE_SHAPES, INT8_EPILOGUE_SHAPES, INT8_ROW_TOL,
+    INT8_SHAPES, LSE_TOL, NORM_DX_TOL, NORM_GRAD_TOL, NORM_SHAPES,
+    NORM_STAT_TOL, NORM_Y_TOL, STACK_ROW_TOL, STACK_SHAPES, VIT_SHAPE,
+    backward_check, backward_head_tol, backward_ok, ce_check, ce_ok, forward_with_lse, int8_check, int8_epilogue_check,
     int8_epilogue_ok, int8_ok, lse_error, norm_bwd_check, norm_bwd_ok,
     norm_check, norm_ok, qkv_views, row_relative_error, stack_check, stack_ok,
     stack_tol,
@@ -109,11 +112,16 @@ _DQ_PACK = ('          a[kk][3] = Mma<T>::pack(sc[8 * kk + 6], '
 _DQ_WGMMA = ('          Wgmma<T, D>::template rs<1>(dq, a[kk], '
              'Tl::mn_major(Kc, BLOCK_N, kk));\n')
 _DV_WGMMA = 'Wgmma<T, D>::template rs<1>(dv, pa[kk],'
+_DKV_A = '        uint32_t pa[BLOCK_M / 16][4], sa[BLOCK_M / 16][4];\n'
+_DKV_PACK = ('            sa[kk][j] = Mma<T>::pack(dp[8 * kk + 2 * j], '
+             'dp[8 * kk + 2 * j + 1]);\n')
+_DK_WGMMA = ('          Wgmma<T, D>::template rs<1>(dk, sa[kk], '
+             'Tl::mn_major(Qc, BLOCK_M, kk));\n')
 
 
-def _residue(j: int) -> str:
-    """The part of dS element sc[8 kk + j] that rounding to T drops."""
-    return f'sc[8 * kk + {j}] - float(T(sc[8 * kk + {j}]))'
+def _residue(j, acc: str = 'sc') -> str:
+    """The part of dS element acc[8 kk + j] that rounding to T drops."""
+    return f'{acc}[8 * kk + {j}] - float(T({acc}[8 * kk + {j}]))'
 
 
 #: name -> [(text of the backward kernels' source, its replacement), ...]
@@ -136,6 +144,14 @@ BACKWARD_FAULTS = {
             f'          lo[kk][{j}] = Mma<T>::pack({_residue(2 * j)}, '
             f'{_residue(2 * j + 1)});\n' for j in range(4))),
         (_DQ_WGMMA, _DQ_WGMMA + _DQ_WGMMA.replace('a[kk]', 'lo[kk]'))],
+    # dk: dS not rounded to the input dtype before dSᵀ Q (its rounding
+    # residue goes through a second product), dq's fault above in dkv
+    'dkv_ds_not_rounded': [
+        (_DKV_A, _DKV_A.replace('];\n', '], lo[BLOCK_M / 16][4];\n')),
+        (_DKV_PACK, _DKV_PACK + '            lo[kk][j] = Mma<T>::pack('
+         + _residue('2 * j', 'dp') + ', ' + _residue('2 * j + 1', 'dp')
+         + ');\n'),
+        (_DK_WGMMA, _DK_WGMMA + _DK_WGMMA.replace('sa[kk]', 'lo[kk]'))],
     # dk/dv: the lse multiplied by the scale once more
     'dkv_lse_off_by_the_scale': [(
         '-lse_c[qi] * LOG2E', '-lse_c[qi] * LOG2E * p.scale')],
@@ -145,6 +161,37 @@ BACKWARD_FAULTS = {
         _DV_WGMMA + ' Tl::mn_major(dOc, BLOCK_M, kk));',
         _DV_WGMMA.replace('rs<1>', 'rs<0>')
         + ' Tl::k_major(dOc, BLOCK_M, 0, kk));')],
+}
+
+
+#: the BACKWARD_FAULTS that only the head bound catches (a change of
+#: the numerics the row bound passes), also held at
+#: ``kernel_check.VIT_SHAPE`` over every seed, where the head bound
+#: (``backward_head_tol``) alone must catch them
+HEAD_BOUND_FAULTS = ('dq_ds_not_rounded', 'dkv_ds_not_rounded')
+#: faults of the non-causal branch and the ragged end, held at
+#: ``kernel_check.VIT_SHAPE`` (64 patches: every tile partial, nothing
+#: causal); name -> edits, as BACKWARD_FAULTS
+NON_CAUSAL_FAULTS = {
+    # the keys past T (TMA's zero fill) let into the softmax
+    'ragged_end_unmasked': [(_MASK, _MASK.replace('kc >= p.T || ', ''))],
+    # a non-causal call masked as causal
+    'causal_flag_ignored': [(_MASK, _MASK.replace('p.causal && ', ''))],
+}
+#: the backward kernels' tests of a tile for the mask pass (at 64
+#: patches a 64-row tile ends at T, so only the causal term opens it)
+_DQ_PASS = ('if ((k0 + BLOCK_N > p.T) || '
+            '(p.causal && k0 + BLOCK_N - 1 > wrow0)) {')
+_DKV_PASS = 'if ((qs + BLOCK_M > p.T) || (p.causal && wk0 + 15 > qs)) {'
+NON_CAUSAL_BACKWARD_FAULTS = {
+    # dq of a non-causal call masked as causal
+    'dq_causal_flag_ignored': [
+        (edit, edit.replace('p.causal && ', ''))
+        for edit in (_DQ_PASS, _DQ_MASK)],
+    # dk/dv of a non-causal call masked as causal
+    'dkv_causal_flag_ignored': [
+        (edit, edit.replace('p.causal && ', ''))
+        for edit in (_DKV_PASS, _DKV_MASK)],
 }
 
 
@@ -546,14 +593,14 @@ def main() -> int:
     for shape in BACKWARD_SHAPES:
         for seed in args.seeds:
             r = check_backward(shape, seed)
-            ok = backward_ok(r, shape[4])
+            ok = backward_ok(r, shape[4], shape)
             holes += not ok
             print(f'[backward] shape={shape[:4]} dtype={str(shape[4])[6:]} '
                   f'causal={shape[5]} seed={seed} lse_err={r["lse_err"]:.3e} '
                   f'row_err={_fmt(r["row_err"])} '
                   f'tol={BACKWARD_ROW_TOL[shape[4]]} '
                   f'head_err={_fmt(r["head_err"])} '
-                  f'tol={BACKWARD_HEAD_TOL[shape[4]]} '
+                  f'tol={backward_head_tol(shape)} '
                   f'autograd_head_err={_fmt(r["autograd_head_err"])} '
                   f'autograd_row_err={_fmt(r["autograd_row_err"])} '
                   f'ok={ok}', flush=True)
@@ -626,15 +673,48 @@ def main() -> int:
         for name, so in backward.items():
             r = _with_library(BACKWARD_KERNEL, so, lambda: check_backward(
                 training, args.seeds[0]))
-            caught = not backward_ok(r, training[4])
+            caught = not backward_ok(r, training[4], training)
             holes += not caught
             print(f'[fault] {name} shape={training[:4]} '
                   f'row_err={_fmt(r["row_err"])} '
                   f'tol={BACKWARD_ROW_TOL[training[4]]} '
                   f'head_err={_fmt(r["head_err"])} '
-                  f'tol={BACKWARD_HEAD_TOL[training[4]]} '
+                  f'tol={backward_head_tol(training)} '
                   f'autograd_head_err={_fmt(r["autograd_head_err"])} '
                   f'caught={caught}', flush=True)
+        head_tol = backward_head_tol(VIT_SHAPE)
+        for name in HEAD_BOUND_FAULTS:
+            for seed in args.seeds:
+                r = _with_library(BACKWARD_KERNEL, backward[name],
+                                  lambda: check_backward(VIT_SHAPE, seed))
+                by_head = any(e > head_tol for e in r['head_err'].values())
+                by_row = any(e > BACKWARD_ROW_TOL[VIT_SHAPE[4]]
+                             for e in r['row_err'].values())
+                holes += not by_head
+                print(f'[fault] {name} shape={VIT_SHAPE[:4]} causal=False '
+                      f'seed={seed} row_err={_fmt(r["row_err"])} '
+                      f'caught_by_row={by_row} '
+                      f'head_err={_fmt(r["head_err"])} tol={head_tol} '
+                      f'caught_by_head={by_head}', flush=True)
+        vit_tol = ATTENTION_ROW_TOL[VIT_SHAPE[4]]
+        for name, so in build_faults(tmp, KERNEL, NON_CAUSAL_FAULTS).items():
+            row, scaled = _with_library(KERNEL, so, lambda: check(
+                VIT_SHAPE, args.seeds[0]))
+            caught = not row <= vit_tol
+            holes += not caught
+            print(f'[fault] {name} shape={VIT_SHAPE[:4]} causal=False '
+                  f'row_err={row:.3e} tol={vit_tol} caught={caught} '
+                  f'scaled_err={scaled:.3e}', flush=True)
+        for name, so in build_faults(tmp, BACKWARD_KERNEL,
+                                     NON_CAUSAL_BACKWARD_FAULTS).items():
+            r = _with_library(BACKWARD_KERNEL, so, lambda: check_backward(
+                VIT_SHAPE, args.seeds[0]))
+            caught = not backward_ok(r, VIT_SHAPE[4], VIT_SHAPE)
+            holes += not caught
+            print(f'[fault] {name} shape={VIT_SHAPE[:4]} causal=False '
+                  f'row_err={_fmt(r["row_err"])} '
+                  f'head_err={_fmt(r["head_err"])} caught={caught}',
+                  flush=True)
         norm = build_faults(tmp, NORM_KERNEL, NORM_FAULTS)
         for name, so in norm.items():
             failed = _with_library(NORM_KERNEL, so, lambda: [

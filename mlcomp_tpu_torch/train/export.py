@@ -23,7 +23,12 @@ with at least 65,536 elements (``quantized_modules``). So a stacked
 (``layers``) LM export quantizes its ``lm_head`` alone (its MLP kernels
 are 3-D), a per-layer one each layer's ``wi_gate``, ``wi_up`` and ``wo``
 too; attention's ``qkv`` and ``out`` kernels are 4-D and 3-D there and
-never quantize, and the CIFAR ResNet-18's 512×10 head is too small.
+never quantize, and the CIFAR ResNet-18's 512×10 head is too small. An
+MoE LM (per-layer only) quantizes its dense layers' MLP projections and
+the head: the router's [M, X] kernel is far below the size and the
+experts' ``w_in`` / ``w_out`` are not ``kernel`` leaves. A ViT quantizes
+the MLP projections whose [d, d_ff] reach the size (not its
+``patch_embed`` or ``head`` at the usual widths).
 An int8-trained export (``matmul_precision: int8`` in its spec) builds
 its projections as ``Int8DenseGeneral``, whose forward is the dynamic
 int8 training product, as JAX's predictor runs it; the interceptor
@@ -120,7 +125,7 @@ def build_model(variables: dict, model_spec: dict, device='cuda'):
     name = model_spec['name']
     model = create_model(**model_spec, device=dev,
                          input_shape=input_shape_from_params(
-                             name, variables['params']))
+                             name, variables['params'], model_spec))
     model.load_state_dict(state_dict_from_jax(variables, name))
     return model.eval()
 

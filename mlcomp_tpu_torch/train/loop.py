@@ -16,10 +16,14 @@ device-resident data steps (``make_device_train_step`` /
 ``make_device_eval_step``) take the whole dataset on the device and an
 index vector.
 
-Not ported yet: the MoE auxiliary loss (``MOE_AUX_COEF`` and the
-``intermediates`` collection wait with MoE), ``make_device_epoch_fn``
-(one dispatch per epoch) and ``instrumented_step`` (telemetry, ROADMAP
-A6).
+A model with MoE layers returns its summed load-balance loss with the
+logits (JAX sows it as ``intermediates/moe_aux_loss``); every train step
+adds ``MOE_AUX_COEF`` times it to the loss and reports it as the
+``moe_aux`` metric, as JAX's train steps do (its eval step, like
+JAX's, does neither).
+
+Not ported yet: ``make_device_epoch_fn`` (one dispatch per epoch) and
+``instrumented_step`` (telemetry, ROADMAP A6).
 """
 
 import dataclasses
@@ -166,6 +170,19 @@ def loss_for_task(task) -> Callable:
 
 
 # ------------------------------------------------------------------- steps
+#: weight of the MoE load-balance auxiliary loss (Switch's default)
+MOE_AUX_COEF = 0.01
+
+
+def _apply_train(model, x, generator):
+    """(logits, aux) of a train-mode forward: aux is the summed MoE
+    load-balance loss of a model with MoE layers (``has_moe``), else
+    None."""
+    if getattr(model, 'has_moe', False):
+        return model(x, train=True, generator=generator, return_aux=True)
+    return model(x, train=True, generator=generator), None
+
+
 def _step_generator(state: TrainState) -> Optional[torch.Generator]:
     """This step's dropout randomness: the run's seed folded with the
     step (``jax.random.fold_in(rng, step)``'s role)."""
@@ -184,9 +201,11 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     LM case where inputs are also targets."""
 
     def step(state: TrainState, x, y):
-        logits = state.model(x, train=True,
-                             generator=_step_generator(state))
+        logits, aux = _apply_train(state.model, x, _step_generator(state))
         loss, metrics = loss_fn(logits, x if self_supervised else y)
+        if aux is not None:
+            loss = loss + MOE_AUX_COEF * aux
+            metrics = dict(metrics, moe_aux=aux)
         params = state.params
         grads = torch.autograd.grad(loss, list(params.values()))
         updates, state.opt_state = optimizer.update(
@@ -291,4 +310,5 @@ def create_train_state(model, optimizer, seed: Optional[int] = 0,
 __all__ = ['TrainState', 'make_train_step', 'make_eval_step',
            'make_device_train_step', 'make_device_eval_step',
            'aggregate_metrics', 'create_train_state', 'loss_for_task',
-           'LOSSES', 'softmax_ce', 'lm_ce', 'seg_ce', 'lm_ce_with']
+           'LOSSES', 'softmax_ce', 'lm_ce', 'seg_ce', 'lm_ce_with',
+           'MOE_AUX_COEF']

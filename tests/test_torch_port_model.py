@@ -175,7 +175,7 @@ class TestConversion:
         params = dict(params)
         params['layer_1'] = {**params['layer_1'],
                              'moe': {'router': {'kernel': np.zeros(2)}}}
-        with pytest.raises(ValueError, match='MoE layers are not ported'):
+        with pytest.raises(ValueError, match='leaves the port does not know'):
             params_from_jax(params)
 
 
@@ -211,7 +211,7 @@ class TestLayerStack:
 
 class TestConfig:
     @pytest.mark.parametrize('override,exc,match', [
-        ({'n_experts': 4}, NotImplementedError, 'MoE'),
+        ({'n_experts': 4, 'mesh': object()}, NotImplementedError, 'MoE'),
         ({'matmul_precision': 'int4'}, ValueError, 'matmul_precision'),
         ({'matmul_precision': 'fp8'}, ValueError, 'matmul_precision'),
         ({'attn_impl': 'triton'}, ValueError, 'attn_impl'),
@@ -227,20 +227,23 @@ class TestConfig:
 
     def test_other_models_not_ported(self):
         assert model_names() == ['mlp', 'resnet101', 'resnet152', 'resnet18',
-                                 'resnet34', 'resnet50', 'transformer_lm']
+                                 'resnet34', 'resnet50', 'transformer_lm',
+                                 'vit']
         with pytest.raises(KeyError, match='transformer_lm'):
-            create_model('vit', num_classes=3)
+            create_model('unet', num_classes=3)
 
     def test_train_mode_not_ported(self):
-        """Train mode is ported; what of it is not (MoE's auxiliary loss)
-        still raises when the model is built."""
+        """Train mode is ported, MoE's auxiliary loss with it; what is not
+        (MoE experts over an ``ep`` mesh) still raises when the model is
+        built."""
         model = create_model(**{**SPEC, 'attn_impl': 'auto'}, device='cpu')
         tokens = torch.zeros((1, 4), dtype=torch.long)
         with torch.no_grad():
             torch.testing.assert_close(model(tokens, train=True),
                                        model(tokens), rtol=0, atol=0)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            create_model(**{**SPEC, 'n_experts': 4}, device='cpu')
+            create_model(**{**SPEC, 'n_experts': 4}, mesh={'ep': 2},
+                         device='cpu')
 
     def test_dropout_and_remat_are_eval_no_ops(self):
         _, _, params = _jax_model('float32', True)
