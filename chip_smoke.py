@@ -176,12 +176,45 @@ step among the step phases, after step):
   the plain attention, its export served over HTTP and the served
   logits against the plain attention.
 
+Phases of the export consumers' slice, run after cifar-train (each
+executor of a DAG config run in turn after its ``depends`` through
+``Executor.from_config(name, config)`` and ``executor(logger=...)`` in
+one work directory, every kernel's count zeroed just before each
+executor and read just after; configs are dicts written from the YAML
+files with ``type: train`` for ``jax_train``, their cuts in comments and
+in the output):
+
+- dag-cifar10: ``examples/cifar10`` (ResNet-18 bf16 ``norm: fused``,
+  batch 512, ``pad_crop`` + ``hflip``, SGD ``warmup_cosine`` on the
+  50000/10000 synthetic CIFAR; 5 epochs cut to 1, ``report_imgs``
+  dropped), ``infer`` with the default equation, ``valid`` over
+  ``load('cifar10_resnet18')``; then a fine-tune of the same spec from
+  that export (``model.params_file``) with ``infer_valid``. Checks: the
+  predictions [10000, 10] with rows summing to 1, ``valid``'s score equal
+  to their accuracy, which is within 0.2 points of the trainer's, the
+  fine-tune's ``MergeSummary`` loading every leaf and its state before
+  the first step equal to the export bit for bit, ``cifar10_ft.npy``'s
+  accuracy within 0.2 points of its best score, 20 forward and 20
+  backward norm launches a train step on both trains;
+- dag-ensemble: (a) ``examples/ensemble`` verbatim (two MLPs, 3 epochs,
+  ``valid_ens`` over ``(load('a') + load('b')) / 2``), its score equal to
+  the accuracy of the saved arrays' mean; (b) ``encoder_grid``'s
+  ``resnet18`` (``norm: fused``) and ``vit`` cells (1 epoch of 2),
+  ``infer_classify`` of each at batch 512 with ``hflip`` TTA, the ViT
+  through ``quantize='int8'`` (the flash forward at B=512, the int8
+  matmul at M = 32768) and again in bf16, rows of the two held by
+  cosine and top-1, ``predict.quantized`` against ``quantized_modules``,
+  the launch counts of every train and infer, and ``valid_classify``
+  over the two models' mean scored as in (a); each infer's wall time and
+  images/s beside the card's name and power limit.
+
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
 """
 
 import argparse
 import json
+import logging
 import os
 import re
 import shutil
@@ -395,14 +428,16 @@ def phase_kernels(seed: int):
         flash_attention_forward, reference_attention,
     )
     from mlcomp_tpu_torch.testing.kernel_check import (
-        ATTENTION_ROW_TOL, ATTENTION_SHAPES, qkv_views, row_relative_error,
+        ATTENTION_ROW_TOL, ATTENTION_SHAPES, VIT_INFER_SHAPE, qkv_views,
+        row_relative_error,
     )
     import torch.nn.functional as F
     gen = torch.Generator(device='cuda').manual_seed(seed)
     main = None
-    # the serving shape first, and only it timed
+    # timed: the serving shape (first) and the ViT's inference batch
+    times = {}
     for i, (b, t, h, d, dtype, causal) in enumerate(ATTENTION_SHAPES):
-        timed = i == 0
+        timed = i == 0 or (b, t, h, d, dtype, causal) == VIT_INFER_SHAPE
         q, k, v = qkv_views(b, t, h, d, dtype, gen)
         try:
             out = flash_attention_forward(q, k, v, causal=causal)
@@ -431,6 +466,11 @@ def phase_kernels(seed: int):
                           library_ms=f'{library_ms:.4f}',
                           bound_ms=f'{bound:.4f}', bound_by=bound_by,
                           pct_of_peak=f'{100 * bound / ms:.1f}')
+            times[(b, t, h, d, dtype, causal)] = {
+                'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+                'bound_ms': bound, 'bound_by': bound_by,
+                'max_abs_err': err, 'row_err': row_err}
+        if i == 0:
             main = {'name': 'flash_attention_fwd', 'route': 'cuda',
                     'source': 'mlcomp_tpu_torch/csrc/flash_attention_fwd.cu',
                     'replaces': 'mlcomp_tpu/ops/flash_attention.py:83',
@@ -449,6 +489,11 @@ def phase_kernels(seed: int):
                  f'at {fields}')
         del q, k, v, out, ref
         torch.cuda.empty_cache()
+    # the ViT's inference attention (infer_classify of an encoder_grid
+    # export at Equation.infer's batch 512)
+    b, t, h, d, dtype, causal = VIT_INFER_SHAPE
+    main['vit_infer'] = {'shape': [b, t, h, d], 'causal': causal,
+                         **times[VIT_INFER_SHAPE]}
     # the training steps' forward: with lse at B=1, the flagship's 16
     # heads and the wide LM's 32
     main['lse_b1'] = {}
@@ -844,7 +889,6 @@ def phase_serving(seed: int):
 # ---------------------------------------------------------------- phase 5
 def _train_logger():
     """The executor's log lines on stdout, marked as this phase's."""
-    import logging
     log = logging.getLogger('chip_smoke.train')
     if not log.handlers:
         handler = logging.StreamHandler(sys.stdout)
@@ -1623,15 +1667,16 @@ def int8_bound_ms(m, k, n):
 
 def phase_int8_kernel(seed: int) -> dict:
     """The int8 matmul kernel against its plain version (run in f64) at
-    every INT8_SHAPES shape; timed at the bench's shape and the served
-    LM's. Returns its kernels-line entry (the top-level times at the
+    every INT8_SHAPES shape; timed at the bench's shape, the served LM's
+    and the ViT's MLP projections at its inference batch. Returns its kernels-line entry (the top-level times at the
     LM's d_ff projection, the most launched shape of the main path)."""
     from mlcomp_tpu_torch.ops.int8_matmul import (
         int8_matmul, reference_int8_matmul,
     )
     from mlcomp_tpu_torch.testing.kernel_check import (
-        INT8_EPILOGUE_SHAPES, INT8_ROW_TOL, INT8_SHAPES, int8_check,
-        int8_epilogue_check, int8_epilogue_ok, int8_inputs, int8_ok,
+        INT8_EPILOGUE_SHAPES, INT8_ROW_TOL, INT8_SHAPES, INT8_VIT_SHAPES,
+        int8_check, int8_epilogue_check, int8_epilogue_ok, int8_inputs,
+        int8_ok,
     )
     gen = torch.Generator(device='cuda').manual_seed(seed)
     errors = {}
@@ -1666,7 +1711,7 @@ def phase_int8_kernel(seed: int) -> dict:
         torch.cuda.empty_cache()
 
     timed = {}
-    for shape in INT8_SHAPES[:4]:
+    for shape in INT8_SHAPES[:4] + INT8_VIT_SHAPES:
         m, k, n = shape
         # the bench's 67 MB weight is read from device memory: turns over
         # copies that together exceed the 50 MB L2
@@ -3176,6 +3221,393 @@ def phase_moe_step(seed: int) -> dict:
             'moe_aux': aux, **flops}
 
 
+# ------------------------------------------------- export consumers (DAGs)
+#: ``examples/cifar10/config.yml`` as the port runs it: ``type: train``
+#: for ``jax_train`` and the model's ``norm: fused``. Cuts: the train's 5
+#: epochs -> 1; ``report_imgs`` dropped (report images need the DB,
+#: ROADMAP.md A0). ``cifar10`` is the synthetic stand-in at CIFAR's
+#: 50000/10000 x 32x32x3 where no local npz exists.
+CIFAR10_DAG = {
+    'train': {
+        'type': 'train',
+        'model': {'name': 'resnet18', 'num_classes': 10,
+                  'dtype': 'bfloat16', 'norm': 'fused'},
+        'dataset': {'name': 'cifar10'}, 'loss': 'softmax_ce',
+        'batch_size': 512, 'augment': [{'name': 'pad_crop', 'pad': 4},
+                                       'hflip'],
+        'mesh': {'dp': -1}, 'main_metric': 'accuracy',
+        'model_name': 'cifar10_resnet18',
+        'stages': [{'name': 'warm', 'epochs': 1, 'optimizer': {
+            'name': 'sgd', 'lr': 0.1, 'momentum': 0.9,
+            'schedule': {'name': 'warmup_cosine', 'warmup_steps': 200}}}]},
+    'infer': {'type': 'infer_classify', 'model_name': 'cifar10_resnet18',
+              'dataset': {'name': 'cifar10'}, 'depends': 'train'},
+    'valid': {'type': 'valid_classify', 'dataset': {'name': 'cifar10'},
+              'y': "load('cifar10_resnet18')", 'depends': 'infer'},
+}
+#: ``examples/ensemble/config.yml`` verbatim but ``type: train``
+_ENS_DATA = {'name': 'synthetic_images', 'n_train': 4096, 'n_valid': 512,
+             'image_size': 16, 'channels': 1}
+_ENS_MLP = {'name': 'mlp', 'num_classes': 10, 'hidden': [256],
+            'dtype': 'float32'}
+ENSEMBLE_DAG = {
+    'train_a': {'type': 'train', 'model': _ENS_MLP, 'dataset': _ENS_DATA,
+                'batch_size': 128, 'model_name': 'a',
+                'stages': [{'name': 's1', 'epochs': 3, 'optimizer': {
+                    'name': 'adam', 'lr': 0.003}}]},
+    'train_b': {'type': 'train', 'model': _ENS_MLP, 'dataset': _ENS_DATA,
+                'batch_size': 128, 'seed': 1, 'model_name': 'b',
+                'stages': [{'name': 's1', 'epochs': 3, 'optimizer': {
+                    'name': 'adam', 'lr': 0.003}}]},
+    'infer_a': {'type': 'infer_classify', 'model_name': 'a',
+                'dataset': _ENS_DATA, 'depends': 'train_a'},
+    'infer_b': {'type': 'infer_classify', 'model_name': 'b',
+                'dataset': _ENS_DATA, 'depends': 'train_b'},
+    'valid_ens': {'type': 'valid_classify', 'dataset': _ENS_DATA,
+                  'y': "(load('a') + load('b')) / 2",
+                  'depends': ['infer_a', 'infer_b']},
+}
+#: ``examples/encoder_grid/config.yml``'s ``resnet18`` (with ``norm:
+#: fused``) and ``vit`` cells as two train executors (the grid expanded
+#: by hand; cut: 2 epochs -> 1), exported as ``grid_resnet18`` and
+#: ``grid_vit``, then inferred at the default batch 512 (ResNet with
+#: hflip TTA; the ViT with hflip TTA through the int8 kernel, and again
+#: in bf16 to hold it against) and ensembled
+_GRID_DATA = {'name': 'synthetic_images', 'n_train': 4096, 'n_valid': 512,
+              'image_size': 32, 'channels': 3, 'num_classes': 10}
+_GRID_TRAIN = {'type': 'train', 'dataset': _GRID_DATA, 'batch_size': 256,
+               'mesh': {'dp': -1}, 'main_metric': 'accuracy',
+               'stages': [{'name': 'stage1', 'epochs': 1, 'optimizer': {
+                   'name': 'adamw', 'lr': 0.001,
+                   'schedule': {'name': 'warmup_cosine'}}}]}
+GRID_DAG = {
+    'train_resnet18': dict(_GRID_TRAIN, model_name='grid_resnet18', model={
+        'name': 'resnet18', 'num_classes': 10, 'cifar_stem': True,
+        'dtype': 'bfloat16', 'norm': 'fused'}),
+    'train_vit': dict(_GRID_TRAIN, model_name='grid_vit', model={
+        'name': 'vit', 'num_classes': 10, 'cifar_stem': True,
+        'dtype': 'bfloat16'}),
+    'infer_resnet18': {'type': 'infer_classify',
+                       'model_name': 'grid_resnet18', 'tta': ['hflip'],
+                       'dataset': _GRID_DATA, 'depends': 'train_resnet18'},
+    'infer_vit_int8': {'type': 'infer_classify', 'model_name': 'grid_vit',
+                       'y': "infer(tta=['hflip'], quantize='int8')",
+                       'dataset': _GRID_DATA, 'depends': 'train_vit'},
+    'infer_vit_bf16': {'type': 'infer_classify', 'name': 'grid_vit_bf16',
+                       'y': "infer('grid_vit', tta=['hflip'])",
+                       'dataset': _GRID_DATA, 'depends': 'train_vit'},
+    'valid_grid': {'type': 'valid_classify', 'dataset': _GRID_DATA,
+                   'y': "(load('grid_resnet18') + load('grid_vit')) / 2",
+                   'depends': ['infer_resnet18', 'infer_vit_int8']},
+}
+#: the saved predictions' accuracy against the trainer's validation
+#: accuracy: 0.2 points (the trainer's eval step and the predictor run
+#: the same bf16 forward; they differ in batching alone)
+DAG_ACCURACY_POINTS = 0.2
+
+
+def _dag_order(executors: dict) -> list:
+    """The executors' names with each after its ``depends``."""
+    order, seen = [], set()
+
+    def visit(name, path=()):
+        if name in seen:
+            return
+        if name in path:
+            fail(f'depends cycle through {name!r}')
+        deps = executors[name].get('depends') or []
+        for dep in [deps] if isinstance(deps, str) else deps:
+            visit(dep, path + (name,))
+        seen.add(name)
+        order.append(name)
+
+    for name in executors:
+        visit(name)
+    return order
+
+
+def _kernel_counters() -> dict:
+    """Every kernel wrapper a DAG of this slice can launch, by name."""
+    from mlcomp_tpu_torch.ops.fused_norm import (
+        norm_act_backward_kernel, norm_act_forward,
+    )
+    from mlcomp_tpu_torch.ops.int8_matmul import int8_matmul
+    return {**_flash_counters(), 'fused_norm': norm_act_forward,
+            'fused_norm_bwd': norm_act_backward_kernel,
+            'int8_matmul': int8_matmul}
+
+
+class _Lines(logging.Handler):
+    """A logging handler that keeps the messages it is given."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _train_losses(messages) -> list:
+    """The train loss of each epoch from the executor's log lines."""
+    return [float(m.group(1)) for m in (
+        re.search(r"\] epoch \d+: train \{[^}]*'loss': ([^,}]+)", line)
+        for line in messages) if m]
+
+
+def _walk_dag(phase: str, executors: dict, work: str, seed: int) -> dict:
+    """Run the executors of a DAG config on the card in ``work``, each
+    after its ``depends``, through
+    ``Executor.from_config(name, config)`` and ``executor(logger=...)``;
+    every kernel's count zeroed just before each executor and read just
+    after. Returns {name: {'result', 'seconds', 'launches', 'executor',
+    'log'}}."""
+    import gc
+    from mlcomp_tpu_torch.worker.executors import Executor
+    config = {'executors': {
+        name: dict(spec, device='cuda', **(
+            {'seed': spec.get('seed', 0) + seed,
+             'checkpoint_dir': os.path.join(work, 'ck', name)}
+            if spec['type'] == 'train' else {}))
+        for name, spec in executors.items()}}
+    counters = _kernel_counters()
+    log = _train_logger()
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for name in _dag_order(executors):
+            executor = Executor.from_config(name, config)
+            lines = _Lines()
+            log.addHandler(lines)
+            try:
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.monotonic()
+                result = executor(logger=log)
+                torch.cuda.synchronize()
+                seconds = time.monotonic() - t0
+                launches = {k: fn.launches for k, fn in counters.items()
+                            if fn.launches}
+            finally:
+                log.removeHandler(lines)
+            out[name] = {'result': result, 'seconds': seconds,
+                         'launches': launches, 'executor': executor,
+                         'log': lines.messages}
+            say(phase, executor=name, type=executors[name]['type'],
+                seconds=f'{seconds:.2f}', launches=launches,
+                result={k: v for k, v in result.items()
+                        if k in ('best_score', 'score', 'count', 'name')})
+        return out
+    finally:
+        os.chdir(cwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _say_infer_rate(phase: str, name: str, run: dict, smi: str, views=1):
+    n = run['result']['count']
+    say(phase, infer=name, wall_s=f'{run["seconds"]:.3f}', images=n,
+        views=views, images_per_s=f'{n / run["seconds"]:.1f}', card=smi)
+
+
+def _accuracy(preds: np.ndarray, labels: np.ndarray) -> float:
+    return float((preds.argmax(-1) == labels).mean())
+
+
+def _check_probabilities(phase: str, preds: np.ndarray, n: int, k: int):
+    sums = preds.sum(-1)
+    if preds.shape != (n, k) or not np.isfinite(preds).all() \
+            or float(np.abs(sums - 1).max()) > 1e-3:
+        fail(f'{phase}: predictions of shape {preds.shape} (want '
+             f'{(n, k)}), finite {bool(np.isfinite(preds).all())}, rows '
+             f'summing to 1 within {float(np.abs(sums - 1).max())}')
+
+
+def _check_points(phase: str, what: str, got: float, want: float):
+    if not abs(got - want) * 100 <= DAG_ACCURACY_POINTS:
+        fail(f'{phase}: {what} {got} is more than {DAG_ACCURACY_POINTS} '
+             f'points from {want}')
+
+
+def phase_dag_cifar10(seed: int, smi: str) -> dict:
+    """``[dag-cifar10]``: ``examples/cifar10``'s train -> infer -> valid
+    on the card (CIFAR10_DAG), then a fine-tune from its export
+    (``model.params_file``) with ``infer_valid``. Returns the norm
+    kernels' launches of the two trains."""
+    from mlcomp_tpu_torch.convert import state_dict_from_jax
+    from mlcomp_tpu_torch.train import pretrained
+    from mlcomp_tpu_torch.train.data import create_dataset
+    from mlcomp_tpu_torch.train.export import load_export
+
+    phase = 'dag-cifar10'
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_dag_cifar10_')
+    try:
+        runs = _walk_dag(phase, CIFAR10_DAG, work, seed)
+        train = runs['train']
+        data = create_dataset(**CIFAR10_DAG['train']['dataset'])
+        labels = data['y_valid']
+        steps = len(data['x_train']) // CIFAR10_DAG['train']['batch_size']
+        del data
+        preds = np.load(os.path.join(work, 'data', 'pred',
+                                     'cifar10_resnet18.npy'))
+        _check_probabilities(phase, preds, len(labels), 10)
+        accuracy = _accuracy(preds, labels)
+        score = runs['valid']['result']['score']
+        _say_infer_rate(phase, 'infer', runs['infer'], smi)
+        say(phase, valid_score=score, preds_accuracy=accuracy,
+            train_valid_accuracy=train['result']['best_score'],
+            max_points=DAG_ACCURACY_POINTS)
+        if score != accuracy:
+            fail(f'{phase}: valid scored {score}, the saved predictions '
+                 f'{accuracy}')
+        _check_points(phase, 'the saved predictions\' accuracy', accuracy,
+                      train['result']['best_score'])
+
+        # the fine-tune: the same train spec from the export, in a fresh
+        # checkpoint directory (_walk_dag's ck/<name>), exported under its
+        # own name so the file it starts from stays as it was
+        export = os.path.join(work, 'models', 'cifar10_resnet18')
+        ft_spec = dict(CIFAR10_DAG['train'], model_name='cifar10_ft',
+                       infer_valid={'out_prefix': 'cifar10_ft'},
+                       model=dict(CIFAR10_DAG['train']['model'],
+                                  params_file='models/cifar10_resnet18'))
+        seen = {}
+        apply = pretrained.apply_pretrained
+
+        def apply_and_keep(state, params_file):
+            state, summary = apply(state, params_file)
+            seen['summary'] = summary
+            seen['state'] = {k: v.detach().cpu().clone()
+                             for k, v in state.model.state_dict().items()}
+            return state, summary
+
+        pretrained.apply_pretrained = apply_and_keep
+        try:
+            ft = _walk_dag(phase, {'finetune': ft_spec}, work, seed)
+        finally:
+            pretrained.apply_pretrained = apply
+        ft = ft['finetune']
+        summary = seen.get('summary')
+        if summary is None:
+            fail(f'{phase}: the fine-tune applied no pretrained weights')
+        want = state_dict_from_jax(load_export(export)[0], 'resnet18')
+        equal = want.keys() == seen['state'].keys() and all(
+            torch.equal(want[k], seen['state'][k]) for k in want)
+        ft_preds = np.load(os.path.join(work, 'data', 'pred',
+                                        'cifar10_ft.npy'))
+        _check_probabilities(phase, ft_preds, len(labels), 10)
+        ft_accuracy = _accuracy(ft_preds, labels)
+        losses = (_train_losses(train['log']), _train_losses(ft['log']))
+        say(phase, finetune=str(summary), starts_at_export=equal,
+            leaves=len(want), infer_valid_accuracy=ft_accuracy,
+            best_score=ft['result']['best_score'],
+            first_epoch_loss_scratch=losses[0][:1],
+            first_epoch_loss_finetune=losses[1][:1])
+        if summary.reinit or summary.missing \
+                or len(summary.loaded) != len(want):
+            fail(f'{phase}: the fine-tune loaded {summary}, not every leaf')
+        if not equal:
+            fail(f'{phase}: the fine-tune\'s state before its first step '
+                 f'is not the export')
+        _check_points(phase, 'infer_valid\'s accuracy', ft_accuracy,
+                      ft['result']['best_score'])
+        launches = {'dag_cifar10_train': train['launches'],
+                    'dag_cifar10_finetune': ft['launches']}
+        for path, counts in launches.items():
+            for name in ('fused_norm', 'fused_norm_bwd'):
+                if counts.get(name) != 20 * steps:
+                    fail(f'{phase}: {path} launched {counts.get(name)} '
+                         f'{name}, expected {20 * steps} (20 norm sites '
+                         f'per train step, none in eval)')
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_dag_ensemble(seed: int, smi: str) -> dict:
+    """``[dag-ensemble]``: (a) ``examples/ensemble`` verbatim on the card,
+    (b) ``encoder_grid``'s ResNet-18 and ViT cells trained, inferred
+    (the ViT through the flash and int8 kernels) and ensembled. Returns
+    each kernel's launches by path."""
+    from mlcomp_tpu_torch.train.data import create_dataset
+    from mlcomp_tpu_torch.train.export import load_export, quantized_modules
+
+    phase = 'dag-ensemble'
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_dag_ensemble_')
+    try:
+        pred = os.path.join(work, 'data', 'pred')
+        runs = _walk_dag(phase, ENSEMBLE_DAG, work, seed)
+        labels = create_dataset(**_ENS_DATA)['y_valid']
+        mean = (np.load(os.path.join(pred, 'a.npy'))
+                + np.load(os.path.join(pred, 'b.npy'))) / 2
+        score = runs['valid_ens']['result']['score']
+        say(phase, part='a', valid_score=score,
+            mean_accuracy=_accuracy(mean, labels))
+        if score != _accuracy(mean, labels):
+            fail(f'{phase}: valid_ens scored {score}, the mean of the saved '
+                 f'predictions {_accuracy(mean, labels)}')
+
+        runs = _walk_dag(phase, GRID_DAG, work, seed)
+        labels = create_dataset(**_GRID_DATA)['y_valid']
+        n = len(labels)
+        int8_run = runs['infer_vit_int8']
+        predict = next(iter(int8_run['executor']._predictors.values()))
+        want_q = len(quantized_modules(load_export(
+            os.path.join(work, 'models', 'grid_vit'))[0]['params']))
+        layers, views = 6, 2
+        batches = -(-n // 512)
+        steps = _GRID_DATA['n_train'] // _GRID_TRAIN['batch_size']
+        valid = -(-_GRID_DATA['n_valid'] // _GRID_TRAIN['batch_size'])
+        for name in ('infer_resnet18', 'infer_vit_int8', 'infer_vit_bf16'):
+            _say_infer_rate(phase, name, runs[name], smi, views=views)
+        say(phase, part='b', quantized=predict.quantized,
+            quantized_modules=want_q)
+        if predict.quantized != want_q or want_q <= 0:
+            fail(f'{phase}: the int8 predictor swapped {predict.quantized} '
+                 f'modules, quantized_modules counts {want_q}')
+        _check_launches(f'{phase} train_resnet18',
+                        runs['train_resnet18']['launches'],
+                        {'fused_norm': 20 * steps,
+                         'fused_norm_bwd': 20 * steps})
+        _check_launches(f'{phase} train_vit', runs['train_vit']['launches'],
+                        {'flash_attention_fwd': layers * (steps + valid),
+                         'flash_attention_bwd_dq': layers * steps,
+                         'flash_attention_bwd_dkv': layers * steps})
+        _check_launches(f'{phase} infer_vit_int8', int8_run['launches'],
+                        {'flash_attention_fwd': layers * batches * views,
+                         'int8_matmul': want_q * batches * views})
+        _check_launches(f'{phase} infer_vit_bf16',
+                        runs['infer_vit_bf16']['launches'],
+                        {'flash_attention_fwd': layers * batches * views})
+        q8 = np.load(os.path.join(pred, 'grid_vit.npy'))
+        bf16 = np.load(os.path.join(pred, 'grid_vit_bf16.npy'))
+        for arr in (q8, bf16, np.load(os.path.join(pred,
+                                                   'grid_resnet18.npy'))):
+            _check_probabilities(phase, arr, n, 10)
+        _compare_rows(phase, torch.from_numpy(q8), torch.from_numpy(bf16),
+                      int8='quantize=int8', plain='bf16 infer')
+        mean = (np.load(os.path.join(pred, 'grid_resnet18.npy')) + q8) / 2
+        score = runs['valid_grid']['result']['score']
+        say(phase, part='b', valid_score=score,
+            mean_accuracy=_accuracy(mean, labels),
+            resnet18_accuracy=_accuracy(np.load(os.path.join(
+                pred, 'grid_resnet18.npy')), labels),
+            vit_int8_accuracy=_accuracy(q8, labels))
+        if score != _accuracy(mean, labels):
+            fail(f'{phase}: valid_grid scored {score}, the mean of the '
+                 f'saved predictions {_accuracy(mean, labels)}')
+        return {'dag_ensemble_train': {
+                    **runs['train_resnet18']['launches'],
+                    **runs['train_vit']['launches']},
+                'dag_ensemble_infer_vit_int8': int8_run['launches'],
+                'dag_ensemble_infer_vit': runs['infer_vit_bf16']['launches']}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3216,6 +3648,8 @@ def main():
         moe_serve = phase_moe_serve(args.seed)
         vit_launches = phase_vit_train(args.seed)
         cifar_launches = phase_cifar_train(args.seed)
+        dag_cifar10 = phase_dag_cifar10(args.seed, smi)
+        dag_ensemble = phase_dag_ensemble(args.seed, smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -3236,7 +3670,9 @@ def main():
         'moe_train': moe_launches['flash_attention_fwd'],
         'moe_serve': moe_serve['bf16']['flash_attention_fwd'],
         'moe_serve_int8': moe_serve['int8']['flash_attention_fwd'],
-        'vit_train': vit_launches['flash_attention_fwd']}
+        'vit_train': vit_launches['flash_attention_fwd'],
+        **{path: counts['flash_attention_fwd']
+           for path, counts in dag_ensemble.items()}}
     fwd['launches'] = sum(fwd['launches_by_path'].values())
     fwd['vit'] = {'shape': [256, 64, 3, 64], 'causal': False,
                   'with_lse_ms': vit['fwd_lse_ms'],
@@ -3250,7 +3686,9 @@ def main():
             'train': train_launches[entry['name']],
             'train_wide_int8': wide_launches[entry['name']],
             'moe_train': moe_launches[entry['name']],
-            'vit_train': vit_launches[entry['name']]}
+            'vit_train': vit_launches[entry['name']],
+            'dag_ensemble_train':
+                dag_ensemble['dag_ensemble_train'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
         part = 'dq' if entry['name'].endswith('_dq') else 'dkv'
         entry['vit'].update(device_ms=vit_device[part],
@@ -3260,8 +3698,14 @@ def main():
             'train_wide_int8': wide_launches[entry['name']]}
         entry['launches'] = wide_launches[entry['name']]
     ce[0]['step_wide'] = step_wide
-    norm['launches'] = cifar_launches['fused_norm']
-    norm_bwd['launches'] = cifar_launches['fused_norm_bwd']
+    for entry in (norm, norm_bwd):
+        entry['launches_by_path'] = {
+            'cifar_train': cifar_launches[entry['name']],
+            **{path: counts[entry['name']]
+               for path, counts in dag_cifar10.items()},
+            'dag_ensemble_train':
+                dag_ensemble['dag_ensemble_train'][entry['name']]}
+        entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}
                          for site, ms in norm_device.items()}
     norm_bwd['device_ms'] = {site: ms['bwd']
@@ -3273,7 +3717,9 @@ def main():
         'serve_int8_per_layer': int8_serve['flagship_lm_layers'],
         'serve_int8_stacked': int8_serve['flagship_lm'],
         'serving_int8': leg['launches']['int8_matmul'],
-        'moe_serve_int8': moe_serve['int8']['int8_matmul']}
+        'moe_serve_int8': moe_serve['int8']['int8_matmul'],
+        'dag_ensemble_infer_vit_int8':
+            dag_ensemble['dag_ensemble_infer_vit_int8']['int8_matmul']}
     int8['launches'] = sum(int8['launches_by_path'].values())
     int8['dispatch_split'] = int8_split
     stack['launches_by_path'] = {

@@ -361,18 +361,29 @@ def state_dict_from_jax(variables: dict, name: str) -> dict:
     return image_state_dict_from_jax(variables)
 
 
+def jax_family(model) -> str:
+    """The name ``state_dict_from_jax`` dispatches a port model's tree
+    on: ``vit``, ``transformer_lm``, or ``image`` (an ``mlp`` or a
+    ResNet)."""
+    if isinstance(model, ViT):
+        return 'vit'
+    if getattr(model, 'cfg', None) is not None:
+        return 'transformer_lm'
+    return 'image'
+
+
 def variables_to_jax(model) -> dict:
     """The JAX variables (``params`` and, where the model keeps running
     statistics, ``batch_stats``) of a port model: a host copy, which the
     next train step's in-place updates leave alone."""
     sd = {k: v.detach().to('cpu', copy=True)
           for k, v in model.state_dict().items()}
-    if isinstance(model, ViT):
+    family = jax_family(model)
+    if family == 'vit':
         return {'params': vit_params_to_jax(sd, n_heads=model.cfg.n_heads)}
-    cfg = getattr(model, 'cfg', None)
-    if cfg is not None:                         # transformer_lm
-        return {'params': params_to_jax(sd, n_heads=cfg.n_heads,
-                                        stacked=scan_layers(cfg))}
+    if family == 'transformer_lm':
+        return {'params': params_to_jax(sd, n_heads=model.cfg.n_heads,
+                                        stacked=scan_layers(model.cfg))}
     return image_variables_to_jax(sd)
 
 
@@ -399,5 +410,5 @@ __all__ = ['params_from_jax', 'params_to_jax', 'port_module_name',
            'to_tensor',
            'image_state_dict_from_jax', 'image_variables_to_jax',
            'jax_kernel_shapes', 'lm_kernel_shapes',
-           'state_dict_from_jax', 'variables_to_jax',
+           'state_dict_from_jax', 'variables_to_jax', 'jax_family',
            'input_shape_from_params', 'STAT_LEAVES']

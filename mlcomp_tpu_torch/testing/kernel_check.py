@@ -30,6 +30,9 @@ import torch
 #: the ViT classifier's attention at ``encoder_grid``'s batch 256: 64
 #: patches (less than one q tile), 3 heads of 64, bidirectional
 VIT_SHAPE = (256, 64, 3, 64, torch.bfloat16, False)
+#: the same attention at the inference batch of ``Equation.infer`` (512
+#: images: ``infer_classify`` over an ``encoder_grid`` ViT export)
+VIT_INFER_SHAPE = (512, 64, 3, 64, torch.bfloat16, False)
 #: (B, T, H, D, dtype, causal) at which the card-side checks hold the
 #: kernel against its plain version: the flagship LM's serving shape
 #: first (batch 4, T=8192, 16 heads of 64, causal, bf16), the long-context
@@ -37,7 +40,8 @@ VIT_SHAPE = (256, 64, 3, 64, torch.bfloat16, False)
 #: d_model 512), the wide LM's training shape (batch 1, T=8192, 32 heads
 #: of 64: q, k, v rows 3·32·64 apart), then long sequences causal and
 #: not, ragged T, every head dim, fp16, f32 (the SIMT path), T=1, a T
-#: just past one K/V tile, and the ViT's (VIT_SHAPE)
+#: just past one K/V tile, and the ViT's in training (VIT_SHAPE) and in
+#: inference (VIT_INFER_SHAPE)
 ATTENTION_SHAPES = [
     (4, 8192, 16, 64, torch.bfloat16, True),
     (1, 32768, 8, 64, torch.bfloat16, True),
@@ -53,6 +57,7 @@ ATTENTION_SHAPES = [
     (3, 1, 2, 64, torch.bfloat16, True),
     (1, 65, 3, 32, torch.float16, False),
     VIT_SHAPE,
+    VIT_INFER_SHAPE,
 ]
 #: bound on the max over rows of |out - ref| / |ref|, by input dtype; a
 #: few ulps of the output's rounding (bf16 2^-8, fp16 2^-11 relative),
@@ -335,6 +340,11 @@ def norm_bwd_ok(result: dict, shape) -> bool:
 
 
 # ---------------------------------------------------------- int8 serving
+#: the ViT's MLP projections (d 192, d_ff 768) at the 512 images of
+#: ``Equation.infer``'s batch, M = 512·64 tokens: N = 192 leaves the
+#: second 128-channel tile half empty at large M, and K = 192 gives the
+#: 5-stage ring only 3 K tiles
+INT8_VIT_SHAPES = [(32768, 192, 768), (32768, 768, 192)]
 #: (M, K, N) at which the card-side checks hold the int8 matmul kernel
 #: against its plain version run in f64: the bench's weight-bound shape
 #: (K split over the SMs), the served flagship LM's projections and its
@@ -345,11 +355,13 @@ def norm_bwd_ok(result: dict, shape) -> bool:
 #: one past the small configuration's 64 tokens (65), past the large
 #: one's 128 and 256 (129, 257), N off the 128- and 256-channel tiles
 #: and off whole 4-column stores (1000, 1090), K padded on the large
-#: path (129×1000×1000) and K = 8192 summed whole at large M
+#: path (129×1000×1000) and K = 8192 summed whole at large M; last the
+#: ViT's MLP projections at the inference batch (INT8_VIT_SHAPES)
 INT8_SHAPES = [(64, 8192, 8192), (32768, 1024, 4096), (32768, 4096, 1024),
                (32768, 1024, 32768), (5, 1000, 999), (1, 64, 10),
                (200, 64, 1000), (37, 4096, 1000), (65, 1024, 4096),
-               (129, 1000, 1000), (257, 4096, 1090), (4096, 8192, 2048)]
+               (129, 1000, 1000), (257, 4096, 1090), (4096, 8192, 2048),
+               *INT8_VIT_SHAPES]
 #: (M, K, N) at which the card-side checks hold the fused Int8Dense
 #: epilogue (bias added, bf16 / fp16 out) bit for bit against the
 #: unfused formula: the served LM's d_ff projection, the split-K path,
@@ -802,7 +814,8 @@ __all__ = ['CE_CANARY', 'CE_LOGIT_SCALE', 'CE_LOSS_TOL', 'CE_ROW_TOL',
            'CE_SHAPES', 'ce_check', 'ce_inputs', 'ce_ok',
            'ATTENTION_ROW_TOL', 'ATTENTION_SHAPES', 'AUTOGRAD_HEAD_TOL',
            'BACKWARD_HEAD_TOL', 'BACKWARD_ROW_FLOOR', 'BACKWARD_ROW_TOL',
-           'VIT_HEAD_TOL', 'VIT_SHAPE', 'backward_head_tol',
+           'VIT_HEAD_TOL', 'VIT_INFER_SHAPE', 'VIT_SHAPE',
+           'backward_head_tol', 'INT8_VIT_SHAPES',
            'BACKWARD_SHAPES', 'CANARY_ROWS', 'CIFAR_SITE_ACTS',
            'INT8_EPILOGUE_SHAPES', 'INT8_ROW_TOL', 'INT8_SHAPES',
            'INT8_TRAIN_SHAPES', 'int8_epilogue_check', 'int8_epilogue_ok',

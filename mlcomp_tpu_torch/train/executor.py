@@ -26,7 +26,10 @@ resident on the device with on-device ``augment`` (``device_data.py``;
 the JAX trainer's selection rule), ``main_metric`` / ``minimize`` best
 tracking, ``checkpoint_every``, the async checkpoint writer, resume
 through ``resume_plan``, running statistics (``batch_stats``) in
-checkpoints and the export, and the ``model_name`` export. ``mesh`` may
+checkpoints and the export, the ``model_name`` export, pretrained
+weights (``model.params_file``, ``train/pretrained.py``; a resume wins
+over them) and ``infer_valid`` (the validation set's predictions under
+``data/pred``, the best checkpoint's by default). ``mesh`` may
 be ``{dp: 1}`` or ``{dp: -1}`` ("every device") on one device. Keys
 whose feature is not ported yet raise ``NotImplementedError`` with
 their ROADMAP.md item; unknown keys are logged as the JAX trainer logs
@@ -69,10 +72,8 @@ from mlcomp_tpu_torch.worker.executors import Executor
 _NOT_PORTED = {
     'epoch_scan': 'A0 (one dispatch per epoch)',
     'profile': 'A6 (device traces)',
-    'infer_valid': 'A5 (validation predictions for Valid/ensembles)',
     'report_imgs': 'A0 (report images need the DB)',
     'stage_per_dispatch': 'A0 (requeue needs the DB)',
-    'params_file': 'A5 (pretrained.py head-swap)',
     'telemetry': 'A6 (device telemetry)',
 }
 
@@ -109,8 +110,9 @@ class Train(Executor):
                  async_checkpoint=True, telemetry=True, device='cuda',
                  **kwargs):
         self.model_spec = dict(model or {'name': 'mlp'})
-        if self.model_spec.get('params_file'):
-            _not_ported('params_file')
+        # pretrained init (train/pretrained.py): popped, so create_model
+        # and the export's spec see architecture keys only
+        self.params_file = self.model_spec.pop('params_file', None)
         # {dp: -1} is "every device": one here, unless CUDA shows more
         if mesh is not None and (
                 dict(mesh) not in ({'dp': 1}, {'dp': -1})
@@ -125,7 +127,6 @@ class Train(Executor):
             raise ValueError(f"device_data must be true, false or 'auto', "
                              f'got {device_data!r}')
         for key, value in (('epoch_scan', epoch_scan), ('profile', profile),
-                           ('infer_valid', infer_valid),
                            ('report_imgs', report_imgs),
                            ('stage_per_dispatch', stage_per_dispatch),
                            ('telemetry', isinstance(telemetry, dict))):
@@ -149,10 +150,19 @@ class Train(Executor):
         self.augment = list(augment) if augment else None
         self.device_data = device_data
         self.checkpoint_every = int(checkpoint_every)
-        if self.checkpoint_every == 0 and model_name:
-            raise ValueError(
-                'checkpoint_every: 0 disables saving, but model_name '
-                'export reads checkpoint files — drop one')
+        if self.checkpoint_every == 0:
+            wants_best = bool(infer_valid) and \
+                bool(dict(infer_valid).get('best_only', True))
+            if stage_per_dispatch or model_name or wants_best:
+                raise ValueError(
+                    'checkpoint_every: 0 disables saving, but '
+                    'stage_per_dispatch requeue, model_name export, '
+                    'and infer_valid best_only (its default) all read '
+                    'checkpoint files — drop one, or set '
+                    'infer_valid: {best_only: false}')
+        # {'out_prefix': str, 'best_only': bool}: the validation set's
+        # softmax predictions saved under data/pred after training
+        self.infer_valid = dict(infer_valid) if infer_valid else None
         self.async_checkpoint = bool(async_checkpoint)
         self.device = device
         # leftover config keys: logged loudly by _work, not an error
@@ -178,15 +188,22 @@ class Train(Executor):
                 'opt_state': state_to_host(state.opt_state),
                 'rng': state.rng}
 
+    def _fitting_state_dict(self, tree, model) -> dict:
+        """The port state dict of a checkpoint tree's ``params`` (and
+        ``batch_stats``); raise unless it has ``model``'s keys and shapes
+        (checked before anything loads)."""
+        sd = state_dict_from_jax(tree, self.model_spec['name'])
+        current = model.state_dict()
+        if sd.keys() != current.keys() or any(
+                sd[k].shape != current[k].shape for k in sd):
+            raise ValueError('checkpoint params do not fit the model')
+        return sd
+
     def _restore_into(self, state, device):
         """``restore_checkpoint``'s target: check that a checkpoint tree
         fits ``state`` (raise if not), then load it in place."""
         def target(tree):
-            sd = state_dict_from_jax(tree, self.model_spec['name'])
-            current = state.model.state_dict()
-            if sd.keys() != current.keys() or any(
-                    sd[k].shape != current[k].shape for k in sd):
-                raise ValueError('checkpoint params do not fit the model')
+            sd = self._fitting_state_dict(tree, state.model)
             opt = state_to_device(tree['opt_state'], device)
             if not _same_structure(opt, state.opt_state):
                 raise ValueError('checkpoint optimizer state does not fit '
@@ -325,6 +342,12 @@ class Train(Executor):
                 if target_stage is not self.stages[0]:
                     state = fresh_state(self.stages[0])
                     model = state.model
+        if restored is None and self.params_file:
+            # pretrained weights seed a fresh run only: a checkpoint
+            # restore (a resume) wins over them
+            from mlcomp_tpu_torch.train.pretrained import apply_pretrained
+            state, summary = apply_pretrained(state, self.params_file)
+            self.info(f'pretrained {self.params_file}: {summary}')
         best = None
         if restored is not None:
             epochs_done_global = int(meta.get('epoch', -1)) + 1
@@ -460,11 +483,57 @@ class Train(Executor):
                                input_shape=[int(d) for d in
                                             x_train.shape[1:]],
                                input_dtype=str(x_train.dtype))
+        if self.infer_valid:
+            self._infer_valid(state, ck_dir, x_valid, y_valid, device)
         wall = time.time() - t_start
         return {'stage': stage_names[-1], 'stages': stage_names,
                 'best_score': best, 'n_params': n_params,
                 'wall_time_s': wall,
                 'samples_per_sec': samples_seen / max(wall, 1e-9)}
+
+    def _predict_valid(self, model, x_valid, device) -> np.ndarray:
+        """Softmax predictions (f32) of ``model`` in eval mode over the
+        validation set, in ``eval_batch_size`` batches."""
+        probs = []
+        with torch.inference_mode():
+            for bx, _ in iterate_batches(x_valid, None, self.eval_batch_size,
+                                         drop_last=False):
+                x, _ = place_batch((bx, None), device)
+                probs.append(torch.softmax(model(x).float(), dim=-1).cpu())
+        return torch.cat(probs).numpy() if probs else np.empty((0,))
+
+    def _infer_valid(self, state, ck_dir, x_valid, y_valid, device):
+        """Save the validation set's predictions as npy for the Valid
+        and ensemble stages downstream: ``data/pred/<out_prefix>.npy``
+        (and ``<out_prefix>_y.npy``, the labels). ``best_only`` (the
+        default) loads the best checkpoint's ``params`` and
+        ``batch_stats`` into the model first, so the predictions are the
+        best epoch's; the optimizer state is not read (the port's layout,
+        ``train/checkpoint.py``). A best checkpoint that does not load is
+        logged, and the final state predicts."""
+        from mlcomp_tpu_torch.worker.executors.base.equation import (
+            PRED_FOLDER,
+        )
+        spec = self.infer_valid
+        prefix = spec.get('out_prefix') or self.model_name or 'valid'
+        model = state.model
+        if bool(spec.get('best_only', True)):
+            def load_weights(tree):
+                model.load_state_dict(self._fitting_state_dict(tree, model))
+                return model
+            try:
+                restore_checkpoint(ck_dir, load_weights, kind='best')
+            except Exception as e:  # a best saved by another model
+                self.info(f'infer_valid: best checkpoint not loadable '
+                          f'({e}); using final state')
+        probs = self._predict_valid(model, x_valid, device)
+        os.makedirs(PRED_FOLDER, exist_ok=True)
+        out = os.path.join(PRED_FOLDER, f'{prefix}.npy')
+        np.save(out, probs)
+        if y_valid is not None:
+            np.save(os.path.join(PRED_FOLDER, f'{prefix}_y.npy'),
+                    np.asarray(y_valid))
+        self.info(f'infer_valid: {len(probs)} predictions -> {out}')
 
     def _export_model(self, ck_dir, best_score, input_shape=None,
                       input_dtype=None):

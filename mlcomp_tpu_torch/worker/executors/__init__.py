@@ -1,11 +1,18 @@
 """Executors of the port (counterpart of ``mlcomp_tpu/worker/executors``).
 
 The builtin executors register on the first registry miss, so code that
-only looks names up never imports the training stack.
+only looks names up never imports the training stack: ``train``, the
+Equation family (``equation``, ``infer``, ``infer_classify``, ``valid``,
+``valid_classify``, ``valid_segment``).
 """
 
 from mlcomp_tpu_torch.worker.executors.base import Executor
 
-Executor._builtin_modules = ('mlcomp_tpu_torch.train.executor',)
+Executor._builtin_modules = (
+    'mlcomp_tpu_torch.train.executor',
+    'mlcomp_tpu_torch.worker.executors.base.equation',
+    'mlcomp_tpu_torch.worker.executors.infer',
+    'mlcomp_tpu_torch.worker.executors.valid',
+)
 
 __all__ = ['Executor']

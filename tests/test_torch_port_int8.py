@@ -614,6 +614,24 @@ class TestCardChecks:
                                                 True)
         assert kernel_check.stack_tol(1) == kernel_check.STACK_ROW_TOL['step']
 
+    def test_check_shapes_hold_the_vit_inference(self):
+        # Equation.infer's batch of 512 images of 64 patches through the
+        # ViT's MLP projections (d 192, d_ff 768): N = 192 half-fills the
+        # second channel tile at large M, K = 192 is 3 K tiles of a
+        # 5-stage ring
+        assert kernel_check.INT8_VIT_SHAPES == [(32768, 192, 768),
+                                                (32768, 768, 192)]
+        assert set(kernel_check.INT8_VIT_SHAPES) <= set(
+            kernel_check.INT8_SHAPES)
+        assert kernel_check.INT8_SHAPES[:4] == [
+            (64, 8192, 8192), (32768, 1024, 4096), (32768, 4096, 1024),
+            (32768, 1024, 32768)]
+        assert any(n % 128 and m > 257
+                   for m, _, n in kernel_check.INT8_SHAPES)
+        assert set(kernel_check.INT8_VIT_SHAPES) <= set(
+            s for s in kernel_faults.INT8_CHECKS if isinstance(s, tuple)
+            and s and isinstance(s[0], int))
+
     def test_epilogue_check_on_the_cpu(self):
         # the plain version is the unfused formula: no element differs
         gen = torch.Generator().manual_seed(0)

@@ -632,19 +632,13 @@ class TestExecutor:
 
     @pytest.mark.parametrize('key,value', [
         ('mesh', {'dp': 2}), ('epoch_scan', True),
-        ('profile', {'epoch': 0}), ('infer_valid', {'best_only': True}),
+        ('profile', {'epoch': 0}),
         ('report_imgs', {'type': 'classification'}),
         ('stage_per_dispatch', True),
         ('telemetry', {'flush_every': 10})])
     def test_not_ported_keys_raise(self, tmp_path, key, value):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             Executor.from_config('train', _config(tmp_path, **{key: value}))
-
-    def test_params_file_is_not_ported(self, tmp_path):
-        cfg = _config(tmp_path)
-        cfg['executors']['train']['model']['params_file'] = 'w.npz'
-        with pytest.raises(NotImplementedError, match='params_file'):
-            Executor.from_config('train', cfg)
 
     def test_single_device_mesh_and_auto_data_are_accepted(self, tmp_path):
         Executor.from_config('train', _config(

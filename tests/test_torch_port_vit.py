@@ -367,6 +367,16 @@ class TestKernelChecks:
         assert self.VIT in kernel_check.BACKWARD_SHAPES
         assert kernel_check.VIT_SHAPE == self.VIT
 
+    def test_vit_inference_shape_is_held_forward(self):
+        """``infer_classify`` of the ViT at Equation.infer's batch of 512
+        runs the forward alone, under the forward's bound."""
+        want = (512, 64, 3, 64, torch.bfloat16, False)
+        assert kernel_check.VIT_INFER_SHAPE == want
+        assert want in kernel_check.ATTENTION_SHAPES
+        assert want not in kernel_check.BACKWARD_SHAPES
+        assert kernel_check.backward_head_tol(want) == \
+            kernel_check.BACKWARD_HEAD_TOL[torch.bfloat16]
+
     def test_only_the_vit_shape_takes_its_own_head_bound(self):
         """Heads are measured one by one at every shape; VIT_HEAD_TOL
         holds at VIT_SHAPE only."""
