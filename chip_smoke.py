@@ -208,6 +208,41 @@ in the output):
   over the two models' mean scored as in (a); each infer's wall time and
   images/s beside the card's name and power limit.
 
+  Extended with the grid's four other cells (``seresnet18``, ``vgg13``,
+  ``densenet121``, ``efficientnet_lite0``, their factories dropping the
+  spec's ``norm`` as JAX's do), each inferred with ``hflip`` TTA, and
+  ``valid_classify`` over the mean of all six saved arrays; each cell's
+  predictions [512, 10] with rows summing to 1, the six-way score equal
+  to the numpy accuracy of that mean;
+- dag-segmentation: ``examples/segmentation`` (FPN over ResNet-18,
+  bf16, ``cifar_stem``, ``bce_dice``, batch 32, Adam, 4 epochs of
+  ``synthetic_segmentation`` 512/64 at 64x64; ``report_imgs`` dropped),
+  ``infer_classify`` with ``activation: argmax``, then ``valid_segment``
+  over ``load('seg_fpn')`` by iou and by dice: the predictions [64, 64,
+  64] int32, each score equal to ``iou_numpy`` / ``dice_numpy`` of the
+  saved arrays and the masks, the last epoch's train loss below the
+  first's.
+
+Phase of the model zoo's slice, run after the DAGs:
+
+- zoo: the 13 encoder families as classifiers (``num_classes`` 10,
+  ``cifar_stem``, 32x32x3), FPN / LinkNet / PSPNet / DeepLabV3 / U-Net
+  over ResNet-18, DeepLabV3 over DRN-26 and the standalone U-Net
+  (``num_classes`` 2, ``cifar_stem``, 64x64x3), at JAX's default widths
+  with random weights from ``--seed``: the parameter count against the
+  JAX package's (``ZOO_PARAMS``), an f32 copy on the card against the
+  same weights on the CPU (TF32 off; batch 2; eval and train mode: the
+  output and the updated running statistics, by the largest error of a
+  row over its largest magnitude, a statistics row over at least 1e-3
+  of the model's largest statistic), and bf16 AdamW train steps
+  (``softmax_ce`` or ``bce_dice``): finite loss and gradients, every
+  parameter moved after two steps (a zero-init residual scale leaves its
+  branch's zero-init biases without gradient in the first); then the
+  step timed at the configs' batches (256 for the classifiers, 32 for
+  the segmentation models): ms, images/s, peak allocated memory. These
+  models run no kernel of the port's: JAX normalises them with a plain
+  ``nn.BatchNorm`` and so does the port.
+
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
 """
@@ -3267,12 +3302,13 @@ ENSEMBLE_DAG = {
                   'y': "(load('a') + load('b')) / 2",
                   'depends': ['infer_a', 'infer_b']},
 }
-#: ``examples/encoder_grid/config.yml``'s ``resnet18`` (with ``norm:
-#: fused``) and ``vit`` cells as two train executors (the grid expanded
-#: by hand; cut: 2 epochs -> 1), exported as ``grid_resnet18`` and
-#: ``grid_vit``, then inferred at the default batch 512 (ResNet with
-#: hflip TTA; the ViT with hflip TTA through the int8 kernel, and again
-#: in bf16 to hold it against) and ensembled
+#: ``examples/encoder_grid/config.yml``'s six cells as six train
+#: executors (the grid expanded by hand; cut: 2 epochs -> 1), the
+#: ``resnet18`` cell with ``norm: fused`` added to the base spec (the
+#: other families' factories drop it, as JAX's do), exported as
+#: ``grid_<name>``, then inferred at the default batch 512 with hflip TTA
+#: (the ViT through the int8 kernel, and again in bf16 to hold it
+#: against) and ensembled over the six saved arrays
 _GRID_DATA = {'name': 'synthetic_images', 'n_train': 4096, 'n_valid': 512,
               'image_size': 32, 'channels': 3, 'num_classes': 10}
 _GRID_TRAIN = {'type': 'train', 'dataset': _GRID_DATA, 'batch_size': 256,
@@ -3280,13 +3316,21 @@ _GRID_TRAIN = {'type': 'train', 'dataset': _GRID_DATA, 'batch_size': 256,
                'stages': [{'name': 'stage1', 'epochs': 1, 'optimizer': {
                    'name': 'adamw', 'lr': 0.001,
                    'schedule': {'name': 'warmup_cosine'}}}]}
+_GRID_MODEL = {'name': 'resnet18', 'num_classes': 10, 'cifar_stem': True,
+               'dtype': 'bfloat16', 'norm': 'fused'}
+#: the grid's cells beyond ResNet-18 and the ViT
+GRID_CELLS = ('seresnet18', 'vgg13', 'densenet121', 'efficientnet_lite0')
+GRID_ARRAYS = ('grid_resnet18', 'grid_vit') + tuple(
+    f'grid_{cell}' for cell in GRID_CELLS)
 GRID_DAG = {
-    'train_resnet18': dict(_GRID_TRAIN, model_name='grid_resnet18', model={
-        'name': 'resnet18', 'num_classes': 10, 'cifar_stem': True,
-        'dtype': 'bfloat16', 'norm': 'fused'}),
+    'train_resnet18': dict(_GRID_TRAIN, model_name='grid_resnet18',
+                           model=_GRID_MODEL),
     'train_vit': dict(_GRID_TRAIN, model_name='grid_vit', model={
         'name': 'vit', 'num_classes': 10, 'cifar_stem': True,
         'dtype': 'bfloat16'}),
+    **{f'train_{cell}': dict(_GRID_TRAIN, model_name=f'grid_{cell}',
+                             model=dict(_GRID_MODEL, name=cell))
+       for cell in GRID_CELLS},
     'infer_resnet18': {'type': 'infer_classify',
                        'model_name': 'grid_resnet18', 'tta': ['hflip'],
                        'dataset': _GRID_DATA, 'depends': 'train_resnet18'},
@@ -3296,9 +3340,38 @@ GRID_DAG = {
     'infer_vit_bf16': {'type': 'infer_classify', 'name': 'grid_vit_bf16',
                        'y': "infer('grid_vit', tta=['hflip'])",
                        'dataset': _GRID_DATA, 'depends': 'train_vit'},
+    **{f'infer_{cell}': {'type': 'infer_classify',
+                         'model_name': f'grid_{cell}', 'tta': ['hflip'],
+                         'dataset': _GRID_DATA, 'depends': f'train_{cell}'}
+       for cell in GRID_CELLS},
     'valid_grid': {'type': 'valid_classify', 'dataset': _GRID_DATA,
-                   'y': "(load('grid_resnet18') + load('grid_vit')) / 2",
-                   'depends': ['infer_resnet18', 'infer_vit_int8']},
+                   'y': '(' + ' + '.join(
+                       f"load('{a}')" for a in GRID_ARRAYS) + ') / '
+                        f'{len(GRID_ARRAYS)}',
+                   'depends': ['infer_resnet18', 'infer_vit_int8'] + [
+                       f'infer_{cell}' for cell in GRID_CELLS]},
+}
+#: ``examples/segmentation/config.yml`` as the port runs it: ``type:
+#: train`` for ``jax_train``; ``report_imgs`` dropped (report images need
+#: the DB, ROADMAP.md A0); then ``valid_segment`` over the saved
+#: predictions by iou and by dice
+_SEG_DATA = {'name': 'synthetic_segmentation', 'n_train': 512,
+             'n_valid': 64, 'image_size': 64, 'num_classes': 2}
+SEGMENTATION_DAG = {
+    'train': {'type': 'train', 'model': {
+                  'name': 'fpn', 'encoder': 'resnet18', 'num_classes': 2,
+                  'dtype': 'bfloat16', 'cifar_stem': True},
+              'dataset': _SEG_DATA, 'loss': 'bce_dice', 'batch_size': 32,
+              'main_metric': 'dice', 'model_name': 'seg_fpn',
+              'stages': [{'name': 's1', 'epochs': 4, 'optimizer': {
+                  'name': 'adam', 'lr': 0.001}}]},
+    'infer': {'type': 'infer_classify', 'model_name': 'seg_fpn',
+              'dataset': _SEG_DATA, 'activation': 'argmax',
+              'depends': 'train'},
+    **{f'valid_{metric}': {'type': 'valid_segment', 'dataset': _SEG_DATA,
+                           'y': "load('seg_fpn')", 'metric': metric,
+                           'depends': 'infer'}
+       for metric in ('iou', 'dice')},
 }
 #: the saved predictions' accuracy against the trainer's validation
 #: accuracy: 0.2 points (the trainer's eval step and the predictor run
@@ -3528,9 +3601,9 @@ def phase_dag_cifar10(seed: int, smi: str) -> dict:
 
 def phase_dag_ensemble(seed: int, smi: str) -> dict:
     """``[dag-ensemble]``: (a) ``examples/ensemble`` verbatim on the card,
-    (b) ``encoder_grid``'s ResNet-18 and ViT cells trained, inferred
-    (the ViT through the flash and int8 kernels) and ensembled. Returns
-    each kernel's launches by path."""
+    (b) ``encoder_grid``'s six cells trained, inferred (the ViT through
+    the flash and int8 kernels) and ensembled. Returns each kernel's
+    launches by path."""
     from mlcomp_tpu_torch.train.data import create_dataset
     from mlcomp_tpu_torch.train.export import load_export, quantized_modules
 
@@ -3581,23 +3654,40 @@ def phase_dag_ensemble(seed: int, smi: str) -> dict:
         _check_launches(f'{phase} infer_vit_bf16',
                         runs['infer_vit_bf16']['launches'],
                         {'flash_attention_fwd': layers * batches * views})
+        for cell in GRID_CELLS:
+            train = runs[f'train_{cell}']
+            images = _GRID_DATA['n_train']      # one epoch
+            say(phase, cell=cell, train_s=f'{train["seconds"]:.2f}',
+                train_images_per_s=f'{images / train["seconds"]:.1f}',
+                params=train['result']['n_params'],
+                best_accuracy=train['result']['best_score'], card=smi)
+            _say_infer_rate(phase, f'infer_{cell}', runs[f'infer_{cell}'],
+                            smi, views=views)
+            if runs[f'train_{cell}']['launches'] \
+                    or runs[f'infer_{cell}']['launches']:
+                fail(f'{phase}: the {cell} cell launched a kernel of the '
+                     f'port\'s; its path has none')
         q8 = np.load(os.path.join(pred, 'grid_vit.npy'))
         bf16 = np.load(os.path.join(pred, 'grid_vit_bf16.npy'))
-        for arr in (q8, bf16, np.load(os.path.join(pred,
-                                                   'grid_resnet18.npy'))):
+        arrays = [np.load(os.path.join(pred, f'{a}.npy'))
+                  for a in GRID_ARRAYS]
+        for arr in arrays + [bf16]:
             _check_probabilities(phase, arr, n, 10)
         _compare_rows(phase, torch.from_numpy(q8), torch.from_numpy(bf16),
                       int8='quantize=int8', plain='bf16 infer')
-        mean = (np.load(os.path.join(pred, 'grid_resnet18.npy')) + q8) / 2
+        # the equation's order: the sum left to right, then the division
+        total = arrays[0]
+        for arr in arrays[1:]:
+            total = total + arr
+        mean = total / len(arrays)
         score = runs['valid_grid']['result']['score']
-        say(phase, part='b', valid_score=score,
+        say(phase, part='b', valid_score=score, arrays=len(arrays),
             mean_accuracy=_accuracy(mean, labels),
-            resnet18_accuracy=_accuracy(np.load(os.path.join(
-                pred, 'grid_resnet18.npy')), labels),
-            vit_int8_accuracy=_accuracy(q8, labels))
+            **{f'{a[len("grid_"):]}_accuracy': _accuracy(arr, labels)
+               for a, arr in zip(GRID_ARRAYS, arrays)})
         if score != _accuracy(mean, labels):
             fail(f'{phase}: valid_grid scored {score}, the mean of the '
-                 f'saved predictions {_accuracy(mean, labels)}')
+                 f'{len(arrays)} saved predictions {_accuracy(mean, labels)}')
         return {'dag_ensemble_train': {
                     **runs['train_resnet18']['launches'],
                     **runs['train_vit']['launches']},
@@ -3605,6 +3695,199 @@ def phase_dag_ensemble(seed: int, smi: str) -> dict:
                 'dag_ensemble_infer_vit': runs['infer_vit_bf16']['launches']}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _valid_metric(messages, metric: str) -> list:
+    """The validation ``metric`` of each epoch from the executor's log."""
+    return [float(m.group(1)) for m in (
+        re.search(r"\] epoch \d+: train \{[^}]*\} valid \{[^}]*'"
+                  + metric + r"': ([^,}]+)", line) for line in messages) if m]
+
+
+def phase_dag_segmentation(seed: int, smi: str):
+    """``[dag-segmentation]``: ``examples/segmentation``'s train -> infer
+    (argmax) on the card, then ``valid_segment`` by iou and by dice over
+    the saved predictions."""
+    from mlcomp_tpu_torch.contrib.metrics import dice_numpy, iou_numpy
+    from mlcomp_tpu_torch.train.data import create_dataset
+
+    phase = 'dag-segmentation'
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_dag_segmentation_')
+    try:
+        runs = _walk_dag(phase, SEGMENTATION_DAG, work, seed)
+        masks = create_dataset(**_SEG_DATA)['y_valid']
+        preds = np.load(os.path.join(work, 'data', 'pred', 'seg_fpn.npy'))
+        want = (_SEG_DATA['n_valid'], _SEG_DATA['image_size'],
+                _SEG_DATA['image_size'])
+        if preds.shape != want or preds.dtype != np.int32:
+            fail(f'{phase}: argmax predictions {preds.shape} '
+                 f'{preds.dtype}, expected {want} int32')
+        truth, picked = masks > 0, preds > 0
+        scores = {'iou': iou_numpy(truth, picked),
+                  'dice': dice_numpy(truth, picked)}
+        train = runs['train']
+        losses = _train_losses(train['log'])
+        dice = _valid_metric(train['log'], 'dice')
+        _say_infer_rate(phase, 'infer', runs['infer'], smi)
+        images = len(losses) * _SEG_DATA['n_train']
+        say(phase, train_s=f'{train["seconds"]:.2f}',
+            train_images_per_s=f'{images / train["seconds"]:.1f}',
+            params=train['result']['n_params'],
+            epoch_train_loss=[f'{v:.4f}' for v in losses],
+            final_valid_dice=dice[-1:],
+            best_dice=train['result']['best_score'],
+            **{f'valid_{m}': runs[f'valid_{m}']['result']['score']
+               for m in scores},
+            **{f'numpy_{m}': v for m, v in scores.items()}, card=smi)
+        for metric, value in scores.items():
+            got = runs[f'valid_{metric}']['result']['score']
+            if got != value:
+                fail(f'{phase}: valid_segment scored {metric} {got}, the '
+                     f'saved predictions {value}')
+        if len(losses) != 4 or not losses[-1] < losses[0]:
+            fail(f'{phase}: the train loss by epoch {losses} did not fall')
+        if any(run['launches'] for run in runs.values()):
+            fail(f'{phase}: a kernel of the port\'s was launched; this '
+                 f'path has none')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ the model zoo
+#: the JAX package's parameter count of each model of ``[zoo]``
+#: (``jax.eval_shape`` of its init on the CPU; the smoke imports no JAX):
+#: the classifiers at ``num_classes`` 10, the segmentation models at 2
+ZOO_PARAMS = {
+    'vgg13': 9_413_066, 'vgg16': 14_724_042, 'densenet121': 6_956_426,
+    'densenet169': 12_493_450, 'seresnet18': 11_263_042,
+    'seresnet34': 21_443_318, 'seresnet50': 26_051_834,
+    'efficientnet_lite0': 2_962_058, 'mobilenetv2': 1_814_922,
+    'drn26': 11_173_962, 'xception': 21_349_290, 'dpn68': 2_684_266,
+    'inceptionresnetv2': 71_122_570,
+    'fpn': 11_587_778, 'linknet': 11_301_634, 'pspnet': 13_792_322,
+    'deeplabv3': 13_153_090, 'unet_resnet18': 14_313_474,
+    'deeplabv3_drn26': 13_153_090, 'unet': 1_948_322,
+}
+ZOO_SEGMENTATION = ('fpn', 'linknet', 'pspnet', 'deeplabv3', 'unet_resnet18',
+                    'deeplabv3_drn26', 'unet')
+#: f32 on the card (TF32 off) against the CPU: the largest error of a
+#: row (an example's output, a statistics vector) over the row's largest
+#: magnitude. cuDNN and the CPU sum convolutions and statistics in other
+#: orders, through up to ~160 norm sites
+ZOO_ROW_TOL = 1e-4
+#: a running-statistics row whose entries all lie below this share of
+#: the model's largest statistic is zero in exact arithmetic (the batch
+#: mean of a bias-free linear map of a batch-normalised input, as
+#: EfficientNet's ``expand_norm``: ~1e-9 on either device, 1e-18 in f64
+#: on the CPU) and holds rounding noise; such a row is judged against
+#: this floor instead of its own magnitude
+ZOO_STAT_FLOOR = 1e-3
+#: the timed step's batch: encoder_grid's 256, examples/segmentation's 32
+ZOO_BATCH = {'classify': 256, 'segment': 32}
+ZOO_WARMUP, ZOO_ITERS = 3, 10
+
+
+def _row_error(got, want, floor: float = 1e-30) -> float:
+    """The largest error of a row over the row's largest magnitude (or
+    ``floor``, where that is larger)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    rows = got.shape[0] if got.dim() > 1 else 1
+    g, w = got.reshape(rows, -1), want.reshape(rows, -1)
+    return float(((g - w).abs().amax(1)
+                  / w.abs().amax(1).clamp_min(floor)).max())
+
+
+def phase_zoo(seed: int, smi: str):
+    """``[zoo]``: every architecture of this slice at full width on the
+    card (ZOO_PARAMS' models): the parameter count, an f32 card-vs-CPU
+    check, bf16 AdamW steps (finite, every parameter moved), the step
+    timed."""
+    import copy
+    from mlcomp_tpu_torch.models import create_model, param_count
+    from mlcomp_tpu_torch.train.loop import (
+        create_train_state, loss_for_task, make_train_step,
+    )
+    from mlcomp_tpu_torch.train.optim import make_optimizer
+
+    phase = 'zoo'
+    rng = np.random.RandomState(seed)
+    for name in ZOO_PARAMS:
+        segment = name in ZOO_SEGMENTATION
+        classes, hw = (2, 64) if segment else (10, 32)
+        spec = {'name': name, 'num_classes': classes, 'cifar_stem': True}
+        cpu = create_model(**spec, dtype='float32', device='cpu',
+                           generator=torch.Generator().manual_seed(seed))
+        n_params = param_count(cpu)
+        if n_params != ZOO_PARAMS[name]:
+            fail(f'{phase}: {name} has {n_params} parameters, the JAX '
+                 f'package {ZOO_PARAMS[name]}')
+        # f32 on the card (TF32 off, main() sets it) against the CPU
+        card = copy.deepcopy(cpu).cuda()
+        x = torch.from_numpy(rng.rand(2, hw, hw, 3).astype(np.float32))
+        with torch.no_grad():
+            errors = {'eval': _row_error(card(x.cuda()), cpu(x)),
+                      'train': _row_error(card(x.cuda(), train=True),
+                                          cpu(x, train=True))}
+        card_sd = card.state_dict()
+        stats = {k: v for k, v in cpu.state_dict().items()
+                 if k.endswith(('.mean', '.var'))}
+        floor = ZOO_STAT_FLOOR * max(float(v.abs().max())
+                                     for v in stats.values())
+        errors['stats'] = max(_row_error(card_sd[k], v, floor)
+                              for k, v in stats.items())
+        del card, cpu
+        # the bf16 train step at the config's batch
+        gen = torch.Generator('cuda').manual_seed(seed)
+        model = create_model(**spec, dtype='bfloat16', device='cuda',
+                             generator=gen)
+        batch = ZOO_BATCH['segment' if segment else 'classify']
+        xb = torch.rand(batch, hw, hw, 3, device='cuda', generator=gen)
+        yb = torch.randint(0, classes, (batch, hw, hw) if segment
+                           else (batch,), device='cuda', generator=gen)
+        loss_fn = loss_for_task('bce_dice' if segment else 'softmax_ce')
+        params = dict(model.named_parameters())
+        loss = loss_fn(model(xb, train=True), yb)[0]
+        grads = torch.autograd.grad(loss, list(params.values()))
+        loss = float(loss)
+        finite_grads = all(bool(torch.isfinite(g).all()) for g in grads)
+        optimizer, _ = make_optimizer({'name': 'adamw', 'lr': 1e-3}, 100)
+        state = create_train_state(model, optimizer, seed=seed)
+        step = make_train_step(model, optimizer, loss_fn)
+        before = {k: v.detach().clone() for k, v in params.items()}
+        # two steps: a zero-init residual scale (the blocks' last norm)
+        # gives its branch's zero-init biases no gradient in the first
+        for _ in range(2):
+            state, metrics = step(state, xb, yb)
+        still = [k for k, v in params.items() if torch.equal(v, before[k])]
+        step_loss = float(metrics['loss'])
+        del before, grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: step(state, xb, yb), iters=ZOO_ITERS,
+                          warmup=ZOO_WARMUP)
+        peak = torch.cuda.max_memory_allocated()
+        say(phase, model=name, params=n_params, input=f'{hw}x{hw}x3',
+            f32_eval_row_err=f'{errors["eval"]:.2e}',
+            f32_train_row_err=f'{errors["train"]:.2e}',
+            f32_stats_row_err=f'{errors["stats"]:.2e}', tf32='off',
+            max_row_err=ZOO_ROW_TOL, bf16_loss=f'{loss:.4f}',
+            step_loss=f'{step_loss:.4f}', finite_grads=finite_grads,
+            unmoved=len(still), batch=batch, step_ms=f'{step_ms:.3f}',
+            images_per_s=f'{batch / step_ms * 1e3:.1f}',
+            peak_mib=f'{peak / 2 ** 20:.0f}', card=smi)
+        if not max(errors.values()) <= ZOO_ROW_TOL:
+            fail(f'{phase}: {name} in f32 on the card is off the CPU by '
+                 f'{errors} of a row')
+        if not (np.isfinite(loss) and np.isfinite(step_loss)
+                and finite_grads):
+            fail(f'{phase}: {name}\'s bf16 step is not finite: loss '
+                 f'{loss}, step loss {step_loss}, grads finite '
+                 f'{finite_grads}')
+        if still:
+            fail(f'{phase}: {name}\'s step left {still[:5]} unmoved')
+        del model, state, step, xb, yb, params
         torch.cuda.empty_cache()
 
 
@@ -3650,6 +3933,8 @@ def main():
         cifar_launches = phase_cifar_train(args.seed)
         dag_cifar10 = phase_dag_cifar10(args.seed, smi)
         dag_ensemble = phase_dag_ensemble(args.seed, smi)
+        phase_dag_segmentation(args.seed, smi)
+        phase_zoo(args.seed, smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the

@@ -1,6 +1,7 @@
 """Carry weights between JAX variable trees and the port's
 ``state_dict``: ``transformer_lm`` (dense or MoE) and ``vit`` below, the
-image models (``mlp``, the ResNets, with their ``batch_stats``) under
+image models (``mlp``, the ResNets, the encoder classifiers, the
+segmentation models and U-Nets, with their ``batch_stats``) under
 "image models" further down; ``state_dict_from_jax`` and
 ``variables_to_jax`` dispatch on the model.
 
@@ -305,12 +306,14 @@ def _image_leaf_from_jax(path: str, leaf) -> tuple:
 
 
 def image_state_dict_from_jax(variables: dict) -> dict:
-    """JAX ``{'params': ..., 'batch_stats': ...}`` of an ``mlp`` or a
-    ResNet → the port's ``state_dict`` (parameters and the running
-    statistics' buffers), keyed by the JAX paths joined with dots: conv
-    kernels HWIO → ``weight`` OIHW, dense kernels [in, out] → ``weight``
-    [out, in], every other leaf (biases, norm scales, WSConv gains,
-    ``mean``/``var``) as it is."""
+    """JAX ``{'params': ..., 'batch_stats': ...}`` of an image model (an
+    ``mlp``, a ResNet, an encoder classifier, a segmentation model) → the
+    port's ``state_dict`` (parameters and the running statistics'
+    buffers), keyed by the JAX paths joined with dots: conv kernels HWIO
+    → ``weight`` OIHW (a grouped one, [kh, kw, in/groups, out], → [out,
+    in/groups, kh, kw], PyTorch's grouped layout), dense kernels [in,
+    out] → ``weight`` [out, in], every other leaf (biases, norm scales,
+    WSConv gains, ``mean``/``var``) as it is."""
     sd = dict(_image_leaf_from_jax(p, v)
               for p, v in _flatten(variables['params']))
     for path, value in _flatten(variables.get('batch_stats') or {}):
@@ -319,7 +322,7 @@ def image_state_dict_from_jax(variables: dict) -> dict:
 
 
 def image_variables_to_jax(state_dict) -> dict:
-    """The port's ``state_dict`` of an ``mlp`` or a ResNet → the JAX
+    """The port's ``state_dict`` of an image model → the JAX
     ``{'params': ...}`` tree, with ``'batch_stats'`` when it holds
     running statistics."""
     variables = {'params': {}}
@@ -363,8 +366,8 @@ def state_dict_from_jax(variables: dict, name: str) -> dict:
 
 def jax_family(model) -> str:
     """The name ``state_dict_from_jax`` dispatches a port model's tree
-    on: ``vit``, ``transformer_lm``, or ``image`` (an ``mlp`` or a
-    ResNet)."""
+    on: ``vit``, ``transformer_lm``, or ``image`` (an ``mlp``, a
+    ResNet, an encoder classifier, a segmentation model or a U-Net)."""
     if isinstance(model, ViT):
         return 'vit'
     if getattr(model, 'cfg', None) is not None:
@@ -387,22 +390,44 @@ def variables_to_jax(model) -> dict:
     return image_variables_to_jax(sd)
 
 
+#: the first conv of each image family, whose kernel's input dim is the
+#: image's channels: the ResNets' and most families' ``conv_stem``, VGG's
+#: ``s0_conv0``, Inception-ResNet's ``stem1_conv``, Xception's
+#: ``conv_stem1``, the standalone U-Net's ``down_0.Conv_0``
+_FIRST_CONVS = (('conv_stem',), ('s0_conv0',), ('stem1_conv',),
+                ('conv_stem1',), ('down_0', 'Conv_0'))
+
+
+def _image_channels(params: dict):
+    """The channels of an image model's input from its first conv: in the
+    tree itself or in its encoder (``{Family}Encoder_0``, inside an
+    ``EncoderClassifier`` or a decoder); None if there is none."""
+    for path in _FIRST_CONVS:
+        node = params
+        for key in path:
+            node = node.get(key) if isinstance(node, dict) else None
+        if isinstance(node, dict) and 'kernel' in node:
+            return int(to_tensor(node['kernel']).shape[2])
+    for key, sub in params.items():
+        if key.endswith('Encoder_0') and isinstance(sub, dict):
+            return _image_channels(sub)
+    return None
+
+
 def input_shape_from_params(name: str, params: dict, spec: dict = None):
     """The input shape an image model's weights imply, for building the
-    port's model around an export without one: a ResNet's stem gives its
-    channels, a ViT's patch projection too (over the spec's
-    ``patch_size``), an MLP's first layer its features; None for
-    others."""
+    port's model around an export without one: a conv model's first conv
+    gives its channels (every ResNet, encoder family, decoder and U-Net),
+    a ViT's patch projection too (over the spec's ``patch_size``), an
+    MLP's first layer its features; None for others."""
     if name.lower() == 'vit':
         p = (spec or {}).get('patch_size', 4)
         return (None, None, int(to_tensor(params['patch_embed']['kernel'])
                                .shape[0]) // (p * p))
-    if name.lower().startswith('resnet'):
-        return (None, None, int(to_tensor(params['conv_stem']['kernel'])
-                               .shape[2]))
     if name.lower() == 'mlp':
         return (int(to_tensor(params['dense_0']['kernel']).shape[0]),)
-    return None
+    channels = _image_channels(params)
+    return None if channels is None else (None, None, channels)
 
 
 __all__ = ['params_from_jax', 'params_to_jax', 'port_module_name',

@@ -2,7 +2,10 @@
 
 The registry holds ``nn.Module`` factories keyed by the same names the
 JAX package uses, so an export's ``{'name': ..., **kwargs}`` spec builds
-the port's model unchanged.
+the port's model unchanged. It holds all 111 of the JAX registry's
+names but ``pipelined_lm`` (ROADMAP.md A4): the LMs, ``vit``, ``mlp``,
+the ResNets, the encoder classifiers, the segmentation decoders and
+``unet`` (``models/__init__.py`` lists them).
 """
 
 from typing import Callable, Dict

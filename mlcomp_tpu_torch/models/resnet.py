@@ -67,17 +67,21 @@ def _channels_last(x):
     return x.contiguous(memory_format=torch.channels_last)
 
 
-def conv_same(x, weight, stride: int = 1, dilation: int = 1):
+def conv_same(x, weight, stride: int = 1, dilation: int = 1, groups: int = 1,
+              bias=None):
     """``lax.conv_general_dilated(..., padding='SAME')`` over an NCHW
-    (channels_last) x and an OIHW weight."""
+    (channels_last) x and an OIHW weight (grouped: [out, in/groups, kh,
+    kw], flax's ``feature_group_count``), plus ``bias``."""
     kh, kw = weight.shape[2:]
     ph = same_pads(x.shape[2], kh, stride, dilation)
     pw = same_pads(x.shape[3], kw, stride, dilation)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, weight, stride=stride, padding=(ph[0], pw[0]),
-                        dilation=dilation)
+        return F.conv2d(x, weight, bias, stride=stride,
+                        padding=(ph[0], pw[0]), dilation=dilation,
+                        groups=groups)
     x = _channels_last(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
-    return F.conv2d(x, weight, stride=stride, dilation=dilation)
+    return F.conv2d(x, weight, bias, stride=stride, dilation=dilation,
+                    groups=groups)
 
 
 def max_pool_same(x, kernel: int = 3, stride: int = 2):
@@ -88,6 +92,37 @@ def max_pool_same(x, kernel: int = 3, stride: int = 2):
     return F.max_pool2d(_channels_last(x), kernel, stride)
 
 
+def max_pool_valid(x, kernel: int = 2):
+    """flax ``nn.max_pool(x, (k, k), strides=(k, k))`` (VALID): a ragged
+    edge is dropped."""
+    return F.max_pool2d(x, kernel, kernel)
+
+
+def avg_pool_valid(x, kernel):
+    """flax ``nn.avg_pool(x, kernel, strides=kernel)`` (VALID)."""
+    return F.avg_pool2d(x, kernel, kernel)
+
+
+def to_nchw(x, dtype):
+    """NHWC images of any dtype as the NCHW channels_last ``dtype``
+    tensor the convolutions take."""
+    return _channels_last(x.to(dtype).permute(0, 3, 1, 2))
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module,
+                    generator: Optional[torch.Generator] = None):
+    """Draw every parameter of ``model`` from its JAX initialiser's
+    distribution (each leaf module's ``reset_parameters``); the numbers
+    differ from JAX's, so tests hand both packages the same weights."""
+    if generator is None:
+        device = next(model.parameters()).device
+        generator = torch.Generator(device).manual_seed(0)
+    for module in model.modules():
+        if module is not model and hasattr(module, 'reset_parameters'):
+            module.reset_parameters(generator)
+
+
 def _param(shape, device, fill: Optional[float] = None):
     t = torch.empty(shape, dtype=torch.float32, device=device)
     if fill is not None:
@@ -96,25 +131,37 @@ def _param(shape, device, fill: Optional[float] = None):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias: the input and the f32 kernel cast to
-    ``dtype``, 'SAME' padding. ``weight`` is OIHW."""
+    """flax ``nn.Conv``: the input and the f32 kernel cast to ``dtype``,
+    'SAME' padding. ``weight`` is OIHW ([out, in/groups, kh, kw] for
+    ``groups`` > 1, flax's ``feature_group_count``); ``bias`` (flax's
+    ``use_bias``) starts at zero. ``init``: ``fan_out`` is the zoo's
+    ``conv_kernel_init`` (variance_scaling(2.0, 'fan_out', 'normal')),
+    ``lecun`` flax's default kernel initialiser."""
 
     def __init__(self, c_in: int, c_out: int, kernel, stride: int = 1,
-                 dilation: int = 1, dtype=torch.bfloat16, device=None):
+                 dilation: int = 1, dtype=torch.bfloat16, device=None,
+                 groups: int = 1, bias: bool = False, init: str = 'fan_out'):
         super().__init__()
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        if init not in ('fan_out', 'lecun'):
+            raise ValueError(f'unknown conv init {init!r}')
         self.stride, self.dilation, self.dtype = stride, dilation, dtype
-        self.weight = _param((c_out, c_in, kh, kw), device)
+        self.groups, self.init = groups, init
+        self.weight = _param((c_out, c_in // groups, kh, kw), device)
+        self.bias = _param((c_out,), device, 0.0) if bias else None
 
     def reset_parameters(self, generator):
-        # variance_scaling(2.0, 'fan_out', 'normal')
-        c_out, _, kh, kw = self.weight.shape
-        self.weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * c_out)),
-                            generator=generator)
+        c_out, c_in, kh, kw = self.weight.shape
+        fan = kh * kw * (c_out if self.init == 'fan_out' else c_in)
+        scale = 2.0 if self.init == 'fan_out' else 1.0
+        self.weight.normal_(0.0, math.sqrt(scale / fan), generator=generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
 
     def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(self.dtype)
         return conv_same(x.to(self.dtype), self.weight.to(self.dtype),
-                         self.stride, self.dilation)
+                         self.stride, self.dilation, self.groups, bias)
 
 
 class WSConv(Conv):
@@ -221,11 +268,11 @@ class BatchNorm(_Norm):
                              training=False, eps=EPSILON)
             return y.to(self.dtype)
         c = x.shape[1]
-        # momentum 1 into scratch buffers: they come back holding the
-        # batch mean and the unbiased variance, which is rescaled to the
-        # biased one flax keeps
-        mean = torch.zeros(c, dtype=torch.float32, device=x.device)
-        var = torch.ones(c, dtype=torch.float32, device=x.device)
+        # momentum 1 into scratch buffers (in the running statistics'
+        # dtype): they come back holding the batch mean and the unbiased
+        # variance, which is rescaled to the biased one flax keeps
+        mean = torch.zeros(c, dtype=self.mean.dtype, device=x.device)
+        var = torch.ones(c, dtype=self.mean.dtype, device=x.device)
         y = F.batch_norm(x, mean, var, self.scale, self.bias, training=True,
                          momentum=1.0, eps=EPSILON)
         n = x.numel() // c
@@ -444,23 +491,15 @@ class ResNet(nn.Module):
         self.head = Dense(c, num_classes, torch.float32, device)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """The JAX initialisers' distributions; the numbers differ from
-        JAX's, so tests hand both packages the same weights."""
-        if generator is None:
-            generator = torch.Generator(self.head.weight.device).manual_seed(0)
-        for module in self.modules():
-            if module is not self and hasattr(module, 'reset_parameters'):
-                module.reset_parameters(generator)
+        """The JAX initialisers' distributions (``init_parameters``)."""
+        init_parameters(self, generator)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """Logits [N, num_classes] f32 of NHWC images ``x``. ``generator``
         is accepted for the train step's sake (no dropout here)."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)      # NCHW, channels_last
-        x = _channels_last(x)
-        x = self.conv_stem(x)
+        x = self.conv_stem(to_nchw(x, self.dtype))
         x = _norm_act(self.norm_stem, x, train, self.fuses)
         if not self.cifar_stem:
             x = max_pool_same(x)
@@ -500,4 +539,5 @@ for _name, (_sizes, _block) in _VARIANTS.items():
 
 __all__ = ['ResNet', 'BasicBlock', 'Bottleneck', 'Conv', 'WSConv', 'Dense',
            'BatchNorm', 'FusedNormAct', 'NormFactory', 'SqueezeExcite',
-           'same_pads', 'conv_same', 'max_pool_same']
+           'same_pads', 'conv_same', 'max_pool_same', 'max_pool_valid',
+           'avg_pool_valid', 'to_nchw', 'init_parameters']

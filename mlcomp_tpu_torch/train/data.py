@@ -4,14 +4,15 @@
 The registry and the loaders ported so far: ``npz`` (local files with the
 fold split), ``synthetic_lm`` (Markov-chain token streams),
 ``synthetic_images`` (class prototypes plus noise, CIFAR-shaped),
-``cifar10`` (a local npz, else the synthetic stand-in) and ``digits``
-(scikit-learn's scans; scikit-learn is imported inside the loader and
-its absence raises there). Each makes the same ``np.random.RandomState``
-draws as the JAX package, so the same seed gives the same arrays. The
-other names of the JAX registry are registered here too and raise,
-pointing at ROADMAP.md. Batches go to the card as pinned host tensors
-copied with ``non_blocking``, ``depth`` batches ahead of the step that
-uses them.
+``synthetic_segmentation`` (rectangles and their masks), ``cifar10`` (a
+local npz, else the synthetic stand-in) and ``digits`` (scikit-learn's
+scans; scikit-learn is imported inside the loader and its absence raises
+there). Each makes the same ``np.random.RandomState`` draws as the JAX
+package, so the same seed gives the same arrays. ``digits_segmentation``
+is registered and raises, pointing at ROADMAP.md. Batches are augmented
+on the host where a ``transform`` is given (``contrib/transform``) and go
+to the card as pinned host tensors copied with ``non_blocking``,
+``depth`` batches ahead of the step that uses them.
 """
 
 import os
@@ -193,18 +194,34 @@ def _cifar10(path: str = None, n_train: int = 50000, n_valid: int = 10000,
     return out
 
 
-def _not_ported(name: str, item: str):
-    def loader(**_):
-        raise NotImplementedError(
-            f'dataset {name!r} is not ported yet (ROADMAP.md, queue A: '
-            f'{item}); ported: npz, synthetic_lm, synthetic_images, '
-            f'cifar10, digits')
-    register_dataset(name)(loader)
+@register_dataset('synthetic_segmentation')
+def _synth_seg(n_train: int = 512, n_valid: int = 64, image_size: int = 64,
+               num_classes: int = 2, seed: int = 0, **_):
+    """Random rectangles → mask (NHWC f32 images, [N, H, W] int32
+    masks)."""
+    def make(n, s):
+        r = np.random.RandomState(s)
+        x = r.rand(n, image_size, image_size, 3).astype(np.float32) * 0.2
+        y = np.zeros((n, image_size, image_size), np.int32)
+        for i in range(n):
+            for cls in range(1, num_classes):
+                x0, y0 = r.randint(0, image_size // 2, 2)
+                w, h = r.randint(image_size // 8, image_size // 2, 2)
+                x[i, y0:y0 + h, x0:x0 + w, :] += 0.5 + 0.1 * cls
+                y[i, y0:y0 + h, x0:x0 + w] = cls
+        return x, y
+
+    xt, yt = make(n_train, seed + 1)
+    xv, yv = make(n_valid, seed + 2)
+    return {'x_train': xt, 'y_train': yt, 'x_valid': xv, 'y_valid': yv}
 
 
-for _name, _item in (('digits_segmentation', 'A7'),
-                     ('synthetic_segmentation', 'A7')):
-    _not_ported(_name, _item)
+@register_dataset('digits_segmentation')
+def _digits_segmentation(**_):
+    raise NotImplementedError(
+        "dataset 'digits_segmentation' is not ported yet (ROADMAP.md, queue "
+        "A: A7): it is built from scikit-learn's digits, and the card's "
+        "machine has no scikit-learn")
 
 
 # ---------------------------------------------------------------- batching
@@ -214,13 +231,10 @@ def iterate_batches(x: np.ndarray, y: Optional[np.ndarray],
                     transform=None, logger=None
                     ) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray]]]:
     """Shuffled host-side batches (the same order as the JAX package's
-    for the same ``rng``). Per-sample host transforms are not ported yet
-    (augmentation runs on the device: ``device_data``)."""
-    if transform is not None:
-        raise NotImplementedError(
-            'host augment transforms are not ported yet (ROADMAP.md, queue '
-            'A: A7); the device-resident path augments pad_crop/hflip/'
-            'vflip/cutout')
+    for the same ``rng``); ``transform`` (a ``contrib.transform``
+    Compose) augments each batch on the host from the same ``rng`` (or
+    ``RandomState(0)`` without one), masks with it where ``y`` has
+    spatial dims, as the JAX package draws."""
     n = len(x)
     idx = np.arange(n)
     if rng is not None:
@@ -232,7 +246,16 @@ def iterate_batches(x: np.ndarray, y: Optional[np.ndarray],
     end = n - dropped if drop_last else n
     for start in range(0, end, batch_size):
         take = idx[start:start + batch_size]
-        yield x[take], (y[take] if y is not None else None)
+        bx = x[take]
+        by = y[take] if y is not None else None
+        if transform is not None:
+            from mlcomp_tpu_torch.contrib.transform import augment_batch
+            aug_rng = rng if rng is not None else np.random.RandomState(0)
+            if by is not None and by.ndim >= 3:   # masks
+                bx, by = augment_batch(bx, transform, aug_rng, masks=by)
+            else:
+                bx = augment_batch(bx, transform, aug_rng)
+        yield bx, by
 
 
 def _to_device(a: Optional[np.ndarray], device: torch.device):

@@ -20,11 +20,12 @@ Example spec (the JAX trainer's keys, plus ``device``)::
       device: cuda             # the card unless the caller asks for cpu
 
 Ported: stages and epochs, the train and eval loops over the host
-pipeline (pinned batches copied ahead of the step) or, with
-``device_data`` (``auto``, the default, or ``true``), over a dataset
-resident on the device with on-device ``augment`` (``device_data.py``;
-the JAX trainer's selection rule), ``main_metric`` / ``minimize`` best
-tracking, ``checkpoint_every``, the async checkpoint writer, resume
+pipeline (batches augmented on the host by ``augment``'s
+``contrib/transform`` pipeline, pinned and copied ahead of the step) or,
+with ``device_data`` (``auto``, the default, or ``true``), over a
+dataset resident on the device with on-device ``augment``
+(``device_data.py``; the JAX trainer's selection rule),
+``main_metric`` / ``minimize`` best tracking, ``checkpoint_every``, the async checkpoint writer, resume
 through ``resume_plan``, running statistics (``batch_stats``) in
 checkpoints and the export, the ``model_name`` export, pretrained
 weights (``model.params_file``, ``train/pretrained.py``; a resume wins
@@ -42,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from mlcomp_tpu_torch.contrib.transform import parse_transforms
 from mlcomp_tpu_torch.convert import (
     jax_kernel_shapes, state_dict_from_jax, variables_to_jax,
 )
@@ -277,11 +279,7 @@ class Train(Executor):
             or (self.device_data == 'auto' and device_augs is not None
                 and y_train is not None and not self_supervised
                 and dataset_fits_hbm(x_train, extra_bytes=x_valid.nbytes)))
-        if self.augment and not use_device_data:
-            raise NotImplementedError(
-                f'train: augment {self.augment!r} needs the host pipeline\'s '
-                f'transforms, which are not ported yet (ROADMAP.md, queue A: '
-                f'A7); the device-resident path runs {DEVICE_AUGMENTS}')
+        transform = None
         if use_device_data:
             x_q, dequant = quantize_dataset(x_train)
             x_all, y_all = place_dataset(x_q, y_train, device)
@@ -289,6 +287,9 @@ class Train(Executor):
             xv_all, yv_all = place_dataset(xv_q, y_valid, device)
             dev_augment = make_device_augment(
                 device_augs, x_train.shape[1:]) if device_augs else None
+        elif self.augment:
+            # the host pipeline augments each batch (contrib/transform)
+            transform = parse_transforms(self.augment)
 
         ck_dir = self._checkpoint_folder()
         steps_per_epoch = max(1, len(x_train) // self.batch_size)
@@ -411,6 +412,7 @@ class Train(Executor):
                 else:
                     batches = iterate_batches(
                         x_train, y_train, self.batch_size, ep_rng,
+                        transform=transform,
                         logger=self.info if first else None)
                     for x, y in prefetch_batches(batches, device,
                                                  depth=self.prefetch):

@@ -162,10 +162,10 @@ def loss_for_task(task) -> Callable:
                 f'got {task!r}')
         task = name
     if task not in LOSSES:
-        raise KeyError(
-            f'unknown loss {task!r}; have {sorted(LOSSES)} (the contrib '
-            f'losses dice/bce_dice/focal are not ported yet: ROADMAP.md, '
-            f'queue A: A7)')
+        # the contrib losses (dice/bce_dice/focal) register on import
+        import mlcomp_tpu_torch.contrib.criterion  # noqa: F401
+    if task not in LOSSES:
+        raise KeyError(f'unknown loss {task!r}; have {sorted(LOSSES)}')
     return LOSSES[task]
 
 

@@ -489,10 +489,6 @@ class TestExecutor:
         assert any('device_data=False' in line for line in lines)
         assert np.isfinite(result['best_score'])
 
-    def test_host_augment_is_not_ported(self, tmp_path):
-        with pytest.raises(NotImplementedError, match='A7'):
-            _run_executor(tmp_path, epochs=1, device_data=False)
-
     def test_device_data_true_needs_device_augments(self, tmp_path):
         with pytest.raises(ValueError, match='device-expressible'):
             _run_executor(tmp_path, epochs=1, device_data=True,

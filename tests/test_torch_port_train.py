@@ -449,16 +449,10 @@ class TestData:
         assert [int(x[0, 0]) for x, _ in out] == list(range(5))
         assert all(y is None and x.dtype == torch.int32 for x, y in out)
 
-    @pytest.mark.parametrize('name', ['synthetic_segmentation',
-                                      'digits_segmentation'])
+    @pytest.mark.parametrize('name', ['digits_segmentation'])
     def test_other_datasets_are_not_ported(self, name):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             port_data.create_dataset(name)
-
-    def test_augment_transforms_are_not_ported(self):
-        with pytest.raises(NotImplementedError, match='augment'):
-            next(port_data.iterate_batches(np.zeros(4), None, 2,
-                                           transform=object()))
 
     @pytest.mark.parametrize('meta', [
         None, {}, {'stage': 'b', 'stage_epoch': 0},
