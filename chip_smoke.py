@@ -243,6 +243,24 @@ Phase of the model zoo's slice, run after the DAGs:
   models run no kernel of the port's: JAX normalises them with a plain
   ``nn.BatchNorm`` and so does the port.
 
+Phase of the command line's slice, run after the zoo:
+
+- cli: the repository's YAML through ``python -m mlcomp_tpu_torch`` and
+  its sqlite DB under the run's fresh root. (a) ``init`` and ``execute
+  examples/cifar_simple/config.yml --params model/norm:fused`` as
+  processes: the last line ``{"train": "Success"}``, the task's steps
+  (levels 1 and 2), Log rows and spans, a finite train and valid loss
+  and an ``images_per_sec`` row each of the 2 epochs, the export under
+  ``models/cifar_simple/cifar_resnet18`` and ``config.yml`` stored as
+  the dag's code; (b) that command and ``execute
+  examples/encoder_grid/config.yml`` again through the CLI's ``main`` in
+  this process, every kernel's count zeroed just before and read just
+  after: 1280 of each norm kernel (32 steps x 2 epochs x 20 sites), all
+  six grid tasks ``Success``, the ``vit`` cell's 216 flash forwards and
+  192 of each backward kernel, no other cell launching any; (c) every
+  task's wall seconds and images/s beside the card's name and power
+  limit.
+
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
 """
@@ -3755,6 +3773,201 @@ def phase_dag_segmentation(seed: int, smi: str):
         torch.cuda.empty_cache()
 
 
+#: ``[cli]``'s configs, run as the repository holds them
+CLI_CIFAR = os.path.join('examples', 'cifar_simple', 'config.yml')
+CLI_GRID = os.path.join('examples', 'encoder_grid', 'config.yml')
+#: both configs' epochs; ``cifar_simple``'s steps an epoch (8192 images,
+#: batch 256), ``encoder_grid``'s (4096, batch 256) and valid batches
+#: (512 images)
+CLI_EPOCHS, CLI_CIFAR_STEPS = 2, 32
+CLI_GRID_STEPS, CLI_GRID_VALID = 16, 2
+
+
+def _cli_rows(db: str, dag_id: int) -> dict:
+    """The DB rows of one dag the CLI left, read with stdlib sqlite3:
+    {task name: {'task', 'steps', 'logs', 'series', 'spans'}}, plus the
+    dag's stored files under ``None``."""
+    import sqlite3
+    conn = sqlite3.connect(db)
+    conn.row_factory = sqlite3.Row
+    try:
+        out = {None: [dict(r) for r in conn.execute(
+            'SELECT s.path, f.md5 FROM dag_storage s JOIN file f '
+            'ON s.file = f.id WHERE s.dag=?', (dag_id,))]}
+        for task in conn.execute('SELECT * FROM task WHERE dag=? '
+                                 'ORDER BY id', (dag_id,)):
+            tid = task['id']
+            out[task['name']] = {
+                'task': dict(task),
+                'steps': [dict(r) for r in conn.execute(
+                    'SELECT * FROM step WHERE task=? ORDER BY id', (tid,))],
+                'logs': conn.execute('SELECT COUNT(*) FROM log WHERE '
+                                     'task=?', (tid,)).fetchone()[0],
+                'series': [dict(r) for r in conn.execute(
+                    'SELECT name, part, stage, epoch, value FROM '
+                    'report_series WHERE task=? ORDER BY id', (tid,))],
+                'spans': conn.execute('SELECT COUNT(*) FROM telemetry_span '
+                                      'WHERE task=?', (tid,)).fetchone()[0]}
+        return out
+    finally:
+        conn.close()
+
+
+def _dag_ids(db: str) -> list:
+    """The ids of the dags in the sqlite DB at ``db``, in order."""
+    import sqlite3
+    conn = sqlite3.connect(db)
+    try:
+        return [r[0] for r in conn.execute('SELECT id FROM dag ORDER BY id')]
+    finally:
+        conn.close()
+
+
+def _check_cli_task(phase: str, name: str, rows: dict):
+    """A train task the CLI ran: Success, its step tree and logs, and a
+    finite train and valid loss and an images/s series each epoch."""
+    from mlcomp_tpu_torch.db.enums import TaskStatus
+    task = rows['task']
+    if task['status'] != int(TaskStatus.Success):
+        fail(f'{phase}: task {name!r} ended in status {task["status"]} '
+             f'({task["failure_reason"]})')
+    levels = sorted({s['level'] for s in rows['steps']})
+    if levels != [1, 2] or rows['logs'] <= 0 or rows['spans'] <= 0:
+        fail(f'{phase}: task {name!r} left steps at levels {levels}, '
+             f'{rows["logs"]} log rows, {rows["spans"]} spans')
+    for part in ('train', 'valid'):
+        losses = [r['value'] for r in rows['series']
+                  if r['name'] == 'loss' and r['part'] == part]
+        if len(losses) != CLI_EPOCHS or not all(np.isfinite(losses)):
+            fail(f'{phase}: task {name!r} {part} losses {losses}, want '
+                 f'{CLI_EPOCHS} finite')
+    rates = [r['value'] for r in rows['series']
+             if r['name'] == 'images_per_sec']
+    if len(rates) != CLI_EPOCHS:
+        fail(f'{phase}: task {name!r} images_per_sec series {rates}')
+
+
+def phase_cli(smi: str) -> dict:
+    """``[cli]``: the repository's YAML DAGs through the port's command
+    line and its sqlite DB. (a) ``init`` and ``execute
+    examples/cifar_simple/config.yml --params model/norm:fused`` as
+    processes, the DB read back; (b) ``execute
+    examples/encoder_grid/config.yml`` and the CIFAR one again through
+    the CLI's ``main`` in this process, every kernel's count zeroed just
+    before and read just after; (c) each task's wall seconds and
+    images/s. Returns the kernels' launches by path."""
+    from datetime import datetime
+    from mlcomp_tpu_torch import DB_FOLDER, MODEL_FOLDER
+    from mlcomp_tpu_torch.__main__ import main as cli_main
+    from mlcomp_tpu_torch.db.core import Session
+
+    phase = 'cli'
+    db = os.path.join(DB_FOLDER, 'sqlite.db')
+    cifar = ['execute', CLI_CIFAR, '--params', 'model/norm:fused']
+    links = [os.path.join(HERE, os.path.dirname(cfg), name)
+             for cfg in (CLI_CIFAR, CLI_GRID) for name in ('data', 'models')]
+    known = set()
+
+    def new_dag(what: str) -> int:
+        """The one dag the last run created."""
+        ids = [i for i in _dag_ids(db) if i not in known]
+        if len(ids) != 1:
+            fail(f'{phase}: {what} created dags {ids}, want one')
+        known.update(ids)
+        return ids[0]
+
+    def run_cli(argv: list) -> str:
+        """``python -m mlcomp_tpu_torch *argv`` as a process; its last
+        line."""
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch', *argv], cwd=HERE,
+            capture_output=True, text=True, timeout=900)
+        seconds = time.monotonic() - t0
+        last = (proc.stdout.strip().splitlines() or [''])[-1]
+        say(phase, part='a', command=' '.join(argv), rc=proc.returncode,
+            seconds=f'{seconds:.2f}', last_line=last)
+        if proc.returncode != 0:
+            fail(f'{phase}: {" ".join(argv)} exited {proc.returncode}:\n'
+                 f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+        return last
+
+    try:
+        # (a) the entry point as a process
+        run_cli(['init'])
+        known.update(_dag_ids(db))
+        last = run_cli(cifar)
+        if json.loads(last) != {'train': 'Success'}:
+            fail(f'{phase}: cifar_simple ended {last}')
+        dag_ids = [new_dag('cifar_simple')]
+        rows = _cli_rows(db, dag_ids[0])
+        _check_cli_task(phase, 'train', rows['train'])
+        export = os.path.join(MODEL_FOLDER, 'cifar_simple', 'cifar_resnet18')
+        if not os.path.exists(export + '.msgpack') \
+                or [f['path'] for f in rows[None]] != ['config.yml']:
+            fail(f'{phase}: export {export} or the stored code '
+                 f'{rows[None]} missing')
+        say(phase, part='a', steps=len(rows['train']['steps']),
+            logs=rows['train']['logs'], spans=rows['train']['spans'],
+            series=len(rows['train']['series']), files=rows[None],
+            export=export + '.msgpack')
+
+        # (b) launches, counted in this process
+        counters = _kernel_counters()
+        launches, statuses = {}, {}
+        for path, argv in (
+                ('cli_cifar', ['execute', os.path.join(HERE, CLI_CIFAR),
+                               *cifar[2:]]),
+                ('cli_grid', ['execute', os.path.join(HERE, CLI_GRID)])):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.monotonic()
+            statuses[path] = cli_main(argv)
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            dag_ids.append(new_dag(path))
+            launches[path] = {k: fn.launches for k, fn in counters.items()
+                              if fn.launches}
+            say(phase, part='b', path=path, seconds=f'{seconds:.2f}',
+                launches=launches[path], statuses=statuses[path])
+        Session.cleanup()
+        if statuses['cli_cifar'] != {'train': 'Success'} or \
+                len(statuses['cli_grid']) != 6 or any(
+                    s != 'Success' for s in statuses['cli_grid'].values()):
+            fail(f'{phase}: statuses {statuses}')
+        norm = 20 * CLI_CIFAR_STEPS * CLI_EPOCHS
+        _check_launches(f'{phase} cifar_simple', launches['cli_cifar'],
+                        {'fused_norm': norm, 'fused_norm_bwd': norm})
+        layers = 6
+        steps = CLI_GRID_STEPS * CLI_EPOCHS
+        _check_launches(f'{phase} encoder_grid', launches['cli_grid'], {
+            'flash_attention_fwd':
+                layers * (CLI_GRID_STEPS + CLI_GRID_VALID) * CLI_EPOCHS,
+            'flash_attention_bwd_dq': layers * steps,
+            'flash_attention_bwd_dkv': layers * steps})
+
+        # (c) numbers: each task's wall seconds and images/s
+        for dag_id in dag_ids:
+            for name, rows in _cli_rows(db, dag_id).items():
+                if name is None:
+                    continue
+                _check_cli_task(phase, name, rows)
+                task = rows['task']
+                wall = (datetime.fromisoformat(task['finished'])
+                        - datetime.fromisoformat(task['started']))
+                rates = [r['value'] for r in rows['series']
+                         if r['name'] == 'images_per_sec']
+                say(phase, part='c', dag=dag_id, task=name,
+                    wall_s=f'{wall.total_seconds():.2f}',
+                    images_per_s=' '.join(f'{r:.1f}' for r in rates),
+                    best_accuracy=task['score'], card=smi)
+        return {'cli': {**launches['cli_cifar'], **launches['cli_grid']}}
+    finally:
+        for link in links:
+            if os.path.islink(link):
+                os.remove(link)
+
+
 # ------------------------------------------------------------ the model zoo
 #: the JAX package's parameter count of each model of ``[zoo]``
 #: (``jax.eval_shape`` of its init on the CPU; the smoke imports no JAX):
@@ -3935,6 +4148,7 @@ def main():
         dag_ensemble = phase_dag_ensemble(args.seed, smi)
         phase_dag_segmentation(args.seed, smi)
         phase_zoo(args.seed, smi)
+        cli = phase_cli(smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -3957,7 +4171,8 @@ def main():
         'moe_serve_int8': moe_serve['int8']['flash_attention_fwd'],
         'vit_train': vit_launches['flash_attention_fwd'],
         **{path: counts['flash_attention_fwd']
-           for path, counts in dag_ensemble.items()}}
+           for path, counts in dag_ensemble.items()},
+        'cli': cli['cli']['flash_attention_fwd']}
     fwd['launches'] = sum(fwd['launches_by_path'].values())
     fwd['vit'] = {'shape': [256, 64, 3, 64], 'causal': False,
                   'with_lse_ms': vit['fwd_lse_ms'],
@@ -3973,7 +4188,8 @@ def main():
             'moe_train': moe_launches[entry['name']],
             'vit_train': vit_launches[entry['name']],
             'dag_ensemble_train':
-                dag_ensemble['dag_ensemble_train'][entry['name']]}
+                dag_ensemble['dag_ensemble_train'][entry['name']],
+            'cli': cli['cli'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
         part = 'dq' if entry['name'].endswith('_dq') else 'dkv'
         entry['vit'].update(device_ms=vit_device[part],
@@ -3989,7 +4205,8 @@ def main():
             **{path: counts[entry['name']]
                for path, counts in dag_cifar10.items()},
             'dag_ensemble_train':
-                dag_ensemble['dag_ensemble_train'][entry['name']]}
+                dag_ensemble['dag_ensemble_train'][entry['name']],
+            'cli': cli['cli'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}
                          for site, ms in norm_device.items()}

@@ -1,0 +1,123 @@
+"""Task provider (port of ``mlcomp_tpu/db/providers/task.py``, the part
+the builder, the pipeline and ``execute`` use): ``dependency_status``
+(which dependencies of each task are in which status), the
+``change_status`` transition bookkeeping and ``fail_with_reason``. The
+supervisor's and the UI's queries wait (ROADMAP.md, A0).
+"""
+
+from mlcomp_tpu_torch.db.enums import TaskStatus
+from mlcomp_tpu_torch.db.models import Task, TaskDependence
+from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
+from mlcomp_tpu_torch.utils.misc import now
+
+#: the supervisor's wake-up channel (``mlcomp_tpu/db/events.py``)
+CH_TASKS = 'tasks'
+
+
+class TaskProvider(BaseDataProvider):
+    model = Task
+
+    def _publish_tasks(self):
+        """Wake the supervisor: a new or transitioned task row may be
+        schedulable (or may unblock dependents) right now. Best-effort
+        — a lost wakeup costs one backstop interval, not correctness."""
+        try:
+            self.session.publish_event(CH_TASKS)
+        except Exception:
+            pass
+
+    def add(self, obj, commit: bool = True):
+        obj = super().add(obj, commit=commit)
+        # Task rows only: dependence edges ride through this same
+        # add() (add_dependency) and waking — on Postgres, one
+        # pg_notify round trip — per EDGE would double a submit's
+        # publish cost for wakeups the task-row publishes already
+        # delivered
+        if isinstance(obj, Task):
+            self._publish_tasks()
+        return obj
+
+    # --------------------------------------------------------- dependencies
+    def add_dependency(self, task_id: int, depend_id: int):
+        self.add(TaskDependence(task_id=task_id, depend_id=depend_id))
+
+    def dependency_status(self, task_ids):
+        """task_id -> set of statuses of its dependencies
+        (reference db/providers/task.py:194-203)."""
+        if not task_ids:
+            return {}
+        marks = ','.join('?' * len(task_ids))
+        rows = self.session.query(
+            f'SELECT td.task_id AS task_id, t.status AS status '
+            f'FROM task_dependence td JOIN task t ON td.depend_id = t.id '
+            f'WHERE td.task_id IN ({marks})', tuple(task_ids))
+        res = {tid: set() for tid in task_ids}
+        for r in rows:
+            res[r['task_id']].add(r['status'])
+        return res
+
+    def dependencies(self, task_id: int):
+        rows = self.session.query(
+            'SELECT t.* FROM task_dependence td '
+            'JOIN task t ON td.depend_id = t.id WHERE td.task_id=?',
+            (task_id,))
+        return [Task.from_row(r) for r in rows]
+
+    # -------------------------------------------------------------- status
+    def change_status(self, task, status: TaskStatus):
+        # the transition is guarded at every call site instead of here:
+        # the worker refuses to execute a task that is not Queued, the
+        # supervisor's tick is the only writer for scheduling states,
+        # and kill paths go through the queue's conditional claim.
+        # Folding a prior-status condition in here needs expected-state
+        # plumbing at ~30 call sites — revisit with the Postgres
+        # backend (ROADMAP item 1), where cross-host writers make the
+        # call-site guards insufficient.
+        # preflight: disable=db-naked-transition — see above
+        task.status = int(status)
+        fields = ['status', 'started', 'finished', 'last_activity']
+        if status == TaskStatus.InProgress:
+            task.started = now()
+        elif status in TaskStatus.finished():
+            if task.started is None:
+                task.started = now()
+            task.finished = now()
+            if status == TaskStatus.Success:
+                # a succeeded task carries no failure verdict — a stale
+                # reason from a retried-and-recovered attempt would
+                # read as a live problem in the UI
+                task.failure_reason = None
+                fields.append('failure_reason')
+        task.last_activity = now()
+        self.update(task, fields)
+        # a finished/failed/skipped transition may unblock dependents
+        # or free capacity — wake the supervisor instead of letting it
+        # sleep out its backstop
+        if status in TaskStatus.finished() or \
+                status == TaskStatus.NotRan:
+            self._publish_tasks()
+
+    def fail_with_reason(self, task, reason: str):
+        """Mark Failed with a recovery-taxonomy reason
+        (mlcomp_tpu_torch/recovery.py) — the supervisor's retry pass reads
+        ``failure_reason`` to decide transient-vs-permanent. Every
+        failure site should come through here; a bare Failed (no
+        reason) is never retried.
+
+        The postmortem bundle the JAX package freezes here is A6
+        telemetry (ROADMAP.md) and waits for it."""
+        task.failure_reason = reason
+        self.update(task, ['failure_reason'])
+        self.change_status(task, TaskStatus.Failed)
+
+    def update_last_activity(self, task_id: int):
+        self.session.execute(
+            'UPDATE task SET last_activity=? WHERE id=?', (now(), task_id))
+
+    def by_dag(self, dag_id: int):
+        rows = self.session.query(
+            'SELECT * FROM task WHERE dag=?', (dag_id,))
+        return [Task.from_row(r) for r in rows]
+
+
+__all__ = ['TaskProvider']

@@ -1,2 +1,3 @@
-"""Serving process of the port (counterpart of ``mlcomp_tpu/server``;
-only ``serve`` is ported so far)."""
+"""Server side of the port (counterpart of ``mlcomp_tpu/server``): the
+serving process (``serve``), the DAG builder (``create_dags``) and the
+scheduler's priority classes."""

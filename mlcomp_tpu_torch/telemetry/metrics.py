@@ -1,20 +1,30 @@
-"""Latency histograms for the serving process and the bench harnesses
-(port of the histogram half of ``mlcomp_tpu/telemetry/metrics.py``).
+"""Metric series and latency histograms (port of
+``mlcomp_tpu/telemetry/metrics.py``).
 
 A serving process observes every request into an in-memory histogram
 whose fixed-boundary counts are the cumulative ``le`` buckets /health
 and an OpenMetrics scraper read; a timed chain (``ops/serving_stack.py``
 ``make_chain_runner``) observes its per-stack times, whose
 ``histogram_summaries()`` (count, mean, min, max, p50/p95/p99 over a
-bounded reservoir) a harness prints. Flushing to the DB waits for the DB
-slice of the port.
+bounded reservoir) a harness prints. A recorder with a DB session
+flushes its gauges and histogram summaries into ``metric`` rows, every
+``FLUSH_EVERY`` samples and on ``flush()``.
+
+Recording never syncs the device: callers hand the recorder host
+floats, taken where their step already syncs. A CUDA tensor handed in
+is not pulled at flush either — it is counted in ``dropped_count``.
 """
 
 import bisect
+import json
 import threading
 from collections import deque
 
 import numpy as np
+
+#: pending samples that trigger a flush, and the most a flush keeps
+FLUSH_EVERY = 100
+CAPACITY = 65536
 
 
 class Histogram:
@@ -76,14 +86,40 @@ class Histogram:
         }
 
 
-class MetricRecorder:
-    """In-memory histograms keyed by name, safe across request
-    threads."""
+def _host_float(value):
+    """``float(value)``, or None for a value that lives on a device."""
+    if getattr(value, 'is_cuda', False):
+        return None
+    return float(np.asarray(value))
 
-    def __init__(self, component: str = None):
+
+class MetricRecorder:
+    """Gauges and histograms keyed by name, safe across request
+    threads; with a ``session``, flushed into ``metric`` rows of
+    ``task``."""
+
+    def __init__(self, session=None, task: int = None,
+                 component: str = None):
+        self.session = session
+        self.task = task
         self.component = component
+        self._pending = []        # (name, kind, step, value)
         self._histograms = {}
+        self._hist_flushed_counts = {}
         self._mutate_lock = threading.Lock()
+        self.dropped_count = 0
+        self.flushed_count = 0
+
+    def _maybe_flush(self):
+        if len(self._pending) >= FLUSH_EVERY \
+                and self.session is not None:
+            self.flush()
+
+    def gauge(self, name: str, value, step: int = None):
+        """Per-step sample (a host float)."""
+        with self._mutate_lock:
+            self._pending.append((name, 'gauge', step, value))
+        self._maybe_flush()
 
     def observe(self, name: str, value: float, buckets=None):
         """Histogram sample. ``buckets`` (upper bounds) apply on the
@@ -112,6 +148,78 @@ class MetricRecorder:
         with self._mutate_lock:
             return {name: h.summary()
                     for name, h in self._histograms.items()}
+
+    # ----------------------------------------------------------- flush path
+    def _materialize(self):
+        """Swap out pending samples and aggregate snapshots as ``metric``
+        rows. Bucketed histograms stay open and emit cumulative
+        snapshots (only when they saw new samples); bucket-less ones
+        emit their window's summary and reset."""
+        from mlcomp_tpu_torch.utils.misc import now
+        with self._mutate_lock:
+            pending, self._pending = self._pending, []
+            hists = self._histograms
+            self._histograms = {name: h for name, h in hists.items()
+                                if h.bucket_bounds is not None}
+            hist_snapshots = {}
+            for name, h in hists.items():
+                if h.bucket_bounds is not None and \
+                        self._hist_flushed_counts.get(name) == h.count:
+                    continue
+                self._hist_flushed_counts[name] = h.count
+                hist_snapshots[name] = (h.summary(), h.bucket_counts())
+        if len(pending) > CAPACITY:
+            self.dropped_count += len(pending) - CAPACITY
+            pending = pending[-CAPACITY:]
+        ts = now()
+        rows = []
+        for name, kind, step, value in pending:
+            try:
+                value = _host_float(value)
+            except (TypeError, ValueError):
+                value = None
+            if value is None:
+                self.dropped_count += 1
+                continue
+            rows.append((self.task, name, kind, step, value, ts,
+                         self.component, None))
+        for name, (summary, buckets) in hist_snapshots.items():
+            for stat, v in summary.items():
+                rows.append((self.task, f'{name}.{stat}', 'histogram',
+                             None, float(v), ts, self.component,
+                             json.dumps({'of': name})))
+            for le, count in buckets or ():
+                rows.append((self.task, f'{name}.bucket', 'histogram',
+                             None, float(count), ts, self.component,
+                             json.dumps({'of': name, 'le': le})))
+        return rows
+
+    def flush(self, session=None) -> int:
+        """Persist everything pending in one batch; returns the rows
+        written. Telemetry failures never propagate into the
+        instrumented code: rows that do not land are counted dropped."""
+        session = session or self.session
+        rows = self._materialize()
+        if not rows:
+            return 0
+        if session is None:
+            self.dropped_count += len(rows)
+            return 0
+        from mlcomp_tpu_torch.db.providers.telemetry import MetricProvider
+        try:
+            n = MetricProvider(session).add_many(rows)
+        except Exception:
+            self.dropped_count += len(rows)
+            return 0
+        self.flushed_count += n
+        if self.task is not None:
+            # a flush is proof of life for the watchdog's stall rule
+            try:
+                from mlcomp_tpu_torch.db.providers.task import TaskProvider
+                TaskProvider(session).update_last_activity(self.task)
+            except Exception:
+                pass
+        return n
 
 
 __all__ = ['Histogram', 'MetricRecorder']

@@ -25,13 +25,23 @@ pipeline (batches augmented on the host by ``augment``'s
 with ``device_data`` (``auto``, the default, or ``true``), over a
 dataset resident on the device with on-device ``augment``
 (``device_data.py``; the JAX trainer's selection rule),
-``main_metric`` / ``minimize`` best tracking, ``checkpoint_every``, the async checkpoint writer, resume
-through ``resume_plan``, running statistics (``batch_stats``) in
+``main_metric`` / ``minimize`` best tracking, ``checkpoint_every``, the
+async checkpoint writer, resume through ``resume_plan``,
+``stage_per_dispatch`` (one stage a dispatch, the next named in the
+task's ``additional_info``), running statistics (``batch_stats``) in
 checkpoints and the export, the ``model_name`` export, pretrained
 weights (``model.params_file``, ``train/pretrained.py``; a resume wins
 over them) and ``infer_valid`` (the validation set's predictions under
 ``data/pred``, the best checkpoint's by default). ``mesh`` may
-be ``{dp: 1}`` or ``{dp: -1}`` ("every device") on one device. Keys
+be ``{dp: 1}`` or ``{dp: -1}`` ("every device") on one device. Run by
+the task pipeline (a DB session and a task), it writes the JAX
+trainer's rows: ``ReportSeries`` of every train and valid metric and
+``images_per_sec`` each epoch, ``task.score`` and the model's
+``score_local``, a ``train.work`` span with ``train.epoch`` children and
+the ``epoch_time_s`` / ``epoch_throughput`` gauges (the device
+telemetry beyond them is A6); checkpoints go to
+``TASK_FOLDER/<task>/checkpoints`` and the export to
+``MODEL_FOLDER/<project>/<model_name>``. Keys
 whose feature is not ported yet raise ``NotImplementedError`` with
 their ROADMAP.md item; unknown keys are logged as the JAX trainer logs
 them.
@@ -74,8 +84,9 @@ from mlcomp_tpu_torch.worker.executors import Executor
 _NOT_PORTED = {
     'epoch_scan': 'A0 (one dispatch per epoch)',
     'profile': 'A6 (device traces)',
-    'report_imgs': 'A0 (report images need the DB)',
-    'stage_per_dispatch': 'A0 (requeue needs the DB)',
+    'report_imgs': 'A0: report images are encoded with OpenCV and '
+                   'matplotlib, which the card\'s machine has not shown '
+                   '(an encoder without them, or OpenCV on the card)',
     'telemetry': 'A6 (device telemetry)',
 }
 
@@ -130,7 +141,6 @@ class Train(Executor):
                              f'got {device_data!r}')
         for key, value in (('epoch_scan', epoch_scan), ('profile', profile),
                            ('report_imgs', report_imgs),
-                           ('stage_per_dispatch', stage_per_dispatch),
                            ('telemetry', isinstance(telemetry, dict))):
             if value:
                 _not_ported(key)
@@ -166,6 +176,8 @@ class Train(Executor):
         # softmax predictions saved under data/pred after training
         self.infer_valid = dict(infer_valid) if infer_valid else None
         self.async_checkpoint = bool(async_checkpoint)
+        self.stage_per_dispatch = bool(stage_per_dispatch)
+        self.telemetry = bool(telemetry)
         self.device = device
         # leftover config keys: logged loudly by _work, not an error
         self._unknown_kwargs = sorted(kwargs)
@@ -175,11 +187,60 @@ class Train(Executor):
         if self.checkpoint_dir:
             return self.checkpoint_dir
         from mlcomp_tpu_torch import TASK_FOLDER
-        task_id = getattr(self.task, 'id', 0) if self.task else 0
+        task_id = self.task.id if self.task else 0
+        # the service tasks of one distributed job share the parent's
+        if self.task is not None and self.task.parent:
+            task_id = self.task.parent
         return os.path.join(TASK_FOLDER, str(task_id), 'checkpoints')
 
     def _model_folder(self):
+        """``MODEL_FOLDER/<project>`` for a task of a DAG, else
+        ``models`` under the working directory."""
+        if self.dag is not None and self.session is not None:
+            from mlcomp_tpu_torch import MODEL_FOLDER
+            from mlcomp_tpu_torch.db.providers import ProjectProvider
+            project = ProjectProvider(self.session).by_id(self.dag.project)
+            if project is not None:
+                return os.path.join(MODEL_FOLDER, project.name)
         return 'models'
+
+    def _tracked(self) -> bool:
+        """Does this run write the task's DB rows (a session and a
+        task)?"""
+        return self.session is not None and self.task is not None
+
+    def _report_series(self, name, value, epoch, part, stage):
+        if not self._tracked():
+            return
+        from mlcomp_tpu_torch.db.models import ReportSeries
+        from mlcomp_tpu_torch.db.providers import ReportSeriesProvider
+        from mlcomp_tpu_torch.utils.misc import now
+        ReportSeriesProvider(self.session).add(ReportSeries(
+            task=self.task.id, time=now(), epoch=int(epoch),
+            value=float(value), name=name, part=part, stage=stage))
+
+    def _update_scores(self, score):
+        """task.score and the Model row's score_local, best so far."""
+        if not self._tracked():
+            return
+        from mlcomp_tpu_torch.db.providers import ModelProvider, TaskProvider
+        better = (self.task.score is None or
+                  (score < self.task.score if self.minimize
+                   else score > self.task.score))
+        if better:
+            self.task.score = float(score)
+            TaskProvider(self.session).update(self.task, ['score'])
+            if self.model_name:
+                from mlcomp_tpu_torch.db.models import Model
+                from mlcomp_tpu_torch.utils.misc import now
+                provider = ModelProvider(self.session)
+                row = provider.by_name(self.model_name)
+                if row is None:
+                    row = Model(
+                        name=self.model_name, project=self.dag.project,
+                        dag=self.dag.id, created=now())
+                row.score_local = float(score)
+                provider.create_or_update(row, 'name')
 
     def _host_tree(self, state) -> dict:
         """A host copy of the train state in the checkpoint layout:
@@ -222,12 +283,33 @@ class Train(Executor):
     def work(self):
         self._ckpt_writer = AsyncCheckpointWriter() \
             if self.async_checkpoint else None
+        # the train loop's leg of the task's trace (a ``train.work`` root
+        # with ``train.epoch`` children) and its per-epoch gauges
+        self._telemetry = None
+        span_cm = None
+        if self.telemetry and self._tracked():
+            from mlcomp_tpu_torch.telemetry import MetricRecorder, span
+            self._telemetry = MetricRecorder(
+                session=self.session, task=self.task.id, component='train')
+            info = dict(getattr(self, 'additional_info', None) or {})
+            span_cm = span('train.work', task=self.task.id, role='train',
+                           trace_id=info.get('trace_id') or None,
+                           tags={'model': self.model_spec.get('name')})
+            span_cm.__enter__()
         ok = False
         try:
             result = self._work()
             ok = True
             return result
         finally:
+            if span_cm is not None:
+                import sys
+                try:
+                    span_cm.__exit__(*sys.exc_info())
+                except BaseException:
+                    pass       # the span re-raises the active error
+                from mlcomp_tpu_torch.telemetry import flush_spans
+                flush_spans(self.session)
             writer, self._ckpt_writer = self._ckpt_writer, None
             if writer is not None:
                 try:
@@ -301,6 +383,11 @@ class Train(Executor):
         def stage_steps(stage):
             return int(stage.get('epochs', 1)) * steps_per_epoch
 
+        # stage per dispatch: the task's additional_info names the stage
+        # this dispatch runs (the pipeline stores the next one)
+        info = dict(getattr(self, 'additional_info', None) or {})
+        dispatch_stage = info.get('stage') if self.stage_per_dispatch \
+            else None
         stage_names = [s['name'] for s in self.stages]
         # the restore target's optimizer is the one of the stage that
         # saved the checkpoint, not stages[0]
@@ -360,6 +447,9 @@ class Train(Executor):
                 f'resumed from checkpoint: stage={meta.get("stage")} '
                 f'epoch={meta.get("epoch")} best={best}')
         remaining, start_epoch = resume_plan(self.stages, meta)
+        if dispatch_stage is not None:
+            remaining = [s for s in remaining
+                         if s['name'] == dispatch_stage] or remaining[:1]
         global_epoch = epochs_done_global
         samples_seen = 0
         for stage in remaining:
@@ -458,6 +548,26 @@ class Train(Executor):
                     (score < best if self.minimize else score > best))
                 if is_best:
                     best = score
+                    self._update_scores(score)
+                for k, v in train_agg.items():
+                    self._report_series(k, v, global_epoch, 'train',
+                                        stage_name)
+                for k, v in valid_agg.items():
+                    self._report_series(k, v, global_epoch, 'valid',
+                                        stage_name)
+                self._report_series('images_per_sec', n_train / train_dt,
+                                    global_epoch, 'train', stage_name)
+                if self._telemetry is not None:
+                    from mlcomp_tpu_torch.telemetry import record_span
+                    self._telemetry.gauge('epoch_time_s', train_dt)
+                    self._telemetry.gauge('epoch_throughput',
+                                          n_train / train_dt)
+                    self._telemetry.flush()
+                    record_span('train.epoch', started=t_ep,
+                                duration=time.time() - t_ep,
+                                task=self.task.id, role='train',
+                                tags={'epoch': global_epoch,
+                                      'stage': stage_name})
                 last_of_stage = epoch == int(stage.get('epochs', 1)) - 1
                 should_save = self.checkpoint_every != 0 and (
                     is_best or self.checkpoint_every <= 1
@@ -477,6 +587,13 @@ class Train(Executor):
                         save_checkpoint(ck_dir, host_state, meta_d,
                                         best=is_best)
                 global_epoch += 1
+            if (dispatch_stage is not None or self.stage_per_dispatch) \
+                    and stage_name != stage_names[-1]:
+                # return for the requeue: the next dispatch runs the next
+                # stage; the last stage's dispatch goes on to the export
+                self._drain_ckpt_writer()
+                return {'stage': stage_name, 'stages': stage_names,
+                        'best_score': best}
 
         # everything below reads checkpoint files — drain pending writes
         self._drain_ckpt_writer()

@@ -1,2 +1,3 @@
 """The worker side of the port (counterpart of ``mlcomp_tpu/worker``):
-so far only the executor framework and its registry."""
+the executor framework and its registry, code storage (``storage``) and
+the task pipeline (``tasks``)."""

@@ -1,3 +1,4 @@
 from mlcomp_tpu_torch.worker.executors.base.executor import Executor
+from mlcomp_tpu_torch.worker.executors.base.step import StepWrap
 
-__all__ = ['Executor']
+__all__ = ['Executor', 'StepWrap']

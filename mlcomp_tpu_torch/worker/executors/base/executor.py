@@ -3,20 +3,22 @@
 
 An Executor is the unit of work a task runs. Concrete executors register
 with ``@Executor.register`` under their snake_case class name; configs
-name them by ``type``. ``Executor.from_config(name, config)`` builds one
-from ``config['executors'][name]`` (merging a grid cell's overrides), and
-calling it runs ``work()``.
+name them by ``type`` (``jax_train``, the type every example config
+names, is the port's ``train``). ``Executor.from_config(name, config)``
+builds one from ``config['executors'][name]`` (merging a grid cell's
+overrides), and calling it runs ``work()``.
 
-Without a DB session (the only mode ported so far) the call runs
-``work()`` with a step tracker that logs instead of writing task steps;
-the DB-backed ``StepWrap`` and the data-sync barrier come with the DB
-layer (ROADMAP.md, A0).
+With a DB session (the task pipeline, ``worker/tasks.py``) the call
+tracks steps in the ``step`` table (``StepWrap``) and honours the
+data-sync barrier; without one (a direct call) the step tracker logs
+instead.
 """
 
+import json
 import logging
 from abc import ABC, abstractmethod
-from collections import defaultdict
 
+from mlcomp_tpu_torch.utils.config import merge_dicts_smart
 from mlcomp_tpu_torch.utils.misc import to_snake
 
 
@@ -43,73 +45,13 @@ class LogSteps:
         self.logger.error(message)
 
 
-def _flatten(d: dict, sep: str, prefix: str = '') -> dict:
-    out = {}
-    for k, v in d.items():
-        key = f'{prefix}{sep}{k}' if prefix else str(k)
-        if isinstance(v, dict) and v:
-            out.update(_flatten(v, sep, key))
-        else:
-            out[key] = v
-    return out
-
-
-def _unflatten(d: dict, sep: str) -> dict:
-    out = {}
-    for k, v in d.items():
-        parts = k.split(sep)
-        node = out
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return out
-
-
-def merge_dicts_smart(target: dict, source: dict, sep: str = '/') -> dict:
-    """Deep-merge ``source`` into ``target`` with suffix-path key
-    matching (``mlcomp_tpu/utils/config.py``'s rule): a grid cell's
-    ``lr: 0.1`` reaches ``optimizer/lr`` when that suffix is unique."""
-    flat = _flatten(target, sep)
-    suffix_index = defaultdict(list)
-    anchors = {}
-    for full in flat:
-        parts = full.split(sep)
-        n = len(parts)
-        for i in range(n - 1, -1, -1):
-            suffix_index[sep.join(parts[i:])].append(full)
-            if 0 < i < n - 1:
-                anchors[sep.join(parts[i:-1])] = sep.join(parts[:i + 1])
-    expanded = {}
-    for k, v in source.items():
-        if isinstance(v, dict) and v:
-            for kk, vv in _flatten(v, sep).items():
-                expanded[f'{k}{sep}{kk}'] = vv
-        else:
-            expanded[k] = v
-    for k, v in expanded.items():
-        matches = suffix_index.get(k, [])
-        if not matches:
-            # new key: re-anchor under the deepest known interior path
-            parts = k.split(sep)
-            dest = k
-            for i in range(len(parts) - 1, 0, -1):
-                head = sep.join(parts[:i])
-                if head in anchors:
-                    dest = anchors[head] + sep + sep.join(parts[i:])
-                    break
-            matches = [dest]
-        if len(matches) > 1:
-            raise ValueError(
-                f'ambiguous config override {k!r}: matches {matches}')
-        flat[matches[0]] = v
-    return _unflatten(flat, sep)
-
-
 class Executor(ABC):
     _registry = {}
     # module paths registered by the executors package, imported on the
     # first registry miss
     _builtin_modules = ()
+    #: type names the registry resolves to another executor's key
+    _aliases = {'jax_train': 'train'}
 
     session = None
     logger = None
@@ -124,6 +66,11 @@ class Executor(ABC):
         return subclass
 
     @classmethod
+    def _key(cls, name: str) -> str:
+        key = to_snake(name)
+        return cls._aliases.get(key, key)
+
+    @classmethod
     def _load_builtins(cls):
         import importlib
         import sys
@@ -134,15 +81,15 @@ class Executor(ABC):
 
     @classmethod
     def is_registered(cls, name: str) -> bool:
-        if to_snake(name) not in cls._registry:
+        if cls._key(name) not in cls._registry:
             cls._load_builtins()
-        return to_snake(name) in cls._registry
+        return cls._key(name) in cls._registry
 
     @classmethod
     def get(cls, name: str):
-        if to_snake(name) not in cls._registry:
+        if cls._key(name) not in cls._registry:
             cls._load_builtins()
-        return cls._registry[to_snake(name)]
+        return cls._registry[cls._key(name)]
 
     # -------------------------------------------------------------- factory
     @classmethod
@@ -188,16 +135,23 @@ class Executor(ABC):
     # ------------------------------------------------------------ execution
     def __call__(self, task=None, dag=None, session=None, logger=None,
                  step=None):
-        """Run ``work()`` with step tracking (logged, without a DB)."""
+        """Run ``work()`` inside step tracking: ``StepWrap`` rows with a
+        session, log lines without one."""
         self.task = task
         self.dag = dag
         self.session = session or self.session
         self.logger = logger or self.logger
-        if self.session is not None:
-            raise NotImplementedError(
-                'a DB session (task step tracking, data sync) is not ported '
-                'yet (ROADMAP.md, A0); call the executor without one')
-        self.step = step or LogSteps(self.logger)
+        if step is None:
+            if self.session is not None:
+                from mlcomp_tpu_torch.worker.executors.base.step import (
+                    StepWrap,
+                )
+                step = StepWrap(self.session, self.logger, task).enter()
+            else:
+                step = LogSteps(self.logger)
+        self.step = step
+        if self.wait_data_sync_required():
+            self.wait_data_sync()
         try:
             return self.work()
         finally:
@@ -228,9 +182,45 @@ class Executor(ABC):
 
     @classmethod
     def is_trainable(cls, executor_type: str) -> bool:
-        """Trainable executors get reports and cores: the JAX trainer's
-        key and the port's (``train``)."""
-        return to_snake(executor_type) in ('jax_train', 'train')
+        """Trainable executors get reports and cores: the port's
+        ``train`` and every name the registry aliases to it."""
+        return cls._key(executor_type) == 'train'
+
+    # ------------------------------------------------------------ data sync
+    def wait_data_sync_required(self) -> bool:
+        return bool(getattr(self, 'spec', {}).get('wait_sync', False))
+
+    def wait_data_sync(self):
+        """The barrier before a task reads its project's data: every
+        successful task of the project that ran on ANOTHER computer must
+        have been pulled here. On one computer there is none, and the
+        barrier passes at once, as the JAX package's does; pulling from
+        other computers (FileSync) is the worker half of A0, so a task
+        that would have to wait raises."""
+        from mlcomp_tpu_torch.db.enums import TaskStatus
+        from mlcomp_tpu_torch.utils.misc import hostname
+        here = hostname()
+        row = self.session.query_one(
+            'SELECT COUNT(*) AS c FROM task t JOIN dag d ON t.dag = d.id '
+            'WHERE t.status=? AND t.computer_assigned IS NOT NULL '
+            'AND t.computer_assigned != ? AND d.project=? AND t.id NOT IN '
+            '(SELECT task FROM task_synced WHERE computer=?)',
+            (int(TaskStatus.Success), here,
+             self.dag.project if self.dag else None, here))
+        if row['c']:
+            raise NotImplementedError(
+                f'wait_sync: {row["c"]} tasks of this project ran on other '
+                f'computers and are not synced to {here!r}; syncing across '
+                f'computers is the worker half of A0 (ROADMAP.md)')
+
+    # -------------------------------------------------------------- helpers
+    def result_serialize(self, result) -> str:
+        if result is None:
+            return None
+        try:
+            return json.dumps(result)
+        except TypeError:
+            return str(result)
 
 
-__all__ = ['Executor', 'LogSteps', 'merge_dicts_smart']
+__all__ = ['Executor', 'LogSteps']

@@ -1,10 +1,9 @@
 """Valid executors — port of ``mlcomp_tpu/worker/executors/valid.py``.
 
 ``Valid`` is the scoring harness over Equation parts; it returns the
-final score. With a DB session the JAX package also writes it to
-``task.score`` and the model's ``score_local`` and renders report
-images; the port runs without a session (ROADMAP.md A0), where those
-hooks do nothing in either package. ``ValidClassify`` scores class
+final score and, with a DB session, writes it to ``task.score`` and the
+model's ``score_local``. Report images wait for an image encoder on the
+card (ROADMAP.md, A0): ``plot`` and ``plot_final`` do nothing. ``ValidClassify`` scores class
 probabilities (or labels) against a labelled dataset by ``accuracy`` or
 ``f1_macro``; ``ValidSegment`` scores masks by foreground ``iou`` or
 ``dice``. Both are numpy over what ``load()`` (or ``infer()``) gives.
@@ -41,10 +40,10 @@ class Valid(Equation):
         raise NotImplementedError
 
     def plot(self, preds, score):
-        """Per-part report hook: report images need a session (A0)."""
+        """Per-part report hook: report images wait (ROADMAP.md, A0)."""
 
     def plot_final(self, score):
-        """Whole-set report hook: report images need a session (A0)."""
+        """Whole-set report hook: report images wait (ROADMAP.md, A0)."""
 
     def work(self):
         self._check_device()
@@ -58,7 +57,23 @@ class Valid(Equation):
         final = -1.0 if final is None or np.isnan(final) else float(final)
         if self.layout:
             self.plot_final(final)
+        self._write_scores(final)
         return {'score': final}
+
+    def _write_scores(self, score: float):
+        """task.score and, for a registered model, its score_local."""
+        if self.session is None:
+            return
+        from mlcomp_tpu_torch.db.providers import ModelProvider, TaskProvider
+        if self.task is not None:
+            self.task.score = score
+            TaskProvider(self.session).update(self.task, ['score'])
+        if self.model_name:
+            provider = ModelProvider(self.session)
+            row = provider.by_name(self.model_name)
+            if row is not None:
+                row.score_local = score
+                provider.update(row, ['score_local'])
 
 
 @Executor.register

@@ -87,8 +87,8 @@ _BLOCKER = textwrap.dedent('''
 
     sys.meta_path.insert(0, Blocker())
     import runpy
-    sys.argv = ['mlcomp_tpu_torch.server'] + {argv!r}
-    runpy.run_module('mlcomp_tpu_torch.server', run_name='__main__')
+    sys.argv = [{module!r}] + {argv!r}
+    runpy.run_module({module!r}, run_name='__main__')
 ''')
 
 
@@ -108,9 +108,10 @@ def test_serving_on_cpu_without_jax(tmp_path):
     path = export_model(str(tmp_path / 'lm'), params_to_jax(
         model.state_dict(), n_heads=2), spec,
         meta={'input_shape': [8], 'input_dtype': 'int32'})
-    code = _BLOCKER.format(blocked=FORBIDDEN, argv=[
-        'serve', path, '--device', 'cpu', '--port', '0', '--batch-size',
-        '2', '--activation', 'argmax'])
+    code = _BLOCKER.format(
+        blocked=FORBIDDEN, module='mlcomp_tpu_torch.server', argv=[
+            'serve', path, '--device', 'cpu', '--port', '0',
+            '--batch-size', '2', '--activation', 'argmax'])
     env = {**os.environ, 'PYTHONPATH': REPO}
     proc = subprocess.Popen([sys.executable, '-c', code], cwd=REPO,
                             env=env, stdout=subprocess.PIPE,
@@ -140,6 +141,47 @@ def test_serving_on_cpu_without_jax(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def _cli_without_forbidden(argv, root):
+    code = _BLOCKER.format(blocked=FORBIDDEN, module='mlcomp_tpu_torch',
+                           argv=argv)
+    env = {**os.environ, 'PYTHONPATH': REPO, 'MLCOMP_TPU_ROOT': str(root)}
+    return subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_cli_runs_without_yaml_click_or_jax(tmp_path):
+    """``python -m mlcomp_tpu_torch`` where importing PyYAML, click, jax
+    or the JAX package raises: ``--help`` lists the four commands, and
+    ``init``, ``check`` and ``execute`` of a small MLP on the CPU run to
+    their end."""
+    root = tmp_path / 'root'
+    proc = _cli_without_forbidden(['--help'], root)
+    assert proc.returncode == 0, proc.stderr
+    for command in ('init', 'check', 'dag', 'execute'):
+        assert command in proc.stdout
+    folder = tmp_path / 'mlp'
+    folder.mkdir()
+    (folder / 'config.yml').write_text(textwrap.dedent('''\
+        info: {name: mlp_cpu, project: mlp_cpu}
+        executors:
+          train:
+            type: jax_train     # the port's train
+            model: {name: mlp, num_classes: 10}
+            dataset: {name: synthetic_images, n_train: 32, n_valid: 16,
+                      image_size: 8, channels: 1, num_classes: 10}
+            batch_size: 16
+            device: cpu
+            stages:
+              - {name: s1, epochs: 1, optimizer: {name: adam, lr: 0.001}}
+        '''))
+    for argv in (['init'], ['check', str(folder / 'config.yml')],
+                 ['execute', str(folder / 'config.yml')]):
+        proc = _cli_without_forbidden(argv, root)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        'train': 'Success'}
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

@@ -628,11 +628,20 @@ class TestExecutor:
         ('mesh', {'dp': 2}), ('epoch_scan', True),
         ('profile', {'epoch': 0}),
         ('report_imgs', {'type': 'classification'}),
-        ('stage_per_dispatch', True),
         ('telemetry', {'flush_every': 10})])
     def test_not_ported_keys_raise(self, tmp_path, key, value):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             Executor.from_config('train', _config(tmp_path, **{key: value}))
+
+    def test_stage_per_dispatch_is_accepted(self, tmp_path):
+        ex = Executor.from_config('train', _config(
+            tmp_path, stage_per_dispatch=True))
+        assert ex.stage_per_dispatch
+
+    def test_report_imgs_refusal_names_the_encoder(self, tmp_path):
+        with pytest.raises(NotImplementedError, match='OpenCV'):
+            Executor.from_config('train', _config(
+                tmp_path, report_imgs={'type': 'classification'}))
 
     def test_single_device_mesh_and_auto_data_are_accepted(self, tmp_path):
         Executor.from_config('train', _config(
@@ -647,9 +656,12 @@ class TestExecutor:
             Executor.from_config('train', cfg)()
 
     def test_a_db_session_is_not_ported(self, tmp_path):
+        """Only sqlite is: a PostgreSQL session raises naming A0's
+        second half."""
+        from mlcomp_tpu_torch.db.core import Session
         with pytest.raises(NotImplementedError, match='A0'):
-            Executor.from_config('train', _config(tmp_path))(
-                session=object())
+            Session.create_session(
+                key='train-pg', connection_string='postgresql://u@h/db')
 
     def test_grid_cell_overrides_merge_into_the_spec(self, tmp_path):
         ex = Executor.from_config(
