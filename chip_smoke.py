@@ -261,6 +261,28 @@ Phase of the command line's slice, run after the zoo:
   task's wall seconds and images/s beside the card's name and power
   limit.
 
+Phase of the scheduler's slice, run after the command line's:
+
+- sched: a DAG submitted with ``dag`` runs to Success with no
+  ``execute``. (a) ``init``, then ``python -m mlcomp_tpu_torch.worker
+  worker-supervisor`` and ``worker 0`` (a ``run-task`` process per task)
+  as child processes, the supervisor loop
+  (``register_supervisor(ha=False)``) in this process, and ``dag
+  examples/cifar_simple/config.yml --params model/norm:fused`` as a
+  process once the host agent heartbeats: the task Success, its queue
+  message ``done`` and claimed by ``<host>:0``, its steps, spans and
+  series as ``[cli]`` checks them, the computer row's usage and
+  heartbeat; the seconds from start to the agent's first heartbeat,
+  from the dag row to Queued and from the ``dag`` command's return to
+  Queued (the dispatch), Queued to claim and to InProgress, the task's
+  wall and its process's. A daemon that dies fails the run. (b) ``dag`` of that
+  config and of ``examples/encoder_grid/config.yml`` in this process,
+  driven by supervisor ticks and the worker's ``_consume_one(...,
+  in_process=True)``, every kernel's count zeroed just before and read
+  just after: ``[cli]``'s counts (1280 of each norm kernel, the ``vit``
+  cell's 216 / 192 / 192 flash launches, nothing else), all seven tasks
+  Success, the card's memory in the computer row's usage.
+
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
 """
@@ -3968,6 +3990,288 @@ def phase_cli(smi: str) -> dict:
                 os.remove(link)
 
 
+# ------------------------------------------------------------ the scheduler
+#: seconds ``[sched]`` waits for the daemons' task to reach Success
+SCHED_TIMEOUT_S = 600
+#: ``[sched]`` (b)'s ticks at most: each dispatches what is runnable,
+#: then the in-process worker drains the queue
+SCHED_TICKS = 10
+
+
+def _seconds(later: str, earlier: str) -> float:
+    from datetime import datetime
+    return (datetime.fromisoformat(later)
+            - datetime.fromisoformat(earlier)).total_seconds()
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path, errors='replace') as fh:
+        return fh.read()[-n:]
+
+
+def phase_sched(smi: str) -> dict:
+    """``[sched]``: a DAG submitted with ``dag`` runs to Success through
+    the port's supervisor tick, its DB queue and a worker daemon, with
+    no ``execute``. (a) As processes: ``init``, then ``worker-supervisor``
+    and ``worker 0`` (a ``run-task`` process per task) as child
+    processes, the supervisor loop (``register_supervisor(ha=False)``)
+    in this process, and, once the host agent heartbeats, ``dag
+    examples/cifar_simple/config.yml --params model/norm:fused`` as a
+    process; the task's rows, its queue message
+    (``done``, claimed by ``<host>:0``), the computer row and its
+    heartbeat read back; the times from the dag row and from the
+    command's return to Queued (the latter the dispatch), Queued to
+    claim and to InProgress, the task's own wall and its
+    process's. (b) In this process: ``dag`` of that config and of
+    ``examples/encoder_grid/config.yml``, driven by supervisor ticks and
+    ``_consume_one(..., in_process=True)``, every kernel's count zeroed
+    just before and read just after; the CIFAR task asks for one card
+    (``executors/train/cores:1``), so the tick places it on the card's
+    slot (``cores_assigned`` ``[0]``) and the in-process worker, whose
+    CUDA already runs, makes that card the current device; every task
+    Success, the computer row's card usage written. Returns the kernels'
+    launches by path."""
+    import signal
+    from mlcomp_tpu_torch import DB_FOLDER, DOCKER_IMG
+    from mlcomp_tpu_torch.__main__ import main as cli_main
+    from mlcomp_tpu_torch.db.core import Session
+    from mlcomp_tpu_torch.db.enums import TaskStatus
+    from mlcomp_tpu_torch.db.providers import DockerProvider, QueueProvider
+    from mlcomp_tpu_torch.server.supervisor import (
+        SupervisorBuilder, register_supervisor,
+    )
+    from mlcomp_tpu_torch.utils.logging import create_logger
+    from mlcomp_tpu_torch.utils.misc import hostname, now as utc_now
+    import mlcomp_tpu_torch.worker.__main__ as worker_main
+
+    phase = 'sched'
+    db = os.path.join(DB_FOLDER, 'sqlite.db')
+    host = hostname()
+    finished = {int(s) for s in TaskStatus.finished()}
+    work = tempfile.mkdtemp(prefix='sched_')
+    daemons, loop = {}, None
+
+    def new_dags(known: set, want: int) -> list:
+        ids = [i for i in _dag_ids(db) if i not in known]
+        if len(ids) != want:
+            fail(f'{phase}: the submit created dags {ids}, want {want}')
+        return ids
+
+    def check_daemons():
+        for name, (proc, log) in daemons.items():
+            if proc.poll() is not None:
+                fail(f'{phase}: {name} exited {proc.returncode}:\n'
+                     f'{_tail(log)}')
+
+    def stop_daemons():
+        # each daemon leads a process group of its own: a run-task
+        # process left by a dead worker goes with it
+        for proc, _ in daemons.values():
+            try:
+                os.killpg(proc.pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        for proc, _ in daemons.values():
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+
+    try:
+        # (a) the daemons as processes
+        t0 = time.monotonic()
+        init = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch', 'init'], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        if init.returncode != 0:
+            fail(f'{phase}: init exited {init.returncode}:\n'
+                 f'{init.stdout[-2000:]}\n{init.stderr[-2000:]}')
+        for name, argv in (('worker-supervisor', ['worker-supervisor']),
+                           ('worker', ['worker', '0'])):
+            log = os.path.join(work, f'{name}.log')
+            with open(log, 'w') as out:
+                proc = subprocess.Popen(
+                    [sys.executable, '-m', 'mlcomp_tpu_torch.worker',
+                     *argv], cwd=HERE, stdout=out,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+            daemons[name] = (proc, log)
+        session = Session.create_session(key='sched')
+        _, (loop,) = register_supervisor(
+            session=session, logger=create_logger(session), ha=False)
+        # the host agent's first heartbeat makes the queue live: it
+        # comes after the card count (a subprocess that starts CUDA).
+        # Submitting before it would time the agent's start-up as
+        # dispatch
+        deadline = time.monotonic() + 120
+        while session.query_one(
+                'SELECT 1 FROM docker WHERE computer=? AND name=?',
+                (host, DOCKER_IMG)) is None:
+            check_daemons()
+            if time.monotonic() > deadline:
+                fail(f'{phase}: no heartbeat from worker-supervisor:\n'
+                     f'{_tail(daemons["worker-supervisor"][1])}')
+            time.sleep(0.1)
+        agent_s = time.monotonic() - t0
+        known = set(_dag_ids(db))
+        submit = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch', 'dag', CLI_CIFAR,
+             '--params', 'model/norm:fused'], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        # the DB's clock (naive UTC): the dag command writes its task
+        # rows last, just before it returns
+        returned = str(utc_now())
+        if submit.returncode != 0:
+            fail(f'{phase}: dag exited {submit.returncode}:\n'
+                 f'{submit.stdout[-2000:]}\n{submit.stderr[-2000:]}')
+        (dag_id,) = new_dags(known, 1)
+        (task_id,) = [r['id'] for r in session.query(
+            'SELECT id FROM task WHERE dag=?', (dag_id,))]
+        deadline = time.monotonic() + SCHED_TIMEOUT_S
+        while True:
+            check_daemons()
+            task = session.query_one('SELECT * FROM task WHERE id=?',
+                                     (task_id,))
+            # the worker completes the message once run-task has exited,
+            # after the process wrote Success
+            success = task['status'] == int(TaskStatus.Success)
+            if success and session.query_one(
+                    'SELECT status FROM queue_message WHERE id=?',
+                    (task['queue_id'],))[0] != 'claimed':
+                break
+            if (task['status'] in finished and not success) \
+                    or time.monotonic() > deadline:
+                fail(f'{phase}: task {task_id} in status {task["status"]} '
+                     f'({task["failure_reason"]}) after '
+                     f'{time.monotonic() - t0:.0f} s; worker log:\n'
+                     f'{_tail(daemons["worker"][1])}')
+            time.sleep(0.5)
+        phase_a_s = time.monotonic() - t0
+        # the host agent's first usage sample lands WORKER_USAGE_INTERVAL
+        # (10 s) after its start
+        deadline = time.monotonic() + 30
+        while not session.query_one(
+                'SELECT usage FROM computer WHERE name=?', (host,))[0] \
+                and time.monotonic() < deadline:
+            time.sleep(0.5)
+        check_daemons()
+        loop.stop()
+        loop.join(timeout=30)
+        stop_daemons()
+        rows = _cli_rows(db, dag_id)
+        _check_cli_task(phase, 'train', rows['train'])
+        msg = session.query_one('SELECT * FROM queue_message WHERE id=?',
+                                (task['queue_id'],))
+        dag = session.query_one('SELECT * FROM dag WHERE id=?', (dag_id,))
+        computer = session.query_one(
+            'SELECT * FROM computer WHERE name=?', (host,))
+        beat = session.query_one(
+            'SELECT * FROM docker WHERE computer=? AND name=?',
+            (host, DOCKER_IMG))
+        exited = session.query_one(
+            "SELECT message FROM log WHERE task=? AND message LIKE "
+            "'%run-task process exited%'", (task_id,))
+        if msg['status'] != 'done' or msg['claimed_by'] != f'{host}:0' \
+                or task['computer_assigned'] != host:
+            fail(f'{phase}: message {dict(msg)}, task on '
+                 f'{task["computer_assigned"]}, want done by {host}:0')
+        usage = json.loads(computer['usage'] or '{}')
+        if not {'cpu', 'memory', 'disk'} <= set(usage) or beat is None \
+                or exited is None:
+            fail(f'{phase}: computer usage {usage}, heartbeat '
+                 f'{beat and dict(beat)}, process log {exited}')
+        process_s = float(re.search(r'after ([\d.]+) s',
+                                    exited['message']).group(1))
+        say(phase, part='a', dag=dag_id, task=task_id,
+            computer=host, cores=computer['cores'],
+            cores_assigned=task['cores_assigned'],
+            message=msg['status'], claimed_by=msg['claimed_by'],
+            steps=len(rows['train']['steps']),
+            spans=rows['train']['spans'],
+            series=len(rows['train']['series']),
+            heartbeat=beat['last_activity'],
+            submit_to_queued_s=(
+                f'{_seconds(msg["created"], dag["created"]):.3f}'),
+            dispatch_s=f'{_seconds(msg["created"], returned):.3f}',
+            claim_s=f'{_seconds(msg["claimed_at"], msg["created"]):.3f}',
+            queued_to_inprogress_s=(
+                f'{_seconds(task["started"], msg["created"]):.3f}'),
+            task_wall_s=f'{_seconds(task["finished"], task["started"]):.2f}',
+            process_wall_s=f'{process_s:.2f}',
+            agent_ready_s=f'{agent_s:.2f}', phase_s=f'{phase_a_s:.2f}',
+            card=smi)
+
+        # (b) in this process, the launches counted
+        counters = _kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        known = set(_dag_ids(db))
+        cli_main(['dag', os.path.join(HERE, CLI_CIFAR), '--params',
+                  'model/norm:fused', '--params', 'executors/train/cores:1'])
+        cli_main(['dag', os.path.join(HERE, CLI_GRID)])
+        dag_ids = new_dags(known, 2)
+        marks = ','.join('?' * len(dag_ids))
+        builder = SupervisorBuilder(session=session)
+        queue, logger = QueueProvider(session), create_logger(session)
+        docker = DockerProvider(session)
+        for tick in range(SCHED_TICKS):
+            docker.heartbeat(host, DOCKER_IMG)  # the agent is stopped
+            builder.build()
+            while worker_main._consume_one(session, queue, logger, 0,
+                                           in_process=True):
+                docker.heartbeat(host, DOCKER_IMG)
+            tasks = session.query(f'SELECT * FROM task WHERE dag IN '
+                                  f'({marks}) ORDER BY id', tuple(dag_ids))
+            if all(t['status'] in finished for t in tasks):
+                break
+        torch.cuda.synchronize()
+        phase_b_s = time.monotonic() - t0
+        launches = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        bad = [(t['name'], t['status'], t['failure_reason'])
+               for t in tasks if t['status'] != int(TaskStatus.Success)]
+        if len(tasks) != 7 or bad:
+            fail(f'{phase}: {len(tasks)} tasks after {tick + 1} ticks, '
+                 f'not Success: {bad}')
+        placed = {t['dag']: t['cores_assigned'] for t in tasks}
+        if json.loads(placed[dag_ids[0]] or '[]') != [0] \
+                or torch.cuda.current_device() != 0:
+            fail(f'{phase}: the one-card CIFAR task got cards '
+                 f'{placed[dag_ids[0]]}, current device '
+                 f'{torch.cuda.current_device()}; want [0] and 0')
+        for t in tasks:
+            say(phase, part='b', dag=t['dag'], task=t['name'],
+                wall_s=f'{_seconds(t["finished"], t["started"]):.2f}',
+                best_accuracy=t['score'], card=smi)
+        card = json.loads(session.query_one(
+            'SELECT usage FROM computer WHERE name=?',
+            (host,))['usage']).get('tpu')
+        if not card:
+            fail(f'{phase}: the in-process worker wrote no card usage')
+        norm = 20 * CLI_CIFAR_STEPS * CLI_EPOCHS
+        layers, steps = 6, CLI_GRID_STEPS * CLI_EPOCHS
+        _check_launches(phase, launches, {
+            'fused_norm': norm, 'fused_norm_bwd': norm,
+            'flash_attention_fwd':
+                layers * (CLI_GRID_STEPS + CLI_GRID_VALID) * CLI_EPOCHS,
+            'flash_attention_bwd_dq': layers * steps,
+            'flash_attention_bwd_dkv': layers * steps})
+        say(phase, part='b', ticks=tick + 1, tasks=len(tasks),
+            cifar_cores_assigned=placed[dag_ids[0]],
+            cuda_visible_devices=os.environ.get('CUDA_VISIBLE_DEVICES'),
+            launches=launches, card_usage=card[0],
+            phase_s=f'{phase_b_s:.2f}', card=smi)
+        return {'sched': launches}
+    finally:
+        if loop is not None:
+            loop.stop()
+        stop_daemons()
+        Session.cleanup()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ the model zoo
 #: the JAX package's parameter count of each model of ``[zoo]``
 #: (``jax.eval_shape`` of its init on the CPU; the smoke imports no JAX):
@@ -4149,6 +4453,7 @@ def main():
         phase_dag_segmentation(args.seed, smi)
         phase_zoo(args.seed, smi)
         cli = phase_cli(smi)
+        sched = phase_sched(smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -4172,7 +4477,8 @@ def main():
         'vit_train': vit_launches['flash_attention_fwd'],
         **{path: counts['flash_attention_fwd']
            for path, counts in dag_ensemble.items()},
-        'cli': cli['cli']['flash_attention_fwd']}
+        'cli': cli['cli']['flash_attention_fwd'],
+        'sched': sched['sched']['flash_attention_fwd']}
     fwd['launches'] = sum(fwd['launches_by_path'].values())
     fwd['vit'] = {'shape': [256, 64, 3, 64], 'causal': False,
                   'with_lse_ms': vit['fwd_lse_ms'],
@@ -4189,7 +4495,8 @@ def main():
             'vit_train': vit_launches[entry['name']],
             'dag_ensemble_train':
                 dag_ensemble['dag_ensemble_train'][entry['name']],
-            'cli': cli['cli'][entry['name']]}
+            'cli': cli['cli'][entry['name']],
+            'sched': sched['sched'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
         part = 'dq' if entry['name'].endswith('_dq') else 'dkv'
         entry['vit'].update(device_ms=vit_device[part],
@@ -4206,7 +4513,8 @@ def main():
                for path, counts in dag_cifar10.items()},
             'dag_ensemble_train':
                 dag_ensemble['dag_ensemble_train'][entry['name']],
-            'cli': cli['cli'][entry['name']]}
+            'cli': cli['cli'][entry['name']],
+            'sched': sched['sched'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}
                          for site, ms in norm_device.items()}

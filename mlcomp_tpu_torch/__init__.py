@@ -9,9 +9,12 @@ a kernel written by hand for ``sm_90a`` under ``csrc/``.
 The environment is ``mlcomp_tpu/__init__.py``'s: the same root-folder
 rule (``MLCOMP_TPU_ROOT``, the per-xdist-worker test sandbox,
 ``~/mlcomp_tpu`` by default), the same folders under it, the keys this
-package reads (``TOKEN``, ``INSTALL_LIBRARIES``, ``DB_TYPE``) from the
-same ``configs/.env`` with the same defaults, and the same DB connection
-string (``sqlite:///<root>/db/sqlite.db``). Both packages
+package reads from the same ``configs/.env`` with the same defaults
+(``TOKEN``, ``INSTALL_LIBRARIES``, ``DB_TYPE``; for the supervisor and
+the worker daemon ``QUEUE_POLL_INTERVAL``, ``MASTER_PORT_RANGE``,
+``WORKER_USAGE_INTERVAL``, ``SYNC_WITH_THIS_COMPUTER``,
+``CAN_PROCESS_TASKS``, ``DOCKER_IMG``, ``IP`` and ``PORT``), and the
+same DB connection string (``sqlite:///<root>/db/sqlite.db``). Both packages
 therefore find the same exports, accept the same token and open the
 same DB file. Unlike the JAX package, importing this one creates,
 writes and wipes nothing: ``python -m mlcomp_tpu_torch init`` and the
@@ -135,9 +138,25 @@ else:
         f"{_ENV.get('POSTGRES_PASSWORD')}@{_ENV.get('POSTGRES_HOST')}:5432/"
         f"{_ENV.get('POSTGRES_DB')}")
 
+MASTER_PORT_RANGE = tuple(
+    int(p) for p in _ENV.get('MASTER_PORT_RANGE', '29500-29510').split('-'))
+QUEUE_POLL_INTERVAL = float(_ENV.get('QUEUE_POLL_INTERVAL', '0.2'))
+WORKER_USAGE_INTERVAL = float(_ENV.get('WORKER_USAGE_INTERVAL', '10'))
+SYNC_WITH_THIS_COMPUTER = _ENV.get(
+    'SYNC_WITH_THIS_COMPUTER', 'True') == 'True'
+CAN_PROCESS_TASKS = _ENV.get('CAN_PROCESS_TASKS', 'True') == 'True'
+DOCKER_IMG = _ENV.get('DOCKER_IMG', 'default')
+# the JAX package exports configs/.env into os.environ on import and its
+# register_computer reads IP and PORT from there; this package exports
+# nothing, so the daemon reads the same values from here
+IP = _ENV.get('IP', 'localhost')
+PORT = int(_ENV.get('PORT', '4202'))
+
 __all__ = [
     '__version__', 'ROOT_FOLDER', 'DATA_FOLDER', 'MODEL_FOLDER',
     'TASK_FOLDER', 'LOG_FOLDER', 'CONFIG_FOLDER', 'DB_FOLDER', 'TMP_FOLDER',
     'TOKEN', 'INSTALL_LIBRARIES', 'DB_TYPE', 'SA_CONNECTION_STRING',
-    'ensure_folders',
+    'MASTER_PORT_RANGE', 'QUEUE_POLL_INTERVAL', 'WORKER_USAGE_INTERVAL',
+    'SYNC_WITH_THIS_COMPUTER', 'CAN_PROCESS_TASKS', 'DOCKER_IMG', 'IP',
+    'PORT', 'ensure_folders',
 ]

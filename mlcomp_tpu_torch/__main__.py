@@ -6,17 +6,22 @@ on ``argparse``:
 - ``python -m mlcomp_tpu_torch check CONFIG``   — the DAG preflight alone,
   no DB writes; exit 0 clean, 1 on error findings, 2 on analyzer error
 - ``python -m mlcomp_tpu_torch dag CONFIG``     — submit a DAG: preflight,
-  then the dag, task, dependency, report and code rows
+  then the dag, task, dependency, report and code rows. A running
+  supervisor (``server/supervisor.py`` ``register_supervisor``)
+  dispatches its tasks onto the DB queue, and the worker daemons
+  (``python -m mlcomp_tpu_torch.worker start N``) run them.
 - ``python -m mlcomp_tpu_torch execute CONFIG`` — submit and run the DAG
-  in-process, tasks in dependency order; a failed dependency skips its
-  dependants. The last line is the JSON of the task statuses by name.
+  in-process without the scheduler, tasks in dependency order; a failed
+  dependency skips its dependants. The last line is the JSON of the task
+  statuses by name.
 
 ``--params a/b:c`` overrides merge into the stored config as the JAX
 package's do. The DB is the JAX package's (same root, same schema):
 ``<root>/db/sqlite.db``. Trainers run on the card; a config asks for the
 CPU with ``device: cpu``. The other commands of the JAX package (sync,
 alerts, recovery, gangs, postmortem, devtime, supervisors, fleets,
-sweeps, usage, quotas) are not ported yet (ROADMAP.md, A0).
+sweeps, usage, quotas) and its ``server start-site`` are not ported yet
+(ROADMAP.md, A0).
 """
 
 import argparse

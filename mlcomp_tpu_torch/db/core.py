@@ -373,10 +373,29 @@ class Session:
                 self.query(f'PRAGMA table_info({table})')}
 
     # -------------------------------------------------------------- events
+    #: whether publish_event reaches OTHER processes: not on sqlite, so a
+    #: cross-process waiter keeps its short-poll timeout
+    events_cross_process = False
+
     def publish_event(self, channel: str):
-        """Wake-on-work publication. Its only listener is the supervisor
-        (db/events.py), which comes with the second half of A0; until
-        then a publication reaches no one."""
+        """Wake-on-work publication (db/events.py): only waiters in this
+        process hear it (a condition variable)."""
+        from mlcomp_tpu_torch.db import events
+        events.publish(channel)
+
+    def event_snapshot(self, channels) -> dict:
+        """Channel-sequence snapshot to pass into ``wait_event``, taken
+        BEFORE the caller's emptiness check so a publish landing in
+        between is never slept through."""
+        from mlcomp_tpu_torch.db import events
+        return events.snapshot(channels)
+
+    def wait_event(self, channels, timeout: float,
+                   snapshot: dict = None) -> bool:
+        """Block until a watched channel publishes or ``timeout`` passes;
+        True when woken by an event."""
+        from mlcomp_tpu_torch.db import events
+        return events.wait(channels, timeout, snapshot=snapshot)
 
     # --------------------------------------------------------------- object
     def add(self, obj, commit=True):

@@ -1,8 +1,8 @@
 """Data providers — one repository per entity (port of
 ``mlcomp_tpu/db/providers``: the ones the CLI, the DAG builder, the task
-pipeline and the trainer use). The queue, fleet, supervisor, sweep,
-usage, quota, auth and docker providers come with the second half of A0
-(ROADMAP.md)."""
+pipeline, the trainer, the supervisor and the worker daemon use). The
+fleet, supervisor-lease, sweep, usage, quota and auth providers come
+with their ROADMAP.md items (A0)."""
 
 from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
 from mlcomp_tpu_torch.db.providers.project import ProjectProvider
@@ -19,8 +19,13 @@ from mlcomp_tpu_torch.db.providers.report import (
 )
 from mlcomp_tpu_torch.db.providers.model import ModelProvider
 from mlcomp_tpu_torch.db.providers.telemetry import (
-    MetricProvider, TelemetrySpanProvider,
+    AlertProvider, MetricProvider, TelemetrySpanProvider,
 )
+from mlcomp_tpu_torch.db.providers.auxiliary import AuxiliaryProvider
+from mlcomp_tpu_torch.db.providers.computer import ComputerProvider
+from mlcomp_tpu_torch.db.providers.docker import DockerProvider
+from mlcomp_tpu_torch.db.providers.queue import QueueProvider
+from mlcomp_tpu_torch.db.providers.task_synced import TaskSyncedProvider
 
 __all__ = [
     'MetricProvider', 'TelemetrySpanProvider', 'DagPreflightProvider',
@@ -28,5 +33,7 @@ __all__ = [
     'FileProvider', 'DagStorageProvider', 'DagLibraryProvider',
     'LogProvider', 'StepProvider', 'ReportProvider',
     'ReportSeriesProvider', 'ReportTasksProvider',
-    'ReportLayoutProvider', 'ModelProvider',
+    'ReportLayoutProvider', 'ModelProvider', 'AlertProvider',
+    'AuxiliaryProvider', 'ComputerProvider', 'DockerProvider',
+    'QueueProvider', 'TaskSyncedProvider',
 ]

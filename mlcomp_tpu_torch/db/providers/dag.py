@@ -30,6 +30,15 @@ class DagPreflightProvider(BaseDataProvider):
             self.session.executemany(self._INSERT, rows)
         return len(rows)
 
+    def clear(self, dag_id: int, source: str = None):
+        if source is None:
+            self.session.execute(
+                'DELETE FROM dag_preflight WHERE dag=?', (int(dag_id),))
+        else:
+            self.session.execute(
+                'DELETE FROM dag_preflight WHERE dag=? AND source=?',
+                (int(dag_id), source))
+
     def by_dag(self, dag_id: int) -> list:
         rows = self.session.query(
             'SELECT * FROM dag_preflight WHERE dag=? '

@@ -1,17 +1,17 @@
 """Task provider (port of ``mlcomp_tpu/db/providers/task.py``, the part
-the builder, the pipeline and ``execute`` use): ``dependency_status``
-(which dependencies of each task are in which status), the
-``change_status`` transition bookkeeping and ``fail_with_reason``. The
-supervisor's and the UI's queries wait (ROADMAP.md, A0).
+the builder, the pipeline, ``execute``, the supervisor and the worker
+daemon use): ``dependency_status`` (which dependencies of each task are
+in which status), ``parent_tasks_stats`` (child statuses of distributed
+parents), ``children``, ``by_status``, the ``change_status`` transition
+bookkeeping and ``fail_with_reason``. The UI's queries wait with the
+API (ROADMAP.md, A0).
 """
 
 from mlcomp_tpu_torch.db.enums import TaskStatus
+from mlcomp_tpu_torch.db.events import CH_TASKS
 from mlcomp_tpu_torch.db.models import Task, TaskDependence
 from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
 from mlcomp_tpu_torch.utils.misc import now
-
-#: the supervisor's wake-up channel (``mlcomp_tpu/db/events.py``)
-CH_TASKS = 'tasks'
 
 
 class TaskProvider(BaseDataProvider):
@@ -63,6 +63,46 @@ class TaskProvider(BaseDataProvider):
             (task_id,))
         return [Task.from_row(r) for r in rows]
 
+    def children(self, parent_id: int, statuses=None):
+        sql = 'SELECT * FROM task WHERE parent=?'
+        params = [parent_id]
+        if statuses:
+            sql += f' AND status IN ({",".join("?" * len(statuses))})'
+            params += [int(s) for s in statuses]
+        return [Task.from_row(r) for r in self.session.query(sql, params)]
+
+    def parent_tasks_stats(self):
+        """For each unfinished parent task its children grouped by
+        status: a list of (parent_task, started, finished,
+        {status: count}), in two set queries."""
+        unfinished = [int(s) for s in TaskStatus.unfinished()]
+        marks = ','.join('?' * len(unfinished))
+        parents = [Task.from_row(p) for p in self.session.query(
+            f'SELECT * FROM task WHERE status IN ({marks}) AND id IN '
+            f'(SELECT DISTINCT parent FROM task WHERE parent IS NOT NULL)',
+            tuple(unfinished))]
+        if not parents:
+            return []
+        id_marks = ','.join('?' * len(parents))
+        rows = self.session.query(
+            f'SELECT parent, status, COUNT(*) AS c, MIN(started) AS s, '
+            f'MAX(finished) AS f FROM task WHERE parent IN ({id_marks}) '
+            f'GROUP BY parent, status',
+            tuple(p.id for p in parents))
+        by_parent = {}
+        for r in rows:
+            by_parent.setdefault(r['parent'], []).append(r)
+        res = []
+        for parent in parents:
+            grouped = by_parent.get(parent.id, [])
+            stats = {r['status']: r['c'] for r in grouped}
+            started = min((r['s'] for r in grouped if r['s']),
+                          default=None)
+            finished = max((r['f'] for r in grouped if r['f']),
+                           default=None)
+            res.append((parent, started, finished, stats))
+        return res
+
     # -------------------------------------------------------------- status
     def change_status(self, task, status: TaskStatus):
         # the transition is guarded at every call site instead of here:
@@ -109,6 +149,15 @@ class TaskProvider(BaseDataProvider):
         task.failure_reason = reason
         self.update(task, ['failure_reason'])
         self.change_status(task, TaskStatus.Failed)
+
+    def by_status(self, *statuses, computer: str = None):
+        marks = ','.join('?' * len(statuses))
+        sql = f'SELECT * FROM task WHERE status IN ({marks})'
+        params = [int(s) for s in statuses]
+        if computer is not None:
+            sql += ' AND computer_assigned=?'
+            params.append(computer)
+        return [Task.from_row(r) for r in self.session.query(sql, params)]
 
     def update_last_activity(self, task_id: int):
         self.session.execute(

@@ -4,14 +4,16 @@ notebook use.
 
 The write path is ``add_many`` (one executemany per flush) because the
 telemetry buffers hand over hundreds of rows at a time; per-row ``add``
-would pay a commit each. Alerts and postmortems come with the watchdog
-and the flight recorder (A6).
+would pay a commit each. ``AlertProvider.raise_alert`` is what the
+supervisor's retry pass writes; the watchdog's alert reads and the
+postmortems come with A6.
 """
 
 import json
 
-from mlcomp_tpu_torch.db.models import Metric, TelemetrySpan
+from mlcomp_tpu_torch.db.models import Alert, Metric, TelemetrySpan
 from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
+from mlcomp_tpu_torch.utils.misc import now
 
 
 class MetricProvider(BaseDataProvider):
@@ -127,4 +129,30 @@ class TelemetrySpanProvider(BaseDataProvider):
                                          offset=offset))
 
 
-__all__ = ['MetricProvider', 'TelemetrySpanProvider']
+class AlertProvider(BaseDataProvider):
+    model = Alert
+
+    def raise_alert(self, rule: str, message: str, task=None, dag=None,
+                    computer=None, severity: str = 'warning',
+                    details: dict = None):
+        """Insert an alert, deduplicated against an OPEN alert of the
+        same (rule, task): one live condition stays one row,
+        re-touched."""
+        existing = self.session.query_one(
+            'SELECT id FROM alert WHERE rule=? AND status=\'open\' '
+            'AND task IS ?', (rule, task if task is None else int(task)))
+        payload = json.dumps(details) if details else None
+        if existing is not None:
+            self.session.execute(
+                'UPDATE alert SET time=?, message=?, severity=?, '
+                'details=? WHERE id=?',
+                (now(), message, severity, payload, existing['id']))
+            return self.by_id(existing['id'])
+        alert = Alert(time=now(), rule=rule, severity=severity,
+                      task=task, dag=dag, computer=computer,
+                      message=message, details=payload, status='open')
+        self.add(alert)
+        return alert
+
+
+__all__ = ['MetricProvider', 'TelemetrySpanProvider', 'AlertProvider']

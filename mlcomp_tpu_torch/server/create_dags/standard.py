@@ -7,7 +7,7 @@ dependency validation; fans out one task per grid cell; parses the core
 spec ``"a-b"`` into (cores, cores_max); wires per-train-task reports.
 Every row is the one the JAX package's builder writes (the random
 ``trace_id`` aside). A ``sweep:`` block raises: the ASHA sweep scheduler
-is the supervisor half of A0 (ROADMAP.md).
+is not ported yet (ROADMAP.md, A0).
 """
 
 import os
@@ -301,8 +301,8 @@ class DagStandardBuilder:
             if isinstance(spec, dict) and spec.get('sweep') is not None:
                 # refused before any DB write
                 raise NotImplementedError(
-                    f'executor {name!r}: sweep scheduling is the '
-                    f'supervisor half of A0 (ROADMAP.md), not ported yet')
+                    f'executor {name!r}: sweep scheduling is not ported '
+                    f'yet (ROADMAP.md, A0: ASHA sweeps)')
         if self.preflight:
             self.run_preflight()
         self.load_base()

@@ -18,6 +18,7 @@ is not pulled at flush either — it is counted in ``dropped_count``.
 import bisect
 import json
 import threading
+import weakref
 from collections import deque
 
 import numpy as np
@@ -25,6 +26,25 @@ import numpy as np
 #: pending samples that trigger a flush, and the most a flush keeps
 FLUSH_EVERY = 100
 CAPACITY = 65536
+
+#: session-bound recorders alive in this process, drained by the task
+#: process's crash-time flush (worker/tasks.py) so the telemetry of a
+#: failed task is not lost with the process. Weak: registration must
+#: not keep a finished executor's recorder alive.
+_LIVE_RECORDERS = weakref.WeakSet()
+
+
+def flush_live_recorders() -> int:
+    """Best-effort flush of every live session-bound recorder; returns
+    the rows written. Never raises: it runs on the interpreter's way
+    down."""
+    total = 0
+    for recorder in list(_LIVE_RECORDERS):
+        try:
+            total += recorder.flush()
+        except Exception:
+            pass
+    return total
 
 
 class Histogram:
@@ -109,6 +129,8 @@ class MetricRecorder:
         self._mutate_lock = threading.Lock()
         self.dropped_count = 0
         self.flushed_count = 0
+        if session is not None:
+            _LIVE_RECORDERS.add(self)
 
     def _maybe_flush(self):
         if len(self._pending) >= FLUSH_EVERY \

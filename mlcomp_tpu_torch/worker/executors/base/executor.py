@@ -191,27 +191,23 @@ class Executor(ABC):
         return bool(getattr(self, 'spec', {}).get('wait_sync', False))
 
     def wait_data_sync(self):
-        """The barrier before a task reads its project's data: every
-        successful task of the project that ran on ANOTHER computer must
-        have been pulled here. On one computer there is none, and the
-        barrier passes at once, as the JAX package's does; pulling from
-        other computers (FileSync) is the worker half of A0, so a task
-        that would have to wait raises."""
-        from mlcomp_tpu_torch.db.enums import TaskStatus
+        """The barrier before a task reads its project's data: wait
+        until every successful task of the project that ran on ANOTHER
+        computer has been pulled here (FileSync, worker/sync.py); raise
+        ``TimeoutError`` after 600 polls, one a second."""
+        import time
+        from mlcomp_tpu_torch.db.providers import TaskSyncedProvider
         from mlcomp_tpu_torch.utils.misc import hostname
+        provider = TaskSyncedProvider(self.session)
         here = hostname()
-        row = self.session.query_one(
-            'SELECT COUNT(*) AS c FROM task t JOIN dag d ON t.dag = d.id '
-            'WHERE t.status=? AND t.computer_assigned IS NOT NULL '
-            'AND t.computer_assigned != ? AND d.project=? AND t.id NOT IN '
-            '(SELECT task FROM task_synced WHERE computer=?)',
-            (int(TaskStatus.Success), here,
-             self.dag.project if self.dag else None, here))
-        if row['c']:
-            raise NotImplementedError(
-                f'wait_sync: {row["c"]} tasks of this project ran on other '
-                f'computers and are not synced to {here!r}; syncing across '
-                f'computers is the worker half of A0 (ROADMAP.md)')
+        project = self.dag.project if self.dag else None
+        for _ in range(600):
+            pending = [entry for entry in provider.for_computer(here)
+                       if project is None or entry[1] == project]
+            if not pending:
+                return
+            time.sleep(1)
+        raise TimeoutError('data sync barrier timed out')
 
     # -------------------------------------------------------------- helpers
     def result_serialize(self, result) -> str:

@@ -331,6 +331,43 @@ def test_pin_cores_sets_cuda_visible_devices(tmp_path, port_session,
     assert os.environ['CUDA_VISIBLE_DEVICES'] == '2,3'
 
 
+@pytest.mark.parametrize('visible,cores,device', [
+    (None, [1], 1),             # every card visible: its own index
+    ('5,2', [2], 1),            # the card's index among the visible
+    ('0', [1], None),           # the assigned card is not visible
+    (None, [0, 1], None),       # two cards cannot be one current device
+    ('0,1,2', [0, 1], None),
+])
+def test_pin_cores_once_cuda_runs(tmp_path, port_session, monkeypatch,
+                                  visible, cores, device):
+    """Where CUDA already runs in the process (an in-process worker), a
+    task assigned one visible card gets it as the current device, with
+    ``CUDA_VISIBLE_DEVICES`` left as it was; any other assignment
+    raises."""
+    from mlcomp_tpu_torch.worker.tasks import ExecuteBuilder
+    if visible is None:
+        monkeypatch.delenv('CUDA_VISIBLE_DEVICES', raising=False)
+    else:
+        monkeypatch.setenv('CUDA_VISIBLE_DEVICES', visible)
+    calls = []
+    monkeypatch.setattr(torch.cuda, 'is_initialized', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)
+    monkeypatch.setattr(torch.cuda, 'set_device', calls.append)
+    config, folder = _mlp_config(tmp_path)
+    task_id = _run_failing(port_session, config, folder,
+                           cores_assigned=json.dumps(cores))
+    builder = ExecuteBuilder(task_id, session=port_session)
+    builder.create_base()
+    if device is None:
+        with pytest.raises(RuntimeError, match='already initialised'):
+            builder.pin_cores()
+        assert calls == []
+    else:
+        builder.pin_cores()
+        assert calls == [device]
+    assert os.environ.get('CUDA_VISIBLE_DEVICES') == visible
+
+
 def test_download_materializes_the_stored_code(tmp_path, port_session,
                                                monkeypatch):
     from mlcomp_tpu_torch.worker import storage
@@ -372,8 +409,15 @@ def test_jax_train_is_the_ports_train():
 
 
 def test_wait_sync_passes_on_one_computer_and_refuses_others(
-        tmp_path, port_session):
+        tmp_path, port_session, monkeypatch):
+    """The barrier passes at once on one computer; a task of the project
+    that ran on another computer holds it (600 polls a second apart, as
+    the JAX barrier's, then ``TimeoutError``; the sleeps are recorded,
+    not slept) until FileSync marks it synced."""
+    import time
     from mlcomp_tpu_torch.db.models import Task
+    from mlcomp_tpu_torch.db.providers import TaskSyncedProvider
+    from mlcomp_tpu_torch.utils.misc import hostname
     config = {'info': {'name': 'w', 'project': 'w'},
               'executors': {'v': {'type': 'valid_classify', 'y': '1',
                                   'wait_sync': True}}}
@@ -381,11 +425,17 @@ def test_wait_sync_passes_on_one_computer_and_refuses_others(
     ex = Executor.from_config('v', config)
     ex.session, ex.dag = port_session, dag
     ex.wait_data_sync()                     # nothing ran elsewhere
-    port_session.add(Task(name='elsewhere', executor='v', dag=dag.id,
-                          status=int(TaskStatus.Success),
-                          computer_assigned='other-host'))
-    with pytest.raises(NotImplementedError, match='A0'):
+    elsewhere = Task(name='elsewhere', executor='v', dag=dag.id,
+                     status=int(TaskStatus.Success),
+                     computer_assigned='other-host')
+    port_session.add(elsewhere)
+    sleeps = []
+    monkeypatch.setattr(time, 'sleep', sleeps.append)
+    with pytest.raises(TimeoutError, match='data sync barrier'):
         ex.wait_data_sync()
+    assert sleeps == [1] * 600
+    TaskSyncedProvider(port_session).mark_synced(hostname(), elsewhere.id)
+    ex.wait_data_sync()
 
 
 @pytest.mark.parametrize('exc', [

@@ -1,7 +1,7 @@
 """The port's import boundary: ``mlcomp_tpu_torch`` and ``chip_smoke.py``
 import nothing of JAX, flax, optax, the JAX package ``mlcomp_tpu``, or
-of ``click``, ``msgpack``, pandas, OpenCV and PyYAML (which the card's
-machine does not have) — and serving really runs with all of those
+of ``click``, ``msgpack``, pandas, OpenCV, PyYAML and ``psutil`` (which
+the card's machine does not have) — and serving really runs with all of those
 unimportable."""
 
 import ast
@@ -20,7 +20,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'mlcomp_tpu', 'click',
-             'msgpack', 'pandas', 'cv2', 'yaml')
+             'msgpack', 'pandas', 'cv2', 'yaml', 'psutil')
 
 
 def _port_files():
