@@ -283,6 +283,35 @@ Phase of the scheduler's slice, run after the command line's:
   cell's 216 / 192 / 192 flash launches, nothing else), all seven tasks
   Success, the card's memory in the computer row's usage.
 
+Phase of the site's slice, run after the scheduler's:
+
+- site: the site started the documented way. (a) ``python -m
+  mlcomp_tpu_torch.server start 1`` on a free port (``start-site`` with
+  the HA supervisor and the API, ``worker-supervisor``, ``worker 0``),
+  ``dag`` of ``cifar_simple`` (``--params model/norm:fused``, its 2
+  epochs raised to 6 in a copy) as a process; ``/api/tasks`` polled
+  until the first epoch's checkpoint is on disk, ``/api/task/stop``
+  (Stopped, the ``run-task`` process gone, before the last epoch),
+  ``/api/dag/start`` (reset with ``resume``), the site's supervisor
+  re-dispatching and the worker resuming from that checkpoint through
+  the epochs left to Success ("resumed from checkpoint" in the log, the
+  epoch series after the restart); ``/api/graph``, ``GET /``, ``GET
+  /metrics`` (task counts those of the rows, the leader and its epoch),
+  ``/api/auxiliary``; no site process mapping the CUDA driver or listed
+  by ``nvidia-smi --query-compute-apps``; SIGTERM to the site (lease
+  released, the group restarting it, the lease taken at the next epoch)
+  and ``server stop`` leaving no process (the training process mapping
+  the driver is the check's positive control: ``nvidia-smi`` may list
+  no pid inside a container). The times from spawn to
+  ``/api/token``, of the dispatch, stop to Stopped, ``/api/dag/start``
+  to InProgress, the resumed attempt's wall and the lease handover,
+  beside the card's name and power limit. (b) ``start_server(
+  background=True)`` in this process with the worker's in-process
+  consume: ``cifar_simple`` as written to Success with 1280 launches of
+  each norm kernel and the card's memory in ``/api/computers``; marked
+  Failed and restarted through ``/api/dag/start``, its resume runs no
+  epoch (``samples_per_sec`` 0) and launches nothing.
+
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
 """
@@ -298,6 +327,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -4272,6 +4302,497 @@ def phase_sched(smi: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ the site
+#: ``[site]`` (a)'s epochs: ``cifar_simple``'s 2 raised, so that its task
+#: can be stopped after the first epoch's checkpoint and before its last
+#: epoch ends (``--params`` reaches no list item, so the stage's count is
+#: raised in a copy of the config)
+SITE_EPOCHS = 6
+#: seconds ``[site]`` waits for any one of its steps
+SITE_TIMEOUT_S = 300
+
+
+def _api(port, path, data=None, method='POST', token=None):
+    """(status, JSON or text) of one request to the site."""
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}{path}',
+        data=None if method == 'GET' else json.dumps(data or {}).encode(),
+        headers={'Authorization': token} if token else {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            status, raw = resp.status, resp.read()
+            ctype = resp.headers.get('Content-Type', '')
+    except urllib.error.HTTPError as e:
+        status, raw, ctype = e.code, e.read(), e.headers.get(
+            'Content-Type', '')
+    return status, json.loads(raw) if 'json' in ctype else raw.decode()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _port_processes() -> dict:
+    """pid → command line of every live process of the port's server and
+    worker commands on this machine, this one aside."""
+    from mlcomp_tpu_torch.utils import procfs
+    out = {}
+    for pid in procfs.process_pids():
+        cmd = procfs.process_cmdline(pid)
+        if pid != os.getpid() and procfs.pid_exists(pid) and (
+                'mlcomp_tpu_torch.server' in cmd
+                or 'mlcomp_tpu_torch.worker' in cmd):
+            out[pid] = cmd
+    return out
+
+
+def _maps_libcuda(pid: int) -> bool:
+    """Whether process ``pid`` has mapped the CUDA driver library, as
+    every process that holds a CUDA context has."""
+    try:
+        with open(f'/proc/{pid}/maps') as fh:
+            return 'libcuda.so' in fh.read()
+    except OSError:
+        return False
+
+
+def _compute_apps() -> list:
+    """The pids ``nvidia-smi`` lists as holding a context on a card."""
+    out = subprocess.run(
+        ['nvidia-smi', '--query-compute-apps=pid', '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60)
+    return [int(p) for p in out.stdout.split() if p.strip().isdigit()]
+
+
+def _wait_for(phase: str, what: str, probe, check=None,
+              timeout: float = SITE_TIMEOUT_S, interval: float = 0.1):
+    """Poll ``probe()`` until it returns something true, and return it;
+    ``check()`` runs between polls (it fails the run itself)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = probe()
+        if got:
+            return got
+        if check is not None:
+            check()
+        if time.monotonic() > deadline:
+            fail(f'{phase}: no {what} after {timeout:.0f} s')
+        time.sleep(interval)
+
+
+def phase_site(smi: str) -> dict:
+    """``[site]``: the port's site, started the documented way, trains a
+    DAG, stops its task and resumes it through the JSON API.
+
+    (a) Through processes: ``python -m mlcomp_tpu_torch.server start 1``
+    on a free port (``start-site`` with the HA supervisor,
+    ``worker-supervisor``, ``worker 0``); once ``/api/token`` answers
+    and the host agent heartbeats, ``dag`` of ``cifar_simple`` (``--params
+    model/norm:fused``, its epochs raised to ``SITE_EPOCHS``) as a
+    process; ``/api/tasks`` polled until the first epoch's checkpoint is
+    on disk, then ``/api/task/stop``: the task Stopped, its ``run-task``
+    process gone, before its last epoch; ``/api/dag/start`` resets it
+    with ``resume``, the site's supervisor re-dispatches it and the
+    worker resumes it from that checkpoint (the "resumed from
+    checkpoint" log row, the epoch series after the restart) through
+    the epochs left to Success. Then ``/api/graph``, ``GET /``, ``GET
+    /metrics`` (parsed; the task counts those of the rows),
+    ``/api/auxiliary``; the lease held by the site at an epoch >= 1;
+    no site process mapping the CUDA driver or listed by ``nvidia-smi
+    --query-compute-apps``; SIGTERM to the site, whose lease is
+    released, the group restarting it, the new site taking the lease
+    at the next epoch; ``server stop`` leaving no process of the
+    group. (b) In this process: ``start_server(background=True)`` with
+    the HA supervisor, ``dag`` of ``cifar_simple`` as written and the
+    worker's in-process consume: Success with 1280 launches of each norm
+    kernel, the card's memory in ``/api/computers``; then the task
+    marked Failed, ``/api/dag/start`` and the consume again: the resume
+    finds every epoch done, ``samples_per_sec`` 0 and no launch. Returns
+    (b)'s launches."""
+    import signal
+    from mlcomp_tpu_torch import DB_FOLDER, DOCKER_IMG, TASK_FOLDER, TOKEN
+    from mlcomp_tpu_torch.__main__ import main as cli_main
+    from mlcomp_tpu_torch.db.core import Session
+    from mlcomp_tpu_torch.db.enums import TaskStatus
+    from mlcomp_tpu_torch.db.providers import (
+        DockerProvider, QueueProvider, TaskProvider,
+    )
+    from mlcomp_tpu_torch.server.api import start_server
+    from mlcomp_tpu_torch.telemetry.export import parse_openmetrics
+    from mlcomp_tpu_torch.utils import procfs
+    from mlcomp_tpu_torch.utils.io import yaml_dump, yaml_load
+    from mlcomp_tpu_torch.utils.logging import create_logger
+    from mlcomp_tpu_torch.utils.misc import (
+        hostname, now as utc_now, to_snake,
+    )
+    import mlcomp_tpu_torch.worker.__main__ as worker_main
+
+    phase = 'site'
+    db = os.path.join(DB_FOLDER, 'sqlite.db')
+    host = hostname()
+    finished = {int(s) for s in TaskStatus.finished()}
+    work = tempfile.mkdtemp(prefix='site_')
+    group_log = os.path.join(work, 'group.log')
+    group, server = None, None
+    on_term = signal.getsignal(signal.SIGTERM)
+
+    def seconds_since(t0: float) -> str:
+        return f'{time.monotonic() - t0:.3f}'
+
+    def group_alive():
+        if group.poll() is not None:
+            fail(f'{phase}: the group exited {group.returncode}:\n'
+                 f'{_tail(group_log)}')
+
+    def lease():
+        return dict(session.query_one(
+            'SELECT * FROM supervisor_lease WHERE id=1'))
+
+    def holder_pid(row) -> int:
+        return int(row['holder'].split(':')[1]) if row['holder'] else 0
+
+    def stop_group():
+        if group is not None and group.poll() is None:
+            try:
+                os.killpg(group.pid, signal.SIGTERM)
+                group.wait(timeout=30)
+            except (ProcessLookupError, subprocess.TimeoutExpired):
+                os.killpg(group.pid, signal.SIGKILL)
+                group.wait(timeout=30)
+
+    try:
+        session = Session.create_session(key='site')
+        # (a) the site as processes
+        config = yaml_load(file=os.path.join(HERE, CLI_CIFAR))
+        config['executors']['train']['stages'][0]['epochs'] = SITE_EPOCHS
+        folder = os.path.join(work, 'cifar_site')
+        os.makedirs(folder)
+        yaml_dump(config, file=os.path.join(folder, 'config.yml'))
+        port = _free_port()
+        spawned = str(utc_now())
+        t0 = time.monotonic()
+        with open(group_log, 'w') as out:
+            group = subprocess.Popen(
+                [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'start',
+                 '1'], cwd=HERE, env=dict(os.environ, WEB_PORT=str(port)),
+                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+
+        def token_answers():
+            try:
+                return _api(port, '/api/token', {'token': TOKEN}) == (
+                    200, {'success': True})
+            except (urllib.error.URLError, ConnectionError):
+                return False
+
+        _wait_for(phase, 'answer from /api/token', token_answers,
+                  group_alive, interval=0.05)
+        ready_s = seconds_since(t0)
+        site_pid = _wait_for(
+            phase, 'lease held by the site',
+            lambda: holder_pid(lease()), group_alive)
+        if 'start-site' not in procfs.process_cmdline(site_pid):
+            fail(f'{phase}: the lease holder {lease()} is not the site')
+        _wait_for(phase, 'heartbeat of worker-supervisor', lambda: (
+            session.query_one(
+                'SELECT 1 FROM docker WHERE computer=? AND name=? AND '
+                'last_activity > ?', (host, DOCKER_IMG, spawned))),
+            group_alive)
+        agent_s = seconds_since(t0)
+        known = set(_dag_ids(db))
+        submit = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch', 'dag',
+             os.path.join(folder, 'config.yml'), '--params',
+             'model/norm:fused'], cwd=HERE, capture_output=True, text=True,
+            timeout=300)
+        returned = str(utc_now())
+        if submit.returncode != 0:
+            fail(f'{phase}: dag exited {submit.returncode}:\n'
+                 f'{submit.stdout[-2000:]}\n{submit.stderr[-2000:]}')
+        (dag_id,) = [i for i in _dag_ids(db) if i not in known]
+
+        def task_row():
+            status, body = _api(port, '/api/tasks', {'dag': dag_id},
+                                token=TOKEN)
+            if status != 200 or body['total'] != 1:
+                fail(f'{phase}: /api/tasks answered {status} {body}')
+            return body['data'][0]
+
+        def status_is(want):
+            def probe():
+                task = task_row()
+                if task['status'] == int(want):
+                    return task
+                if task['status'] in finished:
+                    fail(f'{phase}: task {task["id"]} ended in status '
+                         f'{task["status"]} ({task["failure_reason"]}), '
+                         f'waiting for {want.name}:\n{_tail(group_log)}')
+                return None
+            return probe
+
+        first = _wait_for(phase, 'InProgress task',
+                          status_is(TaskStatus.InProgress), group_alive)
+        task_id, task_pid = first['id'], first['pid']
+        msg = session.query_one('SELECT * FROM queue_message WHERE id=?',
+                                (first['queue_id'],))
+        meta_path = os.path.join(TASK_FOLDER, str(task_id), 'checkpoints',
+                                 'last.msgpack.meta.json')
+
+        def checkpointed():
+            if task_row()['status'] in finished:
+                fail(f'{phase}: task {task_id} ended before the stop')
+            return os.path.exists(meta_path)
+
+        _wait_for(phase, 'first checkpoint', checkpointed, group_alive,
+                  interval=0.05)
+        apps_running = _compute_apps()
+        # the positive control of the site's check below: the training
+        # process, which holds a context, maps the driver library
+        if not _maps_libcuda(task_pid):
+            fail(f'{phase}: the run-task process {task_pid} maps no '
+                 f'libcuda, so that check cannot see a context')
+        t_stop = time.monotonic()
+        status, body = _api(port, '/api/task/stop', {'id': task_id},
+                            token=TOKEN)
+        if (status, body) != (200, {'status': 'stopped'}):
+            fail(f'{phase}: /api/task/stop answered {status} {body}')
+        stopped = _wait_for(phase, 'Stopped task',
+                            status_is(TaskStatus.Stopped), group_alive)
+        stop_s = seconds_since(t_stop)
+        _wait_for(phase, 'exit of the run-task process',
+                  lambda: not procfs.pid_exists(task_pid), group_alive)
+        gone_s = seconds_since(t_stop)
+        with open(meta_path) as fh:
+            ck_epoch = int(json.load(fh)['epoch'])
+        if ck_epoch >= SITE_EPOCHS - 1:
+            fail(f'{phase}: the task checkpointed epoch {ck_epoch} of '
+                 f'{SITE_EPOCHS} before the stop')
+        last_series = session.query_one(
+            'SELECT COALESCE(MAX(id), 0) FROM report_series WHERE task=?',
+            (task_id,))[0]
+        t_start = time.monotonic()
+        status, body = _api(port, '/api/dag/start', {'id': dag_id},
+                            token=TOKEN)
+        if (status, body) != (200, {'restarted': [task_id]}):
+            fail(f'{phase}: /api/dag/start answered {status} {body}')
+        resume = yaml_load(session.query_one(
+            'SELECT additional_info FROM task WHERE id=?',
+            (task_id,))[0])['resume']
+        if resume['master_task_id'] != task_id or not resume['load_last']:
+            fail(f'{phase}: resume info {resume}')
+        _wait_for(phase, 'InProgress task after /api/dag/start',
+                  status_is(TaskStatus.InProgress), group_alive)
+        start_s = seconds_since(t_start)
+        done = _wait_for(phase, 'Success of the resumed task',
+                         status_is(TaskStatus.Success), group_alive)
+        resumed_log = session.query_one(
+            "SELECT message FROM log WHERE task=? AND message LIKE "
+            "'%resumed from checkpoint%'", (task_id,))
+        epochs = sorted({r[0] for r in session.query(
+            "SELECT epoch FROM report_series WHERE task=? AND id>? AND "
+            "name='loss' AND part='train'", (task_id, last_series))})
+        if resumed_log is None or f'epoch={ck_epoch} ' not in \
+                resumed_log[0] or epochs != list(range(ck_epoch + 1,
+                                                       SITE_EPOCHS)):
+            fail(f'{phase}: resumed log {resumed_log}, epochs after the '
+                 f'restart {epochs}, want {ck_epoch + 1}..'
+                 f'{SITE_EPOCHS - 1}')
+        resumed_wall = _seconds(done['finished'], done['started'])
+
+        # the site's other reads
+        status, graph = _api(port, '/api/graph', {'id': dag_id},
+                             token=TOKEN)
+        status_page, page = _api(port, '/', method='GET')
+        status_metrics, text = _api(port, '/metrics', method='GET')
+        status_aux, aux = _api(port, '/api/auxiliary')
+        if status != 200 or [n['status'] for n in graph['nodes']] != \
+                ['Success'] or status_page != 200 or \
+                '<title>mlcomp_tpu</title>' not in page or \
+                status_metrics != 200 or status_aux != 200 or \
+                'supervisor' not in aux:
+            fail(f'{phase}: graph {status} {graph}, page {status_page}, '
+                 f'metrics {status_metrics}, auxiliary {status_aux}')
+        families = parse_openmetrics(text)
+        rows = {TaskStatus(r[0]).name: r[1] for r in session.query(
+            'SELECT status, COUNT(*) FROM task GROUP BY status')}
+        exported = {s[1]['status']: s[2]
+                    for s in families['mlcomp_tasks']['samples'] if s[2]}
+        want = {to_snake(k): float(v) for k, v in rows.items()}
+        row = lease()
+        leader = families['mlcomp_supervisor_leader']['samples']
+        epoch0 = families['mlcomp_supervisor_epoch']['samples'][0][2]
+        if exported != want or len(leader) != 1 or \
+                leader[0][1]['holder'] != row['holder'] or \
+                holder_pid(row) != site_pid or epoch0 != row['epoch'] or \
+                row['epoch'] < 1:
+            fail(f'{phase}: /metrics tasks {exported}, rows {want}, '
+                 f'leader {leader}, epoch {epoch0}, lease {row}, site '
+                 f'{site_pid}')
+        cuda_in_site = _maps_libcuda(site_pid) or site_pid in _compute_apps()
+
+        # SIGTERM to the site: its lease is released, the group restarts
+        # it, and the new site takes the lease at the next epoch
+        t_term = time.monotonic()
+        os.kill(site_pid, signal.SIGTERM)
+        _wait_for(phase, 'lease released by the SIGTERMed site',
+                  lambda: holder_pid(lease()) != site_pid, group_alive,
+                  interval=0.02)
+        released_s = seconds_since(t_term)
+        new_pid = _wait_for(phase, 'lease taken by the restarted site',
+                            lambda: holder_pid(lease()), group_alive,
+                            interval=0.02)
+        handover_s = seconds_since(t_term)
+        row_after = lease()
+        roster = {r['holder']: r['role'] for r in session.query(
+            'SELECT holder, role FROM supervisor_instance')}
+        if new_pid == site_pid or procfs.pid_exists(site_pid) or \
+                row_after['epoch'] != row['epoch'] + 1 or \
+                'start-site' not in procfs.process_cmdline(new_pid) or \
+                roster.get(row['holder']) != 'released':
+            fail(f'{phase}: lease {row} -> {row_after}, old site '
+                 f'{site_pid} alive {procfs.pid_exists(site_pid)}, roster '
+                 f'{roster}')
+        _wait_for(phase, 'answer from the restarted site', token_answers,
+                  group_alive)
+        cuda_in_site = cuda_in_site or _maps_libcuda(new_pid) or \
+            new_pid in _compute_apps()
+        if cuda_in_site:
+            fail(f'{phase}: a site process ({site_pid}, {new_pid}) holds a '
+                 f'CUDA context')
+
+        # server stop: no process of the group is left
+        t_off = time.monotonic()
+        off = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'stop'],
+            cwd=HERE, capture_output=True, text=True, timeout=120)
+        if off.returncode != 0 or off.stdout.strip() != 'stopped':
+            fail(f'{phase}: server stop exited {off.returncode}: '
+                 f'{off.stdout} {off.stderr}')
+        _wait_for(phase, 'end of every process of the group',
+                  lambda: not _port_processes(), timeout=60)
+        off_s = seconds_since(t_off)
+        group.wait(timeout=30)
+        if lease()['holder'] is not None:
+            fail(f'{phase}: the stopped site left the lease {lease()}')
+        phase_a_s = seconds_since(t0)
+        say(phase, part='a', dag=dag_id, task=task_id,
+            site_ready_s=ready_s, agent_ready_s=agent_s,
+            dispatch_s=f'{_seconds(msg["created"], returned):.3f}',
+            checkpoint_epoch=ck_epoch, stop_to_stopped_s=stop_s,
+            stop_to_process_gone_s=gone_s,
+            dag_start_to_inprogress_s=start_s,
+            resumed_epochs=f'{epochs[0]}..{epochs[-1]}',
+            resumed_wall_s=f'{resumed_wall:.2f}',
+            best_accuracy=done['score'], lease_epoch=row['epoch'],
+            sigterm_to_release_s=released_s,
+            lease_handover_s=handover_s, server_stop_s=off_s,
+            stopped_status=stopped['status'],
+            task_in_compute_apps=task_pid in apps_running,
+            site_cuda=cuda_in_site, group_rc=group.returncode,
+            phase_s=phase_a_s, card=smi)
+
+        # (b) in this process: the HA supervisor and the API, the
+        # worker's in-process consume, the launches counted
+        counters = _kernel_counters()
+        logger = create_logger(session)
+        t_b0 = time.monotonic()
+        server = start_server(host='127.0.0.1', port=0, background=True,
+                              logger=logger)
+        _wait_for(phase, 'lease held by this process',
+                  lambda: holder_pid(lease()) == os.getpid())
+        promote_s = seconds_since(t_b0)
+        queue, docker = QueueProvider(session), DockerProvider(session)
+        provider = TaskProvider(session)
+
+        def drive():
+            """Consume until the task ends; its row."""
+            deadline = time.monotonic() + SITE_TIMEOUT_S
+            while True:
+                docker.heartbeat(host, DOCKER_IMG)   # the agent is stopped
+                consumed = worker_main._consume_one(session, queue, logger,
+                                                    0, in_process=True)
+                task = provider.by_id(task_b)
+                if task.status in finished:
+                    return task
+                if time.monotonic() > deadline:
+                    fail(f'{phase}: in-process task in status '
+                         f'{task.status} after {SITE_TIMEOUT_S} s')
+                if not consumed:
+                    time.sleep(0.05)
+
+        for fn in counters.values():
+            fn.launches = 0
+        known = set(_dag_ids(db))
+        t_b = time.monotonic()
+        cli_main(['dag', os.path.join(HERE, CLI_CIFAR), '--params',
+                  'model/norm:fused'])
+        (dag_b,) = [i for i in _dag_ids(db) if i not in known]
+        (task_b,) = [r[0] for r in session.query(
+            'SELECT id FROM task WHERE dag=?', (dag_b,))]
+        task = drive()
+        torch.cuda.synchronize()
+        trained_s = seconds_since(t_b)
+        launches = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        if task.status != int(TaskStatus.Success):
+            fail(f'{phase}: in-process task {task.status} '
+                 f'({task.failure_reason})')
+        norm = 20 * CLI_CIFAR_STEPS * CLI_EPOCHS
+        _check_launches(f'{phase} b', launches,
+                        {'fused_norm': norm, 'fused_norm_bwd': norm})
+        status, computers = _api(server.port, '/api/computers', {},
+                                 token=TOKEN)
+        (usage,) = [c['usage'] for c in computers['data']
+                    if c['name'] == host]
+        card = (usage.get('tpu') or [{}])[0]
+        if status != 200 or not card.get('hbm_used') or \
+                not card.get('hbm_limit'):
+            fail(f'{phase}: /api/computers usage {usage}')
+        provider.change_status(task, TaskStatus.Failed)
+        for fn in counters.values():
+            fn.launches = 0
+        t_r = time.monotonic()
+        status, body = _api(server.port, '/api/dag/start', {'id': dag_b},
+                            token=TOKEN)
+        if (status, body) != (200, {'restarted': [task_b]}):
+            fail(f'{phase}: /api/dag/start answered {status} {body}')
+        task = drive()
+        torch.cuda.synchronize()
+        again = {k: fn.launches for k, fn in counters.items()
+                 if fn.launches}
+        result = yaml_load(task.result)
+        if task.status != int(TaskStatus.Success) or again or \
+                result['samples_per_sec'] != 0:
+            fail(f'{phase}: the resume of a finished task ran: status '
+                 f'{task.status}, launches {again}, result {result}')
+        server.shutdown()
+        server = None
+        if lease()['holder'] is not None:
+            fail(f'{phase}: the in-process supervisor left the lease '
+                 f'{lease()}')
+        say(phase, part='b', dag=dag_b, task=task_b, promote_s=promote_s,
+            trained_s=trained_s, launches=launches,
+            resume_s=seconds_since(t_r), resume_launches=again,
+            resume_samples_per_sec=result['samples_per_sec'],
+            card_usage=card, phase_s=seconds_since(t_b0), card=smi)
+        return {'site': launches}
+    finally:
+        if server is not None:
+            server.shutdown()
+        signal.signal(signal.SIGTERM, on_term)
+        stop_group()
+        for pid in _port_processes():
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        Session.cleanup()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ the model zoo
 #: the JAX package's parameter count of each model of ``[zoo]``
 #: (``jax.eval_shape`` of its init on the CPU; the smoke imports no JAX):
@@ -4454,6 +4975,7 @@ def main():
         phase_zoo(args.seed, smi)
         cli = phase_cli(smi)
         sched = phase_sched(smi)
+        site = phase_site(smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -4514,7 +5036,8 @@ def main():
             'dag_ensemble_train':
                 dag_ensemble['dag_ensemble_train'][entry['name']],
             'cli': cli['cli'][entry['name']],
-            'sched': sched['sched'][entry['name']]}
+            'sched': sched['sched'][entry['name']],
+            'site': site['site'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}
                          for site, ms in norm_device.items()}

@@ -13,7 +13,8 @@ package reads from the same ``configs/.env`` with the same defaults
 (``TOKEN``, ``INSTALL_LIBRARIES``, ``DB_TYPE``; for the supervisor and
 the worker daemon ``QUEUE_POLL_INTERVAL``, ``MASTER_PORT_RANGE``,
 ``WORKER_USAGE_INTERVAL``, ``SYNC_WITH_THIS_COMPUTER``,
-``CAN_PROCESS_TASKS``, ``DOCKER_IMG``, ``IP`` and ``PORT``), and the
+``CAN_PROCESS_TASKS``, ``DOCKER_IMG``, ``IP`` and ``PORT``; for the site
+``WEB_HOST`` and ``WEB_PORT``), and the
 same DB connection string (``sqlite:///<root>/db/sqlite.db``). Both packages
 therefore find the same exports, accept the same token and open the
 same DB file. Unlike the JAX package, importing this one creates,
@@ -151,6 +152,9 @@ DOCKER_IMG = _ENV.get('DOCKER_IMG', 'default')
 # nothing, so the daemon reads the same values from here
 IP = _ENV.get('IP', 'localhost')
 PORT = int(_ENV.get('PORT', '4202'))
+# where ``server start-site`` serves the API and the dashboard
+WEB_HOST = _ENV.get('WEB_HOST', '0.0.0.0')
+WEB_PORT = int(_ENV.get('WEB_PORT', '4201'))
 
 __all__ = [
     '__version__', 'ROOT_FOLDER', 'DATA_FOLDER', 'MODEL_FOLDER',
@@ -158,5 +162,5 @@ __all__ = [
     'TOKEN', 'INSTALL_LIBRARIES', 'DB_TYPE', 'SA_CONNECTION_STRING',
     'MASTER_PORT_RANGE', 'QUEUE_POLL_INTERVAL', 'WORKER_USAGE_INTERVAL',
     'SYNC_WITH_THIS_COMPUTER', 'CAN_PROCESS_TASKS', 'DOCKER_IMG', 'IP',
-    'PORT', 'ensure_folders',
+    'PORT', 'WEB_HOST', 'WEB_PORT', 'ensure_folders',
 ]

@@ -28,6 +28,7 @@ Channels are plain strings:
 - ``queue:{name}`` — a message was enqueued on that queue (workers)
 - ``queue:done``   — a claimed message completed or failed (supervisor)
 - ``tasks``        — a task row appeared or changed status (supervisor)
+- ``supervisor:lease`` — the leader released its lease (standbys)
 """
 
 import threading
@@ -36,6 +37,9 @@ import time
 CH_QUEUE_PREFIX = 'queue:'
 CH_QUEUE_DONE = 'queue:done'
 CH_TASKS = 'tasks'
+#: published when the leader releases its lease: a standby in this
+#: process promotes at once (db/providers/supervisor.py)
+CH_SUPERVISOR_LEASE = 'supervisor:lease'
 
 #: reconnects of a cross-process listener, the ``db.listener_reconnects``
 #: series' source; stays 0 until a backend with a listener is ported
@@ -115,4 +119,5 @@ def snapshot(channels) -> dict:
 
 __all__ = ['LocalEventBus', 'LOCAL_BUS', 'publish', 'wait', 'snapshot',
            'queue_channel', 'CH_QUEUE_PREFIX', 'CH_QUEUE_DONE',
-           'CH_TASKS', 'listener_stats', 'record_listener_reconnect']
+           'CH_TASKS', 'CH_SUPERVISOR_LEASE', 'listener_stats',
+           'record_listener_reconnect']

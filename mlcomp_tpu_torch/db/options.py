@@ -9,6 +9,18 @@ class PaginatorOptions:
         self.sort_column = sort_column
         self.sort_descending = sort_descending
 
+    @classmethod
+    def from_request(cls, data: dict):
+        """The options of an API request (its ``paginator`` dict, or the
+        request itself)."""
+        paginator = data.get('paginator', data)
+        return cls(
+            page_number=paginator.get('page_number', 0),
+            page_size=paginator.get('page_size', 100),
+            sort_column=paginator.get('sort_column'),
+            sort_descending=paginator.get('sort_descending', True),
+        )
+
     def sql(self, default_sort: str = 'id', allowed: set = None):
         col = self.sort_column or default_sort
         # identifier whitelist — sort_column comes from request payloads

@@ -1,8 +1,8 @@
 """Data providers — one repository per entity (port of
 ``mlcomp_tpu/db/providers``: the ones the CLI, the DAG builder, the task
-pipeline, the trainer, the supervisor and the worker daemon use). The
-fleet, supervisor-lease, sweep, usage, quota and auth providers come
-with their ROADMAP.md items (A0)."""
+pipeline, the trainer, the supervisor, its leader lease, the worker
+daemon and the API use). The fleet, sweep, usage, quota and auth
+providers come with their ROADMAP.md items (A0)."""
 
 from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
 from mlcomp_tpu_torch.db.providers.project import ProjectProvider
@@ -14,8 +14,8 @@ from mlcomp_tpu_torch.db.providers.file import (
 from mlcomp_tpu_torch.db.providers.log import LogProvider
 from mlcomp_tpu_torch.db.providers.step import StepProvider
 from mlcomp_tpu_torch.db.providers.report import (
-    ReportProvider, ReportSeriesProvider, ReportTasksProvider,
-    ReportLayoutProvider
+    ReportProvider, ReportSeriesProvider, ReportImgProvider,
+    ReportTasksProvider, ReportLayoutProvider
 )
 from mlcomp_tpu_torch.db.providers.model import ModelProvider
 from mlcomp_tpu_torch.db.providers.telemetry import (
@@ -26,14 +26,15 @@ from mlcomp_tpu_torch.db.providers.computer import ComputerProvider
 from mlcomp_tpu_torch.db.providers.docker import DockerProvider
 from mlcomp_tpu_torch.db.providers.queue import QueueProvider
 from mlcomp_tpu_torch.db.providers.task_synced import TaskSyncedProvider
+from mlcomp_tpu_torch.db.providers.supervisor import SupervisorLeaseProvider
 
 __all__ = [
     'MetricProvider', 'TelemetrySpanProvider', 'DagPreflightProvider',
     'BaseDataProvider', 'ProjectProvider', 'DagProvider', 'TaskProvider',
     'FileProvider', 'DagStorageProvider', 'DagLibraryProvider',
     'LogProvider', 'StepProvider', 'ReportProvider',
-    'ReportSeriesProvider', 'ReportTasksProvider',
+    'ReportSeriesProvider', 'ReportImgProvider', 'ReportTasksProvider',
     'ReportLayoutProvider', 'ModelProvider', 'AlertProvider',
     'AuxiliaryProvider', 'ComputerProvider', 'DockerProvider',
-    'QueueProvider', 'TaskSyncedProvider',
+    'QueueProvider', 'TaskSyncedProvider', 'SupervisorLeaseProvider',
 ]

@@ -3,14 +3,18 @@ the builder, the pipeline, ``execute``, the supervisor and the worker
 daemon use): ``dependency_status`` (which dependencies of each task are
 in which status), ``parent_tasks_stats`` (child statuses of distributed
 parents), ``children``, ``by_status``, the ``change_status`` transition
-bookkeeping and ``fail_with_reason``. The UI's queries wait with the
-API (ROADMAP.md, A0).
+bookkeeping and ``fail_with_reason``, and the API's task listing
+(``get``).
 """
 
-from mlcomp_tpu_torch.db.enums import TaskStatus
+import json
+
+from mlcomp_tpu_torch.db.enums import TaskStatus, TaskType
 from mlcomp_tpu_torch.db.events import CH_TASKS
 from mlcomp_tpu_torch.db.models import Task, TaskDependence
-from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
+from mlcomp_tpu_torch.db.providers.base import (
+    BaseDataProvider, PaginatorOptions,
+)
 from mlcomp_tpu_torch.utils.misc import now
 
 
@@ -167,6 +171,65 @@ class TaskProvider(BaseDataProvider):
         rows = self.session.query(
             'SELECT * FROM task WHERE dag=?', (dag_id,))
         return [Task.from_row(r) for r in rows]
+
+    def get(self, filter: dict = None, options: PaginatorOptions = None):
+        filter = filter or {}
+        where, params = [], []
+        if filter.get('dag'):
+            where.append('t.dag=?')
+            params.append(filter['dag'])
+        if filter.get('name'):
+            where.append('t.name LIKE ?')
+            params.append(f"%{filter['name']}%")
+        if filter.get('status') is not None:
+            statuses = filter['status']
+            if isinstance(statuses, list) and statuses:
+                where.append(
+                    f't.status IN ({",".join("?" * len(statuses))})')
+                params += statuses
+        if filter.get('project'):
+            where.append('d.project=?')
+            params.append(filter['project'])
+        if filter.get('type') is not None:
+            types = filter['type']
+            if not isinstance(types, list):
+                types = [types]
+            where.append(f't.type IN ({",".join("?" * len(types))})')
+            params += types
+        if filter.get('id'):
+            where.append('t.id=?')
+            params.append(filter['id'])
+        if not filter.get('show_service', False):
+            where.append('t.type != ?')
+            params.append(int(TaskType.Service))
+
+        where_sql = (' WHERE ' + ' AND '.join(where)) if where else ''
+        options = options or PaginatorOptions()
+        sort = options.sort_column or 'id'
+        if sort not in Task.__columns__:
+            sort = 'id'
+        direction = 'DESC' if options.sort_descending else 'ASC'
+        offset = options.page_number * options.page_size
+        rows = self.session.query(
+            f'SELECT t.*, d.name AS dag_name FROM task t '
+            f'JOIN dag d ON t.dag = d.id{where_sql} '
+            f'ORDER BY t."{sort}" {direction} LIMIT ? OFFSET ?',
+            tuple(params) + (options.page_size, offset))
+        total = self.session.query_one(
+            f'SELECT COUNT(*) AS c FROM task t '
+            f'JOIN dag d ON t.dag = d.id{where_sql}', tuple(params))['c']
+        data = []
+        for r in rows:
+            item = Task.from_row(r).to_dict()
+            item['dag_name'] = r['dag_name']
+            if item.get('cores_assigned'):
+                try:
+                    item['cores_assigned'] = json.loads(
+                        item['cores_assigned'])
+                except (ValueError, TypeError):
+                    pass
+            data.append(item)
+        return {'total': total, 'data': data}
 
 
 __all__ = ['TaskProvider']

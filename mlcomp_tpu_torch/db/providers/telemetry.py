@@ -1,12 +1,12 @@
 """Telemetry providers (port of ``mlcomp_tpu/db/providers/telemetry.py``:
-metric and span rows) — batch ingest, and the reads the tests and a
-notebook use.
+metric, span and alert rows) — batch ingest, and the reads the API
+serves (series and their tails, span forests, assembled traces,
+alerts).
 
 The write path is ``add_many`` (one executemany per flush) because the
 telemetry buffers hand over hundreds of rows at a time; per-row ``add``
 would pay a commit each. ``AlertProvider.raise_alert`` is what the
-supervisor's retry pass writes; the watchdog's alert reads and the
-postmortems come with A6.
+supervisor's retry pass writes; the postmortems come with A6.
 """
 
 import json
@@ -71,6 +71,43 @@ class MetricProvider(BaseDataProvider):
         except ValueError:
             return None
 
+    def tail_series(self, task_id: int, per_name: int = 64):
+        """Latest ``per_name`` samples of EVERY metric name of a task,
+        each series ascending within its window — the bounded
+        "what is happening NOW" read. The plain ``series()`` ascending
+        LIMIT walks names alphabetically, so on a long run it
+        truncates the NEWEST samples of later-sorting names; this one
+        takes each name's indexed id-DESC tail instead."""
+        out = {}
+        for name in self.names(task_id):
+            rows = self.session.query(
+                'SELECT step, value, time, kind, tags FROM metric '
+                'WHERE task=? AND name=? ORDER BY id DESC LIMIT ?',
+                (int(task_id), name, int(per_name)))
+            out[name] = [{'step': r['step'], 'value': r['value'],
+                          'time': r['time'], 'kind': r['kind'],
+                          'tags': self._decode_tags(r['tags'])}
+                         for r in reversed(rows)]
+        return out
+
+    def names(self, task_id=None, like: str = None):
+        """Distinct metric names, optionally restricted to a task
+        and/or a LIKE pattern. With the (task, name) composite index
+        (migration v6) the task-scoped form is an index skip, not a
+        table scan — the watchdog calls this per running task."""
+        where, params = [], []
+        if task_id is not None:
+            where.append('task=?')
+            params.append(int(task_id))
+        if like is not None:
+            where.append('name LIKE ?')
+            params.append(like)
+        sql = 'SELECT DISTINCT name FROM metric'
+        if where:
+            sql += ' WHERE ' + ' AND '.join(where)
+        return [r['name'] for r in self.session.query(
+            sql + ' ORDER BY name', tuple(params))]
+
 
 class TelemetrySpanProvider(BaseDataProvider):
     model = TelemetrySpan
@@ -128,6 +165,38 @@ class TelemetrySpanProvider(BaseDataProvider):
         return self._forest(self.by_task(task_id, limit=limit,
                                          offset=offset))
 
+    def by_trace(self, trace_id: str, limit: int = 100000):
+        rows = self.session.query(
+            'SELECT * FROM telemetry_span WHERE trace_id=? '
+            'ORDER BY started, id LIMIT ?', (trace_id, int(limit)))
+        return [TelemetrySpan.from_row(r) for r in rows]
+
+    def trace_tree(self, trace_id: str):
+        """The assembled cross-process trace: every span carrying this
+        trace_id, grouped into per-process root forests (one root per
+        (pid-prefix, process_role) seam), plus the wall-clock envelope
+        the dashboard waterfall scales against."""
+        spans = self.by_trace(trace_id)
+        roots = self._forest(spans)
+        processes = []
+        seen = set()
+        for s in spans:
+            # the full '{pid}.{rand}' prefix, not the bare pid: two
+            # hosts/containers can both run pid 42 in one trace
+            prefix = (s.span_id or '').rsplit('-', 1)[0]
+            key = (prefix, s.process_role)
+            if key not in seen:
+                seen.add(key)
+                processes.append(
+                    {'pid': prefix, 'role': s.process_role})
+        started = [s.started for s in spans if s.started is not None]
+        t0 = min(started) if started else None
+        t1 = max((s.started + (s.duration or 0) for s in spans
+                  if s.started is not None), default=None)
+        return {'trace_id': trace_id, 'span_count': len(spans),
+                'processes': processes, 'started': t0, 'finished': t1,
+                'spans': roots}
+
 
 class AlertProvider(BaseDataProvider):
     model = Alert
@@ -153,6 +222,47 @@ class AlertProvider(BaseDataProvider):
                       message=message, details=payload, status='open')
         self.add(alert)
         return alert
+
+    def get(self, status: str = 'open', task=None, rule=None,
+            limit: int = 200, offset: int = 0):
+        where, params = [], []
+        if status:
+            where.append('status=?')
+            params.append(status)
+        if task is not None:
+            where.append('task=?')
+            params.append(int(task))
+        if rule is not None:
+            where.append('rule=?')
+            params.append(rule)
+        sql = 'SELECT * FROM alert'
+        if where:
+            sql += ' WHERE ' + ' AND '.join(where)
+        sql += ' ORDER BY time DESC, id DESC LIMIT ? OFFSET ?'
+        params.append(int(limit))
+        params.append(int(offset))
+        return [Alert.from_row(r)
+                for r in self.session.query(sql, tuple(params))]
+
+    @staticmethod
+    def serialize(alert):
+        """Alert as a jsonable dict with ``details`` DECODED — the
+        shape /api/alerts and the CLI serve (same convention as span
+        ``tags`` in _forest; a raw JSON string inside JSON would make
+        every consumer double-decode)."""
+        out = alert.to_dict()
+        if out.get('details'):
+            try:
+                out['details'] = json.loads(out['details'])
+            except ValueError:
+                pass
+        return out
+
+    def resolve(self, alert_id: int) -> bool:
+        cur = self.session.execute(
+            "UPDATE alert SET status='resolved', resolved_time=? "
+            "WHERE id=? AND status='open'", (now(), int(alert_id)))
+        return cur.rowcount > 0
 
 
 __all__ = ['MetricProvider', 'TelemetrySpanProvider', 'AlertProvider']

@@ -17,15 +17,23 @@ Each tick (``SupervisorBuilder.build``):
    DB queue ``{computer}_{docker}``
 7. ``write_auxiliary``      — the decision trace into ``auxiliary``
 
+With a :class:`~mlcomp_tpu_torch.server.ha.LeaderLease` (HA, the
+default of ``register_supervisor``) the builder issues every write on a
+:class:`~mlcomp_tpu_torch.db.fencing.FencedSession`: each mutation of a
+control-state table carries the leader's epoch, so a paused ex-leader's
+writes are rejected in the DB. The loop contends for the lease, runs
+``reconcile_dispatches`` at promotion and releases the lease when it
+stops.
+
 What the JAX tick does beyond this is not ported and refuses rather
 than being skipped silently (ROADMAP.md, A0): a DB holding fleet or
 sweep rows (the fleet reconciler, the ASHA sweep scheduler), one
 holding quota rows, a tick whose preemption pass would evict (quotas
 and preemption), and the multi-host fan-out (A4), each raise
-``NotImplementedError``. ``register_supervisor(ha=True)`` raises too
-(supervisor HA). The tick telemetry and the watchdog, SLO and usage
-folds write observability and ledger rows no decision here reads, and
-are left out; the tick flushes its dispatch spans.
+``NotImplementedError``. The tick telemetry and the watchdog, SLO and
+usage folds write observability and ledger rows no decision here reads,
+and are left out, but for the count of fenced-off writes; the tick
+flushes its dispatch spans.
 """
 
 import datetime
@@ -36,8 +44,13 @@ import traceback
 from mlcomp_tpu_torch import MASTER_PORT_RANGE
 from mlcomp_tpu_torch.db.core import Session, parse_datetime
 from mlcomp_tpu_torch.db.enums import ComponentType, TaskStatus, TaskType
-from mlcomp_tpu_torch.db.events import CH_QUEUE_DONE, CH_TASKS
-from mlcomp_tpu_torch.db.models import Task
+from mlcomp_tpu_torch.db.events import (
+    CH_QUEUE_DONE, CH_SUPERVISOR_LEASE, CH_TASKS,
+)
+from mlcomp_tpu_torch.db.fencing import (
+    FencedSession, FenceLostError, fence_rejections,
+)
+from mlcomp_tpu_torch.db.models import QueueMessage, Task
 from mlcomp_tpu_torch.db.providers import (
     AlertProvider, AuxiliaryProvider, ComputerProvider, DagPreflightProvider,
     DagProvider, DockerProvider, MetricProvider, QueueProvider, TaskProvider,
@@ -73,8 +86,16 @@ def _info(task: Task) -> dict:
 class SupervisorBuilder:
     def __init__(self, session: Session = None, logger=None,
                  queue_liveness_window: float = 15.0,
-                 recovery_config: RecoveryConfig = None):
-        self.session = session or Session.create_session(key='supervisor')
+                 recovery_config: RecoveryConfig = None, lease=None):
+        session = session or Session.create_session(key='supervisor')
+        if isinstance(session, FencedSession):    # heal-path re-init
+            session = session._session
+        # the raw session serves the heal path and the lease protocol;
+        # with a lease every write of this builder rides the fence
+        self.raw_session = session
+        self.lease = lease
+        self.session = FencedSession(session, lease) \
+            if lease is not None else session
         self.logger = logger
         self.queue_liveness_window = queue_liveness_window
         self.recovery_config = recovery_config or RecoveryConfig()
@@ -104,6 +125,8 @@ class SupervisorBuilder:
         # dispatch's restart-idempotency check costs no round trip per
         # task; None outside a tick (dispatch falls back to find_active)
         self._pending_execute = None
+        # fence rejections already counted into supervisor.fenced_writes
+        self._fence_seen = fence_rejections()
 
     def _log_error(self, msg: str, task: int = None):
         if self.logger:
@@ -199,6 +222,8 @@ class SupervisorBuilder:
                 kill_task(child.id, session=self.session)
                 if is_rank:
                     aborted.append(child.id)
+            except FenceLostError:
+                raise       # zombie leader: stop the tick, demote
             except Exception:
                 self._log_error(f'gang abort of child {child.id} failed:\n'
                                 f'{traceback.format_exc()}')
@@ -366,7 +391,10 @@ class SupervisorBuilder:
             # crash-consistent order: placement stamped on the NotRan
             # row, then the message, then queue_id + Queued pair them.
             # Idempotent against a supervisor death between the two: a
-            # pending message with this payload is reused
+            # pending message with this payload is reused, and the next
+            # leader's ``reconcile_dispatches`` re-pairs (or rolls back)
+            # the one torn shape, an assigned NotRan row beside a
+            # pending message
             self.provider.update(
                 task, ['computer_assigned', 'cores_assigned'])
             if self._pending_execute is not None:
@@ -389,6 +417,80 @@ class SupervisorBuilder:
         comp['cpu'] -= task.cpu or 0
         comp['memory'] -= task.memory or 0
         return queue
+
+    def reconcile_dispatches(self) -> dict:
+        """The promotion sweep: repair the half-dispatches a dead leader
+        left, exactly once, before the first tick of a new epoch. Two
+        torn shapes exist (dispatch's order pins them):
+
+        - a PENDING execute message whose task never got its
+          ``queue_id``/Queued write: if the task is still NotRan with
+          its placement stamped, the pair is completed (**adopted**); a
+          message whose task moved on in any other way is **revoked**,
+          so it never executes twice;
+        - a QUEUED task whose message is missing or revoked: reset to
+          NotRan, so placement re-dispatches it this tick.
+
+        Claimed, done and failed messages are left to the lease reclaim
+        and the strand sweep. Runs on the fenced session, so the repair
+        too is epoch-guarded."""
+        out = {'adopted': [], 'revoked': [], 'requeued': []}
+        qp = self.queue_provider
+        rows = self.session.query(
+            "SELECT * FROM queue_message WHERE status='pending'")
+        for msg in [QueueMessage.from_row(r) for r in rows]:
+            try:
+                payload = json.loads(msg.payload)
+            except (TypeError, ValueError):
+                continue
+            if payload.get('action') != 'execute':
+                continue
+            task = self._message_task(msg)
+            if task is None:
+                qp.revoke(msg.id)
+                out['revoked'].append(msg.id)
+                continue
+            if task.status == int(TaskStatus.Queued) \
+                    and task.queue_id == msg.id:
+                continue        # consistent pair
+            if task.status == int(TaskStatus.NotRan) \
+                    and task.computer_assigned \
+                    and task.queue_id in (None, msg.id):
+                # the torn pair: message out, pairing write lost
+                task.queue_id = msg.id
+                self.provider.update(task, ['queue_id'])
+                self.provider.change_status(task, TaskStatus.Queued)
+                out['adopted'].append({'task': task.id, 'msg': msg.id})
+            elif qp.revoke(msg.id):
+                # the task moved on without this message: a duplicate
+                # dispatch must not survive the failover
+                out['revoked'].append(msg.id)
+        # Queued tasks whose message is no longer deliverable, their
+        # messages read in one query
+        queued = [t for t in self.provider.by_status(TaskStatus.Queued)
+                  if t.queue_id is not None and t.parent is None]
+        msg_status = {}
+        if queued:
+            ids = sorted({t.queue_id for t in queued})
+            marks = ','.join('?' * len(ids))
+            msg_status = {r['id']: r['status'] for r in self.session.query(
+                f'SELECT id, status FROM queue_message '
+                f'WHERE id IN ({marks})', tuple(ids))}
+        for task in queued:
+            if msg_status.get(task.queue_id) in (None, 'revoked'):
+                task.queue_id = None
+                task.pid = None
+                self.provider.update(task, ['queue_id', 'pid'])
+                self.provider.change_status(task, TaskStatus.NotRan)
+                out['requeued'].append(task.id)
+        if any(out.values()):
+            self.aux.setdefault('dispatch_reconciled', out)
+            self._log_warning(
+                f'promotion sweep repaired half-dispatches: '
+                f'{sum(len(v) for v in out.values())} '
+                f'(adopted={out["adopted"]}, revoked={out["revoked"]}, '
+                f'requeued={out["requeued"]})')
+        return out
 
     def process_task(self, task: Task):
         """Placement + dispatch of one runnable task onto one computer.
@@ -449,6 +551,8 @@ class SupervisorBuilder:
         try:
             self._reclaim_leases()
             self._retry_failed()
+        except FenceLostError:
+            raise           # zombie leader: stop the tick, demote
         except Exception:
             self._log_error(f'recovery pass failed:\n'
                             f'{traceback.format_exc()}')
@@ -699,6 +803,8 @@ class SupervisorBuilder:
                 continue
             try:
                 self.process_task(task)
+            except FenceLostError:
+                raise       # zombie leader: stop the tick, demote
             except Exception:
                 self._log_error(f'failed processing task {task.id}:\n'
                                 f'{traceback.format_exc()}', task.id)
@@ -738,10 +844,23 @@ class SupervisorBuilder:
         """Persist the tick's decision trace."""
         self.auxiliary_provider.create_or_update('supervisor', self.aux)
 
+    def record_fence_rejections(self):
+        """Writes the epoch fence rejected since the last tick, as a
+        ``supervisor.fenced_writes`` counter row (``/metrics`` sums
+        them): rare, and each one is a failover story."""
+        rejections = fence_rejections()
+        delta = rejections - self._fence_seen
+        if delta > 0:
+            MetricProvider(self.raw_session).add_many([
+                (None, 'supervisor.fenced_writes', 'counter', None,
+                 float(delta), now(), 'supervisor', None)])
+        self._fence_seen = rejections
+
     # ---------------------------------------------------------------- main
     def build(self):
         """One tick. A failing tick heals by rebuilding the builder on a
-        fresh session; a refusal (``NotImplementedError``) propagates."""
+        fresh session; a refusal (``NotImplementedError``) and a fenced
+        write (``FenceLostError``: a newer leader exists) propagate."""
         from mlcomp_tpu_torch.telemetry import flush_spans
         start = now()
         try:
@@ -757,10 +876,14 @@ class SupervisorBuilder:
             self.refuse_preemption()
             self.aux['duration'] = (now() - start).total_seconds()
             self.write_auxiliary()
+            self.record_fence_rejections()
             flush_spans(self.session)
             # the pending index is tick-scoped
             self._pending_execute = None
-        except NotImplementedError:
+        except (NotImplementedError, FenceLostError):
+            # a refusal, or a NEWER LEADER exists and the store rejected
+            # this zombie's write: the loop demotes instead of healing
+            # the session and retrying the same stale writes
             raise
         except Exception:
             self._log_error(f'supervisor tick failed:\n'
@@ -769,8 +892,8 @@ class SupervisorBuilder:
             # (possibly wedged) connection so a fresh one is built; the
             # connection string is kept (the JAX heal path reconnects
             # to the default DB)
-            key = getattr(self.session, 'key', 'supervisor')
-            connection_string = self.session.connection_string
+            key = getattr(self.raw_session, 'key', 'supervisor')
+            connection_string = self.raw_session.connection_string
             Session.cleanup(key)
             fresh = Session.create_session(
                 key=key, connection_string=connection_string)
@@ -778,9 +901,18 @@ class SupervisorBuilder:
                 # the cached logger's DB handler holds the old session
                 from mlcomp_tpu_torch.utils.logging import create_logger
                 self.logger = create_logger(fresh)
+            lease = self.lease
+            if lease is not None:
+                # the lease handle follows the healed connection
+                from mlcomp_tpu_torch.db.providers.supervisor import (
+                    SupervisorLeaseProvider,
+                )
+                lease.session = fresh
+                lease.provider = SupervisorLeaseProvider(fresh)
             self.__init__(session=fresh, logger=self.logger,
                           queue_liveness_window=self.queue_liveness_window,
-                          recovery_config=self.recovery_config)
+                          recovery_config=self.recovery_config,
+                          lease=lease)
 
 
 class SupervisorLoop(threading.Thread):
@@ -793,8 +925,17 @@ class SupervisorLoop(threading.Thread):
     at the backstop.
 
     The event snapshot is taken BEFORE build() runs, so work submitted
-    while a tick is in flight wakes the next wait at once. (The JAX
-    loop's leader election is supervisor HA, not ported.)"""
+    while a tick is in flight wakes the next wait at once.
+
+    **High availability** (server/ha.py): with a ``lease`` the loop is
+    one contender in the leader election. A standby parks on the
+    ``supervisor:lease`` channel and promotes within one lease window of
+    the leader's silence, or at once when a leader in this process
+    releases (a standby in another process retries every third of the
+    window: sqlite carries no event across processes). Promotion runs
+    ``reconcile_dispatches`` before the first tick and writes a
+    ``supervisor.failover`` row; a failed renew or a ``FenceLostError``
+    out of a tick demotes the process to standby."""
 
     WAKE_CHANNELS = (CH_TASKS, CH_QUEUE_DONE)
 
@@ -802,27 +943,98 @@ class SupervisorLoop(threading.Thread):
     #: coalesces into one build
     DEBOUNCE_S = 0.05
 
-    def __init__(self, builder: SupervisorBuilder, interval: float = 1.0):
+    def __init__(self, builder: SupervisorBuilder, interval: float = 1.0,
+                 lease=None):
         super().__init__(daemon=True, name='supervisor-loop')
         self.builder = builder
         self.interval = interval
+        self.lease = lease if lease is not None else builder.lease
         self.wake_events = 0        # ticks triggered by an event
         self.wake_timer = 0         # ticks triggered by the backstop
+        self.promotions = 0         # standby -> leader transitions
+        self.demotions = 0          # leader -> standby transitions
+        self._was_leader = False
         # NOT named _stop: threading.Thread.join() calls self._stop()
         self._stop_evt = threading.Event()
 
-    def _log_error(self, msg: str):
+    # ------------------------------------------------------------- HA
+    def _ha_gate(self) -> bool:
+        """One election step: True when this process leads and should
+        tick; False as a standby (already parked on the lease channel).
+        Promotion runs the half-dispatch sweep and writes the
+        ``supervisor.failover`` row."""
+        try:
+            leading = self.lease.ensure()
+        except Exception:
+            # the election needs the DB: a sick store is standby, retried
+            # at the backstop
+            self._stop_evt.wait(self.interval)
+            return False
+        if leading and not self._was_leader:
+            self._was_leader = True
+            self.promotions += 1
+            self._on_promote()
+        elif not leading and self._was_leader:
+            self._was_leader = False
+            self.demotions += 1
+            self._log(f'supervisor {self.lease.holder}: demoted — a '
+                      f'newer leader holds the lease')
+        if not leading and not self._stop_evt.is_set():
+            self.lease.wait_standby()
+        return leading
+
+    def _fence_demote(self):
+        """Demote after a FenceLostError. ``_was_leader`` resets too: a
+        later re-acquisition is a fresh promotion, whose sweep and
+        failover row must run again."""
+        if self.lease is not None:
+            self.lease.epoch = None
+            self.lease.demotions += 1
+        if self._was_leader:
+            self._was_leader = False
+            self.demotions += 1
+            self._log(f'supervisor {self.lease.holder}: demoted — a '
+                      f'write was fenced off by a newer epoch')
+
+    def _on_promote(self):
+        epoch = self.lease.epoch
+        self._log(f'supervisor {self.lease.holder}: promoted to leader '
+                  f'at epoch {epoch}')
+        builder = self.builder
+        try:
+            builder.create_base()
+            builder.reconcile_dispatches()
+        except Exception:
+            self._log(f'promotion sweep failed (continuing):\n'
+                      f'{traceback.format_exc()}', error=True)
+        try:
+            # one row per promotion; epoch 1 is the first boot, not a
+            # failover, and is tagged so the /metrics counter skips it
+            MetricProvider(builder.raw_session).add_many([
+                (None, 'supervisor.failover', 'counter', int(epoch or 0),
+                 1.0, now(), 'supervisor',
+                 json.dumps({'holder': self.lease.holder,
+                             'epoch': int(epoch or 0),
+                             'first_boot': int(epoch == 1)}))])
+        except Exception:
+            pass
+
+    def _log(self, msg: str, error: bool = False):
         logger = self.builder.logger
         try:
-            if logger is not None:
+            if logger is None:
+                print(msg)
+            elif error:
                 logger.error(msg, ComponentType.Supervisor)
             else:
-                print(msg)
+                logger.warning(msg, ComponentType.Supervisor)
         except Exception:
             pass
 
     def run(self):
         while not self._stop_evt.is_set():
+            if self.lease is not None and not self._ha_gate():
+                continue
             session = self.builder.session
             try:
                 snapshot = session.event_snapshot(self.WAKE_CHANNELS)
@@ -830,11 +1042,16 @@ class SupervisorLoop(threading.Thread):
                 snapshot = None
             try:
                 self.builder.build()
+            except FenceLostError:
+                # the store rejected this process's epoch mid-tick: a
+                # newer leader exists
+                self._fence_demote()
+                continue
             except Exception:
                 # a refusal, or the heal path itself failing: the loop
                 # survives and retries at the backstop
-                self._log_error(f'supervisor loop tick failed:\n'
-                                f'{traceback.format_exc()}')
+                self._log(f'supervisor loop tick failed:\n'
+                          f'{traceback.format_exc()}', error=True)
                 self._stop_evt.wait(self.interval)
                 continue
             if self._stop_evt.is_set():
@@ -852,26 +1069,41 @@ class SupervisorLoop(threading.Thread):
                 self.wake_timer += 1
 
     def stop(self):
+        """Graceful shutdown: the lease is released at once (not left to
+        expire), so a standby need not wait out the window."""
         self._stop_evt.set()
-        # unblock a waiting loop now instead of at the backstop
+        if self.lease is not None:
+            try:
+                self.lease.release()
+            except Exception:
+                pass        # expiry remains the backstop
+        # unblock a waiting loop now instead of at the backstop,
+        # whichever channel it is parked on
         from mlcomp_tpu_torch.db import events
         events.publish(CH_TASKS)
+        events.publish(CH_SUPERVISOR_LEASE)
 
 
 def register_supervisor(session: Session = None, logger=None,
-                        interval: float = 1.0, ha: bool = True):
+                        interval: float = 1.0, ha: bool = True,
+                        lease_seconds: float = None):
     """Start the supervisor loop on a background thread; returns
-    ``(builder, [loop])`` (``loop.stop()`` ends it). ``ha=True``, the
-    JAX default (the leader election of ``server/ha.py`` with the
-    epoch fencing of ``db/fencing.py``), raises: supervisor HA is not
-    ported, and a caller must ask for a lease-less loop with
-    ``ha=False``."""
-    if ha:
-        raise _refusal('supervisor HA (register_supervisor(ha=True): '
-                       'server/ha.py, db/fencing.py)', 'supervisor HA')
+    ``(builder, [loop])`` (``loop.stop()`` ends it). With ``ha=True``
+    (the default) the loop contends for the ``supervisor_lease`` leader
+    election (server/ha.py): alone it acquires at once, and any further
+    supervisor becomes a hot standby; every control-state write is
+    epoch-fenced (db/fencing.py). ``ha=False`` runs a lease-less
+    loop."""
     session = session or Session.create_session(key='supervisor')
-    builder = SupervisorBuilder(session=session, logger=logger)
-    loop = SupervisorLoop(builder, interval=interval)
+    lease = None
+    if ha:
+        from mlcomp_tpu_torch.server.ha import (
+            DEFAULT_LEASE_SECONDS, LeaderLease,
+        )
+        lease = LeaderLease(
+            session, lease_seconds=lease_seconds or DEFAULT_LEASE_SECONDS)
+    builder = SupervisorBuilder(session=session, logger=logger, lease=lease)
+    loop = SupervisorLoop(builder, interval=interval, lease=lease)
     loop.start()
     return builder, [loop]
 

@@ -35,6 +35,20 @@ def to_snake(name: str) -> str:
     return re.sub('([a-z0-9])([A-Z])', r'\1_\2', s1).lower()
 
 
+def duration_format(seconds) -> str:
+    """``3725`` → ``1h 2m 5s``: the DAG graph's node labels."""
+    if seconds is None:
+        return ''
+    seconds = int(seconds)
+    h, rem = divmod(seconds, 3600)
+    m, s = divmod(rem, 60)
+    if h:
+        return f'{h}h {m}m {s}s'
+    if m:
+        return f'{m}m {s}s'
+    return f'{s}s'
+
+
 def dict_flatten(d: dict, sep: str = '/', prefix: str = '') -> dict:
     out = {}
     for k, v in d.items():
@@ -58,4 +72,4 @@ def dict_unflatten(d: dict, sep: str = '/') -> dict:
 
 
 __all__ = ['now', 'hostname', 'set_global_seed', 'to_snake',
-           'dict_flatten', 'dict_unflatten']
+           'duration_format', 'dict_flatten', 'dict_unflatten']

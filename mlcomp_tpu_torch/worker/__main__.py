@@ -186,11 +186,16 @@ def _consume_one(session, queue_provider, logger, index: int,
                     worker=me)
                 # the process may have died before marking the task: a
                 # signal kill is a preemption, a crash that wrote no
-                # reason of its own is worker-lost
+                # reason of its own is worker-lost. Only while the row is
+                # still this claim's attempt: a restart (/api/dag/start)
+                # landing as the process exits has reset it to NotRan,
+                # and must not be overwritten
                 provider = TaskProvider(session)
                 task = provider.by_id(task_id)
-                if task is not None and \
-                        task.status < int(TaskStatus.Failed):
+                if task is not None and task.status in (
+                        int(TaskStatus.Queued),
+                        int(TaskStatus.InProgress)) and \
+                        task.queue_id in (None, msg_id):
                     from mlcomp_tpu_torch.recovery import (
                         classify_returncode,
                     )

@@ -388,9 +388,15 @@ def kill_task(task_id: int, session: Session = None):
                     pass
         else:
             docker = task.docker_assigned or 'default'
+            payload = {'action': 'kill', 'task_id': task.id}
+            # an HA supervisor's fencing epoch, stamped for the record
+            # of which leader ordered the kill (the enqueue itself is
+            # fenced: a zombie's kill never reaches the queue)
+            epoch = getattr(session, 'fence_epoch', None)
+            if epoch is not None:
+                payload['epoch'] = int(epoch)
             QueueProvider(session).enqueue(
-                f'{task.computer_assigned}_{docker}_supervisor',
-                {'action': 'kill', 'task_id': task.id})
+                f'{task.computer_assigned}_{docker}_supervisor', payload)
     if task.status < int(TaskStatus.Failed):
         provider.change_status(task, TaskStatus.Stopped)
     return True

@@ -17,6 +17,7 @@ import datetime
 import json
 import shutil
 import threading
+import time
 
 import pytest
 
@@ -61,6 +62,10 @@ def _ago(seconds: float):
 
 class Twin:
     """One scenario's two DBs and the two packages' builders."""
+
+    #: what a routed kill's payload carries besides action and task: an
+    #: HA builder stamps its fencing epoch (tests/test_torch_port_ha.py)
+    kill_stamp = {}
 
     def __init__(self, tmp_path):
         self.tmp_path = tmp_path
@@ -254,7 +259,7 @@ def test_parent_aggregation_with_a_failed_child(twin):
     assert statuses[survivor] == (int(TaskStatus.Failed), 'gang-aborted')
     # the survivor's kill is routed to its host's control queue
     assert ('host2_default_supervisor', 'pending',
-            {'action': 'kill', 'task_id': survivor}) in \
+            {'action': 'kill', 'task_id': survivor, **twin.kill_stamp}) in \
         [m[1:4] for m in st['messages']]
     twin.tick()
 
@@ -379,11 +384,27 @@ def test_multi_host_fan_out_raises_naming_a4_and_the_task_waits(twin):
 
 
 def test_ha_raises_naming_supervisor_ha(tmp_path):
+    """Supervisor HA is ported: ``register_supervisor()`` (``ha=True``,
+    the JAX default) no longer raises; its loop holds the lease, ticks
+    on the fenced session, and releases the lease when it stops."""
+    from mlcomp_tpu_torch.db.fencing import FencedSession
+    from mlcomp_tpu_torch.db.migration import migrate
     s = Session.create_session(key=f'ha-{tmp_path}',
                                connection_string=f'sqlite:///{tmp_path}/h.db')
     try:
-        with pytest.raises(NotImplementedError, match='supervisor HA'):
-            register_supervisor(session=s)
+        migrate(s)
+        builder, (loop,) = register_supervisor(session=s)
+        deadline = time.monotonic() + 10
+        while loop.promotions == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        lease = s.query_one('SELECT * FROM supervisor_lease WHERE id=1')
+        assert isinstance(builder.session, FencedSession)
+        assert lease['holder'] == builder.lease.holder and \
+            lease['epoch'] == builder.lease.epoch == 1
+        loop.stop()
+        loop.join(timeout=10)
+        lease = s.query_one('SELECT * FROM supervisor_lease WHERE id=1')
+        assert lease['holder'] is None and lease['epoch'] == 1
     finally:
         Session.cleanup(s.key)
 

@@ -174,6 +174,40 @@ def test_a_failing_task_process_gives_the_taxonomy(daemon, tmp_path, mode,
     assert tuple(msg) == ('failed', f'subprocess failed (rc={rc})')
 
 
+def test_a_restart_landing_as_the_process_exits_is_kept(daemon, tmp_path,
+                                                          monkeypatch):
+    """``/api/dag/start`` resets a stopped task while its killed
+    ``run-task`` process exits: the worker's post-exit verdict (a signal
+    kill reads as ``preempted``) must not overwrite the reset, or the
+    restart is lost. A process that dies with the row still its claim's
+    is classified as before."""
+    from mlcomp_tpu_torch.recovery import reset_for_requeue
+    ids = _submit(daemon, tmp_path, _probe_config(probe={}))
+    SupervisorBuilder(session=daemon).build()
+    provider = TaskProvider(daemon)
+
+    def killed_then_restarted(task_id, index, trace_id=None):
+        task = provider.by_id(task_id)
+        provider.change_status(task, TaskStatus.Stopped)
+        reset_for_requeue(provider, task, resume={'master_task_id': 1},
+                          reset_attempts=True)
+        return -15
+
+    monkeypatch.setattr(wm, '_run_subprocess', killed_then_restarted)
+    assert _consume(daemon, in_process=False)
+    task = provider.by_id(ids['probe'])
+    assert (task.status, task.failure_reason, task.queue_id) == (
+        int(TaskStatus.NotRan), None, None)
+    assert yaml_load(task.additional_info)['resume'] == {'master_task_id': 1}
+    # re-dispatched and killed with the row still its claim's: preempted
+    SupervisorBuilder(session=daemon).build()
+    monkeypatch.setattr(wm, '_run_subprocess', lambda *a, **k: -15)
+    assert _consume(daemon, in_process=False)
+    task = provider.by_id(ids['probe'])
+    assert (task.status, task.failure_reason) == (int(TaskStatus.Failed),
+                                                  'preempted')
+
+
 def _dead_pid() -> int:
     proc = subprocess.Popen(['true'])
     proc.wait()
