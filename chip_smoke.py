@@ -312,6 +312,38 @@ Phase of the site's slice, run after the scheduler's:
   Failed and restarted through ``/api/dag/start``, its resume runs no
   epoch (``samples_per_sec`` 0) and launches nothing.
 
+Phase of the device telemetry's slice, run after the wide step's:
+
+- telemetry: ``encoder_grid``'s ViT (one epoch, ``VIT_SPEC``) and
+  ``cifar_simple``'s ResNet-18 (``norm: fused``, 4 epochs of 16 steps)
+  as ``train`` tasks with a sqlite session (``dag_standard`` then
+  ``execute_by_id``), under ``telemetry: {profile_every: N,
+  profile_steps: 3}``, every kernel's count zeroed just before each run
+  and read just after (the ``[vit-train]`` and CIFAR counts a step). It
+  prints the means and medians of ``step.phase.*_ms``,
+  ``step.pipeline_efficiency``, ``mfu`` beside the smoke's analytic
+  count, the ViT's first-step FLOPs (the kernel path's, from the mfu row)
+  beside the trainer's counter's count of the ``attn_impl: 'dense'``
+  step (they agree within 0.1%), the counted steps' host times and
+  whether counting imported ``torch._dynamo``, ``device0.hbm_*``,
+  ``host_sync.suspect_ms``, the step time after the last window against
+  the clean median, and each ``devtime`` window's buckets, busy share
+  and host dispatch gap (at least one window per model with compute > 0
+  and 0 < busy <= 1; no profiler failure in the log). The CIFAR task
+  runs on a thread beside ``start_server(background=True)``:
+  ``/api/telemetry/profile`` start (before the run), status until
+  ``tracing``, stop, then ``done`` with
+  its trace on disk; ``/metrics`` during the run carries
+  ``mlcomp_step_phase_ms`` and ``mlcomp_pipeline_efficiency``;
+  ``/api/task/devtime`` answers for both tasks. A ViT run killed by an
+  injected ``train.epoch`` ``resource`` fault ends Failed / ``oom`` with
+  a postmortem holding ``device0.hbm_*``. The host time of the ViT's
+  marked steps in a window and of the CIFAR on-demand trace splits into
+  aten ops and CUDA calls (launches and waits apart) against the rest
+  (``trace_parse.host_time_split``), with the window's start and its
+  stop-and-write time. Last, the instrumented ViT step against the bare
+  one (windows off), in turns: the overhead fails the run above 5%.
+
 Without CUDA, or in a directory that holds this script and nothing else
 of the repository, it exits non-zero and prints no result.
 """
@@ -3206,7 +3238,8 @@ def vit_step(seed: int) -> tuple:
     state = create_train_state(model, optimizer, seed=seed)
     step = make_train_step(model, optimizer, loss_fn)
     return (lambda: step(state, x, y)), {'model': model, 'loss_fn': loss_fn,
-                                         'x': x, 'y': y}
+                                         'x': x, 'y': y, 'step': step,
+                                         'state': state}
 
 
 def phase_vit_step(seed: int) -> dict:
@@ -4797,6 +4830,637 @@ def phase_site(smi: str) -> dict:
 #: the JAX package's parameter count of each model of ``[zoo]``
 #: (``jax.eval_shape`` of its init on the CPU; the smoke imports no JAX):
 #: the classifiers at ``num_classes`` 10, the segmentation models at 2
+# ------------------------------------------------------------- telemetry
+#: a profiler window's extent in dispatches, and each model's cadence
+TELEMETRY_PROFILE_STEPS = 3
+TELEMETRY_EVERY = {'vit': 8, 'cifar': 8}
+#: the CIFAR task's images: cifar_simple's, 16 steps of 256 an epoch;
+#: its epochs: the first sampled, then the on-demand trace from the
+#: first's end until the stop lands, with epochs to spare
+TELEMETRY_CIFAR_TRAIN, TELEMETRY_CIFAR_EPOCHS = 4096, 4
+#: the instrumented ViT step against the bare one, alternating step by
+#: step, this many of each, each call timed by the host's clock (the
+#: step is host-bound; host times on a shared machine drift by ~10%
+#: between runs of a few hundred ms, so A/B runs in turns would measure
+#: the drift); the overhead the run allows
+OVERHEAD_STEPS = 150
+MAX_TELEMETRY_OVERHEAD = 0.05
+#: the kernel path's FLOPs against the dense path's on the ViT
+MAX_FLOPS_REL = 1e-3
+#: the MFU's peak: one H100 SXM, bf16 dense
+PEAK_TFLOPS = 989.0
+#: (f) cifar_simple through ``execute`` in a fresh process with windows
+#: on, then off: its images (48 steps an epoch, its 2 epochs) and the
+#: windows' cadence
+ON_OFF_TRAIN, ON_OFF_EVERY = 12288, 16
+
+
+def _windows_on_off(phase: str, smi: str) -> dict:
+    """(f) The trainer's default (no windows) against windows every
+    ``ON_OFF_EVERY`` steps, end to end: ``execute`` of cifar_simple in a
+    process each, windows on first (a host that drifts slower would
+    then count against the default). For each run its process and task
+    wall, epoch times and the median step time of each epoch (the
+    ``step_time_ms`` rows; epoch 1 holds the FLOP count's step, the
+    window-opening and -closing steps are in the median's tails)."""
+    from mlcomp_tpu_torch import DB_FOLDER
+    db = os.path.join(DB_FOLDER, 'sqlite.db')
+    steps = ON_OFF_TRAIN // 256
+    # the data and models links ``execute`` leaves beside the config
+    links = [os.path.join(HERE, os.path.dirname(CLI_CIFAR), name)
+             for name in ('data', 'models')]
+    try:
+        return _run_on_off(phase, smi, db, steps)
+    finally:
+        for link in links:
+            if os.path.islink(link):
+                os.remove(link)
+
+
+def _run_on_off(phase: str, smi: str, db: str, steps: int) -> dict:
+    import sqlite3
+    from datetime import datetime
+    out = {}
+    for label, every in (('on', ON_OFF_EVERY), ('off', 0)):
+        known = set(_dag_ids(db)) if os.path.exists(db) else set()
+        argv = [sys.executable, '-m', 'mlcomp_tpu_torch', 'execute',
+                CLI_CIFAR, '--params', 'model/norm:fused',
+                '--params', f'dataset/n_train:{ON_OFF_TRAIN}',
+                '--params',
+                f'executors/train/telemetry/profile_every:{every}']
+        t0 = time.monotonic()
+        proc = subprocess.run(argv, cwd=HERE, capture_output=True,
+                              text=True, timeout=600)
+        process_s = time.monotonic() - t0
+        if proc.returncode != 0:
+            fail(f'{phase}: windows {label}: execute exited '
+                 f'{proc.returncode}:\n{proc.stdout[-2000:]}\n'
+                 f'{proc.stderr[-2000:]}')
+        dags = [i for i in _dag_ids(db) if i not in known]
+        conn = sqlite3.connect(db)
+        conn.row_factory = sqlite3.Row
+        try:
+            task = conn.execute('SELECT * FROM task WHERE dag=?',
+                                (dags[-1],)).fetchone()
+            step_ms = dict(conn.execute(
+                "SELECT step, value FROM metric WHERE task=? AND "
+                "name='step_time_ms'", (task['id'],)).fetchall())
+            epoch_s = [r[0] for r in conn.execute(
+                "SELECT value FROM metric WHERE task=? AND "
+                "name='epoch_time_s' ORDER BY id", (task['id'],))]
+            windows = conn.execute(
+                "SELECT COUNT(*) FROM metric WHERE task=? AND "
+                "name='devtime.summary'", (task['id'],)).fetchone()[0]
+        finally:
+            conn.close()
+        wall = (datetime.fromisoformat(task['finished'])
+                - datetime.fromisoformat(task['started'])).total_seconds()
+        medians = [float(np.median([v for k, v in step_ms.items()
+                                    if e * steps <= k < (e + 1) * steps]))
+                   for e in range(CLI_EPOCHS)]
+        out[label] = {'process_s': process_s, 'task_wall_s': wall,
+                      'epoch_s': epoch_s, 'step_median_ms': medians,
+                      'windows': windows}
+        say(phase, part='f', windows=label, every=every,
+            process_s=f'{process_s:.2f}', task_wall_s=f'{wall:.2f}',
+            epoch_time_s=[f'{v:.3f}' for v in epoch_s],
+            step_median_ms_by_epoch=[f'{v:.3f}' for v in medians],
+            devtime_windows=windows, steps=len(step_ms), card=smi)
+        # an interval a step after the first (the step-0 row is none)
+        if len(step_ms) != steps * CLI_EPOCHS - 1 \
+                or (windows > 0) != (every > 0):
+            fail(f'{phase}: windows {label}: {len(step_ms)} step rows, '
+                 f'{windows} windows')
+    on, off = out['on'], out['off']
+    say(phase, part='f', epoch2_step_on_vs_off=(
+        f'{on["step_median_ms"][1] / off["step_median_ms"][1] - 1:.4f}'),
+        task_wall_on_vs_off=(
+            f'{on["task_wall_s"] / off["task_wall_s"] - 1:.4f}'),
+        card=smi)
+    return out
+
+
+def _norm_counters() -> dict:
+    from mlcomp_tpu_torch.ops.fused_norm import (
+        norm_act_backward_kernel, norm_act_forward,
+    )
+    return {'fused_norm': norm_act_forward,
+            'fused_norm_bwd': norm_act_backward_kernel}
+
+
+def _telemetry_task(session, work: str, name: str, spec: dict) -> tuple:
+    """A DAG of one ``train`` task running ``spec``: (task id, folder).
+    Its checkpoints go under ``folder``: this DB's task ids restart at 1,
+    and the root's task folders hold earlier phases' checkpoints, which
+    the trainer would resume."""
+    from mlcomp_tpu_torch.server.create_dags import dag_standard
+    folder = os.path.join(work, name)
+    os.makedirs(folder)
+    spec = dict(spec, checkpoint_dir=os.path.join(folder, 'checkpoints'))
+    config = {'info': {'name': f'telemetry_{name}',
+                       'project': 'smoke_telemetry'},
+              'executors': {'train': spec}}
+    _, tasks = dag_standard(session, config, upload_folder=folder)
+    return tasks['train'][0], folder
+
+
+def _execute_counted(session, tid: int, folder: str) -> tuple:
+    """``execute_by_id`` of the task, every kernel's count zeroed just
+    before and read just after: (launches, seconds)."""
+    from mlcomp_tpu_torch.worker.tasks import execute_by_id
+    counters = {**_flash_counters(), **_norm_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    execute_by_id(tid, folder=folder, session=session)
+    torch.cuda.synchronize()
+    return ({name: fn.launches for name, fn in counters.items()},
+            time.monotonic() - t0)
+
+
+def _host_step_ms(fn, n: int) -> list:
+    """The host's time of each of ``n`` calls of ``fn``, ms (no sync: a
+    host-bound step's call returns after its launches)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _metric_values(session, tid: int, name: str) -> list:
+    return [r['value'] for r in _metric_rows(session, tid, name)]
+
+
+def _metric_rows(session, tid: int, name: str) -> list:
+    return session.query(
+        'SELECT step, value, tags FROM metric WHERE task=? AND name=? '
+        'ORDER BY id', (tid, name))
+
+
+def _telemetry_report(phase: str, model: str, session, tid: int,
+                      smi: str, flops: float = None) -> dict:
+    """Print the run's step phases (means over every step, medians over
+    the clean steps: after the first, which counts FLOPs, and before the
+    first profiler window), pipeline efficiency, MFU, card memory and
+    each devtime window with the loop thread's cost of opening and
+    closing it; fail on a profiler failure in the log or without a
+    window that saw the card busy. Returns the numbers."""
+    from mlcomp_tpu_torch.telemetry import PHASES
+    windows = [(r['step'], r['value'], json.loads(r['tags']))
+               for r in _metric_rows(session, tid, 'devtime.summary')]
+    first = min((w[0] for w in windows if w[0] is not None),
+                default=None)
+    by_step = {p: {r['step']: r['value'] for r in _metric_rows(
+        session, tid, f'step.phase.{p}_ms')} for p in PHASES}
+    step_time = {r['step']: r['value']
+                 for r in _metric_rows(session, tid, 'step_time_ms')}
+    steps = len(by_step['compute'])
+    clean = [k for k in by_step['compute']
+             if 0 < k and (first is None or k < first)]
+    clean_ms = {p: float(np.median([v[k] for k in clean]))
+                for p, v in by_step.items()}
+    clean_step_ms = float(np.median([step_time[k] for k in clean
+                                     if k in step_time]))
+
+    def last_gib(name: str) -> str:
+        values = _metric_values(session, tid, name)
+        if not values:
+            fail(f'{phase}: {model}: no {name} series')
+            return 'none'
+        return f'{values[-1] / 2 ** 30:.3f}'
+
+    # the steps after the last window closed: a window's lasting cost
+    last = max((w[0] for w in windows if w[0] is not None), default=None)
+    after = [v for k, v in step_time.items()
+             if last is not None and k >= last + TELEMETRY_PROFILE_STEPS + 1]
+    after_ms = float(np.median(after)) if after else None
+    suspects = _metric_values(session, tid, 'host_sync.suspect_ms')
+    probe = [r['message'] for r in session.query(
+        "SELECT message FROM log WHERE task=? AND message LIKE "
+        "'telemetry: the first step counted%'", (tid,))]
+    numbers = {'clean_ms': clean_ms, 'clean_step_ms': clean_step_ms,
+               'after_windows_step_ms': after_ms,
+               'mean_ms': {p: float(np.mean(list(v.values())))
+                           for p, v in by_step.items()}}
+    say(phase, model=model, task=tid, steps=steps, clean_steps=len(clean),
+        **{f'{p}_mean_ms': f'{m:.3f}'
+           for p, m in numbers['mean_ms'].items()},
+        **{f'{p}_clean_median_ms': f'{m:.3f}' for p, m in clean_ms.items()},
+        step_time_clean_median_ms=f'{clean_step_ms:.3f}',
+        step_time_after_windows_median_ms='none' if after_ms is None
+        else f'{after_ms:.3f}', steps_after_windows=len(after),
+        host_sync_suspects=len(suspects),
+        host_sync_suspect_ms=[round(v, 3) for v in suspects[:8]],
+        first_step_log=probe,
+        step_times_ms=[round(step_time[k], 1) for k in sorted(step_time)],
+        pipeline_efficiency=[f'{v:.4f}' for v in _metric_values(
+            session, tid, 'step.pipeline_efficiency')],
+        mfu_rows=[f'{v:.5f}' for v in _metric_values(session, tid, 'mfu')],
+        mfu_clean='not measured' if not flops else
+        f'{flops / (clean_step_ms / 1e3) / (PEAK_TFLOPS * 1e12):.5f}',
+        hbm_used_gib=last_gib('device0.hbm_used'),
+        hbm_peak_gib=last_gib('device0.hbm_peak'),
+        hbm_limit_gib=last_gib('device0.hbm_limit'),
+        card=smi)
+    if steps == 0 or not clean or \
+            any(len(v) != steps for v in by_step.values()):
+        fail(f'{phase}: {model}: step phases '
+             f'{ {p: len(v) for p, v in by_step.items()} } for {steps} '
+             f'steps, {len(clean)} clean')
+    for step, window_ms, tags in windows:
+        opened = closed = None
+        if step is not None:
+            opened = by_step['telemetry'].get(step)
+            closed = by_step['telemetry'].get(
+                step + TELEMETRY_PROFILE_STEPS)
+        say(phase, model=model, window_step=step, window_ms=window_ms,
+            device_lines=tags['device_lines'],
+            buckets=json.dumps(tags['buckets']),
+            busy_frac=tags['busy_frac'],
+            host_dispatch_gap_ms=tags['host']['dispatch_gap_ms'],
+            dispatches=tags['host']['dispatch_count'],
+            open_telemetry_ms=opened, close_telemetry_ms=closed,
+            top_kernels=json.dumps([(o['op'][:48], o['ms'], o['count'])
+                                    for o in tags['ops'][:4]]))
+    if not any(t['buckets']['compute_ms'] > 0 and 0 < t['busy_frac'] <= 1
+               for _, _, t in windows):
+        fail(f'{phase}: {model}: no devtime window with compute > 0 and '
+             f'0 < busy <= 1: {windows}')
+    failures = [r['message'] for r in session.query(
+        "SELECT message FROM log WHERE task=? AND message LIKE "
+        "'deviceprof:%failed%'", (tid,))]
+    if failures:
+        fail(f'{phase}: {model}: profiler failures {failures}')
+    numbers['windows'] = [{'step': w[0], 'window_ms': w[1], **w[2]}
+                          for w in windows]
+    return numbers
+
+
+def phase_telemetry(seed: int, smi: str) -> dict:
+    """``[telemetry]``: the device telemetry of the trainer on the card
+    (the module docstring lists what it checks). Returns the kernels'
+    launches by run."""
+    from mlcomp_tpu_torch import TOKEN
+    from mlcomp_tpu_torch.db.core import Session
+    from mlcomp_tpu_torch.db.migration import migrate
+    from mlcomp_tpu_torch.db.providers import TaskProvider
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.server import api as api_module
+    from mlcomp_tpu_torch.telemetry import (
+        CompileEventRecorder, FlopCounter, HostSyncTripwire, MemorySampler,
+        MetricRecorder, StepAttribution, load_postmortem,
+    )
+    from mlcomp_tpu_torch.telemetry.export import parse_openmetrics
+    from mlcomp_tpu_torch.telemetry.deviceprof import TorchTracer, step_marker
+    from mlcomp_tpu_torch.telemetry.trace_parse import (
+        find_trace_files, host_time_split, parse_trace_events,
+        read_trace_events,
+    )
+    from mlcomp_tpu_torch.testing import faults
+    from mlcomp_tpu_torch.train.loop import (
+        create_train_state, instrumented_step, loss_for_task,
+        make_train_step,
+    )
+    from mlcomp_tpu_torch.train.optim import make_optimizer
+
+    phase = 'telemetry'
+    work = tempfile.mkdtemp(prefix='mlcomp_smoke_telemetry_')
+    cs = f'sqlite:///{work}/telemetry.db'
+    session = Session.create_session(key='smoke-telemetry',
+                                     connection_string=cs)
+    migrate(session)
+    Session.cleanup(api_module._SESSION_KEY)
+    server = api_module.start_server(host='127.0.0.1', port=0,
+                                     background=True, with_supervisor=False,
+                                     connection_string=cs)
+    launches = {}
+    vit_spec = {k: v for k, v in VIT_SPEC.items() if k != 'model_name'}
+    run, parts = vit_step(seed)
+    try:
+        # the bare ViT step before this phase's profiler windows, as the
+        # step after them is timed in (e)
+        for _ in range(3):
+            run()
+        bare_before = _host_step_ms(run, 60)
+        # (a) the ViT, one epoch, in this thread
+        spec = dict(vit_spec, seed=seed, device='cuda', checkpoint_every=0,
+                    telemetry={'profile_every': TELEMETRY_EVERY['vit'],
+                               'profile_steps': TELEMETRY_PROFILE_STEPS})
+        vit_tid, folder = _telemetry_task(session, work, 'vit', spec)
+        launches['telemetry_vit'], seconds = _execute_counted(
+            session, vit_tid, folder)
+        data = spec['dataset']
+        steps = data['n_train'] // spec['batch_size']
+        valid = -(-data['n_valid'] // spec['batch_size'])
+        say(phase, model='vit', seconds=f'{seconds:.1f}',
+            launches=launches['telemetry_vit'])
+        _check_launches(phase, launches['telemetry_vit'], {
+            'flash_attention_fwd': 6 * (steps + valid),
+            'flash_attention_bwd_dq': 6 * steps,
+            'flash_attention_bwd_dkv': 6 * steps,
+            'fused_norm': 0, 'fused_norm_bwd': 0})
+        # the kernel path's first-step FLOPs (mfu x peak x epoch time /
+        # steps, the trainer's own count) against the dense path's
+        mfu = _metric_values(session, vit_tid, 'mfu')[0]
+        epoch_s = _metric_values(session, vit_tid, 'epoch_time_s')[0]
+        kernel_flops = mfu * PEAK_TFLOPS * 1e12 * epoch_s / steps
+        vit = _telemetry_report(phase, 'vit', session, vit_tid, smi,
+                                flops=kernel_flops)
+        x, y = parts['x'], parts['y']
+        dense = create_model(**{**VIT_SPEC['model'], 'attn_impl': 'dense'},
+                             input_shape=x.shape[1:], device='cuda')
+        optimizer, _ = make_optimizer(VIT_SPEC['stages'][0]['optimizer'],
+                                      100)
+        dense_step = make_train_step(dense, optimizer,
+                                     loss_for_task('softmax_ce'))
+        dense_state = create_train_state(dense, optimizer, seed=seed)
+        dynamo_before = 'torch._dynamo' in sys.modules
+        counted_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with FlopCounter() as counter:
+                dense_step(dense_state, x, y)
+            counted_s.append(time.perf_counter() - t0)
+        dense_flops = counter.total
+        kernel_counted_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with FlopCounter() as kernel_counter:
+                run()
+            kernel_counted_s.append(time.perf_counter() - t0)
+        bare_s = _host_step_ms(run, 5)
+        say(phase, model='vit', flop_count_dense_s=[
+            f'{v:.3f}' for v in counted_s],
+            flop_count_kernel_s=[f'{v:.3f}' for v in kernel_counted_s],
+            bare_step_ms=[f'{v:.2f}' for v in bare_s],
+            kernel_gflop=f'{kernel_counter.total / 1e9:.4f}',
+            dynamo_imported_before=dynamo_before,
+            dynamo_imported_after='torch._dynamo' in sys.modules, card=smi)
+        n_params, tokens = 3_564_864, 64
+        # 6 per parameter and token, and 12·L·T·d for the attention
+        analytic = (6 * n_params + 12 * 6 * tokens * 192) \
+            * VIT_SPEC['batch_size'] * tokens
+        rel = abs(kernel_flops - dense_flops) / dense_flops
+        say(phase, model='vit', kernel_path_gflop=f'{kernel_flops / 1e9:.4f}',
+            dense_path_gflop=f'{dense_flops / 1e9:.4f}',
+            rel_diff=f'{rel:.2e}', max_rel=MAX_FLOPS_REL,
+            analytic_gflop=f'{analytic / 1e9:.4f}',
+            mfu=f'{mfu:.5f}',
+            analytic_mfu=f'{analytic * steps / epoch_s / (PEAK_TFLOPS * 1e12):.5f}',
+            peak_tflops=PEAK_TFLOPS, card=smi)
+        if not rel <= MAX_FLOPS_REL:
+            fail(f'{phase}: the ViT kernel path counts {kernel_flops} '
+                 f'FLOPs a step, the dense path {dense_flops}')
+        del dense, dense_state, dense_step, counter, kernel_counter
+
+        # (b) the CIFAR ResNet-18 on a thread beside the API: an
+        # on-demand trace started, watched, stopped; /metrics mid-run
+        spec = {k: v for k, v in cifar_train_spec().items()
+                if k != 'model_name'}
+        spec = dict(spec, seed=seed, device='cuda', checkpoint_every=0,
+                    dataset=dict(spec['dataset'],
+                                 n_train=TELEMETRY_CIFAR_TRAIN),
+                    stages=[dict(spec['stages'][0],
+                                 epochs=TELEMETRY_CIFAR_EPOCHS)],
+                    telemetry={'profile_every': TELEMETRY_EVERY['cifar'],
+                               'profile_steps': TELEMETRY_PROFILE_STEPS})
+        cifar_tid, folder = _telemetry_task(session, work, 'cifar', spec)
+        trace_dir = os.path.join(work, 'on_demand')
+        calls = [('start', {'max_epochs': 99, 'dir': trace_dir})]
+        status, row = _api(server.port, '/api/telemetry/profile',
+                           {'task': cifar_tid, 'action': 'start',
+                            'max_epochs': 99, 'dir': trace_dir}, token=TOKEN)
+        if status != 200 or row.get('status') != 'requested':
+            fail(f'{phase}: profile start answered {status} {row}')
+        result = {}
+
+        def train():
+            try:
+                result['launches'], result['seconds'] = _execute_counted(
+                    session, cifar_tid, folder)
+            except BaseException as e:      # noqa: reported below
+                result['error'] = repr(e)
+
+        thread = threading.Thread(target=train, daemon=True)
+        thread.start()
+        deadline = time.monotonic() + 600
+        while True:
+            status, row = _api(server.port, '/api/telemetry/profile',
+                               {'task': cifar_tid, 'action': 'status'},
+                               token=TOKEN)
+            if row.get('status') == 'tracing':
+                break
+            if not thread.is_alive() or time.monotonic() > deadline:
+                fail(f'{phase}: the on-demand trace never ran: {row} '
+                     f'{result}')
+            time.sleep(0.05)
+        calls.append(('status', row['status']))
+        status, text = _api(server.port, '/metrics', method='GET')
+        families = parse_openmetrics(text)
+        phase_samples = [s for s in families['mlcomp_step_phase_ms'][
+            'samples'] if s[1].get('task') == str(cifar_tid)]
+        eff_samples = [s for s in families['mlcomp_pipeline_efficiency'][
+            'samples'] if s[1].get('task') == str(cifar_tid)]
+        status, row = _api(server.port, '/api/telemetry/profile',
+                           {'task': cifar_tid, 'action': 'stop'},
+                           token=TOKEN)
+        calls.append(('stop', row.get('status')))
+        thread.join(timeout=600)
+        if thread.is_alive() or 'error' in result:
+            fail(f'{phase}: the CIFAR task: {result}')
+        status, row = _api(server.port, '/api/telemetry/profile',
+                           {'task': cifar_tid, 'action': 'status'},
+                           token=TOKEN)
+        files = find_trace_files(row.get('dir') or trace_dir)
+        attribution = row.get('attribution') or {}
+        cifar_split = [host_time_split(read_trace_events(f))
+                       for f in files]
+        say(phase, model='cifar', seconds=f'{result["seconds"]:.1f}',
+            trace_host_split=json.dumps(cifar_split),
+            launches=result['launches'], profile_calls=calls,
+            profile_final=row.get('status'), trace_files=len(files),
+            trace_mib=f'{sum(os.path.getsize(f) for f in files) / 2 ** 20:.1f}',
+            trace_epochs=row.get('epochs'),
+            trace_busy_frac=attribution.get('busy_frac'),
+            trace_buckets=json.dumps(attribution.get('buckets')),
+            trace_host=json.dumps(attribution.get('host')),
+            metrics_step_phases=len(phase_samples),
+            metrics_pipeline_efficiency=len(eff_samples))
+        if row.get('status') != 'done' or not files \
+                or not attribution.get('device_lines'):
+            fail(f'{phase}: the on-demand trace ended {row}, files {files}')
+        if calls[-1][1] != 'stop_requested' or len(phase_samples) != 4 \
+                or len(eff_samples) != 1:
+            fail(f'{phase}: stop answered {calls}; /metrics phases '
+                 f'{phase_samples}, efficiency {eff_samples}')
+        launches['telemetry_cifar'] = result['launches']
+        cifar_steps = TELEMETRY_CIFAR_TRAIN // spec['batch_size'] \
+            * TELEMETRY_CIFAR_EPOCHS
+        _check_launches(phase, result['launches'], {
+            'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
+            'flash_attention_bwd_dkv': 0,
+            'fused_norm': 20 * cifar_steps,
+            'fused_norm_bwd': 20 * cifar_steps})
+        mfu = _metric_values(session, cifar_tid, 'mfu')[0]
+        epoch_s = _metric_values(session, cifar_tid, 'epoch_time_s')[0]
+        cifar_flops = mfu * PEAK_TFLOPS * 1e12 * epoch_s \
+            / (TELEMETRY_CIFAR_TRAIN // spec['batch_size'])
+        cifar = _telemetry_report(phase, 'cifar', session, cifar_tid, smi,
+                                  flops=cifar_flops)
+        for tid in (vit_tid, cifar_tid):
+            status, body = _api(server.port, f'/api/task/devtime?task={tid}',
+                                method='GET')
+            if status != 200 or body['windows'] < 1:
+                fail(f'{phase}: /api/task/devtime of task {tid}: {status} '
+                     f'{body}')
+
+        # (c) a ViT run killed by an injected device OOM at train.epoch
+        spec = dict(vit_spec, seed=seed, device='cuda', checkpoint_every=0,
+                    dataset=dict(vit_spec['dataset'], n_train=512,
+                                 n_valid=256),
+                    stages=[dict(vit_spec['stages'][0], epochs=2)],
+                    telemetry={'flush_every': 10})
+        oom_tid, folder = _telemetry_task(session, work, 'oom', spec)
+        faults.configure_faults({'train.epoch': {
+            'action': 'raise', 'exc': 'resource', 'after': 1}})
+        counters = _flash_counters()
+        try:
+            _execute_counted(session, oom_tid, folder)
+            fail(f'{phase}: the injected fault did not end the run')
+        except RuntimeError as e:
+            if 'RESOURCE_EXHAUSTED' not in str(e):
+                raise
+        finally:
+            faults.clear_faults()
+        launches['telemetry_oom'] = {n: fn.launches
+                                     for n, fn in counters.items()}
+        task = TaskProvider(session).by_id(oom_tid)
+        bundle = load_postmortem(session, oom_tid) or {}
+        status, via_api = _api(server.port,
+                               f'/api/task/postmortem?task={oom_tid}',
+                               method='GET')
+        hbm = sorted(n for n in bundle.get('series', {})
+                     if n.startswith('device0.hbm_'))
+        say(phase, model='vit', injected='train.epoch resource',
+            status=task.status, failure_reason=task.failure_reason,
+            postmortem_series=len(bundle.get('series', {})),
+            hbm_series=hbm, api_status=status,
+            launches=launches['telemetry_oom'])
+        if task.failure_reason != 'oom' or bundle.get('reason') != 'oom' \
+                or hbm != ['device0.hbm_limit', 'device0.hbm_peak',
+                           'device0.hbm_used'] \
+                or status != 200 or via_api.get('reason') != 'oom':
+            fail(f'{phase}: the killed run: {task.failure_reason}, '
+                 f'{bundle.get("reason")}, {hbm}, {status}')
+        _check_launches(phase, launches['telemetry_oom'], {
+            'flash_attention_fwd': 6 * 3, 'flash_attention_bwd_dq': 6 * 2,
+            'flash_attention_bwd_dkv': 6 * 2})
+
+        # (d) where the ViT step's host time goes: a window of marked
+        # steps, split into aten ops and CUDA calls against the rest
+        step, state = parts['step'], parts['state']
+        tracer = TorchTracer(cuda=True)
+        t0 = time.perf_counter()
+        tracer.start(os.path.join(work, 'vit_window'))
+        start_s = time.perf_counter() - t0
+        for i in range(TELEMETRY_PROFILE_STEPS):
+            with step_marker(i):
+                run()
+        t0 = time.perf_counter()
+        path = tracer.stop()
+        stop_s = time.perf_counter() - t0
+        events = read_trace_events(path)
+        vit_split = host_time_split(events)
+        vit_window = parse_trace_events(events)
+        say(phase, model='vit', host_split=json.dumps(vit_split),
+            window_busy_frac=vit_window['busy_frac'],
+            window_buckets=json.dumps(vit_window['buckets']),
+            start_s=f'{start_s:.3f}', stop_and_write_s=f'{stop_s:.3f}',
+            card=smi)
+        if vit_split['steps'] != TELEMETRY_PROFILE_STEPS \
+                or not 0 < vit_split['op_ms'] <= vit_split['step_ms']:
+            fail(f'{phase}: the ViT window split {vit_split}')
+        # what routing a flash launch through its library op (for the
+        # FLOP count) costs the host: the op on meta tensors, whose
+        # kernel does nothing, against a Python call of a no-op
+        meta = [torch.empty(s, device='meta') for s in (
+            (256, 64, 3, 64),) * 4 + ((256, 3, 64),)]
+        q_, k_, v_, o_, lse_ = meta
+        op = torch.ops.mlcomp_tpu.flash_attention_fwd
+
+        def noop(*args):
+            return None
+
+        per_call_us = {}
+        for name, fn in (('op', op), ('python_call', noop)):
+            t0 = time.perf_counter()
+            for _ in range(10000):
+                fn(q_, k_, v_, o_, lse_, 0.125, False)
+            per_call_us[name] = (time.perf_counter() - t0) / 10000 * 1e6
+        # the ViT's 6 layers: a forward and two backward launches each
+        extra_ms = 18 * (per_call_us['op'] - per_call_us['python_call']) \
+            / 1e3
+        say(phase, model='vit', op_dispatch_us=f'{per_call_us["op"]:.2f}',
+            python_call_us=f'{per_call_us["python_call"]:.2f}',
+            launches_a_step=18, op_cost_a_step_ms=f'{extra_ms:.3f}',
+            card=smi)
+
+        # (e) the wrapper's cost: the instrumented ViT step against the
+        # bare one, windows off, in turns
+        rec = MetricRecorder(session=session, task=vit_tid,
+                             component='overhead', async_flush=True)
+        events = CompileEventRecorder(recorder=rec)
+        events.install()
+        wrapped = instrumented_step(
+            step, rec, batch_size=VIT_SPEC['batch_size'],
+            attribution=StepAttribution(rec),
+            tripwire=HostSyncTripwire(recorder=rec), compile_events=events,
+            memory=MemorySampler(rec, device=x.device))
+        calls_by_name = {'bare': lambda: step(state, x, y),
+                         'instrumented': lambda: wrapped(state, x, y)}
+        for fn in calls_by_name.values():
+            time_ms(fn, iters=3)
+        times = {name: [] for name in calls_by_name}
+        for i in range(2 * OVERHEAD_STEPS):
+            name = ('bare', 'instrumented')[i % 2]
+            times[name].extend(_host_step_ms(calls_by_name[name], 1))
+        torch.cuda.synchronize()
+        events.uninstall()
+        rec.close()
+        medians = {name: float(np.median(v)) for name, v in times.items()}
+        overhead = medians['instrumented'] / medians['bare'] - 1
+        say(phase, model='vit', overhead=f'{overhead:.4f}',
+            max_overhead=MAX_TELEMETRY_OVERHEAD,
+            bare_median_ms=f'{medians["bare"]:.3f}',
+            instrumented_median_ms=f'{medians["instrumented"]:.3f}',
+            steps_each=OVERHEAD_STEPS,
+            bare_before_windows_median_ms=f'{np.median(bare_before):.3f}',
+            card=smi)
+        if overhead > MAX_TELEMETRY_OVERHEAD:
+            fail(f'{phase}: the telemetry wrapper costs {overhead:.1%} of '
+                 f'the ViT step')
+        del run, parts, step, state, wrapped, calls_by_name
+        vit['host_split'], cifar['host_split'] = vit_split, cifar_split
+
+        # (f) windows on and off, end to end, each in a fresh process
+        on_off = _windows_on_off(phase, smi)
+        launches['numbers'] = {'vit': vit, 'cifar': cifar,
+                               'windows_on_off': on_off,
+                               'overhead': overhead,
+                               'vit_flops': kernel_flops,
+                               'cifar_flops': cifar_flops}
+        return launches
+    finally:
+        faults.clear_faults()
+        server.shutdown()
+        Session.cleanup(api_module._SESSION_KEY)
+        Session.cleanup(session.key)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 ZOO_PARAMS = {
     'vgg13': 9_413_066, 'vgg16': 14_724_042, 'densenet121': 6_956_426,
     'densenet169': 12_493_450, 'seresnet18': 11_263_042,
@@ -4985,6 +5649,8 @@ def main():
         phase_step(args.seed)
         moe_step = phase_moe_step(args.seed)
         step_wide = phase_step_wide(args.seed)
+        # before the profiles below: Kineto runs one profiler at a time
+        telemetry = phase_telemetry(args.seed, smi)
         norm_device = profile_norm_sites(args.seed)
         vit_device = profile_vit(args.seed, vit_step['step_ms'])
     finally:
@@ -5000,7 +5666,9 @@ def main():
         **{path: counts['flash_attention_fwd']
            for path, counts in dag_ensemble.items()},
         'cli': cli['cli']['flash_attention_fwd'],
-        'sched': sched['sched']['flash_attention_fwd']}
+        'sched': sched['sched']['flash_attention_fwd'],
+        **{path: telemetry[path]['flash_attention_fwd']
+           for path in ('telemetry_vit', 'telemetry_oom')}}
     fwd['launches'] = sum(fwd['launches_by_path'].values())
     fwd['vit'] = {'shape': [256, 64, 3, 64], 'causal': False,
                   'with_lse_ms': vit['fwd_lse_ms'],
@@ -5018,7 +5686,9 @@ def main():
             'dag_ensemble_train':
                 dag_ensemble['dag_ensemble_train'][entry['name']],
             'cli': cli['cli'][entry['name']],
-            'sched': sched['sched'][entry['name']]}
+            'sched': sched['sched'][entry['name']],
+            **{path: telemetry[path][entry['name']]
+               for path in ('telemetry_vit', 'telemetry_oom')}}
         entry['launches'] = sum(entry['launches_by_path'].values())
         part = 'dq' if entry['name'].endswith('_dq') else 'dkv'
         entry['vit'].update(device_ms=vit_device[part],
@@ -5037,7 +5707,8 @@ def main():
                 dag_ensemble['dag_ensemble_train'][entry['name']],
             'cli': cli['cli'][entry['name']],
             'sched': sched['sched'][entry['name']],
-            'site': site['site'][entry['name']]}
+            'site': site['site'][entry['name']],
+            'telemetry_cifar': telemetry['telemetry_cifar'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}
                          for site, ms in norm_device.items()}
@@ -5063,6 +5734,14 @@ def main():
     for entry in kernels:
         if entry['launches'] <= 0:
             fail(f'the main path launched no {entry["name"]}')
+    numbers = telemetry['numbers']
+    say('telemetry', summary=True, overhead=f'{numbers["overhead"]:.4f}',
+        vit_clean_phases_ms=json.dumps({k: round(v, 3) for k, v in
+                                        numbers['vit']['clean_ms'].items()}),
+        cifar_clean_phases_ms=json.dumps({
+            k: round(v, 3) for k, v in numbers['cifar']['clean_ms'].items()}),
+        vit_step_gflop=f'{numbers["vit_flops"] / 1e9:.4f}',
+        cifar_step_gflop=f'{numbers["cifar_flops"] / 1e9:.4f}')
     say('moe-vit', moe_step_ms=f'{moe_step["step_ms"]:.2f}',
         moe_mfu=f'{moe_step["mfu"]:.4f}', moe_aux=moe_step['moe_aux'],
         vit_step_ms=f'{vit_step["step_ms"]:.3f}',

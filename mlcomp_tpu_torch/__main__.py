@@ -14,14 +14,17 @@ on ``argparse``:
   in-process without the scheduler, tasks in dependency order; a failed
   dependency skips its dependants. The last line is the JSON of the task
   statuses by name.
+- ``python -m mlcomp_tpu_torch postmortem TASK [--json] [--live]`` — the
+  bundle frozen at a task's failure (telemetry/memory.py)
+- ``python -m mlcomp_tpu_torch devtime TASK [--tail N] [--json]`` — the
+  task's sampled device-time windows (telemetry/deviceprof.py)
 
 ``--params a/b:c`` overrides merge into the stored config as the JAX
 package's do. The DB is the JAX package's (same root, same schema):
 ``<root>/db/sqlite.db``. Trainers run on the card; a config asks for the
 CPU with ``device: cpu``. The other commands of the JAX package (sync,
-alerts, recovery, gangs, postmortem, devtime, supervisors, fleets,
-sweeps, usage, quotas) and its ``server start-site`` are not ported yet
-(ROADMAP.md, A0).
+alerts, recovery, gangs, supervisors, fleets, sweeps, usage, quotas)
+are not ported yet (ROADMAP.md, A0).
 """
 
 import argparse
@@ -191,6 +194,144 @@ def cmd_execute(args):
     return statuses
 
 
+def _human_bytes(v) -> str:
+    for unit, div in (('GB', 1e9), ('MB', 1e6), ('KB', 1e3)):
+        if abs(v) >= div:
+            return f'{v / div:.2f} {unit}'
+    return f'{v:.0f} B'
+
+
+def cmd_postmortem(args):
+    """The flight recorder's bundle for one task (telemetry/memory.py):
+    the last steps of the loss / step-time / phase / memory / compile
+    series, the run snapshot, the step's memory attribution and the
+    alerts, frozen at the failure. Exit 1 when there is none."""
+    from mlcomp_tpu_torch.telemetry import build_postmortem, load_postmortem
+    session = Session.create_session()
+    migrate(session)
+    task = args.task
+    bundle = build_postmortem(session, task) if args.live \
+        else load_postmortem(session, task)
+    if bundle is None or (args.live and not bundle.get('task_card')):
+        print(f'task {task}: no postmortem recorded (the task never '
+              f'failed with a taxonomy reason; --live assembles one from '
+              f'current telemetry)')
+        return 1
+    if args.as_json:
+        print(json.dumps(bundle))
+        return 0
+    card = bundle.get('task_card') or {}
+    head = f'task {task}'
+    if card.get('name'):
+        head += f' ({card["name"]})'
+    if bundle.get('reason'):
+        head += f' — failed: {bundle["reason"]}'
+    if bundle.get('created'):
+        head += f' at {bundle["created"]}'
+    print(head)
+    if card.get('computer'):
+        print(f'  on {card["computer"]}'
+              + (f', rank {card["rank"]}' if 'rank' in card else ''))
+    context = bundle.get('context') or {}
+    snapshot = (context.get('run.snapshot') or {}).get('tags') or {}
+    if snapshot:
+        mesh = snapshot.get('mesh')
+        n_params = snapshot.get('n_params')
+        print(f'  run: model={snapshot.get("model")}'
+              + (f' params={n_params:,}' if n_params is not None else '')
+              + (f' mesh={mesh}' if mesh else '')
+              + f' batch={snapshot.get("batch_shape")}')
+    attribution = (context.get('memory.attribution') or {}).get(
+        'tags') or {}
+    if attribution:
+        parts = [f'{k.replace("_bytes", "")}={_human_bytes(v)}'
+                 for k, v in sorted(attribution.items())
+                 if isinstance(v, (int, float))]
+        print('  compiled peak: ' + ', '.join(parts))
+    comm = context.get('comm.bytes_per_step') or {}
+    if comm.get('value'):
+        print(f'  collectives: {_human_bytes(comm["value"])} per device '
+              f'per step')
+    series = bundle.get('series') or {}
+    for name in sorted(series):
+        pts = series[name]
+        if not pts:
+            continue
+        last = pts[-1]
+        print(f'  {name}: {len(pts)} samples, last {last["value"]:.6g}'
+              + (f' @ step {last["step"]}'
+                 if last.get('step') is not None else ''))
+    for a in bundle.get('alerts') or []:
+        flag = '!' if a.get('severity') == 'critical' else '~'
+        print(f'  {flag} [{a.get("rule")}] {a.get("message")}')
+    return 0
+
+
+def cmd_devtime(args):
+    """Device-time attribution of one task (telemetry/deviceprof.py):
+    where the sampled trace windows say the device's time went —
+    compute, exposed collectives, copies, idle — and the host's gaps
+    between step dispatches. Exit 1 when nothing was recorded."""
+    from mlcomp_tpu_torch.db.providers.telemetry import MetricProvider
+    session = Session.create_session()
+    migrate(session)
+    task = args.task
+    series = {
+        name: rows for name, rows in MetricProvider(session)
+        .tail_series(task, per_name=max(1, int(args.tail))).items()
+        if name.startswith('devtime.')}
+    if not series:
+        print(f'task {task}: no device-time attribution recorded (sampled '
+              f'profiling is off — telemetry profile_every — and no '
+              f'on-demand trace was parsed)')
+        return 1
+    summary_rows = series.pop('devtime.summary', [])
+    newest = summary_rows[-1] if summary_rows else None
+    if args.as_json:
+        print(json.dumps({'task': task, 'series': series,
+                          'summary': newest}))
+        return 0
+    windows = len(summary_rows) or max(len(rows) for rows in series.values())
+    print(f'task {task} — {windows} sampled device-time '
+          f'window{"s" if windows != 1 else ""}')
+    if newest is not None:
+        tags = newest.get('tags') or {}
+        buckets = tags.get('buckets') or {}
+        head = '  newest window'
+        if newest.get('step') is not None:
+            head += f' (step {newest["step"]})'
+        head += f': {float(newest["value"] or 0):.2f} ms'
+        if tags.get('device_lines'):
+            head += f' x {tags["device_lines"]} device lines'
+        print(head)
+        total = sum(float(buckets.get(f'{k}_ms', 0) or 0)
+                    for k in ('compute', 'comm_exposed', 'io', 'idle'))
+        if total > 0:
+            def pct(key):
+                return 100 * float(buckets.get(key, 0)) / total
+            print(f'    compute {pct("compute_ms"):.1f}%  '
+                  f'exposed comm {pct("comm_exposed_ms"):.1f}%  '
+                  f'io {pct("io_ms"):.1f}%  '
+                  f'idle {pct("idle_ms"):.1f}%  '
+                  f'(busy {100 * float(tags.get("busy_frac", 0)):.1f}%)')
+        host = tags.get('host') or {}
+        if host.get('dispatch_count'):
+            print(f'    host dispatch gap '
+                  f'{float(host.get("dispatch_gap_ms", 0)):.2f} ms across '
+                  f'{host["dispatch_count"]} dispatches')
+        ops = tags.get('ops') or []
+        if ops:
+            print('    top ops: ' + ' | '.join(
+                f'{o["op"]} {float(o["ms"]):.2f} ms'
+                + (f' x {o["count"]}' if o.get('count') else '')
+                for o in ops[:6]))
+    trend = series.get('devtime.exposed_comm_frac') or []
+    if len(trend) >= 2:
+        print('  exposed-comm trend (oldest -> newest): '
+              + ' -> '.join(f'{float(p["value"]):.3f}' for p in trend))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog='python -m mlcomp_tpu_torch',
@@ -225,6 +366,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('config')
     p.add_argument('--params', action='append', default=[])
     p.set_defaults(fn=cmd_execute)
+    p = sub.add_parser('postmortem',
+                       help="a failed task's frozen postmortem bundle")
+    p.add_argument('task', type=int)
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='dump the full bundle as JSON')
+    p.add_argument('--live', action='store_true',
+                   help='assemble from current telemetry instead of the '
+                        'frozen at-failure bundle')
+    p.set_defaults(fn=cmd_postmortem)
+    p = sub.add_parser('devtime',
+                       help="a task's sampled device-time attribution")
+    p.add_argument('task', type=int)
+    p.add_argument('--tail', type=int, default=16,
+                   help='sampled windows of each devtime series to show '
+                        '(default: 16)')
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='dump the series tails + newest summary as JSON')
+    p.set_defaults(fn=cmd_devtime)
     return parser
 
 

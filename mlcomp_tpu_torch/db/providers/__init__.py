@@ -19,7 +19,7 @@ from mlcomp_tpu_torch.db.providers.report import (
 )
 from mlcomp_tpu_torch.db.providers.model import ModelProvider
 from mlcomp_tpu_torch.db.providers.telemetry import (
-    AlertProvider, MetricProvider, TelemetrySpanProvider,
+    AlertProvider, MetricProvider, PostmortemProvider, TelemetrySpanProvider,
 )
 from mlcomp_tpu_torch.db.providers.auxiliary import AuxiliaryProvider
 from mlcomp_tpu_torch.db.providers.computer import ComputerProvider
@@ -37,4 +37,5 @@ __all__ = [
     'ReportLayoutProvider', 'ModelProvider', 'AlertProvider',
     'AuxiliaryProvider', 'ComputerProvider', 'DockerProvider',
     'QueueProvider', 'TaskSyncedProvider', 'SupervisorLeaseProvider',
+    'PostmortemProvider',
 ]

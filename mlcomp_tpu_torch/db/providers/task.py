@@ -148,11 +148,21 @@ class TaskProvider(BaseDataProvider):
         failure site should come through here; a bare Failed (no
         reason) is never retried.
 
-        The postmortem bundle the JAX package freezes here is A6
-        telemetry (ROADMAP.md) and waits for it."""
+        This is also the flight recorder's choke point: every reasoned
+        failure freezes a postmortem bundle (telemetry/memory.py) — the
+        last steps of the loss/phase/memory/compile series plus the run
+        snapshot — into the ``postmortem`` table. Worker-side failures
+        flushed their telemetry before reaching here (the executor's
+        teardown, the crash flush). Best-effort by construction: the
+        recorder never breaks the failure path it rides."""
         task.failure_reason = reason
         self.update(task, ['failure_reason'])
         self.change_status(task, TaskStatus.Failed)
+        try:
+            from mlcomp_tpu_torch.telemetry.memory import persist_postmortem
+            persist_postmortem(self.session, task.id, reason=reason)
+        except Exception:
+            pass
 
     def by_status(self, *statuses, computer: str = None):
         marks = ','.join('?' * len(statuses))

@@ -6,12 +6,16 @@ alerts).
 The write path is ``add_many`` (one executemany per flush) because the
 telemetry buffers hand over hundreds of rows at a time; per-row ``add``
 would pay a commit each. ``AlertProvider.raise_alert`` is what the
-supervisor's retry pass writes; the postmortems come with A6.
+supervisor's retry pass writes; ``PostmortemProvider`` holds the
+bundles ``TaskProvider.fail_with_reason`` freezes
+(``telemetry/memory.py``).
 """
 
 import json
 
-from mlcomp_tpu_torch.db.models import Alert, Metric, TelemetrySpan
+from mlcomp_tpu_torch.db.models import (
+    Alert, Metric, Postmortem, TelemetrySpan,
+)
 from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
 from mlcomp_tpu_torch.utils.misc import now
 
@@ -198,6 +202,38 @@ class TelemetrySpanProvider(BaseDataProvider):
                 'spans': roots}
 
 
+class PostmortemProvider(BaseDataProvider):
+    """Frozen failure bundles (telemetry/memory.py flight recorder) —
+    append-only; one row per reasoned failure event, newest wins."""
+
+    model = Postmortem
+
+    def latest(self, task_id: int):
+        row = self.session.query_one(
+            'SELECT * FROM postmortem WHERE task=? '
+            'ORDER BY id DESC LIMIT 1', (int(task_id),))
+        return Postmortem.from_row(row) if row else None
+
+    def of_task(self, task_id: int, limit: int = 20):
+        rows = self.session.query(
+            'SELECT * FROM postmortem WHERE task=? '
+            'ORDER BY id DESC LIMIT ?', (int(task_id), int(limit)))
+        return [Postmortem.from_row(r) for r in rows]
+
+    def prune(self, task_id: int, keep: int = 5) -> int:
+        """Drop all but the newest ``keep`` bundles of a task — a
+        flapping task retried many times must not grow the table one
+        multi-KB bundle per failure event forever (the metric rows a
+        bundle snapshots age out; the bundles themselves need the
+        same bound)."""
+        cur = self.session.execute(
+            'DELETE FROM postmortem WHERE task=? AND id NOT IN ('
+            'SELECT id FROM postmortem WHERE task=? '
+            'ORDER BY id DESC LIMIT ?)',
+            (int(task_id), int(task_id), max(1, int(keep))))
+        return cur.rowcount
+
+
 class AlertProvider(BaseDataProvider):
     model = Alert
 
@@ -265,4 +301,5 @@ class AlertProvider(BaseDataProvider):
         return cur.rowcount > 0
 
 
-__all__ = ['MetricProvider', 'TelemetrySpanProvider', 'AlertProvider']
+__all__ = ['MetricProvider', 'TelemetrySpanProvider', 'AlertProvider',
+           'PostmortemProvider']

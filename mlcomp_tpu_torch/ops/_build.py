@@ -36,6 +36,9 @@ _LIBS = {}
 #: name -> {'path', 'seconds', 'log'} of the builds this process ran
 #: (``log`` holds ptxas's register / shared-memory / spill report)
 BUILD_LOGS = {}
+#: callables ``(name, seconds)`` told of each build that succeeded
+#: (``telemetry/compile_events.py`` records them as compile events)
+BUILD_LISTENERS = []
 
 
 #: the impls every kernel wrapper takes, and the JAX package's names for
@@ -123,6 +126,11 @@ def build(names=None) -> dict:
             failed.append(f'--- {name} (nvcc exit {proc.returncode})\n{log}')
             continue
         os.replace(tmp, out)
+        for listener in list(BUILD_LISTENERS):
+            try:
+                listener(name, BUILD_LOGS[name]['seconds'])
+            except Exception:
+                pass        # telemetry never breaks the build it observes
     if failed:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
     return {name: library_path(name) for name in names}
@@ -139,4 +147,4 @@ def library(name: str) -> ctypes.CDLL:
 
 
 __all__ = ['build', 'library', 'kernel_names', 'library_path', 'nvcc',
-           'BUILD_LOGS']
+           'BUILD_LOGS', 'BUILD_LISTENERS']

@@ -227,6 +227,93 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def attention_flops(b: int, tq: int, tk: int, h: int, d: int,
+                    causal: bool) -> int:
+    """The attention forward's FLOPs, QK^T and PV: 4·B·H·Tq·Tk·D, half
+    of it when causal (the masked half is not work the model needs)."""
+    flops = 4 * b * h * tq * tk * d
+    return flops // 2 if causal else flops
+
+
+# The three launches are ops of the ``mlcomp_tpu`` library, each with a
+# FLOP formula in torch's table, so a FLOP-counting dispatch mode
+# (``FlopCounterMode``, the trainer's counter) counts a kernel where it
+# launches. Each writes into outputs its wrapper allocates. They hold no
+# autograd (``FlashAttention`` does) and a Meta kernel that does nothing.
+# A kernel is credited the function it computes, not what it recomputes:
+# the forward 4·B·H·Tq·Tk·D, each backward kernel as much again (dq: dP
+# and dQ; dkv: dV and dK), which is what autograd of the plain attention
+# counts (the 6 FLOPs a parameter and token of the MFU convention).
+_OPS = torch.library.Library('mlcomp_tpu', 'FRAGMENT')
+
+
+def _kernel_op(name: str, schema: str, launch):
+    from torch.utils.flop_counter import register_flop_formula
+    _OPS.define(f'{name}({schema}) -> ()')
+    _OPS.impl(name, launch, 'CUDA')
+    _OPS.impl(name, lambda *args: None, 'Meta')
+    _OPS.impl(name, torch.library.fallthrough_kernel, 'Autograd')
+    # the dispatcher passes the arguments by position: causal is last
+    register_flop_formula(getattr(torch.ops.mlcomp_tpu, name))(
+        lambda q_shape, k_shape, *args, **kwargs: attention_flops(
+            q_shape[0], q_shape[1], k_shape[1], q_shape[2], q_shape[3],
+            args[-1]))
+
+
+def _launch_fwd(q, k, v, out, lse, scale: float, causal: bool):
+    b, t, h, d = q.shape
+    lib, error_string = _library('flash_attention_fwd')
+    fn = _declare(lib.flash_attention_fwd, 5, 5, 12, 1)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if lse is not None else None,
+                 b, t, h, d, _DTYPE_CODES[q.dtype],
+                 *_strides(q, k, v, out), scale, int(causal),
+                 _stream(q.device))
+    _check_launch(error_string, 'flash_attention_fwd', err, q)
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, dq, kscale: float,
+                   scale: float, causal: bool):
+    b, t, h, d = q.shape
+    lib, error_string = _library('flash_attention_bwd')
+    fn = _declare(lib.flash_attention_bwd_dq, 7, 5, 12, 2)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 b, t, h, d, _DTYPE_CODES[q.dtype],
+                 *_strides(q, k, v, do), kscale, scale, int(causal),
+                 _stream(q.device))
+    _check_launch(error_string, 'flash_attention_bwd_dq', err, q)
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, kscale: float,
+                    causal: bool):
+    b, t, h, d = q.shape
+    lib, error_string = _library('flash_attention_bwd')
+    fn = _declare(lib.flash_attention_bwd_dkv, 8, 5, 12, 1)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, t, h, d, _DTYPE_CODES[q.dtype],
+                 *_strides(q, k, v, do), kscale, int(causal),
+                 _stream(q.device))
+    _check_launch(error_string, 'flash_attention_bwd_dkv', err, q)
+
+
+_kernel_op('flash_attention_fwd',
+           'Tensor q, Tensor k, Tensor v, Tensor(a!) o, Tensor(b!)? lse, '
+           'float scale, bool causal', _launch_fwd)
+_kernel_op('flash_attention_bwd_dq',
+           'Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, '
+           'Tensor delta, Tensor(a!) dq, float kscale, float scale, '
+           'bool causal', _launch_bwd_dq)
+_kernel_op('flash_attention_bwd_dkv',
+           'Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, '
+           'Tensor delta, Tensor(a!) dk, Tensor(b!) dv, float kscale, '
+           'bool causal', _launch_bwd_dkv)
+
+
 def flash_attention_forward(q, k, v, causal: bool = True,
                             scale: Optional[float] = None,
                             with_lse: bool = False,
@@ -261,15 +348,8 @@ def flash_attention_forward(q, k, v, causal: bool = True,
     if with_lse:
         lse = lse_out if lse_out is not None else torch.empty(
             (b, h, t), dtype=torch.float32, device=q.device)
-    lib, error_string = _library('flash_attention_fwd')
-    fn = _declare(lib.flash_attention_fwd, 5, 5, 12, 1)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if with_lse else None,
-                 b, t, h, d, _DTYPE_CODES[q.dtype],
-                 *_strides(q, k, v, out), float(scale), int(bool(causal)),
-                 _stream(q.device))
-    _check_launch(error_string, 'flash_attention_fwd', err, q)
+    torch.ops.mlcomp_tpu.flash_attention_fwd(q, k, v, out, lse, float(scale),
+                                             bool(causal))
     flash_attention_forward.launches += 1
     return (out, lse) if with_lse else out
 
@@ -296,15 +376,9 @@ def flash_attention_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
     (kq, k, v, do), (lse, delta), kscale = _backward_operands(
         q, k, v, do, lse, delta, scale)
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lib, error_string = _library('flash_attention_bwd')
-    fn = _declare(lib.flash_attention_bwd_dq, 7, 5, 12, 2)
-    with torch.cuda.device(q.device):
-        err = fn(kq.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 b, t, h, d, _DTYPE_CODES[q.dtype],
-                 *_strides(kq, k, v, do), float(kscale), float(scale),
-                 int(bool(causal)), _stream(q.device))
-    _check_launch(error_string, 'flash_attention_bwd_dq', err, q)
+    torch.ops.mlcomp_tpu.flash_attention_bwd_dq(
+        kq, k, v, do, lse, delta, dq, float(kscale), float(scale),
+        bool(causal))
     flash_attention_backward_dq.launches += 1
     return dq
 
@@ -324,15 +398,8 @@ def flash_attention_backward_dkv(q, k, v, do, lse, delta,
         q, k, v, do, lse, delta, scale)
     dk = torch.empty((b, t, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, t, h, d), dtype=v.dtype, device=q.device)
-    lib, error_string = _library('flash_attention_bwd')
-    fn = _declare(lib.flash_attention_bwd_dkv, 8, 5, 12, 1)
-    with torch.cuda.device(q.device):
-        err = fn(kq.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, t, h, d, _DTYPE_CODES[q.dtype],
-                 *_strides(kq, k, v, do), float(kscale), int(bool(causal)),
-                 _stream(q.device))
-    _check_launch(error_string, 'flash_attention_bwd_dkv', err, q)
+    torch.ops.mlcomp_tpu.flash_attention_bwd_dkv(
+        kq, k, v, do, lse, delta, dk, dv, float(kscale), bool(causal))
     flash_attention_backward_dkv.launches += 1
     return dk, dv
 

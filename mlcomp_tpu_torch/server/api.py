@@ -18,6 +18,8 @@ Endpoint map (POST JSON unless noted):
 - ``/api/config``, ``/api/graph``, ``/api/dags``
 - ``/api/code``, GET ``/api/code_download`` code browser
 - ``/api/tasks``, ``/api/task/stop|info|steps``
+- ``/api/task/postmortem`` the frozen failure bundle, ``/api/task/devtime``
+  the sampled device-time windows (also GET, no auth)
 - ``/api/dag/stop|start|remove|preflight|toogle_report`` — ``dag/start``
   is restart-with-resume: Failed/Stopped/Skipped tasks reset to NotRan
   with ``resume{master_computer, master_task_id, load_last}`` attached,
@@ -26,6 +28,7 @@ Endpoint map (POST JSON unless noted):
 - ``/api/telemetry/series|spans|trace`` (also GET ``/telemetry/series``,
   ``/telemetry/spans``, ``/telemetry/trace/<id>``, no auth)
 - ``/api/alerts`` (GET or POST, no auth) + ``/api/alert/resolve`` (auth)
+- ``/api/telemetry/profile`` start|stop|status of an on-demand trace
 - GET ``/metrics`` (no auth) — OpenMetrics (telemetry/export.py)
 - ``/api/logs``, ``/api/reports``, ``/api/report``,
   ``/api/report/update_layout_start|update_layout_end``
@@ -371,6 +374,74 @@ def api_task_steps(data, s):
     return {'data': StepProvider(s).get(int(data['id']))}
 
 
+def api_task_postmortem(data, s):
+    """The OOM flight recorder's read surface (telemetry/memory.py):
+    the postmortem bundle frozen at the task's failure — last steps of
+    the loss/phase/memory/compile series, run snapshot (mesh/batch/
+    model), static memory attribution, collective tally, alerts.
+    ``{'task': id}`` returns the newest FROZEN bundle (404 when the
+    task never failed with a reason); ``{'task': id, 'live': true}``
+    assembles one on demand from the current DB rows instead — the
+    dashboard's view of a still-running task."""
+    from mlcomp_tpu_torch.telemetry import build_postmortem, load_postmortem
+    task = _int_arg(data, 'task')
+    if task is None:
+        task = _int_arg(data, 'id', required=True)
+    if TaskProvider(s).by_id(task) is None:
+        raise ApiError('task not found', status=404)
+    live = data.get('live') in (True, 'true', '1', 1)
+    if live:
+        bundle = build_postmortem(s, task)
+        bundle['live'] = True
+        return bundle
+    bundle = load_postmortem(s, task)
+    if bundle is None:
+        raise ApiError(
+            'no postmortem recorded for this task (it never failed '
+            'with a taxonomy reason); pass live:true to assemble one '
+            'from the current telemetry', status=404)
+    return bundle
+
+
+def api_task_devtime(data, s):
+    """Device-time attribution (telemetry/deviceprof.py): the sampled
+    ``devtime.*`` windows of a task — per-bucket series tails
+    (compute / comm / comm_exposed / io / idle ms, busy + exposed-comm
+    fractions) plus the newest window's summary (bucket split, top-op
+    table, host dispatch gaps). ``{'task': id, 'tail': N}`` bounds the
+    series tails (default 32 windows). 404 until a sampled or
+    on-demand capture has landed rows."""
+    from mlcomp_tpu_torch.db.providers.telemetry import MetricProvider
+    task = _int_arg(data, 'task')
+    if task is None:
+        task = _int_arg(data, 'id', required=True)
+    if TaskProvider(s).by_id(task) is None:
+        raise ApiError('task not found', status=404)
+    tail = _int_arg(data, 'tail')
+    series = {
+        name: rows for name, rows in
+        MetricProvider(s).tail_series(
+            task, per_name=max(1, min(tail or 32, 512))).items()
+        if name.startswith('devtime.')}
+    if not series:
+        raise ApiError(
+            'no device-time attribution recorded for this task — '
+            'sampled profiling is off (telemetry profile_every) and '
+            'no on-demand trace has been parsed', status=404)
+    summary_rows = series.pop('devtime.summary', [])
+    newest = summary_rows[-1] if summary_rows else None
+    return {
+        'task': task,
+        'windows': len(summary_rows) or
+        max(len(r) for r in series.values()),
+        'series': series,
+        'summary': None if newest is None else dict(
+            (newest.get('tags') or {}),
+            window_ms=newest['value'], step=newest['step'],
+            time=newest['time']),
+    }
+
+
 def api_dag_stop(data, s):
     provider = DagProvider(s)
     dag_id = int(data['id'])
@@ -636,6 +707,33 @@ def api_alert_resolve(data, s):
             'resolved': AlertProvider(s).resolve(alert_id)}
 
 
+def api_telemetry_profile(data, s):
+    """Toggle an on-demand ``torch.profiler`` trace on a RUNNING task:
+    action start|stop|status (telemetry/profiler.py — the training
+    process polls at epoch boundaries). Once the worker stops the
+    trace it parses the dump (parse-on-stop), so the ``done`` row
+    returned by stop/status carries the device-time ``attribution``
+    — buckets, exposed-comm, top ops — not just the trace dir."""
+    from mlcomp_tpu_torch.telemetry import (
+        request_stop, request_trace, trace_status,
+    )
+    task = _int_arg(data, 'task', required=True)
+    action = data.get('action', 'start')
+    if action == 'start':
+        max_epochs = _int_arg(data, 'max_epochs')
+        row = request_trace(s, task, out_dir=data.get('dir'),
+                            max_epochs=1 if max_epochs is None
+                            else max_epochs)
+    elif action == 'stop':
+        row = request_stop(s, task)
+    elif action == 'status':
+        row = trace_status(s, task)
+    else:
+        raise ApiError(f'unknown action {action!r} '
+                       f'(start|stop|status)')
+    return dict(row, task=task)
+
+
 def api_logs(data, s):
     return LogProvider(s).get(data, _paginator(data))
 
@@ -729,9 +827,6 @@ WAITING_ROUTES = {
     '/api/quotas': 'A0: quotas and usage',
     '/api/quota/set': 'A0: quotas and usage',
     '/api/quota/delete': 'A0: quotas and usage',
-    '/api/task/postmortem': 'A6',
-    '/api/task/devtime': 'A6',
-    '/api/telemetry/profile': 'A6',
     '/api/model/add': 'A0: the model_add / model_start DAGs',
     '/api/model/start_begin': 'A0: the model_add / model_start DAGs',
     '/api/model/start_end': 'A0: the model_add / model_start DAGs',
@@ -771,7 +866,7 @@ _ROUTES = {
     '/api/task/steps': (api_task_steps, True),
     # the flight-recorder read is the same no-auth introspection tier
     # as the telemetry series it is assembled from
-    '/api/task/postmortem': (_waits('/api/task/postmortem'), False),
+    '/api/task/postmortem': (api_task_postmortem, False),
     '/api/dag/stop': (api_dag_stop, True),
     '/api/dag/start': (api_dag_start, True),
     '/api/dag/remove': (api_dag_remove, True),
@@ -801,12 +896,12 @@ _ROUTES = {
     # (no secrets: metric names + floats); the profile toggle mutates
     # state and needs the token
     '/api/telemetry/series': (api_telemetry_series, False),
-    '/api/task/devtime': (_waits('/api/task/devtime'), False),
+    '/api/task/devtime': (api_task_devtime, False),
     '/api/telemetry/spans': (api_telemetry_spans, False),
     '/api/telemetry/trace': (api_telemetry_trace, False),
     '/api/alerts': (api_alerts, False),
     '/api/alert/resolve': (api_alert_resolve, True),
-    '/api/telemetry/profile': (_waits('/api/telemetry/profile'), True),
+    '/api/telemetry/profile': (api_telemetry_profile, True),
     '/api/logs': (api_logs, True),
     '/api/reports': (api_reports, True),
     '/api/report': (api_report, True),
@@ -1022,6 +1117,10 @@ class ApiHandler(BaseHTTPRequestHandler):
                 handler = api_telemetry_spans
             elif parsed.path == '/api/alerts':
                 handler = api_alerts
+            elif parsed.path == '/api/task/postmortem':
+                handler = api_task_postmortem
+            elif parsed.path == '/api/task/devtime':
+                handler = api_task_devtime
             elif parsed.path in WAITING_ROUTES:
                 handler = _ROUTES[parsed.path][0]
             else:

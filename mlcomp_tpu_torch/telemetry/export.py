@@ -28,12 +28,8 @@ OPENMETRICS_CONTENT_TYPE = \
     'application/openmetrics-text; version=1.0.0; charset=utf-8'
 
 #: the JAX package's families that read through a module the port does
-#: not have yet, with the ROADMAP.md item (A0, A6) that brings each
+#: not have yet, with the ROADMAP.md item (A0) that brings each
 WAITING_FAMILIES = {
-    'mlcomp_step_phase_ms': 'A6, device telemetry in the trainer '
-                            '(telemetry/attribution.py)',
-    'mlcomp_pipeline_efficiency': 'A6, device telemetry in the trainer '
-                                  '(telemetry/attribution.py)',
     'mlcomp_fleet_replicas': 'A0, fleets (server/fleet.py, '
                              'db/providers/fleet.py)',
     'mlcomp_quota_usage': 'A0, quotas and preemption '
@@ -45,8 +41,8 @@ WAITING_FAMILIES = {
 REQUIRED_FAMILIES = (
     'mlcomp_up', 'mlcomp_tasks', 'mlcomp_queue_depth',
     'mlcomp_worker_slots', 'mlcomp_alerts_open',
-    'mlcomp_dispatch_latency_seconds',
-    'mlcomp_compile_events',
+    'mlcomp_dispatch_latency_seconds', 'mlcomp_step_phase_ms',
+    'mlcomp_pipeline_efficiency', 'mlcomp_compile_events',
     'mlcomp_task_retries', 'mlcomp_db_busy_retries',
     'mlcomp_gang_generations',
     'mlcomp_serving_latency_ms',
@@ -323,6 +319,29 @@ def _running_task_ids(session, limit=_RUNNING_TASKS_CAP):
     return [r['id'] for r in session.query(
         'SELECT id FROM task WHERE status=? ORDER BY id DESC LIMIT ?',
         (int(TaskStatus.InProgress), int(limit)))]
+
+
+def _collect_step_phases(session, running, phase_samples, eff_samples):
+    from mlcomp_tpu_torch.telemetry.attribution import PHASES
+    if not running:
+        return
+    names = [f'step.phase.{p}_ms' for p in PHASES] \
+        + ['step.pipeline_efficiency']
+    marks = ','.join('?' * len(running))
+    name_marks = ','.join('?' * len(names))
+    # bare `value` rides the MAX(id) row (documented sqlite behavior):
+    # one query yields the LATEST sample per (task, name)
+    for r in session.query(
+            f'SELECT task, name, value, MAX(id) AS latest FROM metric '
+            f'WHERE task IN ({marks}) AND name IN ({name_marks}) '
+            f'GROUP BY task, name',
+            tuple(running) + tuple(names)):
+        if r['name'] == 'step.pipeline_efficiency':
+            eff_samples.append(('', {'task': r['task']}, r['value']))
+        else:
+            phase = r['name'][len('step.phase.'):-len('_ms')]
+            phase_samples.append(
+                ('', {'task': r['task'], 'phase': phase}, r['value']))
 
 
 #: device timeline names: device<N>.hbm_<kind>
@@ -892,7 +911,7 @@ def collect_server_families(session):
             errors[name] += 1
 
     tasks, queues, slots, alerts = [], [], [], []
-    dispatch, compiles, serving = [], [], []
+    dispatch, phases, eff, compiles, serving = [], [], [], [], []
     retries, gangs, busy = [], [], []
     fgens, fshed, frespawns, fswaps = [], [], [], []
     sweep_cells, sweep_prunes, sweep_rungs = [], [], []
@@ -935,6 +954,8 @@ def collect_server_families(session):
         running = _running_task_ids(session)
     except Exception:
         errors['running_tasks'] += 1
+    guarded('step_phases', _collect_step_phases, session, running,
+            phases, eff)
     guarded('compile_events', _collect_compile_events, session,
             running, compiles)
     guarded('hbm', _collect_hbm, session, running, hbm)
@@ -962,6 +983,12 @@ def collect_server_families(session):
         family('mlcomp_dispatch_latency_seconds', 'summary',
                'supervisor enqueue-to-claim latency (latest flush '
                'window)', dispatch),
+        family('mlcomp_step_phase_ms', 'gauge',
+               'latest per-step phase attribution (newest '
+               f'{_RUNNING_TASKS_CAP} running tasks)', phases),
+        family('mlcomp_pipeline_efficiency', 'gauge',
+               'compute share of attributed step time (newest '
+               f'{_RUNNING_TASKS_CAP} running tasks)', eff),
         family('mlcomp_compile_events', 'counter',
                'recorded compile events (newest '
                f'{_RUNNING_TASKS_CAP} running tasks)', compiles),

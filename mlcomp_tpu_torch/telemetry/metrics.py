@@ -1,31 +1,31 @@
-"""Metric series and latency histograms (port of
+"""Metric series, counters and latency histograms (port of
 ``mlcomp_tpu/telemetry/metrics.py``).
+
+The rule that makes this usable inside a training loop: **recording
+never syncs the device**. ``series('loss', metrics['loss'], step)``
+appends the 0-d CUDA tensor itself; the pull to the host happens at
+flush, once per ``flush_every`` samples, as ONE stacked copy per device
+for the whole window, then one ``executemany``. With ``async_flush`` the
+flush a full window triggers runs on a background thread: its ``.cpu()``
+waits for the stream there, never inside the wrapped train step.
 
 A serving process observes every request into an in-memory histogram
 whose fixed-boundary counts are the cumulative ``le`` buckets /health
 and an OpenMetrics scraper read; a timed chain (``ops/serving_stack.py``
 ``make_chain_runner``) observes its per-stack times, whose
 ``histogram_summaries()`` (count, mean, min, max, p50/p95/p99 over a
-bounded reservoir) a harness prints. A recorder with a DB session
-flushes its gauges and histogram summaries into ``metric`` rows, every
-``FLUSH_EVERY`` samples and on ``flush()``.
-
-Recording never syncs the device: callers hand the recorder host
-floats, taken where their step already syncs. A CUDA tensor handed in
-is not pulled at flush either — it is counted in ``dropped_count``.
+bounded reservoir) a harness prints. Counters and histograms aggregate
+in memory and emit summary rows at flush.
 """
 
 import bisect
+import itertools
 import json
 import threading
 import weakref
 from collections import deque
 
 import numpy as np
-
-#: pending samples that trigger a flush, and the most a flush keeps
-FLUSH_EVERY = 100
-CAPACITY = 65536
 
 #: session-bound recorders alive in this process, drained by the task
 #: process's crash-time flush (worker/tasks.py) so the telemetry of a
@@ -106,42 +106,100 @@ class Histogram:
         }
 
 
-def _host_float(value):
-    """``float(value)``, or None for a value that lives on a device."""
-    if getattr(value, 'is_cuda', False):
-        return None
-    return float(np.asarray(value))
+def _host_values(values) -> list:
+    """``values`` as host floats (None where a value is not a number):
+    the 0-d tensors among them come over in one stacked copy per device
+    (a per-scalar ``float()`` would wait for the device once each)."""
+    out = list(values)
+    by_device = {}
+    for i, v in enumerate(out):
+        if hasattr(v, 'detach') and hasattr(v, 'device'):
+            if v.numel() == 1:
+                by_device.setdefault(v.device, []).append(i)
+            else:
+                out[i] = None       # an unreduced tensor: unusable
+    if by_device:
+        import torch
+        for idx in by_device.values():
+            stacked = torch.stack(
+                [out[i].detach().reshape(()).float() for i in idx])
+            for i, v in zip(idx, stacked.cpu().tolist()):
+                out[i] = v
+    for i, v in enumerate(out):
+        if v is None or isinstance(v, float):
+            continue
+        try:
+            out[i] = float(np.asarray(v))
+        except (TypeError, ValueError):
+            out[i] = None
+    return out
 
 
 class MetricRecorder:
-    """Gauges and histograms keyed by name, safe across request
-    threads; with a ``session``, flushed into ``metric`` rows of
-    ``task``."""
+    """One recorder per (task, component). Bind a session to persist;
+    without one it is a pure in-memory buffer (tests, the serving
+    histograms).
+
+    Thread safety: every mutation holds ``_mutate_lock``, so a
+    concurrent flush (serving heartbeat, ``async_flush`` worker) swaps
+    the buffers without losing racing samples. ``async_flush=True``
+    moves the flush a full window triggers onto a background daemon
+    thread; explicit ``flush()`` calls stay synchronous."""
 
     def __init__(self, session=None, task: int = None,
-                 component: str = None):
+                 component: str = None, flush_every: int = 100,
+                 capacity: int = 65536, async_flush: bool = False):
         self.session = session
         self.task = task
         self.component = component
-        self._pending = []        # (name, kind, step, value)
+        self.flush_every = max(1, int(flush_every))
+        self.capacity = int(capacity)
+        self.async_flush = bool(async_flush)
+        self._pending = []        # (name, kind, step, value) — hot path
+        self._counters = {}
         self._histograms = {}
         self._hist_flushed_counts = {}
         self._mutate_lock = threading.Lock()
+        self._flush_thread = None
+        self._steps = itertools.count()
         self.dropped_count = 0
         self.flushed_count = 0
         if session is not None:
             _LIVE_RECORDERS.add(self)
 
+    # ------------------------------------------------------------ hot path
     def _maybe_flush(self):
-        if len(self._pending) >= FLUSH_EVERY \
-                and self.session is not None:
+        # an approximate trigger by design: a racy len() can only defer
+        # or add one flush (taking the lock here would deadlock: flush()
+        # takes it and Lock is not reentrant)
+        if len(self._pending) < self.flush_every or self.session is None:
+            return
+        if not self.async_flush:
             self.flush()
+            return
+        t = self._flush_thread
+        if t is not None and t.is_alive():
+            return              # one in-flight flush is enough
+        t = threading.Thread(target=self.flush, daemon=True,
+                             name='telemetry-flush')
+        self._flush_thread = t
+        t.start()
+
+    def series(self, name: str, value, step: int = None):
+        """Per-step sample. ``value`` may be a CUDA tensor: it is NOT
+        converted here (no device sync on the hot path)."""
+        with self._mutate_lock:
+            self._pending.append((name, 'series', step, value))
+        self._maybe_flush()
 
     def gauge(self, name: str, value, step: int = None):
-        """Per-step sample (a host float)."""
         with self._mutate_lock:
             self._pending.append((name, 'gauge', step, value))
         self._maybe_flush()
+
+    def count(self, name: str, inc: float = 1):
+        with self._mutate_lock:
+            self._counters[name] = self._counters.get(name, 0.0) + inc
 
     def observe(self, name: str, value: float, buckets=None):
         """Histogram sample. ``buckets`` (upper bounds) apply on the
@@ -164,6 +222,9 @@ class MetricRecorder:
                 return None
             return hist.bucket_counts(), hist.count, hist.total
 
+    def next_step(self) -> int:
+        return next(self._steps)
+
     def histogram_summaries(self) -> dict:
         """Live snapshot ``{name: summary_dict}`` of the open
         histograms."""
@@ -171,15 +232,25 @@ class MetricRecorder:
             return {name: h.summary()
                     for name, h in self._histograms.items()}
 
+    def series_array(self, name: str, values, start_step: int = 0):
+        """Bulk append of a [steps] array (one host pull for all)."""
+        arr = np.asarray(values).reshape(-1)
+        with self._mutate_lock:
+            for i, v in enumerate(arr):
+                self._pending.append((name, 'series', start_step + i,
+                                      float(v)))
+
     # ----------------------------------------------------------- flush path
     def _materialize(self):
         """Swap out pending samples and aggregate snapshots as ``metric``
-        rows. Bucketed histograms stay open and emit cumulative
-        snapshots (only when they saw new samples); bucket-less ones
-        emit their window's summary and reset."""
+        rows, values pulled to the host HERE (off the hot path).
+        Bucketed histograms stay open and emit cumulative snapshots
+        (only when they saw new samples); bucket-less ones emit their
+        window's summary and reset."""
         from mlcomp_tpu_torch.utils.misc import now
         with self._mutate_lock:
             pending, self._pending = self._pending, []
+            counters, self._counters = self._counters, {}
             hists = self._histograms
             self._histograms = {name: h for name, h in hists.items()
                                 if h.bucket_bounds is not None}
@@ -190,21 +261,21 @@ class MetricRecorder:
                     continue
                 self._hist_flushed_counts[name] = h.count
                 hist_snapshots[name] = (h.summary(), h.bucket_counts())
-        if len(pending) > CAPACITY:
-            self.dropped_count += len(pending) - CAPACITY
-            pending = pending[-CAPACITY:]
+        if len(pending) > self.capacity:
+            self.dropped_count += len(pending) - self.capacity
+            pending = pending[-self.capacity:]
         ts = now()
         rows = []
-        for name, kind, step, value in pending:
-            try:
-                value = _host_float(value)
-            except (TypeError, ValueError):
-                value = None
+        values = _host_values(v for (_, _, _, v) in pending)
+        for (name, kind, step, _), value in zip(pending, values):
             if value is None:
                 self.dropped_count += 1
                 continue
             rows.append((self.task, name, kind, step, value, ts,
                          self.component, None))
+        for name, total in counters.items():
+            rows.append((self.task, name, 'counter', None, float(total),
+                         ts, self.component, None))
         for name, (summary, buckets) in hist_snapshots.items():
             for stat, v in summary.items():
                 rows.append((self.task, f'{name}.{stat}', 'histogram',
@@ -243,5 +314,14 @@ class MetricRecorder:
                 pass
         return n
 
+    def close(self) -> int:
+        """Join an in-flight background flush, then flush the rest
+        synchronously: every recorded sample is in the DB or counted
+        dropped."""
+        t = self._flush_thread
+        if t is not None and t.is_alive():
+            t.join(timeout=30)
+        return self.flush()
 
-__all__ = ['Histogram', 'MetricRecorder']
+
+__all__ = ['Histogram', 'MetricRecorder', 'flush_live_recorders']

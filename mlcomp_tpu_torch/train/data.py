@@ -276,11 +276,26 @@ def place_batch(batch, device) -> tuple:
     return _to_device(x, device), _to_device(y, device)
 
 
-def prefetch_batches(batch_iter, device, depth: int = 2):
+def prefetch_batches(batch_iter, device, depth: int = 2,
+                     attribution=None):
     """Keep ``depth`` batches in flight: the next batches' copies are
-    issued before the current one is handed out."""
+    issued before the current one is handed out.
+
+    ``attribution`` (telemetry/attribution.py) marks the two input
+    phases around boundaries this generator already crosses: pulling
+    the next host batch (shuffle + augment) is ``data_wait``, the pinned
+    copy's issue is ``h2d`` — one clock read each."""
     buf = deque()
-    for batch in batch_iter:
+    done = object()
+    it = iter(batch_iter)
+    while True:
+        if attribution is not None:
+            attribution.begin('data_wait')
+        batch = next(it, done)
+        if batch is done:
+            break
+        if attribution is not None:
+            attribution.begin('h2d')
         buf.append(place_batch(batch, device))
         if len(buf) >= depth:
             yield buf.popleft()

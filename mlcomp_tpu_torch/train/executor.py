@@ -38,10 +38,21 @@ the task pipeline (a DB session and a task), it writes the JAX
 trainer's rows: ``ReportSeries`` of every train and valid metric and
 ``images_per_sec`` each epoch, ``task.score`` and the model's
 ``score_local``, a ``train.work`` span with ``train.epoch`` children and
-the ``epoch_time_s`` / ``epoch_throughput`` gauges (the device
-telemetry beyond them is A6); checkpoints go to
-``TASK_FOLDER/<task>/checkpoints`` and the export to
-``MODEL_FOLDER/<project>/<model_name>``. Keys
+the device telemetry of the JAX trainer (``telemetry: true`` by default,
+or a dict of its keys: ``flush_every``, ``memory_every``,
+``profile_every``, ``profile_steps``, ``cost_analysis``,
+``memory_analysis``, ``peak_tflops``): per-step ``loss``,
+``step_time_ms``, ``throughput`` and ``step.phase.*_ms``, the memory
+timeline ``device<i>.hbm_*`` on the card, sampled ``torch.profiler``
+windows as ``devtime.*`` (where ``profile_every`` asks: off by default),
+``run.snapshot``, ``memory.attribution`` and the first step's FLOPs
+(both by default on the card only), and per epoch ``epoch_time_s``,
+``epoch_throughput``, ``mfu`` (over 989 TFLOP/s unless ``peak_tflops``
+or ``MLCOMP_PEAK_TFLOPS`` says otherwise) and
+``step.pipeline_efficiency``; ``/api/telemetry/profile`` traces
+epochs on demand and ``profile: {epochs, dir}`` traces the given
+ones. Checkpoints go to ``TASK_FOLDER/<task>/checkpoints`` and the
+export to ``MODEL_FOLDER/<project>/<model_name>``. Keys
 whose feature is not ported yet raise ``NotImplementedError`` with
 their ROADMAP.md item; unknown keys are logged as the JAX trainer logs
 them.
@@ -69,8 +80,9 @@ from mlcomp_tpu_torch.train.device_data import (
     DEVICE_AUGMENTS, dataset_fits_hbm, make_device_augment,
     normalize_augment_spec, place_dataset, quantize_dataset,
 )
+from mlcomp_tpu_torch.testing.faults import fault_point
 from mlcomp_tpu_torch.train.loop import (
-    aggregate_metrics, create_train_state, loss_for_task,
+    aggregate_metrics, create_train_state, instrumented_step, loss_for_task,
     make_device_eval_step, make_device_train_step, make_eval_step,
     make_train_step,
 )
@@ -83,11 +95,9 @@ from mlcomp_tpu_torch.worker.executors import Executor
 #: constructor keys whose feature is not ported yet -> ROADMAP.md item
 _NOT_PORTED = {
     'epoch_scan': 'A0 (one dispatch per epoch)',
-    'profile': 'A6 (device traces)',
     'report_imgs': 'A0: report images are encoded with OpenCV and '
                    'matplotlib, which the card\'s machine has not shown '
                    '(an encoder without them, or OpenCV on the card)',
-    'telemetry': 'A6 (device telemetry)',
 }
 
 
@@ -139,9 +149,8 @@ class Train(Executor):
         if device_data not in (True, False, 'auto'):
             raise ValueError(f"device_data must be true, false or 'auto', "
                              f'got {device_data!r}')
-        for key, value in (('epoch_scan', epoch_scan), ('profile', profile),
-                           ('report_imgs', report_imgs),
-                           ('telemetry', isinstance(telemetry, dict))):
+        for key, value in (('epoch_scan', epoch_scan),
+                           ('report_imgs', report_imgs)):
             if value:
                 _not_ported(key)
         self.dataset_spec = dict(dataset or {})
@@ -177,7 +186,12 @@ class Train(Executor):
         self.infer_valid = dict(infer_valid) if infer_valid else None
         self.async_checkpoint = bool(async_checkpoint)
         self.stage_per_dispatch = bool(stage_per_dispatch)
-        self.telemetry = bool(telemetry)
+        # {'epoch': N | 'epochs': [..], 'dir': path}: a torch.profiler
+        # trace of the given global epoch(s)
+        self.profile = dict(profile) if profile else None
+        # telemetry: True (default) | False | a dict of the JAX keys
+        self.telemetry_spec = dict(telemetry) \
+            if isinstance(telemetry, dict) else ({} if telemetry else None)
         self.device = device
         # leftover config keys: logged loudly by _work, not an error
         self._unknown_kwargs = sorted(kwargs)
@@ -283,14 +297,19 @@ class Train(Executor):
     def work(self):
         self._ckpt_writer = AsyncCheckpointWriter() \
             if self.async_checkpoint else None
-        # the train loop's leg of the task's trace (a ``train.work`` root
-        # with ``train.epoch`` children) and its per-epoch gauges
+        # the telemetry objects _work builds with a session and a task;
+        # closed here whatever happens
         self._telemetry = None
+        self._profiler = None
+        self._deviceprof = None
+        self._attribution = None
+        self._compile_events = None
+        self._profile_tracer = None
+        # the train loop's leg of the task's trace (a ``train.work`` root
+        # with ``train.epoch`` children)
         span_cm = None
-        if self.telemetry and self._tracked():
-            from mlcomp_tpu_torch.telemetry import MetricRecorder, span
-            self._telemetry = MetricRecorder(
-                session=self.session, task=self.task.id, component='train')
+        if self.telemetry_spec is not None and self._tracked():
+            from mlcomp_tpu_torch.telemetry import span
             info = dict(getattr(self, 'additional_info', None) or {})
             span_cm = span('train.work', task=self.task.id, role='train',
                            trace_id=info.get('trace_id') or None,
@@ -310,6 +329,7 @@ class Train(Executor):
                     pass       # the span re-raises the active error
                 from mlcomp_tpu_torch.telemetry import flush_spans
                 flush_spans(self.session)
+            self._close_telemetry()
             writer, self._ckpt_writer = self._ckpt_writer, None
             if writer is not None:
                 try:
@@ -318,6 +338,130 @@ class Train(Executor):
                     self.error(f'checkpoint writer: {e}')
                     if ok:
                         raise
+
+    def _close_telemetry(self):
+        """Teardown, in the JAX trainer's order: the build listener goes
+        (a persistent worker's next task must not record into this one),
+        the on-demand trace stops, an open sampled window stops and
+        parses (its devtime rows land even on the failure path, and
+        Kineto is free for the next profiler), the recorder flushes, an
+        epoch trace left open by an exception stops."""
+        for obj, method in ((self._compile_events, 'uninstall'),
+                            (self._profiler, 'close'),
+                            (self._deviceprof, 'close'),
+                            (self._telemetry, 'close')):
+            if obj is not None:
+                try:
+                    getattr(obj, method)()
+                except Exception:
+                    pass
+        tracer, self._profile_tracer = self._profile_tracer, None
+        if tracer is not None:
+            try:
+                tracer.stop()
+            except Exception:
+                pass
+
+    def _start_telemetry(self, device, ck_dir):
+        """The recorder and its hooks, with a session and a task only
+        (one writer per task), as the JAX trainer builds them."""
+        from mlcomp_tpu_torch.telemetry import (
+            CompileEventRecorder, DeviceProfiler, HostSyncTripwire,
+            MemorySampler, MetricRecorder, StepAttribution, TaskProfiler,
+        )
+        from mlcomp_tpu_torch.telemetry.device import FirstStepProbe
+        from mlcomp_tpu_torch.telemetry.deviceprof import DEFAULT_WINDOW
+        spec = self.telemetry_spec
+        on_card = device.type == 'cuda'
+        # async_flush: the window-full flush (the device pull and the DB
+        # write) runs on a background thread, never inside the step
+        self._telemetry = MetricRecorder(
+            session=self.session, task=self.task.id, component='train',
+            async_flush=True, flush_every=int(spec.get('flush_every', 100)))
+        self._profiler = TaskProfiler(self.session, self.task.id, ck_dir,
+                                      cuda=on_card)
+        self._attribution = StepAttribution(recorder=self._telemetry)
+        self._tripwire = HostSyncTripwire(recorder=self._telemetry)
+        self._compile_events = CompileEventRecorder(
+            recorder=self._telemetry)
+        self._compile_events.install()
+        self._memory = MemorySampler(
+            self._telemetry, every=int(spec.get('memory_every', 1)),
+            device=device)
+        # cost_analysis / memory_analysis: the first step's FLOPs and
+        # bytes, by default on the card only, as the JAX trainer's
+        # introspection defaults on off-CPU only (the count costs the
+        # first step 0.1 s on the card, telemetry/device.py)
+        self._probe = FirstStepProbe(
+            flops=bool(spec.get('cost_analysis', on_card)),
+            memory=bool(spec.get('memory_analysis', on_card)),
+            device=device)
+        self._probe_reported = False
+        # sampled device-time windows: only where profile_every asks.
+        # Unlike the JAX trainer's, they are off by default on the card
+        # too: a process's first torch.profiler window starts in seconds
+        # and each window's close holds the loop for 0.5-1.2 s (PERF.md)
+        every = int(spec.get('profile_every', 0))
+        if every > 0:
+            self._deviceprof = DeviceProfiler(
+                self.session, self.task.id, every=every,
+                window=int(spec.get('profile_steps', DEFAULT_WINDOW)),
+                logger=self.info, cuda=on_card,
+                blocked=lambda: self._profile_tracer is not None
+                or self._profiler.tracing)
+
+    def _report_probe(self):
+        """Log and persist the first step's FLOPs and memory once."""
+        probe = self._probe
+        if self._probe_reported or not probe.done:
+            return
+        self._probe_reported = True
+        if probe.flops is not None:
+            self.info(f'telemetry: the first step counted '
+                      f'{probe.flops / 1e9:.3f} GFLOP in '
+                      f'{probe.seconds:.3f} s')
+        if probe.attribution:
+            from mlcomp_tpu_torch.telemetry import persist_memory_attribution
+            try:
+                persist_memory_attribution(self.session, self.task.id,
+                                           probe.attribution)
+            except Exception:
+                pass        # context is best-effort, never fatal
+            self.info('memory attribution (first step): ' + ', '.join(
+                f'{k.replace("_bytes", "")}={v / 1e9:.2f} GB'
+                for k, v in sorted(probe.attribution.items())))
+
+    def _maybe_start_profile(self, global_epoch, ck_dir, device) -> bool:
+        """Start a torch.profiler trace if this epoch is in the
+        ``profile`` spec."""
+        if not self.profile:
+            return False
+        epochs = self.profile.get('epochs')
+        if epochs is None:
+            epochs = self.profile.get('epoch', 0)
+        if not isinstance(epochs, (list, tuple, set)):
+            epochs = [epochs]
+        if global_epoch not in {int(e) for e in epochs}:
+            return False
+        from mlcomp_tpu_torch.telemetry import TorchTracer
+        out = self.profile.get('dir') or os.path.join(ck_dir, 'profile')
+        tracer = TorchTracer(cuda=device.type == 'cuda')
+        try:
+            tracer.start(out)
+        except Exception as e:  # another profiler runs
+            self.info(f'profiler: could not start trace ({e})')
+            return False
+        self._profile_tracer = tracer
+        return True
+
+    def _stop_profile(self, global_epoch):
+        tracer, self._profile_tracer = self._profile_tracer, None
+        try:
+            path = tracer.stop()
+            self.info(f'profiler: epoch {global_epoch} device trace -> '
+                      f'{path} (Chrome trace format)')
+        except Exception as e:
+            self.info(f'profiler: stop_trace failed ({e})')
 
     def _drain_ckpt_writer(self):
         if self._ckpt_writer is not None:
@@ -375,6 +519,8 @@ class Train(Executor):
 
         ck_dir = self._checkpoint_folder()
         steps_per_epoch = max(1, len(x_train) // self.batch_size)
+        if self.telemetry_spec is not None and self._tracked():
+            self._start_telemetry(device, ck_dir)
 
         def stage_opt_spec(stage):
             return stage.get('optimizer') or \
@@ -416,6 +562,28 @@ class Train(Executor):
         n_params = param_count(model)
         self.info(f'model={self.model_spec.get("name")} params={n_params:,} '
                   f'device={device} device_data={use_device_data}')
+        if self._telemetry is not None:
+            # the run.snapshot row: the context the postmortem bundle
+            # freezes next to the series
+            from mlcomp_tpu_torch.telemetry import persist_run_snapshot
+            try:
+                persist_run_snapshot(self.session, self.task.id, {
+                    'model': self.model_spec.get('name'),
+                    'model_spec': {k: v for k, v in self.model_spec.items()
+                                   if isinstance(v, (str, int, float,
+                                                     bool))},
+                    'n_params': int(n_params),
+                    'mesh': {'dp': 1},
+                    'devices': 1,
+                    'device': str(device),
+                    'batch_size': int(self.batch_size),
+                    'batch_shape': [int(self.batch_size)]
+                    + [int(d) for d in x_train.shape[1:]],
+                    'input_dtype': str(x_train.dtype),
+                    'loss': self.loss_name,
+                })
+            except Exception:
+                pass            # context is best-effort, never fatal
 
         epochs_done_global = 0
         restored = None
@@ -467,6 +635,15 @@ class Train(Executor):
                                              self_supervised=self_supervised)
                 eval_step = make_eval_step(model, loss_fn,
                                            self_supervised=self_supervised)
+            if self._telemetry is not None:
+                train_step = instrumented_step(
+                    train_step, self._telemetry,
+                    batch_size=self.batch_size,
+                    attribution=self._attribution,
+                    tripwire=self._tripwire,
+                    compile_events=self._compile_events,
+                    memory=self._memory, deviceprof=self._deviceprof,
+                    probe=self._probe)
             first_epoch = start_epoch if stage is remaining[0] else 0
             if first_epoch == 0 and stage is not self.stages[0]:
                 # stage boundary: fresh optimizer state, keep params
@@ -475,9 +652,12 @@ class Train(Executor):
             for epoch in range(first_epoch, int(stage.get('epochs', 1))):
                 self.step.start(2, f'epoch {epoch}', epoch)
                 ep_rng = np.random.RandomState(self.seed * 1000 + epoch)
+                profiling = self._maybe_start_profile(global_epoch, ck_dir,
+                                                      device)
                 t_ep = time.time()
                 train_metrics = []
                 first = global_epoch == epochs_done_global
+                attr = self._attribution
                 if use_device_data:
                     if steps_per_epoch * self.batch_size > len(x_train):
                         raise ValueError(
@@ -492,10 +672,20 @@ class Train(Executor):
                             f'batch_size={self.batch_size})')
                     perm = ep_rng.permutation(len(x_train))[
                         :steps_per_epoch * self.batch_size]
-                    # the epoch's indices: the loop's one host→device copy
+                    # the epoch's indices: the loop's one host→device
+                    # copy, attributed to the first step's h2d
+                    if attr is not None:
+                        attr.begin('h2d')
                     perm = place_batch((perm.reshape(
                         steps_per_epoch, self.batch_size), None), device)[0]
-                    for idx in perm:
+                    for s in range(steps_per_epoch):
+                        # taking the step's index row is the data wait;
+                        # the batch itself is already on the device
+                        if attr is not None:
+                            attr.begin('data_wait')
+                        idx = perm[s]
+                        if attr is not None:
+                            attr.begin('h2d')
                         state, metrics = train_step(state, x_all, y_all, idx)
                         train_metrics.append(metrics)
                     samples_seen += steps_per_epoch * self.batch_size
@@ -505,10 +695,14 @@ class Train(Executor):
                         transform=transform,
                         logger=self.info if first else None)
                     for x, y in prefetch_batches(batches, device,
-                                                 depth=self.prefetch):
+                                                 depth=self.prefetch,
+                                                 attribution=attr):
                         state, metrics = train_step(state, x, y)
                         train_metrics.append(metrics)
                         samples_seen += self.batch_size
+                if self._deviceprof is not None:
+                    # a window holds train steps only
+                    self._deviceprof.end_window()
                 if not train_metrics:
                     raise ValueError(
                         f'dataset has {len(x_train)} train samples — '
@@ -558,16 +752,9 @@ class Train(Executor):
                 self._report_series('images_per_sec', n_train / train_dt,
                                     global_epoch, 'train', stage_name)
                 if self._telemetry is not None:
-                    from mlcomp_tpu_torch.telemetry import record_span
-                    self._telemetry.gauge('epoch_time_s', train_dt)
-                    self._telemetry.gauge('epoch_throughput',
-                                          n_train / train_dt)
-                    self._telemetry.flush()
-                    record_span('train.epoch', started=t_ep,
-                                duration=time.time() - t_ep,
-                                task=self.task.id, role='train',
-                                tags={'epoch': global_epoch,
-                                      'stage': stage_name})
+                    self._epoch_telemetry(global_epoch, stage_name, t_ep,
+                                          train_dt, n_train,
+                                          steps_per_epoch)
                 last_of_stage = epoch == int(stage.get('epochs', 1)) - 1
                 should_save = self.checkpoint_every != 0 and (
                     is_best or self.checkpoint_every <= 1
@@ -586,7 +773,14 @@ class Train(Executor):
                     else:
                         save_checkpoint(ck_dir, host_state, meta_d,
                                         best=is_best)
+                if profiling:
+                    self._stop_profile(global_epoch)
                 global_epoch += 1
+                # the chaos seam (testing/faults.py): a fault armed for
+                # train.epoch fires here, after the epoch's checkpoint
+                # submit; one module-global check when none is armed
+                fault_point('train.epoch', epoch=global_epoch,
+                            task=self.task.id if self.task else None)
             if (dispatch_stage is not None or self.stage_per_dispatch) \
                     and stage_name != stage_names[-1]:
                 # return for the requeue: the next dispatch runs the next
@@ -609,6 +803,35 @@ class Train(Executor):
                 'best_score': best, 'n_params': n_params,
                 'wall_time_s': wall,
                 'samples_per_sec': samples_seen / max(wall, 1e-9)}
+
+    def _epoch_telemetry(self, global_epoch, stage_name, t_ep, train_dt,
+                         n_train, steps_per_epoch):
+        """The epoch's gauges (time, throughput, MFU, the card's memory,
+        the pipeline efficiency), a flush, the ``train.epoch`` span and
+        the on-demand trace's poll."""
+        from mlcomp_tpu_torch.telemetry import (
+            mfu, record_device_stats, record_span,
+        )
+        from mlcomp_tpu_torch.telemetry.device import DEFAULT_PEAK_TFLOPS
+        tel = self._telemetry
+        self._report_probe()
+        tel.gauge('epoch_time_s', train_dt)
+        tel.gauge('epoch_throughput', n_train / train_dt)
+        if self._probe.flops:
+            peak = float(self.telemetry_spec.get(
+                'peak_tflops', os.environ.get('MLCOMP_PEAK_TFLOPS',
+                                              DEFAULT_PEAK_TFLOPS)))
+            tel.gauge('mfu', mfu(self._probe.flops,
+                                 steps_per_epoch / train_dt, 1, peak))
+        record_device_stats(tel)
+        if self._attribution.steps:
+            self._attribution.emit_epoch(tel, epoch=global_epoch)
+        tel.flush()
+        record_span('train.epoch', started=t_ep,
+                    duration=time.time() - t_ep, task=self.task.id,
+                    role='train', tags={'epoch': global_epoch,
+                                        'stage': stage_name})
+        self._profiler.poll()
 
     def _predict_valid(self, model, x_valid, device) -> np.ndarray:
         """Softmax predictions (f32) of ``model`` in eval mode over the

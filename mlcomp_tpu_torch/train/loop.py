@@ -22,8 +22,11 @@ adds ``MOE_AUX_COEF`` times it to the loss and reports it as the
 ``moe_aux`` metric, as JAX's train steps do (its eval step, like
 JAX's, does neither).
 
-Not ported yet: ``make_device_epoch_fn`` (one dispatch per epoch) and
-``instrumented_step`` (telemetry, ROADMAP A6).
+``instrumented_step`` wraps a train step with the per-step telemetry
+(telemetry/): series, phase marks, the memory timeline, the sampled
+profiler windows and, on the first step, the FLOP and memory count.
+
+Not ported yet: ``make_device_epoch_fn`` (one dispatch per epoch).
 """
 
 import dataclasses
@@ -278,6 +281,96 @@ def make_eval_step(model, loss_fn: Callable, self_supervised: bool = False):
     return step
 
 
+def instrumented_step(step_fn, recorder, batch_size: int = None,
+                      metric_keys=('loss',), attribution=None,
+                      tripwire=None, compile_events=None,
+                      memory=None, deviceprof=None, probe=None):
+    """Wrap a train step with per-step telemetry recording
+    (telemetry/metrics.py). Hot-path cost per step: a few
+    ``perf_counter`` reads and list appends. The step's metrics are 0-d
+    tensors on the device, buffered as they are: the recorder pulls them
+    at flush, every ``flush_every`` samples. Nothing here syncs the
+    device.
+
+    ``step_time_ms`` is the host-observed interval between successive
+    step calls. CUDA launches are asynchronous: a call returns once the
+    host has launched the step's kernels, so the interval is the host's
+    time per step, and it tracks the device's only while the launch
+    queue is full and pushes back. Likewise the ``compute`` phase is the
+    host's launch time. The device's side of the step comes from the
+    sampled ``devtime`` windows (``deviceprof``). ``throughput``
+    (samples/s) derives from the same interval. The first call records
+    no timing (no previous call to diff against).
+
+    Optional hooks, in the JAX package's order:
+
+    - ``attribution`` marks the compute and telemetry phases and closes
+      each step (``step.phase.*`` series);
+    - ``compile_events`` gets ``.step`` stamped so a kernel build fired
+      inside this step lands with its step number;
+    - ``tripwire`` sees the same interval and flags host-sync suspects,
+      except on steps that built a kernel;
+    - ``memory`` (``MemorySampler``) records the step's memory timeline
+      point: one allocator read;
+    - ``deviceprof`` (``DeviceProfiler``) opens a ``torch.profiler``
+      window every ``profile_every`` steps and closes it after its
+      dispatch count; outside a window this is one integer comparison.
+      While any ``torch.profiler`` trace runs (a window, an on-demand or
+      an epoch trace) the step runs under its ``ProfilerStep#<step>``
+      marker, the trace's dispatch event; asking costs one C call;
+    - ``probe`` (``telemetry.device.FirstStepProbe``) runs the first
+      step under the FLOP counter and reads its memory: one step that
+      trains anyway.
+    """
+    import time as _time
+
+    from mlcomp_tpu_torch.telemetry.deviceprof import step_marker
+    profiling = torch.autograd._profiler_enabled
+    last = [None]
+
+    def wrapped(state, *args):
+        # step number FIRST so a build fired inside this step is
+        # labeled with the step that triggered it
+        step = recorder.next_step()
+        if compile_events is not None:
+            compile_events.step = step
+        if attribution is not None:
+            attribution.begin('compute')
+        if probe is not None and not probe.done:
+            out = probe.run(step_fn, state, *args)
+        elif profiling():
+            with step_marker(step):
+                out = step_fn(state, *args)
+        else:
+            out = step_fn(state, *args)
+        t = _time.perf_counter()
+        if attribution is not None:
+            attribution.begin('telemetry', now=t)
+        metrics = out[1] if isinstance(out, tuple) else {}
+        for key in metric_keys:
+            if key in metrics:
+                recorder.series(key, metrics[key], step=step)
+        prev, last[0] = last[0], t
+        compiled = compile_events.consume_dirty() \
+            if compile_events is not None else False
+        if prev is not None:
+            dt = t - prev
+            recorder.series('step_time_ms', dt * 1e3, step=step)
+            if batch_size and dt > 0:
+                recorder.series('throughput', batch_size / dt, step=step)
+            if tripwire is not None and not compiled:
+                tripwire.observe(dt * 1e3, step=step)
+        if memory is not None:
+            memory.sample(step=step)
+        if deviceprof is not None:
+            deviceprof.on_step(step)
+        if attribution is not None:
+            attribution.step_end(step=step)
+        return out
+
+    return wrapped
+
+
 def aggregate_metrics(metrics_list, weights=None):
     """Mean (optionally weighted) of a list of per-step metric dicts,
     pulled from the device in ONE transfer."""
@@ -308,6 +401,7 @@ def create_train_state(model, optimizer, seed: Optional[int] = 0,
 
 
 __all__ = ['TrainState', 'make_train_step', 'make_eval_step',
+           'instrumented_step',
            'make_device_train_step', 'make_device_eval_step',
            'aggregate_metrics', 'create_train_state', 'loss_for_task',
            'LOSSES', 'softmax_ce', 'lm_ce', 'seg_ce', 'lm_ce_with',

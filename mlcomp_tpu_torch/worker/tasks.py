@@ -63,9 +63,17 @@ def _install_crash_flush(session):
     import threading
 
     def _drain():
-        from mlcomp_tpu_torch.telemetry.metrics import flush_live_recorders
+        from mlcomp_tpu_torch.telemetry import (
+            close_live_profilers, flush_live_recorders,
+        )
         try:
             flush_spans(session)
+        except Exception:
+            pass
+        try:
+            # an open sampled window stops and parses so its devtime
+            # rows land before the recorder flush below
+            close_live_profilers()
         except Exception:
             pass
         flush_live_recorders()

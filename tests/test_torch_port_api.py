@@ -10,8 +10,11 @@ both DBs (both start from the same migrations), so ids stay as they
 are. Errors compare by status code (a traceback names its package's
 files).
 
-Also here: every route that waits for an unported module refuses with
-501 and its ROADMAP.md item, the dashboard page against JAX's (one
+Also here: the telemetry routes (``/api/task/devtime``,
+``/api/task/postmortem`` and their GET mirrors, ``/api/telemetry/profile``)
+against JAX's on twin rows, every route that waits for an unported
+module refuses with 501 and its ROADMAP.md item, the dashboard page
+against JAX's (one
 listed difference) with every ``api('...')`` call routed, ``GET
 /metrics`` parsed from both (equal but the families listed as waiting),
 the port's restart-with-resume of a real training task on the CPU,
@@ -563,6 +566,101 @@ class TestTelemetryReads:
         assert twin.ok('/api/alerts')['data'] == []
 
 
+# --------------------------------------------------------- telemetry routes
+def _devtime_rows(tid) -> list:
+    """Two sampled windows' ``devtime.*`` rows (steps 10 and 20), as
+    ``persist_attribution`` writes them."""
+    rows = []
+    for step, busy in ((10, 0.5), (20, 0.75)):
+        for key in ('compute_ms', 'comm_ms', 'comm_exposed_ms', 'io_ms',
+                    'idle_ms', 'busy_frac', 'exposed_comm_frac',
+                    'window_ms', 'host_dispatch_gap_ms'):
+            rows.append((tid, f'devtime.{key}', 'series', step, busy,
+                         now(), 'train', None))
+        rows.append((tid, 'devtime.summary', 'gauge', step, 2.0, now(),
+                     'train', json.dumps({
+                         'buckets': {'compute_ms': 1.0, 'idle_ms': 1.0},
+                         'busy_frac': busy, 'device_lines': 1,
+                         'host': {'dispatch_count': 3,
+                                  'dispatch_gap_ms': 0.25},
+                         'ops': [{'op': 'k', 'category': 'compute',
+                                  'ms': 1.0, 'count': 3}]})))
+    return rows
+
+
+def _insert_metrics(twin, rows):
+    for session in (twin.jax, twin.port):
+        session.executemany(
+            'INSERT INTO metric (task, name, kind, step, value, time, '
+            'component, tags) VALUES (?, ?, ?, ?, ?, ?, ?, ?)', rows)
+
+
+class TestTelemetryRoutes:
+    def test_devtime_and_its_get_mirror(self, twin, dag):
+        tid, other = twin.tasks['write'][0], twin.tasks['check'][0]
+        _insert_metrics(twin, _devtime_rows(tid))
+        body = twin.ok('/api/task/devtime', {'task': tid})
+        assert body['windows'] == 2 and body['summary']['step'] == 20
+        assert 'devtime.summary' not in body['series']
+        assert twin.ok('/api/task/devtime', {'id': tid, 'tail': 1})[
+            'windows'] == 1
+        status, got = twin.call(f'/api/task/devtime?task={tid}',
+                                method='GET', token=None)
+        assert status == 200 and got == body
+        for data in ({'task': other}, {'task': 999999}):
+            assert twin.call('/api/task/devtime', data)[0] == 404
+        assert twin.call('/api/task/devtime', {})[0] == 400
+
+    def test_postmortem_live_frozen_and_get_mirror(self, twin, dag):
+        from mlcomp_tpu.telemetry.memory import (
+            persist_postmortem as jax_persist_postmortem,
+        )
+        from mlcomp_tpu_torch.telemetry import persist_postmortem
+        tid = twin.tasks['write'][0]
+        _insert_metrics(twin, _devtime_rows(tid) + [
+            (tid, 'loss', 'series', s, 1.0 / (s + 1), now(), 'train', None)
+            for s in range(3)] + [
+            (tid, 'run.snapshot', 'gauge', None, 0.0, now(), 'train',
+             json.dumps({'model': 'mlp', 'batch_size': 32}))])
+        assert twin.call('/api/task/postmortem', {'task': tid})[0] == 404
+        live = twin.ok('/api/task/postmortem', {'task': tid, 'live': True})
+        assert live['live'] is True and len(live['series']['loss']) == 3
+        persist_postmortem(twin.port, tid, reason='oom')
+        jax_persist_postmortem(twin.jax, tid, reason='oom')
+        frozen = twin.ok('/api/task/postmortem', {'task': tid})
+        assert frozen['reason'] == 'oom'
+        assert frozen['context']['run.snapshot']['tags']['model'] == 'mlp'
+        status, got = twin.call(f'/api/task/postmortem?task={tid}',
+                                method='GET', token=None)
+        assert status == 200 and got == frozen
+        assert twin.call('/api/task/postmortem', {'task': 999999})[0] == 404
+
+    def test_profile_start_status_stop(self, twin, dag):
+        """The request row's lifecycle as the JAX server writes it (its
+        ``ts`` is each server's clock); the token is required."""
+        tid = twin.tasks['write'][0]
+        jax_base = f'http://127.0.0.1:{twin.jax_server.port}'
+        port_base = f'http://127.0.0.1:{twin.port_server.port}'
+        for data, status in (({'task': tid, 'action': 'status'}, 200),
+                             ({'task': tid, 'dir': '/x',
+                               'max_epochs': 2}, 200),
+                             ({'task': tid, 'action': 'status'}, 200),
+                             ({'task': tid, 'action': 'stop'}, 200),
+                             ({'task': tid, 'action': 'status'}, 200),
+                             ({'task': tid, 'action': 'bogus'}, 400),
+                             ({'action': 'status'}, 400)):
+            got = [_request(base, '/api/telemetry/profile', data)
+                   for base in (jax_base, port_base)]
+            assert got[0][0] == got[1][0] == status, (data, got)
+            if status == 200:
+                theirs, mine = ({k: v for k, v in body.items() if k != 'ts'}
+                                for _, body in got)
+                assert mine == theirs and mine['task'] == tid
+        assert mine['status'] == 'stop_requested' and mine['max_epochs'] == 2
+        assert twin.call('/api/telemetry/profile', {'task': tid},
+                         token='wrong')[0] == 401
+
+
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize('route', sorted(api.WAITING_ROUTES))
 def test_waiting_route_refuses_with_its_roadmap_item(twin, route):
@@ -580,8 +678,7 @@ def test_waiting_route_refuses_with_its_roadmap_item(twin, route):
 
 
 def test_waiting_get_mirrors_refuse(twin):
-    for route in ('/api/fleets', '/api/sweeps', '/api/usage', '/api/slos',
-                  '/api/task/postmortem', '/api/task/devtime'):
+    for route in ('/api/fleets', '/api/sweeps', '/api/usage', '/api/slos'):
         status, body = twin.port_call(route + '?task=1', method='GET',
                                       token=None)
         assert status == 501 and route in body['reason'], route
@@ -633,7 +730,15 @@ def test_metrics_families_equal_but_the_waiting(twin, dag):
              (None, 'supervisor.failover', 'counter', 2, 1.0, now(),
               'supervisor', '{"first_boot": 0}'),
              (tid, 'device0.hbm_used', 'gauge', 1, 5.0, now(), 'train',
-              None)])
+              None),
+             (tid, 'step.phase.compute_ms', 'series', 1, 7.5, now(),
+              'train', None),
+             (tid, 'step.phase.compute_ms', 'series', 2, 8.5, now(),
+              'train', None),
+             (tid, 'step.phase.data_wait_ms', 'series', 2, 0.5, now(),
+              'train', None),
+             (tid, 'step.pipeline_efficiency', 'gauge', 0, 0.9, now(),
+              'train', None)])
         session.execute(
             "UPDATE supervisor_lease SET holder='h1:1:a', epoch=2, "
             "expires_at=? WHERE id=1", ('2999-01-01 00:00:00.000000',))
@@ -648,7 +753,7 @@ def test_metrics_families_equal_but_the_waiting(twin, dag):
     assert set(REQUIRED_FAMILIES) <= set(mine)
     assert set(theirs) - set(mine) == set(WAITING_FAMILIES)
     assert set(mine) <= set(theirs)
-    waiting_collectors = {'step_phases', 'fleet_replicas', 'quota'}
+    waiting_collectors = {'fleet_replicas', 'quota'}
     for name in mine:
         a, b = mine[name], theirs[name]
         assert a['type'] == b['type'], name
@@ -660,6 +765,11 @@ def test_metrics_families_equal_but_the_waiting(twin, dag):
                        if s[1]['collector'] not in waiting_collectors]
             assert all(v == 0 for _, _, v in a['samples'])
         assert a['samples'] == samples, name
+    assert sorted(s[1]['phase'] for s in
+                  mine['mlcomp_step_phase_ms']['samples']) == [
+        'compute', 'data_wait']
+    assert mine['mlcomp_pipeline_efficiency']['samples'] == [
+        ('mlcomp_pipeline_efficiency', {'task': str(tid)}, 0.9)]
     counts = {s[1]['status']: s[2] for s in mine['mlcomp_tasks']['samples']}
     assert counts['in_progress'] == 1 and counts['not_ran'] == 1
     assert mine['mlcomp_supervisor_epoch']['samples'][0][2] == 2

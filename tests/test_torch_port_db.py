@@ -198,7 +198,8 @@ def test_values_adapt_as_in_jax(value):
 
 def test_spans_and_metrics_rows_read_by_jax(pair):
     """Spans flushed and a recorder's metric rows, read through the JAX
-    package's providers; a value on a device is dropped, not pulled."""
+    package's providers; a value that is not a number is dropped and
+    counted."""
     from mlcomp_tpu_torch.telemetry import (
         MetricRecorder, flush_spans, record_span, span,
     )

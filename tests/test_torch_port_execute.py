@@ -236,7 +236,13 @@ def test_execute_in_a_process_of_its_own(tmp_path):
     assert conn.execute('SELECT COUNT(*) FROM telemetry_span').fetchone()[
         0] > 0
     gauges = {n for (n,) in conn.execute('SELECT name FROM metric')}
-    assert gauges == {'epoch_time_s', 'epoch_throughput'}
+    # the JAX trainer's rows with its CPU defaults (no FLOP count, no
+    # memory attribution or timeline, no profiler windows)
+    assert gauges == {'epoch_time_s', 'epoch_throughput', 'loss',
+                      'step_time_ms', 'throughput', 'run.snapshot',
+                      'step.pipeline_efficiency'} | {
+        f'step.phase.{p}_ms' for p in ('data_wait', 'h2d', 'compute',
+                                       'telemetry')}
     score, = conn.execute('SELECT score_local FROM model WHERE '
                           "name='mlp_model'").fetchone()
     conn.close()

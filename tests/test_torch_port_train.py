@@ -626,9 +626,7 @@ class TestExecutor:
 
     @pytest.mark.parametrize('key,value', [
         ('mesh', {'dp': 2}), ('epoch_scan', True),
-        ('profile', {'epoch': 0}),
-        ('report_imgs', {'type': 'classification'}),
-        ('telemetry', {'flush_every': 10})])
+        ('report_imgs', {'type': 'classification'})])
     def test_not_ported_keys_raise(self, tmp_path, key, value):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             Executor.from_config('train', _config(tmp_path, **{key: value}))
