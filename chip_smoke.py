@@ -312,6 +312,43 @@ Phase of the site's slice, run after the scheduler's:
   Failed and restarted through ``/api/dag/start``, its resume runs no
   epoch (``samples_per_sec`` 0) and launches nothing.
 
+Phase of the serving fleets' slice, run after the site's:
+
+- fleet: the flagship LM (``[serve]``'s export, a v2 from seed s+1 and
+  ``[serve-int8]``'s per-layer export) in serving fleets. (a) ``python
+  -m mlcomp_tpu_torch.server start 5`` on a free port; ``fleet-create lm
+  flagship_lm --replicas 2`` and ``fleet-create lm_int8
+  flagship_lm_layers --replicas 1 --quantize int8`` as processes (with
+  ``--cores 0``: the replicas share the card; ``--batch-size 4``,
+  ``--activation argmax``, ``--slo-p99-ms 5000``), then ``server
+  gateway``; once ``/api/fleets`` shows three healthy replicas, the
+  ``REQUEST_ROWS`` requests through ``POST /predict/lm`` and
+  ``/predict/lm_int8`` and straight to a replica of each, the answers
+  held to in-process predictors on the same weights (``_compare_rows``:
+  the served picks tie-aware against the plain attention or the plain
+  int8 product), p50 / p99 of each; two client threads through the
+  gateway while ``fleet-swap lm flagship_lm_v2`` warms generation 2,
+  flips and retires generation 1 (the answers after it v2's), and while
+  one ``lm`` replica's ``run-task`` process is SIGKILLed (exactly one
+  replacement, with ``respawned_from``, healthy): every answer 200, the
+  gateway's hedges, failovers and circuits; ``GET /metrics``
+  (``mlcomp_fleet_replicas``, generation 2, one completed swap, one
+  respawn), ``fleets --json`` against ``/api/fleets``, the replicas
+  mapping the CUDA driver and neither the gateway nor the site
+  (``nvidia-smi --query-compute-apps`` printed), ``fleet-stop`` of both
+  leaving no replica process, ``server stop``. Each replica's seconds
+  to dispatch / start / bind / healthy, create to all healthy, swap to
+  flip and flip to retired, kill to the replacement healthy, the
+  gateway's added latency (the median of paired differences, gateway
+  and direct in turns), beside the card's name and power limit. (b) In
+  this process: a ``serve_replica`` executor for each fleet on a thread
+  (rows by the reconciler's ``_spawn``, probed healthy by its probe
+  pass) behind an in-process ``FleetGateway``, the launches zeroed just
+  before the requests and read just after (8 flash forwards a dispatch;
+  at int8 also 25 int8 matmuls), ``start_heartbeat``'s row, one traced
+  request's tree (the gateway hop and the serving span) through
+  ``/telemetry/trace/<id>``, the row removed by ``graceful_shutdown``.
+
 Phase of the device telemetry's slice, run after the wide step's:
 
 - telemetry: ``encoder_grid``'s ViT (one epoch, ``VIT_SPEC``) and
@@ -4826,6 +4863,738 @@ def phase_site(smi: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ serving fleets
+#: seconds ``[fleet]`` waits for any one of its steps
+FLEET_TIMEOUT_S = 240
+#: the smoke's fleets: the flagship at ``[serve]``'s batch, answering
+#: token ids (``argmax``) — a row's logits would be 1 GiB of JSON — and a
+#: p99 SLO that the clients' own pace cannot trip (the default 250 ms is
+#: a deployment's choice; shedding would answer 429)
+FLEET_OPTIONS = ['--project', 'smoke', '--cores', '0', '--batch-size',
+                 str(SERVE_BATCH), '--activation', 'argmax',
+                 '--slo-p99-ms', '5000']
+#: the gateway's hedge budget, JAX's defaults (``HedgeBudget``)
+HEDGE_RATIO, HEDGE_BURST = 0.1, 5.0
+
+
+def _fleet_exports(seed: int) -> dict:
+    """{name: path} of the exports the fleets serve: ``flagship_lm``
+    (``[serve]``'s, seed s), ``flagship_lm_v2`` (seed s+1) and
+    ``flagship_lm_layers`` (``[serve-int8]``'s per-layer export), each
+    written here where an earlier phase did not."""
+    from mlcomp_tpu_torch import MODEL_FOLDER
+    from mlcomp_tpu_torch.server.serve import resolve_model
+    from mlcomp_tpu_torch.train.export import export_model
+    from mlcomp_tpu_torch.train.layer_stack import unstack_layer_tree
+    meta = {'input_shape': [FLAGSHIP['max_seq_len']], 'input_dtype': 'int32'}
+    out = {}
+    for name, s, per_layer in (('flagship_lm', seed, False),
+                               ('flagship_lm_v2', seed + 1, False),
+                               ('flagship_lm_layers', seed, True)):
+        try:
+            out[name] = resolve_model(name, 'smoke')
+            continue
+        except FileNotFoundError:
+            pass
+        params = flagship_params(s)
+        spec = FLAGSHIP
+        if per_layer:
+            params = unstack_layer_tree(params)
+            spec = {**FLAGSHIP, 'scan_layers': False}
+        export_model(os.path.join(MODEL_FOLDER, 'smoke', name), params,
+                     spec, meta=meta)
+        out[name] = resolve_model(name, 'smoke')
+    return out
+
+
+def _fleet_references(paths: dict, tokens: np.ndarray) -> dict:
+    """Per export, one row's logits on the card through the kernels and
+    through their plain versions (the dense attention; at int8 the plain
+    int8 product), kept on the host: what ``_compare_rows`` holds the
+    fleets' answers to."""
+    import gc
+    from mlcomp_tpu_torch.models import create_model
+    from mlcomp_tpu_torch.ops.int8_matmul import Int8Dense
+    from mlcomp_tpu_torch.train.export import make_predictor
+    x = torch.from_numpy(tokens).cuda()
+    refs = {}
+    for name, quantize in (('flagship_lm', None), ('flagship_lm_v2', None),
+                           ('flagship_lm_layers', 'int8')):
+        model = make_predictor(paths[name], batch_size=SERVE_BATCH,
+                               quantize=quantize, device='cuda').model
+        with torch.inference_mode():
+            kern = model(x)[0].float().cpu()
+            if quantize:
+                modules = [m for m in model.modules()
+                           if isinstance(m, Int8Dense)]
+                for m in modules:
+                    m.impl = 'dense'
+                ref = model(x)[0].float().cpu()
+            else:
+                dense = create_model(**{**FLAGSHIP, 'attn_impl': 'dense'},
+                                     device='cuda')
+                dense.load_state_dict(model.state_dict())
+                ref = dense(x)[0].float().cpu()
+                del dense
+        refs[name] = (kern, ref)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _post_rows(url: str, x: np.ndarray, trace: str = None) -> tuple:
+    """(status, JSON body, ms) of one ``POST`` of token rows."""
+    from mlcomp_tpu_torch import TOKEN
+    headers = {'Authorization': TOKEN}
+    if trace:
+        headers['X-MLComp-Trace'] = trace
+    req = urllib.request.Request(url, data=json.dumps(
+        {'x': x.tolist()}).encode(), headers=headers)
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    except (urllib.error.URLError, ConnectionError) as e:
+        return 0, {'error': str(e)}, (time.monotonic() - t0) * 1e3
+    ms = (time.monotonic() - t0) * 1e3
+    try:
+        return status, json.loads(raw), ms
+    except ValueError:
+        return status, {'raw': raw[:200].decode(errors='replace')}, ms
+
+
+def _token_ids(x: np.ndarray, body: dict):
+    """The answer's token ids, or None when they are not one id in the
+    vocabulary for each position of ``x``."""
+    y = np.asarray(body.get('y'))
+    if y.shape != x.shape or not np.issubdtype(y.dtype, np.integer) \
+            or y.min() < 0 or y.max() >= FLAGSHIP['vocab_size']:
+        return None
+    return y
+
+
+def _check_answers(phase: str, x: np.ndarray, body: dict) -> np.ndarray:
+    y = _token_ids(x, body)
+    if y is None:
+        fail(f'{phase}: answered {str(body)[:200]} for {x.shape} tokens')
+    return y
+
+
+def _quantiles(ms: list) -> dict:
+    return {'p50_ms': f'{float(np.percentile(ms, 50)):.1f}',
+            'p99_ms': f'{float(np.percentile(ms, 99)):.1f}'}
+
+
+class _Roster:
+    """The fleet tables polled from the DB: the first moment (seconds
+    after ``t0``) each replica's task was dispatched (Queued), ran
+    (InProgress), bound its endpoint and was probed healthy."""
+
+    def __init__(self, session, t0: float):
+        self.session = session
+        self.t0 = t0
+        self.first = {}
+        self.rows = {}
+
+    def poll(self):
+        from mlcomp_tpu_torch.db.enums import TaskStatus
+        t = time.monotonic() - self.t0
+        for r in self.session.query(
+                'SELECT r.id, f.name AS fleet, r.generation, r.state, '
+                'r.url, r.task, r.respawned_from, r.failure_reason, '
+                't.status, t.pid FROM serve_replica r JOIN serve_fleet f '
+                'ON r.fleet = f.id LEFT JOIN task t ON r.task = t.id'):
+            row = dict(r)
+            self.rows[row['id']] = row
+            marks = self.first.setdefault(row['id'], {})
+            status = row['status'] if row['status'] is not None else -1
+            for event, hit in (
+                    ('dispatch', status >= int(TaskStatus.Queued)),
+                    ('started', status >= int(TaskStatus.InProgress)),
+                    ('bound', bool(row['url'])),
+                    ('healthy', row['state'] == 'healthy')):
+                if hit and event not in marks:
+                    marks[event] = round(t, 3)
+
+    def of(self, fleet: str, generation: int = None, state: str = None):
+        return [r for r in self.rows.values() if r['fleet'] == fleet
+                and (generation is None or r['generation'] == generation)
+                and (state is None or r['state'] == state)]
+
+    def walls(self, ids, since: float) -> dict:
+        """{replica: 'dispatch/started/bound/healthy' seconds after
+        ``since`` (a ``t0``-relative time)}."""
+        out = {}
+        for i in ids:
+            marks = self.first.get(i, {})
+            out[i] = '/'.join(
+                f'{marks[e] - since:.2f}' if e in marks else '-'
+                for e in ('dispatch', 'started', 'bound', 'healthy'))
+        return out
+
+
+class _Clients:
+    """Client threads sending the requests through the gateway in a loop
+    until stopped; every answer kept (time, status, ms)."""
+
+    def __init__(self, url: str, requests: list, n: int = 2):
+        self.url, self.requests = url, requests
+        self.stop_evt = threading.Event()
+        self.lock = threading.Lock()
+        self.answers = []
+        self.threads = [threading.Thread(target=self._run, args=(i, n),
+                                         daemon=True) for i in range(n)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, i: int, n: int):
+        k = i
+        while not self.stop_evt.is_set():
+            x = self.requests[k % len(self.requests)]
+            k += n
+            status, body, ms = _post_rows(self.url, x)
+            if status == 200 and _token_ids(x, body) is None:
+                status = -1             # a 200 that is no answer
+            with self.lock:
+                self.answers.append((time.monotonic(), status, ms,
+                                     None if status == 200 else body))
+
+    def since(self, t: float) -> list:
+        with self.lock:
+            return [a for a in self.answers if a[0] >= t]
+
+    def stop(self):
+        self.stop_evt.set()
+        for t in self.threads:
+            t.join(timeout=600)
+
+
+def phase_fleet(seed: int, smi: str) -> dict:
+    """``[fleet]``: serving fleets of the flagship LM behind the routing
+    gateway, declared, swapped, healed and stopped through the port's
+    commands, then served through the in-process gateway with the
+    kernels counted.
+
+    (a) Through processes: ``server start 5`` on a free port; ``fleet-
+    create lm flagship_lm --replicas 2`` and ``fleet-create lm_int8
+    flagship_lm_layers --replicas 1 --quantize int8`` (``FLEET_OPTIONS``:
+    ``--cores 0``, so the three replicas share the card), then ``server
+    gateway``. Once ``/api/fleets`` shows three healthy replicas,
+    ``REQUEST_ROWS``-sized requests through ``POST /predict/lm`` and
+    ``/predict/lm_int8`` and straight to one replica of each, the
+    answers held to in-process predictors on the same weights by
+    ``_compare_rows`` (the served picks tie-aware against the plain
+    version); two client threads then keep sending through the gateway
+    while ``fleet-swap lm flagship_lm_v2`` runs (generation 2 warm, the
+    flip, generation 1 retired) and while one ``lm`` replica's
+    ``run-task`` process is SIGKILLed (exactly one replacement, with
+    ``respawned_from``, healthy): every answer 200, the answers after the
+    flip v2's. Then ``GET /metrics`` of the site, ``fleets --json``
+    against ``/api/fleets``, the replicas mapping the CUDA driver and the
+    gateway and site not, ``fleet-stop`` of both fleets leaving no
+    replica process, ``server stop``. (b) In this process: one
+    ``serve_replica`` executor for each fleet on a thread, spawned by
+    the reconciler's own ``_spawn`` and probed healthy by its own probe
+    pass, behind an in-process ``FleetGateway`` on ``refresh_from_db``,
+    the launches counted per dispatch; ``start_heartbeat`` on the ``lm``
+    replica, one traced request's tree (gateway hop and serving span)
+    through ``/telemetry/trace/<id>`` of an in-process API server, the
+    auxiliary row gone after ``graceful_shutdown``. Returns (b)'s
+    launches by path."""
+    import signal
+    from mlcomp_tpu_torch import DB_FOLDER, DOCKER_IMG, TOKEN
+    from mlcomp_tpu_torch.db.core import Session
+    from mlcomp_tpu_torch.telemetry.export import parse_openmetrics
+    from mlcomp_tpu_torch.utils import procfs
+    from mlcomp_tpu_torch.utils.misc import hostname, now as utc_now
+
+    phase = 'fleet'
+    t_phase = time.monotonic()
+    paths = _fleet_exports(seed)
+    rng = np.random.default_rng(seed + 1)
+    t, vocab = FLAGSHIP['max_seq_len'], FLAGSHIP['vocab_size']
+    requests = [rng.integers(0, vocab, (n, t), dtype=np.int32)
+                for n in REQUEST_ROWS]
+    refs = _fleet_references(paths, requests[0])
+    prepared_s = time.monotonic() - t_phase
+    host = hostname()
+    work = tempfile.mkdtemp(prefix='fleet_')
+    group_log = os.path.join(work, 'group.log')
+    gateway_log = os.path.join(work, 'gateway.log')
+    group, gateway = None, None
+    session = Session.create_session(key='fleet')
+
+    def seconds_since(t0: float) -> float:
+        return round(time.monotonic() - t0, 3)
+
+    def alive():
+        for proc, log, what in ((group, group_log, 'group'),
+                                (gateway, gateway_log, 'gateway')):
+            if proc is not None and proc.poll() is not None:
+                fail(f'{phase}: the {what} exited {proc.returncode}:\n'
+                     f'{_tail(log)}')
+
+    def command(*argv, cli='mlcomp_tpu_torch.server'):
+        out = subprocess.run([sys.executable, '-m', cli, *argv], cwd=HERE,
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f'{phase}: {" ".join(argv)} exited {out.returncode}:\n'
+                 f'{out.stdout[-2000:]}\n{out.stderr[-2000:]}')
+        return out.stdout
+
+    def fleets_api() -> dict:
+        status, body = _api(port, '/api/fleets')
+        if status != 200:
+            fail(f'{phase}: /api/fleets answered {status} {body}')
+        return {f['name']: f for f in body['data']}
+
+    def check():
+        alive()
+        roster.poll()
+
+    def stop_proc(proc):
+        if proc is not None and proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGTERM)
+                proc.wait(timeout=30)
+            except (ProcessLookupError, subprocess.TimeoutExpired):
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+
+    clients = None
+    try:
+        # (a) the site, the fleets and the gateway as processes
+        port, gw_port = _free_port(), _free_port()
+        t0 = time.monotonic()
+        roster = _Roster(session, t0)
+        spawned = str(utc_now())
+        with open(group_log, 'w') as out:
+            group = subprocess.Popen(
+                [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'start',
+                 '5'], cwd=HERE, env=dict(os.environ, WEB_PORT=str(port)),
+                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        _wait_for(phase, 'answer from /api/token', lambda: _api_ok(
+            port, '/api/token', {'token': TOKEN}), alive, interval=0.05)
+        _wait_for(phase, 'heartbeat of worker-supervisor', lambda: (
+            session.query_one(
+                'SELECT 1 FROM docker WHERE computer=? AND name=? AND '
+                'last_activity > ?', (host, DOCKER_IMG, spawned))), alive)
+        site_s = seconds_since(t0)
+        t_create = time.monotonic() - t0
+        command('fleet-create', 'lm', 'flagship_lm', '--replicas', '2',
+                *FLEET_OPTIONS)
+        command('fleet-create', 'lm_int8', 'flagship_lm_layers',
+                '--replicas', '1', '--quantize', 'int8', *FLEET_OPTIONS)
+        with open(gateway_log, 'w') as out:
+            gateway = subprocess.Popen(
+                [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'gateway',
+                 '--port', str(gw_port)], cwd=HERE, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+
+        def healthy(want: dict):
+            def probe():
+                roster.poll()
+                fleets = fleets_api()
+                got = {name: fleets.get(name, {}).get('healthy', 0)
+                       for name in want}
+                return fleets if got == want else None
+            return probe
+
+        fleets = _wait_for(phase, 'three healthy replicas',
+                           healthy({'lm': 2, 'lm_int8': 1}), check,
+                           timeout=FLEET_TIMEOUT_S)
+        all_healthy_s = round(time.monotonic() - t0 - t_create, 3)
+        lm = [r for r in fleets['lm']['replicas'] if r['state'] == 'healthy']
+        lm8 = [r for r in fleets['lm_int8']['replicas']
+               if r['state'] == 'healthy']
+        tasks = [roster.rows[r['id']]['task'] for r in lm + lm8]
+        builds = session.query(
+            "SELECT task, name, value FROM metric WHERE name LIKE "
+            f"'compile.%' AND task IN ({','.join('?' * len(tasks))})",
+            tasks)
+        say(phase, part='a', site_ready_s=site_s,
+            create_to_all_healthy_s=all_healthy_s,
+            replica_kernel_builds=json.dumps([tuple(b) for b in builds]),
+            replica_walls=json.dumps(roster.walls(
+                [r['id'] for r in lm + lm8], t_create)),
+            walls='dispatch/started/bound/healthy s after fleet-create',
+            card=smi)
+        gw = f'http://127.0.0.1:{gw_port}'
+
+        def routed():
+            try:
+                with urllib.request.urlopen(gw + '/health',
+                                            timeout=10) as resp:
+                    body = json.loads(resp.read())
+            except (urllib.error.URLError, ConnectionError):
+                return None
+            n = {k: len(v['backends']) for k, v in body['fleets'].items()}
+            return body if n == {'lm': 2, 'lm_int8': 1} else None
+
+        _wait_for(phase, 'gateway routes to the three replicas', routed,
+                  alive)
+
+        # the rows through the gateway and straight to a replica, in
+        # turns (which goes first alternates): the gateway's added
+        # latency is the median of the paired differences
+        latencies, answers, added = {}, {}, {}
+        for fleet, name, direct in (('lm', 'flagship_lm', lm[0]['url']),
+                                    ('lm_int8', 'flagship_lm_layers',
+                                     lm8[0]['url'])):
+            legs = [(fleet, f'{gw}/predict/{fleet}'),
+                    (f'{fleet}_direct', f'{direct}/predict')]
+            for key, _ in legs:
+                latencies[key], answers[key] = [], []
+            for i, x in enumerate(requests):
+                for key, url in (legs[::-1] if i % 2 else legs):
+                    status, body, took = _post_rows(url, x)
+                    if status != 200:
+                        fail(f'{phase}: {key} answered {status} {body}')
+                    answers[key].append(_check_answers(phase, x, body))
+                    latencies[key].append(took)
+            kern, ref = refs[name]
+            for key, _ in legs:
+                _compare_rows(f'{phase}-compare', kern.cuda(), ref.cuda(),
+                              torch.from_numpy(answers[key][0][0]).cuda()
+                              .long(), path=key, **_quantiles(latencies[key]))
+            added[fleet] = float(np.median(np.subtract(
+                latencies[fleet], latencies[f'{fleet}_direct'])))
+        say(phase, part='a',
+            gateway_added_ms=f'{added["lm"]:.2f}',
+            gateway_added_int8_ms=f'{added["lm_int8"]:.2f}',
+            added='median of paired differences, gateway - direct',
+            gateway_equals_direct=all(
+                np.array_equal(a, b) for a, b in zip(
+                    answers['lm'], answers['lm_direct'])),
+            gateway_equals_direct_int8=all(
+                np.array_equal(a, b) for a, b in zip(
+                    answers['lm_int8'], answers['lm_int8_direct'])),
+            card=smi)
+
+        # the swap, with two clients through the gateway
+        clients = _Clients(gw + '/predict/lm', requests)
+        t_swap = time.monotonic()
+        command('fleet-swap', 'lm', 'flagship_lm_v2')
+
+        def flipped():
+            roster.poll()
+            f = fleets_api()['lm']
+            return f if f['generation'] == 2 and f['status'] == 'active' \
+                else None
+
+        _wait_for(phase, 'flip to generation 2', flipped, check,
+                  timeout=FLEET_TIMEOUT_S)
+        flip_s = seconds_since(t_swap)
+
+        def retired():
+            roster.poll()
+            f = fleets_api()['lm']
+            old = [r for r in f['replicas'] if r['generation'] == 1]
+            return f if old and all(r['state'] == 'dead'
+                                    for r in old) else None
+
+        after = _wait_for(phase, 'generation 1 retired', retired, check,
+                          timeout=FLEET_TIMEOUT_S)
+        retired_s = seconds_since(t_swap)
+        old_pids = [roster.rows[r['id']]['pid'] for r in after['replicas']
+                    if r['generation'] == 1]
+        _wait_for(phase, 'exit of generation 1', lambda: not any(
+            procfs.pid_exists(p) for p in old_pids if p), check)
+        gen2 = [r['id'] for r in after['replicas'] if r['generation'] == 2]
+        swap_answers = clients.since(t_swap)
+        # generation 1 is gone: only generation 2 can answer
+        status, body, _ = _post_rows(gw + '/predict/lm', requests[0])
+        if status != 200:
+            fail(f'{phase}: after the flip /predict/lm answered {status}')
+        y_v2 = _check_answers(phase, requests[0], body)
+        kern, ref = refs['flagship_lm_v2']
+        _compare_rows(f'{phase}-compare', kern.cuda(), ref.cuda(),
+                      torch.from_numpy(y_v2[0]).cuda().long(), path='lm_v2')
+        say(phase, part='a', swap_staged_to_flip_s=flip_s,
+            flip_to_retired_s=round(retired_s - flip_s, 3),
+            gen2_walls=json.dumps(roster.walls(gen2, t_swap - t0)),
+            requests_during_swap=len(swap_answers),
+            non_200=sum(a[1] != 200 for a in swap_answers), card=smi)
+
+        # the kill: one generation-2 replica's process, SIGKILLed
+        victim = roster.rows[gen2[0]]
+        t_kill = time.monotonic()
+        os.kill(victim['pid'], signal.SIGKILL)
+
+        def replaced():
+            roster.poll()
+            f = fleets_api()['lm']
+            new = [r for r in f['replicas']
+                   if r['respawned_from'] == victim['id']]
+            return (f, new) if new and new[0]['state'] == 'healthy' and \
+                f['healthy'] == 2 else None
+
+        f, new = _wait_for(phase, 'healthy replacement of the killed '
+                           'replica', replaced, check,
+                           timeout=FLEET_TIMEOUT_S)
+        kill_s = seconds_since(t_kill)
+        time.sleep(2.5)         # a gateway refresh onto the newcomer
+        clients.stop()
+        kill_answers = clients.since(t_kill)
+        bad = [a for a in clients.answers if a[1] != 200]
+        with urllib.request.urlopen(gw + '/health', timeout=10) as resp:
+            route = json.loads(resp.read())['fleets']['lm']
+        circuits = [b['circuit'] for b in route['backends']]
+        say(phase, part='a', kill_to_replacement_healthy_s=kill_s,
+            killed=victim['id'], replacement=new[0]['id'],
+            respawns=len([r for r in f['replicas']
+                          if r['respawned_from']]),
+            failure_reason=roster.rows[victim['id']]['failure_reason'],
+            requests_during_kill=len(kill_answers),
+            requests_total=len(clients.answers), non_200=len(bad),
+            hedges=route['hedges'], failovers=route['failovers'],
+            gateway_errors=route['errors'], circuits=circuits,
+            **_quantiles([a[2] for a in clients.answers]), card=smi)
+        if bad:
+            budget = HEDGE_BURST + HEDGE_RATIO * route['requests']
+            spent = route['hedges'] >= budget - 1
+            fail(f'{phase}: {len(bad)} of {len(clients.answers)} requests '
+                 f'through the gateway did not answer 200: '
+                 f'{[(a[1], a[3]) for a in bad[:5]]}'
+                 + (f'; the hedge budget (ratio {HEDGE_RATIO}, burst '
+                    f'{HEDGE_BURST}) was spent: {route["hedges"]} hedges of '
+                    f'{budget:.1f}' if spent else ''))
+        respawned = [r for r in f['replicas'] if r['respawned_from']]
+        if len(respawned) != 1 or len(f['replicas']) != 5:
+            fail(f'{phase}: expected exactly one respawn among five lm '
+                 f'replicas, got {f["replicas"]}')
+
+        # the site's /metrics, fleets --json, who holds a CUDA context
+        status, text = _api(port, '/metrics', method='GET')
+        families = parse_openmetrics(text)
+        gen = {s[1]['fleet']: s[2] for s in
+               families['mlcomp_fleet_generation']['samples']}
+        swaps = {(s[1]['fleet'], s[1]['outcome']): s[2] for s in
+                 families['mlcomp_fleet_swaps']['samples']}
+        respawn_total = sum(s[2] for s in
+                            families['mlcomp_fleet_respawns']['samples']
+                            if s[1]['fleet'] == 'lm')
+        states = {(s[1]['fleet'], s[1]['state']): s[2] for s in
+                  families['mlcomp_fleet_replicas']['samples']}
+        say(phase, part='a', metrics_generation=gen, metrics_swaps=swaps,
+            metrics_respawns=respawn_total,
+            metrics_replicas=json.dumps({f'{k[0]}:{k[1]}': v
+                                         for k, v in states.items()}))
+        if gen.get('lm') != 2 or swaps.get(('lm', 'completed')) != 1 or \
+                respawn_total != 1 or states.get(('lm', 'healthy')) != 2 \
+                or states.get(('lm_int8', 'healthy')) != 1:
+            fail(f'{phase}: /metrics disagrees: generation {gen}, swaps '
+                 f'{swaps}, respawns {respawn_total}, replicas {states}')
+        cli = json.loads(command('fleets', '--json',
+                                 cli='mlcomp_tpu_torch').splitlines()[-1])
+        api_view = fleets_api()
+        for item in cli:
+            mine = api_view[item['name']]
+            if any(item[k] != mine[k] for k in item if k != 'replicas') or \
+                    [{k: r[k] for k in item['replicas'][0]}
+                     for r in mine['replicas']] != item['replicas']:
+                fail(f'{phase}: fleets --json {item} disagrees with '
+                     f'/api/fleets {mine}')
+        site_pid = int(_lease_holder(session).split(':')[1])
+        live = roster.of('lm', state='healthy') + \
+            roster.of('lm_int8', state='healthy')
+        apps = subprocess.run(
+            ['nvidia-smi', '--query-compute-apps=pid,used_memory',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+        listed = {int(a.split(',')[0]) for a in apps if a.strip()}
+        replica_pids = [r['pid'] for r in live]
+        say(phase, part='a', compute_apps=json.dumps(apps),
+            replica_pids=replica_pids, gateway_pid=gateway.pid,
+            site_pid=site_pid)
+        if not all(_maps_libcuda(p) for p in replica_pids) or \
+                _maps_libcuda(gateway.pid) or _maps_libcuda(site_pid) or \
+                gateway.pid in listed or site_pid in listed:
+            fail(f'{phase}: the replicas {replica_pids} must map the CUDA '
+                 f'driver and the gateway {gateway.pid} and the site '
+                 f'{site_pid} must not (compute apps {apps})')
+
+        # shutdown: fleet-stop leaves no replica process
+        t_stop = time.monotonic()
+        command('fleet-stop', 'lm')
+        command('fleet-stop', 'lm_int8')
+        pids = [r['pid'] for r in roster.rows.values() if r['pid']]
+        _wait_for(phase, 'exit of every replica process', lambda: not any(
+            procfs.pid_exists(p) for p in pids), alive)
+        stop_s = seconds_since(t_stop)
+        roster.poll()
+        if any(r['state'] != 'dead' for r in roster.rows.values()):
+            fail(f'{phase}: replicas left after fleet-stop: '
+                 f'{roster.rows}')
+        stop_proc(gateway)
+        gateway = None
+        command('stop')
+        _wait_for(phase, 'end of every process of the group',
+                  lambda: not _port_processes(), timeout=60)
+        group.wait(timeout=30)
+        say(phase, part='a', fleet_stop_to_no_replica_s=stop_s,
+            phase_s=seconds_since(t0), card=smi)
+
+        # (b) in this process, the launches counted
+        launches = _fleet_in_process(paths, requests, session, smi)
+        say(phase, part='b', launches=json.dumps(launches),
+            prepare_s=f'{prepared_s:.1f}',
+            phase_s=f'{time.monotonic() - t_phase:.1f}', card=smi)
+        return launches
+    finally:
+        if clients is not None:
+            clients.stop()
+        stop_proc(gateway)
+        stop_proc(group)
+        for pid in _port_processes():
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        Session.cleanup()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _api_ok(port, path, data) -> bool:
+    try:
+        return _api(port, path, data) == (200, {'success': True})
+    except (urllib.error.URLError, ConnectionError):
+        return False
+
+
+def _lease_holder(session) -> str:
+    return session.query_one(
+        'SELECT holder FROM supervisor_lease WHERE id=1')['holder'] or ''
+
+
+def _fleet_in_process(paths: dict, requests: list, session, smi: str):
+    """``[fleet]`` (b): a ``serve_replica`` executor for each fleet on a
+    thread, the rows minted by the reconciler's ``_spawn``, probed
+    healthy by its probe pass, behind an in-process ``FleetGateway``;
+    every kernel's count zeroed just before the requests and read just
+    after. Returns the launches by path."""
+    from mlcomp_tpu_torch.db.providers import (
+        FleetProvider, TaskProvider,
+    )
+    from mlcomp_tpu_torch.ops.flash_attention import flash_attention_forward
+    from mlcomp_tpu_torch.ops.int8_matmul import int8_matmul
+    from mlcomp_tpu_torch.server.api import start_server
+    from mlcomp_tpu_torch.server.fleet import (
+        FleetConfig, FleetReconciler, create_fleet,
+    )
+    from mlcomp_tpu_torch.server.gateway import FleetGateway
+    from mlcomp_tpu_torch.utils.io import yaml_load
+    from mlcomp_tpu_torch.worker.executors import Executor
+    phase = 'fleet'
+    reconciler = FleetReconciler(session,
+                                 config=FleetConfig(probe_interval_s=0.0))
+    executors, threads, api = {}, [], None
+    gw = None
+    try:
+        for fleet_name, name, quantize in (('lm_b', 'flagship_lm', None),
+                                           ('lm_int8_b',
+                                            'flagship_lm_layers', 'int8')):
+            create_fleet(session, fleet_name, paths[name], desired=1,
+                         cores=0, batch_size=SERVE_BATCH, quantize=quantize,
+                         activation='argmax', slo_p99_ms=5000)
+            fleet = FleetProvider(session).by_name(fleet_name)
+            replica = reconciler._spawn(fleet, 1, fleet.model)
+            task = TaskProvider(session).by_id(replica.task)
+            dag = session.query_one('SELECT config FROM dag WHERE id=?',
+                                    (task.dag,))
+            ex = Executor.from_config(
+                'serve_replica', yaml_load(dag['config']),
+                additional_info=yaml_load(task.additional_info),
+                session=session)
+            ex.task = task
+            executors[fleet_name] = ex
+            thread = threading.Thread(target=ex.work, daemon=True)
+            thread.start()
+            threads.append(thread)
+        _wait_for(phase, 'both replicas bound', lambda: all(
+            r['url'] for r in session.query(
+                'SELECT r.url FROM serve_replica r JOIN serve_fleet f ON '
+                "r.fleet = f.id WHERE f.name IN ('lm_b', 'lm_int8_b')")),
+            timeout=FLEET_TIMEOUT_S)
+        for fleet in FleetProvider(session).active():
+            reconciler._probe_replicas(fleet)
+        gw = FleetGateway(host='127.0.0.1', port=0, session=session,
+                          refresh_s=3600).start_background()
+        if {k: len(r.backends) for k, r in gw.routes.items()} != {
+                'lm_b': 1, 'lm_int8_b': 1}:
+            fail(f'{phase} b: the gateway routes {gw.health()}')
+        key = executors['lm_b'].server.start_heartbeat(session,
+                                                        interval_s=0.2)
+        base = f'http://127.0.0.1:{gw.port}/predict/'
+        launches = {}
+        for fleet_name, path in (('lm_b', 'fleet'),
+                                 ('lm_int8_b', 'fleet_int8')):
+            flash_attention_forward.launches = 0
+            int8_matmul.launches = 0
+            per_dispatch = []
+            for x in requests:
+                before = (flash_attention_forward.launches,
+                          int8_matmul.launches)
+                status, body, _ = _post_rows(base + fleet_name, x)
+                if status != 200:
+                    fail(f'{phase} b: {fleet_name} answered {status} {body}')
+                _check_answers(phase, x, body)
+                per_dispatch.append(
+                    (flash_attention_forward.launches - before[0],
+                     int8_matmul.launches - before[1]))
+            launches[path] = {
+                'flash_attention_fwd': flash_attention_forward.launches,
+                'int8_matmul': int8_matmul.launches}
+            want = (FLAGSHIP['n_layers'],
+                    3 * FLAGSHIP['n_layers'] + 1 if path == 'fleet_int8'
+                    else 0)
+            if per_dispatch != [want] * len(requests):
+                fail(f'{phase} b: {fleet_name} launches a dispatch '
+                     f'{per_dispatch}, want {want}')
+        # one traced request: the gateway hop and the replica's span
+        trace = 'f1' * 16
+        status, _, _ = _post_rows(base + 'lm_b', requests[0], trace=trace)
+        api = start_server(host='127.0.0.1', port=0, background=True,
+                           with_supervisor=False)
+
+        def tree():
+            status, body = _api(api.port, f'/telemetry/trace/{trace}',
+                                method='GET')
+            return body if status == 200 and body['span_count'] >= 2 \
+                else None
+
+        body = _wait_for(phase, 'the traced request in the DB', tree,
+                         timeout=60)
+        roles = sorted(p['role'] for p in body['processes'])
+        row = session.query_one('SELECT data FROM auxiliary WHERE name=?',
+                                (key,))
+        executors['lm_b'].server.graceful_shutdown(drain_timeout_s=10)
+        gone = session.query_one('SELECT 1 FROM auxiliary WHERE name=?',
+                                 (key,)) is None
+        say(phase, part='b', trace_spans=body['span_count'],
+            trace_roles=roles, heartbeat_key=key, registered=row is not None,
+            deregistered=gone)
+        if roles != ['gateway', 'serving'] or row is None or not gone:
+            fail(f'{phase} b: trace roles {roles}, heartbeat row {row}, '
+                 f'removed after graceful_shutdown {gone}')
+        return launches
+    finally:
+        if gw is not None:
+            gw.shutdown()
+        if api is not None:
+            api.shutdown()
+        for ex in executors.values():
+            if getattr(ex, 'server', None) is not None:
+                ex.server.shutdown()
+        for thread in threads:
+            thread.join(timeout=60)
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ the model zoo
 #: the JAX package's parameter count of each model of ``[zoo]``
 #: (``jax.eval_shape`` of its init on the CPU; the smoke imports no JAX):
@@ -5640,6 +6409,7 @@ def main():
         cli = phase_cli(smi)
         sched = phase_sched(smi)
         site = phase_site(smi)
+        fleet = phase_fleet(args.seed, smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -5667,6 +6437,8 @@ def main():
            for path, counts in dag_ensemble.items()},
         'cli': cli['cli']['flash_attention_fwd'],
         'sched': sched['sched']['flash_attention_fwd'],
+        'fleet': fleet['fleet']['flash_attention_fwd'],
+        'fleet_int8': fleet['fleet_int8']['flash_attention_fwd'],
         **{path: telemetry[path]['flash_attention_fwd']
            for path in ('telemetry_vit', 'telemetry_oom')}}
     fwd['launches'] = sum(fwd['launches_by_path'].values())
@@ -5723,7 +6495,8 @@ def main():
         'serving_int8': leg['launches']['int8_matmul'],
         'moe_serve_int8': moe_serve['int8']['int8_matmul'],
         'dag_ensemble_infer_vit_int8':
-            dag_ensemble['dag_ensemble_infer_vit_int8']['int8_matmul']}
+            dag_ensemble['dag_ensemble_infer_vit_int8']['int8_matmul'],
+        'fleet_int8': fleet['fleet_int8']['int8_matmul']}
     int8['launches'] = sum(int8['launches_by_path'].values())
     int8['dispatch_split'] = int8_split
     stack['launches_by_path'] = {

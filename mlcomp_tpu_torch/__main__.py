@@ -18,13 +18,16 @@ on ``argparse``:
   bundle frozen at a task's failure (telemetry/memory.py)
 - ``python -m mlcomp_tpu_torch devtime TASK [--tail N] [--json]`` — the
   task's sampled device-time windows (telemetry/deviceprof.py)
+- ``python -m mlcomp_tpu_torch fleets [--json] [--all]`` — the serving
+  fleets (server/fleet.py): generation, desired against healthy, and
+  each replica's state, endpoint and respawn lineage
 
 ``--params a/b:c`` overrides merge into the stored config as the JAX
 package's do. The DB is the JAX package's (same root, same schema):
 ``<root>/db/sqlite.db``. Trainers run on the card; a config asks for the
 CPU with ``device: cpu``. The other commands of the JAX package (sync,
-alerts, recovery, gangs, supervisors, fleets, sweeps, usage, quotas)
-are not ported yet (ROADMAP.md, A0).
+alerts, recovery, gangs, supervisors, sweeps, usage, quotas) are not
+ported yet (ROADMAP.md, A0).
 """
 
 import argparse
@@ -332,6 +335,62 @@ def cmd_devtime(args):
     return 0
 
 
+def cmd_fleets(args):
+    """Serving-fleet state (server/fleet.py): one block per fleet —
+    active generation/model, desired vs healthy, and the replica
+    roster with endpoints, probe state and respawn lineage."""
+    from mlcomp_tpu_torch.db.providers import FleetProvider, ReplicaProvider
+    session = Session.create_session()
+    migrate(session)
+    fp, rp = FleetProvider(session), ReplicaProvider(session)
+    items = []
+    for fleet in fp.all():
+        if fleet.status == 'stopped' and not args.show_all:
+            continue
+        replicas = rp.of_fleet(fleet.id)
+        items.append({
+            'name': fleet.name, 'model': fleet.model,
+            'status': fleet.status,
+            'generation': fleet.generation or 0,
+            'target_generation': fleet.target_generation,
+            'target_model': fleet.target_model,
+            'desired': fleet.desired or 0,
+            'healthy': sum(1 for r in replicas if r.state == 'healthy'),
+            'slo_p99_ms': fleet.slo_p99_ms,
+            'replicas': [{
+                'id': r.id, 'task': r.task,
+                'generation': r.generation, 'state': r.state,
+                'computer': r.computer, 'url': r.url,
+                'failure_reason': r.failure_reason,
+                'respawned_from': r.respawned_from,
+            } for r in replicas],
+        })
+    if args.as_json:
+        print(json.dumps(items))
+        return 0
+    if not items:
+        print('no fleets')
+        return 0
+    for it in items:
+        head = (f"{it['name']} [{it['status']}] {it['model']} — "
+                f"generation {it['generation']}, "
+                f"{it['healthy']}/{it['desired']} healthy")
+        if it['target_generation']:
+            head += (f", swapping to generation {it['target_generation']} "
+                     f"({it['target_model']})")
+        print(head)
+        for r in it['replicas']:
+            line = (f"  replica {r['id']} g{r['generation']} [{r['state']}]"
+                    + (f" on {r['computer']}" if r['computer'] else '')
+                    + (f" {r['url']}" if r['url'] else ''))
+            if r['failure_reason']:
+                line += f" — {r['failure_reason']}"
+            if r['respawned_from']:
+                line += f" (replaced {r['respawned_from']})"
+            print(line)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog='python -m mlcomp_tpu_torch',
@@ -384,6 +443,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--json', dest='as_json', action='store_true',
                    help='dump the series tails + newest summary as JSON')
     p.set_defaults(fn=cmd_devtime)
+    p = sub.add_parser('fleets', help='serving-fleet state')
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='machine-readable output')
+    p.add_argument('--all', dest='show_all', action='store_true',
+                   help='include stopped fleets')
+    p.set_defaults(fn=cmd_fleets)
     return parser
 
 

@@ -7,8 +7,17 @@ argparse, since the card's machine has no click).
     python -m mlcomp_tpu_torch.server stop
     python -m mlcomp_tpu_torch.server serve NAME [NAME ...] [--project P]
         [--host H] [--port N] [--batch-size B] [--activation A]
-        [--quantize int8] [--coalesce-ms W] [--max-pending N]
-        [--drain-timeout S] [--device cuda|cpu]
+        [--quantize int8] [--coalesce-ms W] [--register]
+        [--max-pending N] [--drain-timeout S] [--device cuda|cpu]
+    python -m mlcomp_tpu_torch.server gateway [--host H] [--port N]
+        [--refresh S] [--hedge-ratio R] [--flush-every S]
+    python -m mlcomp_tpu_torch.server fleet-create NAME MODEL [--project P]
+        [--replicas N] [--slo-p99-ms MS] [--cores N] [--batch-size B]
+        [--quantize int8] [--max-pending N] [--priority CLASS]
+        [--activation A]
+    python -m mlcomp_tpu_torch.server fleet-swap NAME MODEL
+    python -m mlcomp_tpu_torch.server fleet-scale NAME REPLICAS
+    python -m mlcomp_tpu_torch.server fleet-stop NAME
 
 ``start-site`` migrates the DB and runs the HA supervisor loop and the
 JSON API with the dashboard in this process (``WEB_HOST``:``WEB_PORT``
@@ -25,8 +34,22 @@ drain: new predicts get 503 while in-flight ones finish (bounded by
 ``--drain-timeout``); a second signal closes at once. ``--quantize
 int8`` serves the export's large 2-D projections as weight-only int8
 through the hand-written int8 matmul kernel (``train/export.py``).
-``--register`` is not ported yet and fails with a pointer to its ROADMAP
-item.
+``--register`` heartbeats the served models into the DB's ``auxiliary``
+table (``serving:<model>:<port>``) with the metric and span flushes;
+the drain deregisters.
+
+``fleet-create`` declares a serving fleet (server/fleet.py): the site's
+supervisor reconciles it into ``serve_replica`` tasks its workers run, a
+replica a worker for its life. ``--cores 0`` asks for no card slot, so
+several replicas share a card. ``--activation`` is the port's: it is
+applied by every replica (a fleet of a language model answers token
+ids with ``argmax``). ``gateway`` runs the routing gateway
+(server/gateway.py) in front of the fleets: ``POST /predict/<fleet>``
+goes to a healthy replica of the active generation, with circuit
+breaking, hedged retry and SLO-keyed shedding; it imports no torch.
+``fleet-swap`` stages a rolling swap to another export, ``fleet-scale``
+changes the desired count and ``fleet-stop`` retires the fleet (its
+replicas drain). An unknown fleet is ``Error: ...`` with exit code 1.
 """
 
 import argparse
@@ -73,8 +96,8 @@ def _parser() -> argparse.ArgumentParser:
                             'this many ms into one device dispatch '
                             '(0 = off)')
     serve.add_argument('--register', action='store_true',
-                       help='heartbeat into the DB registry (not ported '
-                            'yet)')
+                       help='heartbeat into the DB registry (auxiliary '
+                            'table) so the dashboard lists this endpoint')
     serve.add_argument('--max-pending', type=int, default=256,
                        help='per-model bound on in-flight requests; '
                             'beyond it clients get 429')
@@ -83,6 +106,53 @@ def _parser() -> argparse.ArgumentParser:
                             'requests before shutting down')
     serve.add_argument('--device', default='cuda',
                        help="'cuda' (default) or 'cpu'")
+    gateway = sub.add_parser(
+        'gateway', help='run the fleet routing gateway: POST '
+                        '/predict/<fleet> to healthy replicas')
+    gateway.add_argument('--host', default='127.0.0.1')
+    gateway.add_argument('--port', type=int, default=4300)
+    gateway.add_argument('--refresh', type=float, default=2.0,
+                         help='seconds between DB refreshes of the '
+                              'routing table')
+    gateway.add_argument('--hedge-ratio', type=float, default=0.1,
+                         help='fraction of traffic that may spend a '
+                              'hedged retry')
+    gateway.add_argument('--flush-every', type=float, default=15.0,
+                         help='seconds between telemetry flushes (shed '
+                              'counters, latency buckets) into the DB')
+    create = sub.add_parser(
+        'fleet-create', help='register a serving fleet: REPLICAS replicas '
+                             'of export MODEL')
+    create.add_argument('name')
+    create.add_argument('model')
+    create.add_argument('--project', default=None)
+    create.add_argument('--replicas', type=int, default=2)
+    create.add_argument('--slo-p99-ms', type=float, default=250.0)
+    create.add_argument('--cores', type=int, default=1)
+    create.add_argument('--batch-size', type=int, default=64)
+    create.add_argument('--quantize', default=None)
+    create.add_argument('--max-pending', type=int, default=256)
+    create.add_argument('--priority', default=None,
+                        choices=('critical', 'high', 'normal',
+                                 'preemptible'),
+                        help='scheduling class for the replicas (default: '
+                             'the serve-replica class default, high)')
+    create.add_argument('--activation', default=None,
+                        choices=('softmax', 'sigmoid', 'argmax'),
+                        help="applied by every replica to the model's "
+                             'output')
+    swap = sub.add_parser(
+        'fleet-swap', help='rolling swap of fleet NAME to export MODEL')
+    swap.add_argument('name')
+    swap.add_argument('model')
+    scale = sub.add_parser('fleet-scale',
+                           help="change fleet NAME's desired replica count")
+    scale.add_argument('name')
+    scale.add_argument('replicas', type=int)
+    fstop = sub.add_parser(
+        'fleet-stop', help='retire fleet NAME: replicas drain and their '
+                           'tasks stop')
+    fstop.add_argument('name')
     return parser
 
 
@@ -141,11 +211,7 @@ def stop(args):
     print('stopped', flush=True)
 
 
-def serve(args, parser):
-    if args.register:
-        parser.error('--register needs the DB, which is not ported yet '
-                     '(ROADMAP.md, queue A: the DB-backed heartbeat, '
-                     'spans flush and --register)')
+def serve(args):
     from mlcomp_tpu_torch.server.serve import ModelServer, resolve_model
     paths = [resolve_model(m, args.project) for m in args.model]
     server = ModelServer(paths, batch_size=args.batch_size,
@@ -155,11 +221,15 @@ def serve(args, parser):
                          max_pending=args.max_pending, device=args.device)
     warmed = server.warmup()
     server.bind()
+    if args.register:
+        from mlcomp_tpu_torch.db.core import Session
+        server.start_heartbeat(Session.create_session(key='serve'))
     print(f'serving {", ".join(server.models)} on '
           f'http://{args.host}:{server.port} '
           f'(device={server.device_info["device"]}, '
           f'warmup={"done" if warmed else "first-request"}, '
-          f'quantize={args.quantize or "none"})', flush=True)
+          f'quantize={args.quantize or "none"}'
+          f'{", registered" if args.register else ""})', flush=True)
 
     # polite termination: stop admitting (503), let in-flight requests
     # finish, close. Runs on ANOTHER thread (stdlib shutdown blocks
@@ -182,17 +252,108 @@ def serve(args, parser):
     server.serve_forever()
 
 
+def _fleet_session():
+    from mlcomp_tpu_torch.db.core import Session
+    from mlcomp_tpu_torch.db.migration import migrate
+    session = Session.create_session(key='fleet_cli')
+    migrate(session)
+    return session
+
+
+def _fleet(session, name: str):
+    from mlcomp_tpu_torch.db.providers import FleetProvider
+    fleet = FleetProvider(session).by_name(name)
+    if fleet is None:
+        print(f'Error: no fleet {name!r}', file=sys.stderr)
+        raise SystemExit(1)
+    return fleet
+
+
+def gateway(args):
+    """The fleet routing gateway (server/gateway.py), its routing table
+    refreshed from the fleet tables the supervisor's reconciler keeps;
+    a thread flushes its counters and spans every ``--flush-every``
+    seconds."""
+    import time
+    from mlcomp_tpu_torch.db.core import Session
+    from mlcomp_tpu_torch.db.migration import migrate
+    from mlcomp_tpu_torch.server.gateway import FleetGateway
+    session = Session.create_session(key='gateway')
+    migrate(session)
+    gw = FleetGateway(host=args.host, port=args.port, session=session,
+                      refresh_s=args.refresh, hedge_ratio=args.hedge_ratio)
+    gw.bind()
+
+    def flusher():
+        while True:
+            time.sleep(args.flush_every)
+            try:
+                gw.flush_telemetry(session)
+            except Exception:
+                pass
+    threading.Thread(target=flusher, daemon=True).start()
+    print(f'gateway on http://{args.host}:{gw.port} '
+          f'(refresh {args.refresh}s, hedge ratio {args.hedge_ratio})',
+          flush=True)
+    gw.serve_forever()
+
+
+def fleet_create(args):
+    from mlcomp_tpu_torch.server.fleet import create_fleet
+    session = _fleet_session()
+    try:
+        fleet = create_fleet(
+            session, args.name, args.model, project=args.project,
+            desired=args.replicas, slo_p99_ms=args.slo_p99_ms,
+            cores=args.cores, batch_size=args.batch_size,
+            quantize=args.quantize, max_pending=args.max_pending,
+            priority=args.priority, activation=args.activation)
+    except ValueError as e:
+        print(f'Error: {e}', file=sys.stderr)
+        raise SystemExit(1)
+    print(f'fleet {args.name} (id {fleet.id}): {args.replicas} replica(s) '
+          f'of {args.model}, p99 SLO {args.slo_p99_ms}ms', flush=True)
+
+
+def fleet_swap(args):
+    from mlcomp_tpu_torch.server.fleet import start_swap
+    session = _fleet_session()
+    fleet = _fleet(session, args.name)
+    try:
+        start_swap(session, fleet, args.model)
+    except ValueError as e:
+        print(f'Error: {e}', file=sys.stderr)
+        raise SystemExit(1)
+    print(f'fleet {args.name}: swapping to {args.model} as generation '
+          f'{fleet.target_generation}', flush=True)
+
+
+def fleet_scale(args):
+    from mlcomp_tpu_torch.db.providers import FleetProvider
+    session = _fleet_session()
+    fleet = _fleet(session, args.name)
+    fleet.desired = int(args.replicas)
+    FleetProvider(session).touch(fleet, ['desired'])
+    print(f'fleet {args.name}: desired replicas = {args.replicas}',
+          flush=True)
+
+
+def fleet_stop(args):
+    from mlcomp_tpu_torch.server.fleet import stop_fleet
+    session = _fleet_session()
+    stop_fleet(session, _fleet(session, args.name))
+    print(f'fleet {args.name}: stopped', flush=True)
+
+
+_COMMANDS = {'start-site': start_site, 'start': start, 'stop': stop,
+             'serve': serve, 'gateway': gateway,
+             'fleet-create': fleet_create, 'fleet-swap': fleet_swap,
+             'fleet-scale': fleet_scale, 'fleet-stop': fleet_stop}
+
+
 def main(argv=None):
-    parser = _parser()
-    args = parser.parse_args(argv)
-    if args.command == 'start-site':
-        start_site(args)
-    elif args.command == 'start':
-        start(args)
-    elif args.command == 'stop':
-        stop(args)
-    elif args.command == 'serve':
-        serve(args, parser)
+    args = _parser().parse_args(argv)
+    _COMMANDS[args.command](args)
 
 
 if __name__ == '__main__':

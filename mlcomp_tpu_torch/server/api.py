@@ -25,6 +25,10 @@ Endpoint map (POST JSON unless noted):
   with ``resume{master_computer, master_task_id, load_last}`` attached,
   including distributed-master discovery
 - ``/api/auxiliary`` supervisor introspection, no auth
+- ``/api/fleets`` (GET or POST, no auth) — serving-fleet roster
+  (``all`` includes stopped fleets);
+  ``/api/fleet/create|scale|swap|stop`` (auth) — mutate the desired
+  state the supervisor's fleet reconciler drives (server/fleet.py)
 - ``/api/telemetry/series|spans|trace`` (also GET ``/telemetry/series``,
   ``/telemetry/spans``, ``/telemetry/trace/<id>``, no auth)
 - ``/api/alerts`` (GET or POST, no auth) + ``/api/alert/resolve`` (auth)
@@ -588,6 +592,107 @@ def api_auxiliary(data, s):
     return out
 
 
+def api_fleets(data, s):
+    """Serving-fleet roster (server/fleet.py): every fleet with its
+    replica table — states, endpoints, generations, respawn lineage.
+    Same no-auth introspection tier as /api/auxiliary; the dashboard's
+    fleet card and the ``fleets`` command read this."""
+    from mlcomp_tpu_torch.db.providers import FleetProvider, ReplicaProvider
+    fp, rp = FleetProvider(s), ReplicaProvider(s)
+    include_stopped = bool(data.get('all'))
+    out = []
+    for fleet in fp.all():
+        if fleet.status == 'stopped' and not include_stopped:
+            continue
+        replicas = [{
+            'id': r.id, 'task': r.task, 'generation': r.generation,
+            'state': r.state, 'computer': r.computer, 'url': r.url,
+            'probe_failures': r.probe_failures or 0,
+            'failure_reason': r.failure_reason,
+            'respawned_from': r.respawned_from,
+        } for r in rp.of_fleet(fleet.id)]
+        out.append({
+            'id': fleet.id, 'name': fleet.name, 'model': fleet.model,
+            'project': fleet.project, 'status': fleet.status,
+            'desired': fleet.desired or 0,
+            'generation': fleet.generation or 0,
+            'target_generation': fleet.target_generation,
+            'target_model': fleet.target_model,
+            'slo_p99_ms': fleet.slo_p99_ms,
+            'max_pending': fleet.max_pending,
+            'healthy': sum(1 for r in replicas
+                           if r['state'] == 'healthy'),
+            'replicas': replicas,
+        })
+    return {'data': out}
+
+
+def _fleet_or_404(data, s):
+    from mlcomp_tpu_torch.db.providers import FleetProvider
+    fleet = None
+    if data.get('id') is not None:
+        fleet = FleetProvider(s).by_id(_int_arg(data, 'id'))
+    elif data.get('name'):
+        fleet = FleetProvider(s).by_name(data['name'])
+    else:
+        raise ApiError('id or name required')
+    if fleet is None:
+        raise ApiError('fleet not found', status=404)
+    return fleet
+
+
+def api_fleet_create(data, s):
+    """JAX's keys, and the port's ``activation`` (server/fleet.py)."""
+    from mlcomp_tpu_torch.server.fleet import create_fleet
+    if not data.get('name') or not data.get('model'):
+        raise ApiError('name and model required')
+    kwargs = {}
+    for key in ('project', 'desired', 'slo_p99_ms', 'cores',
+                'batch_size', 'quantize', 'max_pending', 'priority',
+                'activation'):
+        if data.get(key) is not None:
+            kwargs[key] = data[key]
+    try:
+        fleet = create_fleet(s, data['name'], data['model'], **kwargs)
+    except ValueError as e:
+        raise ApiError(str(e), status=409)
+    return {'success': True, 'fleet': fleet.id}
+
+
+def api_fleet_scale(data, s):
+    from mlcomp_tpu_torch.db.providers import FleetProvider
+    fleet = _fleet_or_404(data, s)
+    desired = _int_arg(data, 'desired', required=True)
+    if desired < 0:
+        raise ApiError('desired must be >= 0')
+    fleet.desired = desired
+    FleetProvider(s).touch(fleet, ['desired'])
+    return {'success': True, 'fleet': fleet.id, 'desired': desired}
+
+
+def api_fleet_swap(data, s):
+    """Stage a zero-downtime rolling swap to a new export version —
+    the reconciler warms generation N+1, flips the router, drains N;
+    a failed warmup rolls back (server/fleet.py)."""
+    from mlcomp_tpu_torch.server.fleet import start_swap
+    fleet = _fleet_or_404(data, s)
+    if not data.get('model'):
+        raise ApiError('model required')
+    try:
+        start_swap(s, fleet, data['model'])
+    except ValueError as e:
+        raise ApiError(str(e), status=409)
+    return {'success': True, 'fleet': fleet.id,
+            'target_generation': fleet.target_generation}
+
+
+def api_fleet_stop(data, s):
+    from mlcomp_tpu_torch.server.fleet import stop_fleet
+    fleet = _fleet_or_404(data, s)
+    stop_fleet(s, fleet)
+    return {'success': True, 'fleet': fleet.id}
+
+
 def _int_arg(data, key, required=False):
     """Parse an integer request arg; bad input is the caller's fault
     (400), not a server error — GET args arrive as strings."""
@@ -816,11 +921,6 @@ def api_stop(data, s):
 #: the JAX package's routes whose backing module is not ported yet, with
 #: the ROADMAP.md item each waits for
 WAITING_ROUTES = {
-    '/api/fleets': 'A0: fleets',
-    '/api/fleet/create': 'A0: fleets',
-    '/api/fleet/scale': 'A0: fleets',
-    '/api/fleet/swap': 'A0: fleets',
-    '/api/fleet/stop': 'A0: fleets',
     '/api/sweeps': 'A0: ASHA sweeps',
     '/api/usage': 'A0: quotas and usage',
     '/api/slos': 'A0: quotas and usage',
@@ -876,7 +976,7 @@ _ROUTES = {
     '/api/auxiliary': (api_auxiliary, False),
     # serving-fleet tier (server/fleet.py): the roster read is the
     # same introspection tier as auxiliary; mutations need the token
-    '/api/fleets': (_waits('/api/fleets'), False),
+    '/api/fleets': (api_fleets, False),
     # ASHA sweep roster (server/sweep.py): read-only audit surface
     '/api/sweeps': (_waits('/api/sweeps'), False),
     # cluster-economy reads (migration v14 + telemetry/slo.py):
@@ -888,10 +988,10 @@ _ROUTES = {
     '/api/quotas': (_waits('/api/quotas'), False),
     '/api/quota/set': (_waits('/api/quota/set'), True),
     '/api/quota/delete': (_waits('/api/quota/delete'), True),
-    '/api/fleet/create': (_waits('/api/fleet/create'), True),
-    '/api/fleet/scale': (_waits('/api/fleet/scale'), True),
-    '/api/fleet/swap': (_waits('/api/fleet/swap'), True),
-    '/api/fleet/stop': (_waits('/api/fleet/stop'), True),
+    '/api/fleet/create': (api_fleet_create, True),
+    '/api/fleet/scale': (api_fleet_scale, True),
+    '/api/fleet/swap': (api_fleet_swap, True),
+    '/api/fleet/stop': (api_fleet_stop, True),
     # telemetry reads are an introspection surface like /api/auxiliary
     # (no secrets: metric names + floats); the profile toggle mutates
     # state and needs the token
@@ -1121,6 +1221,8 @@ class ApiHandler(BaseHTTPRequestHandler):
                 handler = api_task_postmortem
             elif parsed.path == '/api/task/devtime':
                 handler = api_task_devtime
+            elif parsed.path == '/api/fleets':
+                handler = api_fleets
             elif parsed.path in WAITING_ROUTES:
                 handler = _ROUTES[parsed.path][0]
             else:

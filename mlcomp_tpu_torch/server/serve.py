@@ -25,8 +25,12 @@ concatenates concurrent requests landing within a W-ms window into ONE
 device dispatch of up to ``batch_size`` rows. SIGTERM drains: new
 predicts get 503 with ``Retry-After`` while the in-flight ones finish.
 
-The DB-backed registry heartbeat (``--register``) waits for the DB slice
-of the port: ``start_heartbeat`` raises.
+``start_heartbeat(session)`` (``serve --register``) registers every
+served model in the DB's ``auxiliary`` table as
+``serving:<model>:<port>`` and, on the same cadence, flushes the
+latency histograms and the serving spans; a drain deregisters. A serving
+fleet's replicas (server/fleet.py, ``serve_replica``) are this server
+run by a worker, behind the gateway (server/gateway.py).
 """
 
 import glob
@@ -662,21 +666,85 @@ class ModelServer:
                 self._serving = False
 
     def start_heartbeat(self, session, interval_s: float = 10.0) -> str:
-        """The DB-backed registry heartbeat (``--register``)."""
-        raise NotImplementedError(
-            'the serving registry heartbeat needs the DB, which is not '
-            'ported yet (ROADMAP.md, queue A: the DB-backed heartbeat, '
-            'spans flush and --register)')
+        """Register every served model in the auxiliary table (the same
+        no-auth introspection surface the supervisor trace uses) so the
+        dashboard's supervisor tab lists live serving endpoints, and
+        flush the latency histograms and the serving spans on the same
+        cadence. Returns the primary model's auxiliary key."""
+        import sys
+        from mlcomp_tpu_torch.db.providers import AuxiliaryProvider
+        from mlcomp_tpu_torch.telemetry.spans import flush_spans
+        from mlcomp_tpu_torch.utils.misc import now
+        provider = AuxiliaryProvider(session)
+        self._hb_keys = [f'serving:{m.name}:{self.port}'
+                         for m in self.models.values()]
+        self._hb_stop = threading.Event()
+        self._hb_session = session
+        last_err = [None]
+
+        def beat():
+            while True:
+                try:
+                    for key, m in zip(self._hb_keys,
+                                      self.models.values()):
+                        provider.create_or_update(key, {
+                            'model': m.name, 'host': self.host,
+                            'port': int(self.port),
+                            'requests': int(m.requests),
+                            'score': m.meta.get('score'),
+                            'input_shape': m.meta.get('input_shape'),
+                            'ts': time.time(),
+                            'updated': str(now())})
+                    self.telemetry.flush(session)
+                    # serving spans (the trace read-back in _do_post)
+                    # ride the same cadence as the metric flush
+                    flush_spans(session)
+                    last_err[0] = None
+                except Exception as e:
+                    # a DB hiccup must not kill serving, but a BROKEN
+                    # registration must not be silent either — said
+                    # once per distinct error
+                    if str(e) != last_err[0]:
+                        last_err[0] = str(e)
+                        print(f'serving heartbeat failed: {e}',
+                              file=sys.stderr)
+                if self._hb_stop.wait(interval_s):
+                    return
+
+        self._hb_thread = threading.Thread(target=beat, daemon=True)
+        self._hb_thread.start()
+        return self._hb_keys[0]
+
+    def _stop_heartbeat(self):
+        if getattr(self, '_hb_stop', None) is None:
+            return
+        self._hb_stop.set()
+        # join BEFORE deregistering: a beat still in flight finishing
+        # after the DELETE would register the dead endpoint again
+        self._hb_thread.join(timeout=10)
+        # clean exits deregister; a crash leaves the rows for the
+        # dashboard's liveness window (age_s) to gray out instead
+        try:
+            from mlcomp_tpu_torch.db.providers import AuxiliaryProvider
+            provider = AuxiliaryProvider(self._hb_session)
+            for key in self._hb_keys:
+                provider.remove_by_name(key)
+        except Exception:
+            pass
+        self._hb_stop = None
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Stop admitting predicts (503) and wait for in-flight ones to
-        finish. Returns True when everything drained in time. /health
-        reports 'draining' from the same moment. The flag flips under _inflight_lock — the same lock do_POST
+        finish. Returns True when everything drained in time. Traffic
+        steering learns FIRST: the registry heartbeat deregisters and
+        /health flips to 'draining' before any predict is rejected.
+        The flag flips under _inflight_lock — the same lock do_POST
         counts itself in under — so every request is EITHER admitted
         (and waited for below) or cleanly 503'd, never both-neither
         (the drain/admission race)."""
         with self._inflight_lock:
             self._draining = True
+        self._stop_heartbeat()
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
             with self._inflight_lock:
@@ -695,6 +763,7 @@ class ModelServer:
         return drained
 
     def shutdown(self):
+        self._stop_heartbeat()
         for m in self.models.values():
             if m.coalescer is not None:
                 m.coalescer.shutdown()

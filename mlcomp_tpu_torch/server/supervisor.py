@@ -8,14 +8,17 @@ Each tick (``SupervisorBuilder.build``):
    child gang-aborts its siblings
 3. ``process_recovery``     — lease reclaim, strand sweep, retry of
    transient failures with backoff
-4. ``load_tasks``           — NotRan tasks in dispatch order (class,
+4. ``process_fleets``       — the serving-fleet reconciler
+   (server/fleet.py): desired replica counts, health-gated respawn,
+   rolling swaps; a replica task it mints dispatches in the same tick
+5. ``load_tasks``           — NotRan tasks in dispatch order (class,
    aging, fair share, age) + their dependency status sets
-5. ``load_computers``       — free-resource model per computer: card
+6. ``load_computers``       — free-resource model per computer: card
    slot array + cpu + memory, minus Queued/InProgress assignments
-6. ``process_tasks``        — preflight and dependency gating
+7. ``process_tasks``        — preflight and dependency gating
    (failed dependency → Skipped), then placement and dispatch onto the
    DB queue ``{computer}_{docker}``
-7. ``write_auxiliary``      — the decision trace into ``auxiliary``
+8. ``write_auxiliary``      — the decision trace into ``auxiliary``
 
 With a :class:`~mlcomp_tpu_torch.server.ha.LeaderLease` (HA, the
 default of ``register_supervisor``) the builder issues every write on a
@@ -26,14 +29,13 @@ writes are rejected in the DB. The loop contends for the lease, runs
 stops.
 
 What the JAX tick does beyond this is not ported and refuses rather
-than being skipped silently (ROADMAP.md, A0): a DB holding fleet or
-sweep rows (the fleet reconciler, the ASHA sweep scheduler), one
-holding quota rows, a tick whose preemption pass would evict (quotas
-and preemption), and the multi-host fan-out (A4), each raise
-``NotImplementedError``. The tick telemetry and the watchdog, SLO and
-usage folds write observability and ledger rows no decision here reads,
-and are left out, but for the count of fenced-off writes; the tick
-flushes its dispatch spans.
+than being skipped silently (ROADMAP.md, A0): a DB holding sweep rows
+(the ASHA sweep scheduler), one holding quota rows, a tick whose
+preemption pass would evict (quotas and preemption), and the multi-host
+fan-out (A4), each raise ``NotImplementedError``. The tick telemetry
+and the watchdog, SLO and usage folds write observability and ledger
+rows no decision here reads, and are left out, but for the count of
+fenced-off writes; the tick flushes its dispatch spans.
 """
 
 import datetime
@@ -68,7 +70,6 @@ STALL_DEADLINE_S = 1800.0
 #: tables whose rows only unported parts of the JAX tick act on, each
 #: with the ROADMAP.md item that brings it
 UNPORTED_TABLES = (
-    ('serve_fleet', 'fleets (server/fleet.py) with gateway.py'),
     ('sweep', 'ASHA sweeps (server/sweep.py)'),
 )
 
@@ -86,7 +87,9 @@ def _info(task: Task) -> dict:
 class SupervisorBuilder:
     def __init__(self, session: Session = None, logger=None,
                  queue_liveness_window: float = 15.0,
-                 recovery_config: RecoveryConfig = None, lease=None):
+                 recovery_config: RecoveryConfig = None, fleet_config=None,
+                 fleet_probe=None, lease=None):
+        from mlcomp_tpu_torch.server.fleet import FleetReconciler
         session = session or Session.create_session(key='supervisor')
         if isinstance(session, FencedSession):    # heal-path re-init
             session = session._session
@@ -99,12 +102,20 @@ class SupervisorBuilder:
         self.logger = logger
         self.queue_liveness_window = queue_liveness_window
         self.recovery_config = recovery_config or RecoveryConfig()
+        self.fleet_config = fleet_config
+        self.fleet_probe = fleet_probe
         self.provider = TaskProvider(self.session)
         self.computer_provider = ComputerProvider(self.session)
         self.docker_provider = DockerProvider(self.session)
         self.queue_provider = QueueProvider(self.session)
         self.dag_provider = DagProvider(self.session)
         self.auxiliary_provider = AuxiliaryProvider(self.session)
+        # serving-fleet reconciler (server/fleet.py): runs inside the
+        # tick before load_tasks, so a spawned replica task dispatches
+        # on the same tick through the normal placement path
+        self.fleet_reconciler = FleetReconciler(
+            self.session, logger=logger, config=fleet_config,
+            probe=fleet_probe)
 
         self.queues = []
         self.alive_computers = set()
@@ -557,6 +568,20 @@ class SupervisorBuilder:
             self._log_error(f'recovery pass failed:\n'
                             f'{traceback.format_exc()}')
 
+    def process_fleets(self):
+        """Serving-fleet reconciliation (server/fleet.py). Same
+        containment as recovery: a reconciler crash never takes the
+        tick down (per-fleet crashes are contained inside ``tick()``)."""
+        try:
+            fleet_aux = self.fleet_reconciler.tick()
+            if fleet_aux:
+                self.aux['fleets'] = fleet_aux
+        except FenceLostError:
+            raise           # zombie leader: stop the tick, demote
+        except Exception:
+            self._log_error(f'fleet reconciliation failed:\n'
+                            f'{traceback.format_exc()}')
+
     def _message_task(self, msg):
         try:
             task_id = json.loads(msg.payload).get('task_id')
@@ -870,6 +895,7 @@ class SupervisorBuilder:
             # recovery before load_tasks: a task requeued this tick
             # re-loads as NotRan and can re-dispatch at once
             self.process_recovery()
+            self.process_fleets()
             self.load_tasks()
             self.load_computers()
             self.process_tasks()
@@ -912,7 +938,8 @@ class SupervisorBuilder:
             self.__init__(session=fresh, logger=self.logger,
                           queue_liveness_window=self.queue_liveness_window,
                           recovery_config=self.recovery_config,
-                          lease=lease)
+                          fleet_config=self.fleet_config,
+                          fleet_probe=self.fleet_probe, lease=lease)
 
 
 class SupervisorLoop(threading.Thread):
@@ -1086,14 +1113,16 @@ class SupervisorLoop(threading.Thread):
 
 def register_supervisor(session: Session = None, logger=None,
                         interval: float = 1.0, ha: bool = True,
-                        lease_seconds: float = None):
+                        lease_seconds: float = None, fleet_config=None,
+                        fleet_probe=None):
     """Start the supervisor loop on a background thread; returns
     ``(builder, [loop])`` (``loop.stop()`` ends it). With ``ha=True``
     (the default) the loop contends for the ``supervisor_lease`` leader
     election (server/ha.py): alone it acquires at once, and any further
     supervisor becomes a hot standby; every control-state write is
     epoch-fenced (db/fencing.py). ``ha=False`` runs a lease-less
-    loop."""
+    loop. ``fleet_config`` (``server/fleet.py`` ``FleetConfig``) and
+    ``fleet_probe`` reach the ``SupervisorBuilder``'s fleet reconciler."""
     session = session or Session.create_session(key='supervisor')
     lease = None
     if ha:
@@ -1102,7 +1131,9 @@ def register_supervisor(session: Session = None, logger=None,
         )
         lease = LeaderLease(
             session, lease_seconds=lease_seconds or DEFAULT_LEASE_SECONDS)
-    builder = SupervisorBuilder(session=session, logger=logger, lease=lease)
+    builder = SupervisorBuilder(session=session, logger=logger, lease=lease,
+                                fleet_config=fleet_config,
+                                fleet_probe=fleet_probe)
     loop = SupervisorLoop(builder, interval=interval, lease=lease)
     loop.start()
     return builder, [loop]

@@ -30,8 +30,6 @@ OPENMETRICS_CONTENT_TYPE = \
 #: the JAX package's families that read through a module the port does
 #: not have yet, with the ROADMAP.md item (A0) that brings each
 WAITING_FAMILIES = {
-    'mlcomp_fleet_replicas': 'A0, fleets (server/fleet.py, '
-                             'db/providers/fleet.py)',
     'mlcomp_quota_usage': 'A0, quotas and preemption '
                           '(db/providers/quota.py)',
 }
@@ -46,7 +44,7 @@ REQUIRED_FAMILIES = (
     'mlcomp_task_retries', 'mlcomp_db_busy_retries',
     'mlcomp_gang_generations',
     'mlcomp_serving_latency_ms',
-    'mlcomp_fleet_generation',
+    'mlcomp_fleet_replicas', 'mlcomp_fleet_generation',
     'mlcomp_fleet_shed', 'mlcomp_fleet_respawns',
     'mlcomp_fleet_swaps',
     'mlcomp_sweep_cells', 'mlcomp_sweep_prunes', 'mlcomp_sweep_rung',
@@ -569,6 +567,19 @@ def _collect_serving_latency(session, samples):
                                 mean[1] * count[1]))
 
 
+def _collect_fleet_replicas(session, samples):
+    """``mlcomp_fleet_replicas{fleet,state}`` — the replica-pool
+    roster the reconciler maintains (db/models/fleet.py). Dead rows
+    stay counted: a fleet whose dead count climbs while healthy holds
+    at desired is healing correctly; one whose healthy count drops is
+    not — both readable from the same gauge."""
+    from mlcomp_tpu_torch.db.providers.fleet import ReplicaProvider
+    for fleet, states in sorted(
+            ReplicaProvider(session).states_by_fleet().items()):
+        for state, n in sorted(states.items()):
+            samples.append(('', {'fleet': fleet, 'state': state}, n))
+
+
 def _collect_fleet_generations(session, samples):
     for r in session.query(
             "SELECT name, generation FROM serve_fleet "
@@ -913,7 +924,7 @@ def collect_server_families(session):
     tasks, queues, slots, alerts = [], [], [], []
     dispatch, phases, eff, compiles, serving = [], [], [], [], []
     retries, gangs, busy = [], [], []
-    fgens, fshed, frespawns, fswaps = [], [], [], []
+    freplicas, fgens, fshed, frespawns, fswaps = [], [], [], [], []
     sweep_cells, sweep_prunes, sweep_rungs = [], [], []
     hbm, comm_bytes, comm_frac = [], [], []
     devtime_ms, devtime_frac = [], []
@@ -931,6 +942,8 @@ def collect_server_families(session):
     guarded('db_busy', _collect_db_busy, session, busy)
     guarded('gang_generations', _collect_gang_generations, session,
             gangs)
+    guarded('fleet_replicas', _collect_fleet_replicas, session,
+            freplicas)
     guarded('fleet_generations', _collect_fleet_generations, session,
             fgens)
     guarded('fleet_shed', _collect_fleet_shed, session, fshed)
@@ -1006,6 +1019,9 @@ def collect_server_families(session):
         family('mlcomp_serving_latency_ms', 'histogram',
                'served-model request latency (cumulative buckets, '
                'latest heartbeat snapshot)', serving),
+        family('mlcomp_fleet_replicas', 'gauge',
+               'serving-fleet replicas by state (reconciler view)',
+               freplicas),
         family('mlcomp_fleet_generation', 'gauge',
                'active (routed) swap generation per fleet', fgens),
         family('mlcomp_fleet_shed', 'counter',

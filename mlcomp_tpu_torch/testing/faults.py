@@ -11,6 +11,10 @@ operational / oserror / runtime / resource) and ``sleep`` (``ms``).
 
 The serving seams: ``serve.request``, ``replica.slow`` and
 ``replica.crash`` (ctx ``model``; ``phase='request'`` for the crash).
+``replica.crash`` also fires in the ``serve_replica`` executor's
+heartbeat (worker/executors/serve_replica.py, ctx ``phase='beat'`` with
+``fleet`` and ``replica``), so a ``when`` filter kills exactly one
+replica of a fleet.
 """
 
 import json

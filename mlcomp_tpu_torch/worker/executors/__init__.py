@@ -3,7 +3,8 @@
 The builtin executors register on the first registry miss, so code that
 only looks names up never imports the training stack: ``train``, the
 Equation family (``equation``, ``infer``, ``infer_classify``, ``valid``,
-``valid_classify``, ``valid_segment``).
+``valid_classify``, ``valid_segment``) and ``serve_replica`` (one
+replica of a serving fleet).
 """
 
 from mlcomp_tpu_torch.worker.executors.base import Executor
@@ -13,6 +14,7 @@ Executor._builtin_modules = (
     'mlcomp_tpu_torch.worker.executors.base.equation',
     'mlcomp_tpu_torch.worker.executors.infer',
     'mlcomp_tpu_torch.worker.executors.valid',
+    'mlcomp_tpu_torch.worker.executors.serve_replica',
 )
 
 __all__ = ['Executor']

@@ -661,6 +661,86 @@ class TestTelemetryRoutes:
                          token='wrong')[0] == 401
 
 
+# ------------------------------------------------------------ serving fleets
+class TestFleets:
+    """``/api/fleets`` and ``/api/fleet/create|scale|swap|stop`` of both
+    servers over twin DBs: the same JSON, the same rows, the same
+    errors."""
+
+    def rows(self, twin):
+        out = []
+        for s in (twin.jax, twin.port):
+            out.append([{k: r[k] for k in r.keys()
+                         if k not in ('created', 'updated', 'swap_started')}
+                        for r in s.query('SELECT * FROM serve_fleet')])
+        assert out[0] == out[1]
+        return out[1]
+
+    def test_lifecycle(self, twin):
+        res = twin.ok('/api/fleet/create', {
+            'name': 'apif', 'model': 'm', 'desired': 2, 'slo_p99_ms': 100})
+        assert res == {'success': True, 'fleet': 1}
+        listing = twin.ok('/api/fleets', token=None)['data']
+        assert listing[0]['name'] == 'apif' and \
+            listing[0]['slo_p99_ms'] == 100.0
+        assert twin.ok('/api/fleet/scale', {'name': 'apif', 'desired': 4})[
+            'desired'] == 4
+        assert twin.ok('/api/fleet/swap', {'id': 1, 'model': 'm2'})[
+            'target_generation'] == 2
+        listing = twin.ok('/api/fleets')['data'][0]
+        assert (listing['desired'], listing['status'],
+                listing['target_model']) == (4, 'swapping', 'm2')
+        assert twin.call('/api/fleet/create', {'name': 'apif',
+                                               'model': 'm'})[0] == 409
+        assert twin.call('/api/fleet/swap', {'name': 'apif',
+                                             'model': 'm3'})[0] == 409
+        self.rows(twin)
+        twin.ok('/api/fleet/stop', {'name': 'apif'})
+        assert twin.ok('/api/fleets')['data'] == []
+        assert twin.ok('/api/fleets', {'all': True})['data'][0][
+            'status'] == 'stopped'
+        assert self.rows(twin)[0]['status'] == 'stopped'
+
+    def test_get_mirror_and_replica_rows(self, twin):
+        twin.ok('/api/fleet/create', {'name': 'g', 'model': 'm'})
+        twin.both_sql(
+            "INSERT INTO serve_replica (fleet, generation, state, url, "
+            "respawned_from, failure_reason) VALUES "
+            "(1, 1, 'healthy', 'http://127.0.0.1:9', NULL, NULL), "
+            "(1, 1, 'dead', NULL, NULL, 'preempted'), "
+            "(1, 1, 'starting', NULL, 2, NULL)")
+        body = twin.ok('/api/fleets', method='GET', token=None)
+        assert body['data'][0]['healthy'] == 1
+        assert [r['respawned_from'] for r in
+                body['data'][0]['replicas']] == [None, None, 2]
+        samples = []
+        for server, parse in ((twin.jax_server, jax_parse_openmetrics),
+                              (twin.port_server, parse_openmetrics)):
+            status, raw = _request(f'http://127.0.0.1:{server.port}',
+                                   '/metrics', method='GET', token=None)
+            samples.append(parse(raw.decode())['mlcomp_fleet_replicas'][
+                'samples'])
+        assert samples[0] == samples[1]
+        assert sorted(s[1]['state'] for s in samples[1]) == [
+            'dead', 'healthy', 'starting']
+        twin.ok('/api/fleet/stop', {'id': 1})
+        assert twin.call('/api/fleets?all=1', method='GET', token=None)[1][
+            'data'][0]['status'] == 'stopped'
+
+    @pytest.mark.parametrize('route,data,status', [
+        ('/api/fleet/scale', {'name': 'none', 'desired': 1}, 404),
+        ('/api/fleet/scale', {}, 400),
+        ('/api/fleet/scale', {'name': 'f', 'desired': -1}, 400),
+        ('/api/fleet/swap', {'name': 'f'}, 400),
+        ('/api/fleet/stop', {'id': 99}, 404),
+        ('/api/fleet/create', {'name': 'x'}, 400),
+    ])
+    def test_errors(self, twin, route, data, status):
+        twin.ok('/api/fleet/create', {'name': 'f', 'model': 'm'})
+        assert twin.call(route, data)[0] == status
+        assert twin.call(route, data, token='bad')[0] == 401
+
+
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize('route', sorted(api.WAITING_ROUTES))
 def test_waiting_route_refuses_with_its_roadmap_item(twin, route):
@@ -678,7 +758,7 @@ def test_waiting_route_refuses_with_its_roadmap_item(twin, route):
 
 
 def test_waiting_get_mirrors_refuse(twin):
-    for route in ('/api/fleets', '/api/sweeps', '/api/usage', '/api/slos'):
+    for route in ('/api/sweeps', '/api/usage', '/api/slos'):
         status, body = twin.port_call(route + '?task=1', method='GET',
                                       token=None)
         assert status == 501 and route in body['reason'], route
@@ -753,7 +833,7 @@ def test_metrics_families_equal_but_the_waiting(twin, dag):
     assert set(REQUIRED_FAMILIES) <= set(mine)
     assert set(theirs) - set(mine) == set(WAITING_FAMILIES)
     assert set(mine) <= set(theirs)
-    waiting_collectors = {'fleet_replicas', 'quota'}
+    waiting_collectors = {'quota'}
     for name in mine:
         a, b = mine[name], theirs[name]
         assert a['type'] == b['type'], name

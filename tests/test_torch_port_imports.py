@@ -61,6 +61,28 @@ def test_no_forbidden_imports(path):
     assert not hits, f'{os.path.relpath(path, REPO)} imports {hits}'
 
 
+#: modules of the serving fleets' control plane that run in processes
+#: holding no CUDA context (the gateway, the site's reconciler): they
+#: must not import torch, even inside a function
+TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
+              'mlcomp_tpu_torch/server/fleet.py',
+              'mlcomp_tpu_torch/db/providers/fleet.py')
+
+
+@pytest.mark.parametrize('path', TORCH_FREE)
+def test_fleet_control_plane_imports_no_torch(path):
+    with open(os.path.join(REPO, path)) as fh:
+        tree = ast.parse(fh.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names.append(node.module or '')
+    assert names and not [n for n in names
+                          if n.split('.')[0] == 'torch'], names
+
+
 def test_checker_catches_each_form():
     src = textwrap.dedent('''
         import os, jax.numpy as jnp

@@ -627,21 +627,3 @@ class TestDeviceAndUnported:
             srv.shutdown()
         with pytest.raises(ValueError, match="'int8'"):
             ModelServer(export, port=0, quantize='int4', device='cpu')
-
-    def test_heartbeat_not_ported(self, export):
-        srv = ModelServer(export, port=0, device='cpu')
-        try:
-            with pytest.raises(NotImplementedError, match='ROADMAP'):
-                srv.start_heartbeat(session=None)
-        finally:
-            srv.shutdown()
-
-    # --quantize int8 is ported: with it, --register is still refused
-    @pytest.mark.parametrize('flags', [['--register'],
-                                       ['--quantize', 'int8', '--register']])
-    def test_cli_refuses_unported_options(self, export, flags, capsys):
-        from mlcomp_tpu_torch.server.__main__ import main
-        with pytest.raises(SystemExit) as e:
-            main(['serve', export, '--device', 'cpu', *flags])
-        assert e.value.code == 2
-        assert 'ROADMAP' in capsys.readouterr().err

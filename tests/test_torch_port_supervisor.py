@@ -410,8 +410,6 @@ def test_ha_raises_naming_supervisor_ha(tmp_path):
 
 
 @pytest.mark.parametrize('table, row, item', [
-    ('serve_fleet', "(name, model, desired) VALUES ('f', 'm', 1)",
-     'fleets'),
     ('sweep', "(dag, executor, name, metric) VALUES (1, 'e', 's', 'm')",
      'ASHA sweeps'),
     ('quota', "(scope, tenant, resource, limit_value) "
