@@ -349,6 +349,31 @@ Phase of the serving fleets' slice, run after the site's:
   request's tree (the gateway hop and the serving span) through
   ``/telemetry/trace/<id>``, the row removed by ``graceful_shutdown``.
 
+Phase of the ASHA sweeps' slice, run after the fleets':
+
+- sweep: ``python -m mlcomp_tpu_torch.server start 1`` in a fresh root
+  (one card slot, a ``run-task`` process per cell) and ``dag`` of
+  ``cifar_simple``'s train executor as a sweep (``type: train``,
+  ``norm: fused``, 4096 / 512 images, 3 epochs, ``checkpoint_every:
+  4``, ``cores: 1``; four cells of (seed, AdamW lr) with the seed outer:
+  (0, 1e-3), (0, 1.0), (1, 3e-3), (1, 1.0); ``sweep: {metric: accuracy,
+  mode: max, eta: 2, rung_epochs: 1, min_cells_per_rung: 2}``), the
+  rows read with sqlite3 until every cell is finished and the sweep
+  done. Checks: a prune at least; each prune one ``sweep_decision``
+  row below its cutoff, its cell ``Failed``/``sweep-pruned`` with
+  ``attempt`` 0 after the worker's post-exit verdict; ``best_task`` the
+  ``Success`` cell of the highest score; a rung checkpoint logged at
+  every rung a cell passed; each cell's ``train.kernel_launches.*`` rows
+  20 forward and 20 backward norm launches a train step it completed
+  (a pruned cell's written at its SIGTERM); ``/api/sweeps`` and
+  ``sweeps --json`` equal to each other and to the rows;
+  ``mlcomp_sweep_cells`` with a ``pruned`` sample on ``/metrics``;
+  ``server stop`` leaving no process. Prints each cell's epochs, rung
+  scores and verdicts, the seconds from each prune verdict to its
+  process's exit and to the next dispatch, and the epochs trained
+  against the exhaustive 12. The launches, summed over the cells, are
+  the norm kernels' ``launches_by_path['sweep']``.
+
 Phase of the device telemetry's slice, run after the wide step's:
 
 - telemetry: ``encoder_grid``'s ViT (one epoch, ``VIT_SPEC``) and
@@ -4405,18 +4430,70 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _port_processes() -> dict:
+def _port_processes(root: str) -> dict:
     """pid → command line of every live process of the port's server and
-    worker commands on this machine, this one aside."""
+    worker commands started under the root ``root`` (``MLCOMP_TPU_ROOT``
+    in its environment), this one aside: a site of another checkout or
+    another run on the same machine is none of them."""
     from mlcomp_tpu_torch.utils import procfs
     out = {}
     for pid in procfs.process_pids():
         cmd = procfs.process_cmdline(pid)
         if pid != os.getpid() and procfs.pid_exists(pid) and (
                 'mlcomp_tpu_torch.server' in cmd
-                or 'mlcomp_tpu_torch.worker' in cmd):
+                or 'mlcomp_tpu_torch.worker' in cmd) and \
+                procfs.process_environ(pid).get('MLCOMP_TPU_ROOT') == root:
             out[pid] = cmd
     return out
+
+
+def _reap(root: str):
+    """SIGKILL whatever process of the root ``root`` a phase left."""
+    import signal
+    for pid in _port_processes(root):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def _start_group(n: int, env: dict, log: str) -> subprocess.Popen:
+    """``python -m mlcomp_tpu_torch.server start n`` in a session of its
+    own, its output to ``log``."""
+    with open(log, 'w') as out:
+        return subprocess.Popen(
+            [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'start',
+             str(n)], cwd=HERE, env=env, stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _check_alive(phase: str, proc, log: str, what: str = 'group'):
+    """Fail the run if ``proc``, started, has exited."""
+    if proc is not None and proc.poll() is not None:
+        fail(f'{phase}: the {what} exited {proc.returncode}:\n{_tail(log)}')
+
+
+def _stop_session(proc):
+    """SIGTERM the session ``proc`` leads, SIGKILL it after 30 s."""
+    import signal
+    if proc is not None and proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGTERM)
+            proc.wait(timeout=30)
+        except (ProcessLookupError, subprocess.TimeoutExpired):
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+
+
+def _cli(phase: str, module: str, *argv, env=None) -> str:
+    """``python -m module *argv``; its output, or the run fails."""
+    out = subprocess.run([sys.executable, '-m', module, *argv], cwd=HERE,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        fail(f'{phase}: {" ".join(argv)} exited {out.returncode}:\n'
+             f'{out.stdout[-2000:]}\n{out.stderr[-2000:]}')
+    return out.stdout
 
 
 def _maps_libcuda(pid: int) -> bool:
@@ -4513,9 +4590,7 @@ def phase_site(smi: str) -> dict:
         return f'{time.monotonic() - t0:.3f}'
 
     def group_alive():
-        if group.poll() is not None:
-            fail(f'{phase}: the group exited {group.returncode}:\n'
-                 f'{_tail(group_log)}')
+        _check_alive(phase, group, group_log)
 
     def lease():
         return dict(session.query_one(
@@ -4523,15 +4598,6 @@ def phase_site(smi: str) -> dict:
 
     def holder_pid(row) -> int:
         return int(row['holder'].split(':')[1]) if row['holder'] else 0
-
-    def stop_group():
-        if group is not None and group.poll() is None:
-            try:
-                os.killpg(group.pid, signal.SIGTERM)
-                group.wait(timeout=30)
-            except (ProcessLookupError, subprocess.TimeoutExpired):
-                os.killpg(group.pid, signal.SIGKILL)
-                group.wait(timeout=30)
 
     try:
         session = Session.create_session(key='site')
@@ -4544,11 +4610,8 @@ def phase_site(smi: str) -> dict:
         port = _free_port()
         spawned = str(utc_now())
         t0 = time.monotonic()
-        with open(group_log, 'w') as out:
-            group = subprocess.Popen(
-                [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'start',
-                 '1'], cwd=HERE, env=dict(os.environ, WEB_PORT=str(port)),
-                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        group = _start_group(1, dict(os.environ, WEB_PORT=str(port)),
+                             group_log)
 
         def token_answers():
             try:
@@ -4741,7 +4804,8 @@ def phase_site(smi: str) -> dict:
             fail(f'{phase}: server stop exited {off.returncode}: '
                  f'{off.stdout} {off.stderr}')
         _wait_for(phase, 'end of every process of the group',
-                  lambda: not _port_processes(), timeout=60)
+                  lambda: not _port_processes(os.environ['MLCOMP_TPU_ROOT']),
+                  timeout=60)
         off_s = seconds_since(t_off)
         group.wait(timeout=30)
         if lease()['holder'] is not None:
@@ -4852,12 +4916,8 @@ def phase_site(smi: str) -> dict:
         if server is not None:
             server.shutdown()
         signal.signal(signal.SIGTERM, on_term)
-        stop_group()
-        for pid in _port_processes():
-            try:
-                os.kill(pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
+        _stop_session(group)
+        _reap(os.environ['MLCOMP_TPU_ROOT'])
         Session.cleanup()
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -5131,19 +5191,11 @@ def phase_fleet(seed: int, smi: str) -> dict:
         return round(time.monotonic() - t0, 3)
 
     def alive():
-        for proc, log, what in ((group, group_log, 'group'),
-                                (gateway, gateway_log, 'gateway')):
-            if proc is not None and proc.poll() is not None:
-                fail(f'{phase}: the {what} exited {proc.returncode}:\n'
-                     f'{_tail(log)}')
+        _check_alive(phase, group, group_log)
+        _check_alive(phase, gateway, gateway_log, 'gateway')
 
     def command(*argv, cli='mlcomp_tpu_torch.server'):
-        out = subprocess.run([sys.executable, '-m', cli, *argv], cwd=HERE,
-                             capture_output=True, text=True, timeout=300)
-        if out.returncode != 0:
-            fail(f'{phase}: {" ".join(argv)} exited {out.returncode}:\n'
-                 f'{out.stdout[-2000:]}\n{out.stderr[-2000:]}')
-        return out.stdout
+        return _cli(phase, cli, *argv)
 
     def fleets_api() -> dict:
         status, body = _api(port, '/api/fleets')
@@ -5155,15 +5207,6 @@ def phase_fleet(seed: int, smi: str) -> dict:
         alive()
         roster.poll()
 
-    def stop_proc(proc):
-        if proc is not None and proc.poll() is None:
-            try:
-                os.killpg(proc.pid, signal.SIGTERM)
-                proc.wait(timeout=30)
-            except (ProcessLookupError, subprocess.TimeoutExpired):
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait(timeout=30)
-
     clients = None
     try:
         # (a) the site, the fleets and the gateway as processes
@@ -5171,11 +5214,8 @@ def phase_fleet(seed: int, smi: str) -> dict:
         t0 = time.monotonic()
         roster = _Roster(session, t0)
         spawned = str(utc_now())
-        with open(group_log, 'w') as out:
-            group = subprocess.Popen(
-                [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'start',
-                 '5'], cwd=HERE, env=dict(os.environ, WEB_PORT=str(port)),
-                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        group = _start_group(5, dict(os.environ, WEB_PORT=str(port)),
+                             group_log)
         _wait_for(phase, 'answer from /api/token', lambda: _api_ok(
             port, '/api/token', {'token': TOKEN}), alive, interval=0.05)
         _wait_for(phase, 'heartbeat of worker-supervisor', lambda: (
@@ -5429,11 +5469,12 @@ def phase_fleet(seed: int, smi: str) -> dict:
         if any(r['state'] != 'dead' for r in roster.rows.values()):
             fail(f'{phase}: replicas left after fleet-stop: '
                  f'{roster.rows}')
-        stop_proc(gateway)
+        _stop_session(gateway)
         gateway = None
         command('stop')
         _wait_for(phase, 'end of every process of the group',
-                  lambda: not _port_processes(), timeout=60)
+                  lambda: not _port_processes(os.environ['MLCOMP_TPU_ROOT']),
+                  timeout=60)
         group.wait(timeout=30)
         say(phase, part='a', fleet_stop_to_no_replica_s=stop_s,
             phase_s=seconds_since(t0), card=smi)
@@ -5447,13 +5488,9 @@ def phase_fleet(seed: int, smi: str) -> dict:
     finally:
         if clients is not None:
             clients.stop()
-        stop_proc(gateway)
-        stop_proc(group)
-        for pid in _port_processes():
-            try:
-                os.kill(pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
+        _stop_session(gateway)
+        _stop_session(group)
+        _reap(os.environ['MLCOMP_TPU_ROOT'])
         Session.cleanup()
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -5593,6 +5630,353 @@ def _fleet_in_process(paths: dict, requests: list, session, smi: str):
         for thread in threads:
             thread.join(timeout=60)
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- ASHA sweeps
+#: ``[sweep]``'s cells, (seed, AdamW lr), the seed outer so that good and
+#: bad rates interleave: 1.0 cannot learn, 1e-3 and 3e-3 do
+SWEEP_CELLS = ((0, 1e-3), (0, 1.0), (1, 3e-3), (1, 1.0))
+#: ``cifar_simple``'s train executor cut for the sweep: 4096 / 512
+#: images (8192 / 1024 in the example), 3 epochs (2)
+SWEEP_EPOCHS, SWEEP_N_TRAIN, SWEEP_N_VALID = 3, 4096, 512
+SWEEP_STEPS = SWEEP_N_TRAIN // 256          # the example's batch 256
+SWEEP_CHECKPOINT_EVERY = 4
+SWEEP_BLOCK = {'metric': 'accuracy', 'mode': 'max', 'eta': 2,
+               'rung_epochs': 1, 'min_cells_per_rung': 2}
+#: seconds ``[sweep]`` waits for any one of its steps
+SWEEP_TIMEOUT_S = 300
+
+
+def sweep_config() -> dict:
+    """``examples/cifar_simple``'s DAG with its train executor as a sweep:
+    ``type: train``, ``norm: fused``, one card slot, the grid of
+    ``SWEEP_CELLS`` (the stage list is a grid option: a list is opaque
+    to the cell merge) and ``SWEEP_BLOCK``."""
+    from mlcomp_tpu_torch.utils.io import yaml_load
+    config = yaml_load(file=os.path.join(HERE, CLI_CIFAR))
+    spec = config['executors']['train']
+    stage = spec.pop('stages')[0]
+    spec['type'] = 'train'
+    spec['model']['norm'] = 'fused'
+    spec['dataset'].update(n_train=SWEEP_N_TRAIN, n_valid=SWEEP_N_VALID)
+    spec.update(cores=1, checkpoint_every=SWEEP_CHECKPOINT_EVERY,
+                sweep=dict(SWEEP_BLOCK))
+    spec['grid'] = [[{'seed': seed, 'stages': [dict(
+        stage, epochs=SWEEP_EPOCHS,
+        optimizer=dict(stage['optimizer'], lr=lr))]}
+        for seed, lr in SWEEP_CELLS]]
+    return config
+
+
+def _sweep_rows(db: str, dag_id: int) -> dict:
+    """The rows of the sweep of ``dag_id``, read with stdlib sqlite3:
+    the sweep, its cells, decisions, rung reports, the trainer's launch
+    and step counts, the rung-checkpoint and process-exit log lines and
+    the cells' queue messages."""
+    import sqlite3
+    conn = sqlite3.connect(db, timeout=30)
+    conn.row_factory = sqlite3.Row
+    try:
+        sweep = dict(conn.execute('SELECT * FROM sweep WHERE dag=?',
+                                  (dag_id,)).fetchone())
+        cells = [dict(r) for r in conn.execute(
+            'SELECT * FROM task WHERE dag=? ORDER BY id', (dag_id,))]
+        ids = tuple(c['id'] for c in cells)
+        marks = ','.join('?' * len(ids))
+        metric = {}
+        for r in conn.execute(
+                f'SELECT task, name, step, value FROM metric WHERE task '
+                f"IN ({marks}) AND (name='sweep.score' OR name="
+                f"'train.steps' OR name LIKE 'train.kernel_launches.%') "
+                f'ORDER BY id', ids):
+            metric.setdefault(r['task'], []).append(
+                (r['name'], r['step'], r['value']))
+        logs = {}
+        for r in conn.execute(
+                f"SELECT task, time, message FROM log WHERE task IN "
+                f"({marks}) AND (message LIKE 'sweep rung checkpoint%' OR "
+                f"message LIKE '%run-task process exited%') ORDER BY id",
+                ids):
+            logs.setdefault(r['task'], []).append(
+                (r['time'], r['message']))
+        return {
+            'sweep': sweep, 'cells': cells, 'metric': metric, 'logs': logs,
+            'decisions': [dict(r) for r in conn.execute(
+                'SELECT * FROM sweep_decision WHERE sweep=? ORDER BY id',
+                (sweep['id'],))],
+            'messages': [dict(r) for r in conn.execute(
+                'SELECT * FROM queue_message ORDER BY id')]}
+    finally:
+        conn.close()
+
+
+def phase_sweep(smi: str) -> dict:
+    """``[sweep]``: an ASHA sweep of the CIFAR ResNet-18 (``norm: fused``)
+    pruned on the card by the port's site.
+
+    ``python -m mlcomp_tpu_torch.server start 1`` in a fresh root on a
+    free port (the site with the HA supervisor, ``worker-supervisor``,
+    ``worker 0``: a ``run-task`` process per cell; one card slot), then
+    ``dag`` of ``sweep_config()`` as a process; the rows polled with
+    sqlite3 until every cell is finished and the sweep ``done``. Checks:
+    at least one prune; each prune one ``sweep_decision`` row with its
+    score below its cutoff, the cell ``Failed``/``sweep-pruned`` with
+    ``attempt`` 0 (the worker's post-exit verdict kept it); the sweep's
+    ``best_task`` the ``Success`` cell of the highest score; a rung
+    checkpoint logged at every rung a cell passed (``checkpoint_every:
+    4`` alone saves none of them); each cell's fused-norm launches
+    (``train.kernel_launches.*``, written by its own trainer, a pruned
+    one's at its SIGTERM) 20 forward and 20 backward a train step it
+    completed; ``/api/sweeps`` and ``sweeps --json`` equal to each other
+    and to the rows; ``mlcomp_sweep_cells`` with a ``pruned`` sample on
+    ``/metrics``; ``server stop`` leaving no process. Prints each cell's
+    epochs, rung scores and verdicts, the seconds from each prune verdict
+    to its process's exit and to the next dispatch, the epochs trained
+    against the exhaustive ones. Returns the launches summed over the
+    cells."""
+    from mlcomp_tpu_torch.contrib.search.asha import rung_boundaries
+    from mlcomp_tpu_torch.db.enums import TaskStatus
+    from mlcomp_tpu_torch.telemetry.export import parse_openmetrics
+    from mlcomp_tpu_torch.utils.io import yaml_dump
+
+    phase = 'sweep'
+    finished = {int(s) for s in TaskStatus.finished()}
+    work = tempfile.mkdtemp(prefix='sweep_')
+    root = os.path.join(work, 'root')
+    db = os.path.join(root, 'db', 'sqlite.db')
+    group_log = os.path.join(work, 'group.log')
+    port = _free_port()
+    env = dict(os.environ, MLCOMP_TPU_ROOT=root, WEB_PORT=str(port),
+               MLCOMP_TPU_CORES='1')
+    group = None
+
+    def group_alive():
+        _check_alive(phase, group, group_log)
+
+    def command(*args):
+        return _cli(phase, 'mlcomp_tpu_torch', *args, env=env)
+
+    try:
+        cfg = os.path.join(work, 'config.yml')
+        yaml_dump(sweep_config(), file=cfg)
+        t0 = time.monotonic()
+        group = _start_group(1, env, group_log)
+
+        def site_and_agent():
+            import sqlite3
+            try:
+                if _api(port, '/api/sweeps')[0] != 200:
+                    return False
+                conn = sqlite3.connect(db, timeout=30)
+                try:
+                    return conn.execute('SELECT 1 FROM computer WHERE '
+                                        'cores=1').fetchone() is not None
+                finally:
+                    conn.close()
+            except (urllib.error.URLError, ConnectionError, sqlite3.Error):
+                return False
+
+        _wait_for(phase, 'site and worker agent', site_and_agent,
+                  group_alive, timeout=SWEEP_TIMEOUT_S, interval=0.1)
+        ready_s = time.monotonic() - t0
+        command('dag', cfg)
+        t_dag = time.monotonic()
+        (dag_id,) = _dag_ids(db)
+
+        def swept():
+            """The rows once every cell is finished, the sweep done and
+            every pruned cell's process exited (the worker's log row)."""
+            rows = _sweep_rows(db, dag_id)
+            done = all(c['status'] in finished for c in rows['cells'])
+            exited = all(any('run-task process exited' in m for _, m in
+                             rows['logs'].get(c['id'], []))
+                         for c in rows['cells']
+                         if c['failure_reason'] == 'sweep-pruned')
+            return rows if done and exited and \
+                rows['sweep']['status'] == 'done' else None
+
+        rows = _wait_for(phase, 'finished sweep', swept, group_alive,
+                         timeout=SWEEP_TIMEOUT_S, interval=0.25)
+        sweep_s = time.monotonic() - t_dag
+        cells, decisions = rows['cells'], rows['decisions']
+        if len(cells) != len(SWEEP_CELLS):
+            fail(f'{phase}: {len(cells)} cells, want {len(SWEEP_CELLS)}')
+
+        # the verdicts: each prune once, below its cutoff, kept, unretried
+        prunes = [d for d in decisions if d['verdict'] == 'prune']
+        pruned = [c for c in cells if c['failure_reason'] == 'sweep-pruned']
+        if not prunes or sorted(d['task'] for d in prunes) != \
+                sorted(c['id'] for c in pruned):
+            fail(f'{phase}: prune decisions {prunes}, pruned cells '
+                 f'{[c["id"] for c in pruned]}')
+        for d in prunes:
+            if not d['score'] < d['cutoff']:
+                fail(f'{phase}: prune {d} not below its cutoff')
+        for c in pruned:
+            if c['status'] != int(TaskStatus.Failed) or \
+                    (c['attempt'] or 0) != 0 or c['next_retry_at']:
+                fail(f'{phase}: pruned cell {c["id"]} status '
+                     f'{c["status"]} attempt {c["attempt"]} retry at '
+                     f'{c["next_retry_at"]}')
+        winners = [c for c in cells if c['status'] ==
+                   int(TaskStatus.Success)]
+        if not winners or len(winners) + len(pruned) != len(cells):
+            fail(f'{phase}: cells neither Success nor pruned: ' + str(
+                [(c['id'], c['status'], c['failure_reason'])
+                 for c in cells]))
+        best = max(winners, key=lambda c: c['score'])
+        if (rows['sweep']['best_task'], rows['sweep']['best_score']) != \
+                (best['id'], best['score']):
+            fail(f'{phase}: sweep best {rows["sweep"]["best_task"]} '
+                 f'{rows["sweep"]["best_score"]}, Success cells '
+                 f'{[(c["id"], c["score"]) for c in winners]}')
+
+        # per cell: epochs, rung checkpoints, launches a completed step
+        launches = {'fused_norm': 0, 'fused_norm_bwd': 0}
+        report, exits = {}, {}
+        for c in cells:
+            tid = c['id']
+            series = rows['metric'].get(tid, [])
+            scores = [(int(s), v) for n, s, v in series
+                      if n == 'sweep.score']
+            counts = {n[len('train.kernel_launches.'):]: v
+                      for n, _, v in series
+                      if n.startswith('train.kernel_launches.')}
+            steps = [v for n, _, v in series if n == 'train.steps']
+            budgets = [b for b, _ in scores]
+            if budgets != list(range(1, len(budgets) + 1)) or \
+                    len(steps) != 1:
+                fail(f'{phase}: cell {tid} reports {scores}, steps {steps}')
+            steps = int(steps[0])
+            want = 20 * steps
+            if steps < SWEEP_STEPS * len(budgets) or \
+                    counts.get('fused_norm') != want or \
+                    counts.get('fused_norm_bwd') != want or \
+                    set(counts) != {'fused_norm', 'fused_norm_bwd'} or \
+                    (c in winners and steps != SWEEP_STEPS * SWEEP_EPOCHS):
+                fail(f'{phase}: cell {tid} trained {steps} steps over '
+                     f'{len(budgets)} epochs, launches {counts}, want '
+                     f'{want} of each norm kernel')
+            launches['fused_norm'] += int(counts['fused_norm'])
+            launches['fused_norm_bwd'] += int(counts['fused_norm_bwd'])
+            messages = [m for _, m in rows['logs'].get(tid, [])]
+            saved = [m for m in messages
+                     if m.startswith('sweep rung checkpoint at epoch ')]
+            last = budgets[-1] if budgets else 0
+            passed = [b for b in rung_boundaries(
+                SWEEP_BLOCK['rung_epochs'], SWEEP_BLOCK['eta'], last)
+                if b < last or c in winners]
+            for b in passed:
+                if b % SWEEP_CHECKPOINT_EVERY == 0 or \
+                        f'sweep rung checkpoint at epoch {b - 1}' not in saved:
+                    fail(f'{phase}: cell {tid} passed the rung at epoch '
+                         f'{b} with no rung checkpoint: {saved}')
+            # whether each rung save was also a new best, which would
+            # have saved without the rung (only a False entry shows on
+            # the card what the rung alone adds)
+            by_budget = dict(scores)
+            rung_saves = [[b, by_budget[b] > max(
+                (v for k, v in scores if k < b), default=float('-inf'))]
+                for b in passed]
+            exits[tid] = [(t, m) for t, m in rows['logs'].get(tid, [])
+                          if 'run-task process exited' in m]
+            dispatched = next(m['created'] for m in rows['messages']
+                              if m['id'] == c['queue_id'])
+            report[tid] = {
+                'dispatch_to_start_s': round(
+                    _seconds(c['started'], dispatched), 3),
+                'wall_s': round(_seconds(c['finished'], c['started']), 3),
+                'lr': SWEEP_CELLS[cells.index(c)][1],
+                'seed': SWEEP_CELLS[cells.index(c)][0],
+                'status': TaskStatus(c['status']).name,
+                'epochs': len(budgets), 'steps': steps,
+                'rung_scores': [round(v, 4) for _, v in scores],
+                'verdicts': [(d['rung'], d['verdict']) for d in decisions
+                             if d['task'] == tid],
+                'rung_checkpoints': len(saved),
+                'rung_saves_new_best': rung_saves, 'score': c['score']}
+
+        # prune latencies: the verdict to the process's exit (the
+        # worker's log row) and to the next cell's dispatch
+        latency = {}
+        for d in prunes:
+            tid = d['task']
+            if len(exits[tid]) != 1:
+                fail(f'{phase}: pruned cell {tid} process exits '
+                     f'{exits[tid]}')
+            exit_time, exit_line = exits[tid][0]
+            rc = exit_line.split('exited ')[1].split()[0]
+            msg = next(m for m in rows['messages']
+                       if m['id'] == next(c['queue_id'] for c in cells
+                                          if c['id'] == tid))
+            later = [_seconds(m['created'], d['time'])
+                     for m in rows['messages']
+                     if json.loads(m['payload']).get('task_id') != tid]
+            later = [s for s in later if s >= 0]
+            latency[tid] = {
+                'exit_s': round(_seconds(exit_time, d['time']), 3),
+                'rc': rc, 'message': msg['status'],
+                'next_dispatch_s': round(min(later), 3) if later else None}
+            if rc not in ('143', '0') or msg['status'] == 'done' and \
+                    rc != '0':
+                fail(f'{phase}: pruned cell {tid} exit {exit_line}, its '
+                     f'message {msg["status"]}')
+
+        # the roster through the site and the command, against the rows
+        status, api_body = _api(port, '/api/sweeps', {'all': True})
+        listed = json.loads(command('sweeps', '--json', '--all'))
+        if status != 200 or api_body['data'] != listed or len(listed) != 1:
+            fail(f'{phase}: /api/sweeps {status} {api_body} against '
+                 f'sweeps --json {listed}')
+        (entry,) = listed
+        by_task = {c['task']: c for c in entry['cells']}
+        if entry['best_task'] != best['id'] or entry['status'] != 'done' \
+                or set(by_task) != {c['id'] for c in cells}:
+            fail(f'{phase}: roster {entry} against the rows')
+        for c in cells:
+            got = by_task[c['id']]
+            want_dec = [(d['rung'], d['verdict'], d['score'], d['cutoff'])
+                        for d in decisions if d['task'] == c['id']]
+            if got['status'] != TaskStatus(c['status']).name or \
+                    got['pruned'] != (c in pruned) or \
+                    [(d['rung'], d['verdict'], d['score'], d['cutoff'])
+                     for d in got['decisions']] != want_dec:
+                fail(f'{phase}: roster cell {got} against the rows')
+        status, text = _api(port, '/metrics', method='GET')
+        families = parse_openmetrics(text) if status == 200 else {}
+        samples = families.get('mlcomp_sweep_cells', {}).get('samples', [])
+        pruned_sample = [s[2] for s in samples
+                         if s[1].get('state') == 'pruned']
+        if pruned_sample != [float(len(pruned))]:
+            fail(f'{phase}: /metrics {status} mlcomp_sweep_cells '
+                 f'{samples}')
+
+        off = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'stop'],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=120)
+        if off.returncode != 0:
+            fail(f'{phase}: server stop exited {off.returncode}: '
+                 f'{off.stdout} {off.stderr}')
+        _wait_for(phase, 'end of every process of the group',
+                  lambda: not _port_processes(root), timeout=60)
+        group.wait(timeout=30)
+        for tid, cell in report.items():
+            say(phase, cell=tid, **{k: json.dumps(v).replace(' ', '')
+                                    for k, v in cell.items()})
+        epochs = sum(r['epochs'] for r in report.values())
+        say(phase, dag=dag_id, prunes=len(prunes),
+            prune_latency=json.dumps(latency).replace(' ', ''),
+            epochs_trained=epochs,
+            epochs_exhaustive=SWEEP_EPOCHS * len(SWEEP_CELLS),
+            best_task=entry['best_task'],
+            best_score=f'{entry["best_score"]:.4f}', launches=launches,
+            site_ready_s=f'{ready_s:.2f}', sweep_s=f'{sweep_s:.2f}',
+            phase_s=f'{time.monotonic() - t0:.2f}', card=smi)
+        return {'sweep': launches}
+    finally:
+        _stop_session(group)
+        _reap(root)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ------------------------------------------------------------ the model zoo
@@ -6410,6 +6794,7 @@ def main():
         sched = phase_sched(smi)
         site = phase_site(smi)
         fleet = phase_fleet(args.seed, smi)
+        sweep = phase_sweep(smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -6480,6 +6865,7 @@ def main():
             'cli': cli['cli'][entry['name']],
             'sched': sched['sched'][entry['name']],
             'site': site['site'][entry['name']],
+            'sweep': sweep['sweep'][entry['name']],
             'telemetry_cifar': telemetry['telemetry_cifar'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}

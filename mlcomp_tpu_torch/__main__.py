@@ -21,13 +21,16 @@ on ``argparse``:
 - ``python -m mlcomp_tpu_torch fleets [--json] [--all]`` — the serving
   fleets (server/fleet.py): generation, desired against healthy, and
   each replica's state, endpoint and respawn lineage
+- ``python -m mlcomp_tpu_torch sweeps [--json] [--all]`` — the ASHA
+  sweeps (server/sweep.py): the policy, the rung ladder and each cell's
+  status and prune/promote verdicts
 
 ``--params a/b:c`` overrides merge into the stored config as the JAX
 package's do. The DB is the JAX package's (same root, same schema):
 ``<root>/db/sqlite.db``. Trainers run on the card; a config asks for the
 CPU with ``device: cpu``. The other commands of the JAX package (sync,
-alerts, recovery, gangs, supervisors, sweeps, usage, quotas) are not
-ported yet (ROADMAP.md, A0).
+alerts, recovery, gangs, supervisors, usage, quotas) are not ported
+yet (ROADMAP.md, A0).
 """
 
 import argparse
@@ -391,6 +394,51 @@ def cmd_fleets(args):
     return 0
 
 
+def cmd_sweeps(args):
+    """ASHA sweep state (server/sweep.py): one block per sweep — the
+    policy (metric/mode/eta/rung base), the rung ladder, and every
+    cell with its live status and prune/promote audit trail."""
+    from mlcomp_tpu_torch.server.api import api_sweeps
+    session = Session.create_session()
+    migrate(session)
+    items = api_sweeps({'all': args.show_all}, session)['data']
+    if args.as_json:
+        print(json.dumps(items))
+        return 0
+    if not items:
+        print('no ' + ('' if args.show_all else 'active ') + 'sweeps')
+        return 0
+    for it in items:
+        unit = 'epoch' if it['unit'] == 'epochs' else 'step'
+        head = (f"{it['name']} [{it['status']}] {it['metric']}/"
+                f"{it['mode']} eta={it['eta']:g} rungs at "
+                f"{unit} {it['rung_base']}*eta^r")
+        if it['best_task'] is not None:
+            head += (f" — best cell {it['best_task']} "
+                     f"score {it['best_score']:.6g}")
+        print(head)
+        for rung in it['rungs']:
+            print(f"  rung {rung['rung']}: {rung['promoted']} promoted, "
+                  f"{rung['pruned']} pruned")
+        for c in it['cells']:
+            line = (f"  cell {c['task']} [{c['status']}] {c['name']}"
+                    + (f" score {c['score']:.6g}"
+                       if c['score'] is not None else ''))
+            # a recorded prune verdict outranks the task row: in the
+            # window before the kill lands (a leader dying mid-prune)
+            # the cell is already a judged loser, never "promoted"
+            d = next((d for d in c['decisions']
+                      if d['verdict'] == 'prune'), None)
+            if d is not None:
+                line += (f" — pruned at rung {d['rung']} "
+                         f"({d['score']:.6g} vs cutoff "
+                         f"{d['cutoff']:.6g})")
+            elif c['pruned']:
+                line += ' — pruned'
+            print(line)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog='python -m mlcomp_tpu_torch',
@@ -449,6 +497,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--all', dest='show_all', action='store_true',
                    help='include stopped fleets')
     p.set_defaults(fn=cmd_fleets)
+    p = sub.add_parser('sweeps', help='ASHA sweep state')
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='machine-readable output')
+    p.add_argument('--all', dest='show_all', action='store_true',
+                   help='include finished sweeps')
+    p.set_defaults(fn=cmd_sweeps)
     return parser
 
 

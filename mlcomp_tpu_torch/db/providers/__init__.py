@@ -1,8 +1,8 @@
 """Data providers — one repository per entity (port of
 ``mlcomp_tpu/db/providers``: the ones the CLI, the DAG builder, the task
 pipeline, the trainer, the supervisor, its leader lease, the worker
-daemon, the API and the serving fleets use). The sweep, usage, quota
-and auth providers come with their ROADMAP.md items (A0)."""
+daemon, the API, the serving fleets and the ASHA sweeps use). The
+usage, quota and auth providers come with their ROADMAP.md items (A0)."""
 
 from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
 from mlcomp_tpu_torch.db.providers.project import ProjectProvider
@@ -28,6 +28,9 @@ from mlcomp_tpu_torch.db.providers.queue import QueueProvider
 from mlcomp_tpu_torch.db.providers.task_synced import TaskSyncedProvider
 from mlcomp_tpu_torch.db.providers.supervisor import SupervisorLeaseProvider
 from mlcomp_tpu_torch.db.providers.fleet import FleetProvider, ReplicaProvider
+from mlcomp_tpu_torch.db.providers.sweep import (
+    SweepDecisionProvider, SweepProvider,
+)
 
 __all__ = [
     'MetricProvider', 'TelemetrySpanProvider', 'DagPreflightProvider',
@@ -39,4 +42,5 @@ __all__ = [
     'AuxiliaryProvider', 'ComputerProvider', 'DockerProvider',
     'QueueProvider', 'TaskSyncedProvider', 'SupervisorLeaseProvider',
     'PostmortemProvider', 'FleetProvider', 'ReplicaProvider',
+    'SweepProvider', 'SweepDecisionProvider',
 ]

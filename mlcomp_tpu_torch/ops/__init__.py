@@ -34,7 +34,25 @@ from mlcomp_tpu_torch.ops.serving_stack import (
     serving_stack, stack_feed,
 )
 
-__all__ = ['fused_attention', 'flash_attention_forward',
+
+def kernel_launches() -> dict:
+    """The launch count of every kernel wrapper of the port, by kernel
+    name: each wrapper adds one where it launches its kernel (a CPU
+    tensor's plain version counts nothing)."""
+    from mlcomp_tpu_torch.ops import flash_attention as fa
+    return {'flash_attention_fwd': fa.flash_attention_forward.launches,
+            'flash_attention_bwd_dq': fa.flash_attention_backward_dq.launches,
+            'flash_attention_bwd_dkv':
+                fa.flash_attention_backward_dkv.launches,
+            'fused_norm': norm_act_forward.launches,
+            'fused_norm_bwd': norm_act_backward_kernel.launches,
+            'fused_ce_fwd': ce_forward.launches,
+            'fused_ce_bwd': ce_backward.launches,
+            'int8_matmul': int8_matmul.launches,
+            'serving_stack': serving_stack.launches}
+
+
+__all__ = ['kernel_launches', 'fused_attention', 'flash_attention_forward',
            'flash_attention_backward', 'FlashAttention',
            'reference_attention', 'reference_attention_backward',
            'resolve_impl', 'fused_norm_act', 'norm_act_forward',

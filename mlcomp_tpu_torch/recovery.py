@@ -17,6 +17,10 @@ lease-expired   transient  queue lease reclaim gave up on a dead host
 gang-peer-lost  transient  a peer rank of a gang never showed up
 gang-aborted    transient  the gang-abort sweep killed a surviving rank
 replica-unhealthy transient  the fleet reconciler gave up on a replica
+sweep-pruned    permanent  the ASHA sweep scheduler's rung verdict
+                           (server/sweep.py): the cell lost its rung and
+                           was killed to free its slot. Never retried;
+                           the ``sweep_decision`` row is the audit trail
 oom             permanent  out of device memory (CUDA's ``OutOfMemoryError``
                            says "out of memory") or host ``MemoryError``
 executor-error  permanent  any other exception, and the deterministic OS
@@ -221,8 +225,11 @@ def reset_for_requeue(provider, task, resume: dict = None,
         info.pop('retry_exclude', None)
     detach_service_children(provider.session, task.id)
     task.additional_info = yaml_dump(info)
-    # reached only from the supervisor's retry pass (one tick thread,
-    # the task already terminal): no live writer races this reset
+    # requeue is reached only from the supervisor's retry pass (one
+    # tick thread, the task already terminal) and ``/api/dag/start``
+    # (server/api.py), which rejects unfinished tasks before calling
+    # in: no live writer races a terminal row's reset
+    # preflight: disable=db-naked-transition — see above
     task.status = int(TaskStatus.NotRan)
     task.pid = None
     task.started = None

@@ -29,6 +29,8 @@ Endpoint map (POST JSON unless noted):
   (``all`` includes stopped fleets);
   ``/api/fleet/create|scale|swap|stop`` (auth) — mutate the desired
   state the supervisor's fleet reconciler drives (server/fleet.py)
+- ``/api/sweeps`` (GET or POST, no auth) — ASHA sweep roster: rung
+  ladder and per-cell verdicts (``all`` includes done sweeps)
 - ``/api/telemetry/series|spans|trace`` (also GET ``/telemetry/series``,
   ``/telemetry/spans``, ``/telemetry/trace/<id>``, no auth)
 - ``/api/alerts`` (GET or POST, no auth) + ``/api/alert/resolve`` (auth)
@@ -627,6 +629,58 @@ def api_fleets(data, s):
     return {'data': out}
 
 
+def api_sweeps(data, s):
+    """ASHA sweep roster (server/sweep.py): every sweep with its rung
+    ladder and per-cell verdict table — which cell was pruned at which
+    rung, at what score, against what cutoff, by which leader epoch.
+    Same no-auth introspection tier as /api/fleets; the dashboard's
+    sweep card and the ``sweeps`` command read this."""
+    from mlcomp_tpu_torch.db.providers import (
+        SweepDecisionProvider, SweepProvider,
+    )
+    sp, dp = SweepProvider(s), SweepDecisionProvider(s)
+    include_done = bool(data.get('all'))
+    out = []
+    for sweep in sp.all():
+        if sweep.status == 'done' and not include_done:
+            continue
+        cells = sp.cell_tasks(sweep)
+        decisions = dp.for_sweep(sweep.id)
+        by_cell = {}
+        for d in decisions:
+            by_cell.setdefault(d.task, []).append({
+                'rung': d.rung, 'verdict': d.verdict,
+                'score': d.score, 'cutoff': d.cutoff,
+                'cells_seen': d.cells_seen, 'epoch': d.epoch,
+                'time': str(d.time or '')})
+        rungs = {}
+        for d in decisions:
+            entry = rungs.setdefault(
+                d.rung, {'rung': d.rung, 'promoted': 0, 'pruned': 0})
+            entry['promoted' if d.verdict == 'promote'
+                  else 'pruned'] += 1
+        out.append({
+            'id': sweep.id, 'name': sweep.name, 'dag': sweep.dag,
+            'executor': sweep.executor, 'status': sweep.status,
+            'metric': sweep.metric, 'mode': sweep.mode,
+            'eta': sweep.eta, 'rung_base': sweep.rung_base,
+            'unit': sweep.unit,
+            'min_cells_per_rung': sweep.min_cells_per_rung,
+            'best_task': sweep.best_task,
+            'best_score': sweep.best_score,
+            'rungs': [rungs[r] for r in sorted(rungs)],
+            'cells': [{
+                'task': c.id, 'name': c.name,
+                'status': TaskStatus(c.status).name,
+                'score': c.score,
+                'computer': c.computer_assigned,
+                'pruned': c.failure_reason == 'sweep-pruned',
+                'decisions': by_cell.get(c.id, []),
+            } for c in cells],
+        })
+    return {'data': out}
+
+
 def _fleet_or_404(data, s):
     from mlcomp_tpu_torch.db.providers import FleetProvider
     fleet = None
@@ -921,7 +975,6 @@ def api_stop(data, s):
 #: the JAX package's routes whose backing module is not ported yet, with
 #: the ROADMAP.md item each waits for
 WAITING_ROUTES = {
-    '/api/sweeps': 'A0: ASHA sweeps',
     '/api/usage': 'A0: quotas and usage',
     '/api/slos': 'A0: quotas and usage',
     '/api/quotas': 'A0: quotas and usage',
@@ -978,7 +1031,7 @@ _ROUTES = {
     # same introspection tier as auxiliary; mutations need the token
     '/api/fleets': (api_fleets, False),
     # ASHA sweep roster (server/sweep.py): read-only audit surface
-    '/api/sweeps': (_waits('/api/sweeps'), False),
+    '/api/sweeps': (api_sweeps, False),
     # cluster-economy reads (migration v14 + telemetry/slo.py):
     # aggregates + objective verdicts, no secrets — introspection tier
     '/api/usage': (_waits('/api/usage'), False),
@@ -1223,6 +1276,8 @@ class ApiHandler(BaseHTTPRequestHandler):
                 handler = api_task_devtime
             elif parsed.path == '/api/fleets':
                 handler = api_fleets
+            elif parsed.path == '/api/sweeps':
+                handler = api_sweeps
             elif parsed.path in WAITING_ROUTES:
                 handler = _ROUTES[parsed.path][0]
             else:

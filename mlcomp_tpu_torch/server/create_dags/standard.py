@@ -6,8 +6,9 @@ uploads the experiment folder into the DB; creates tasks topologically with
 dependency validation; fans out one task per grid cell; parses the core
 spec ``"a-b"`` into (cores, cores_max); wires per-train-task reports.
 Every row is the one the JAX package's builder writes (the random
-``trace_id`` aside). A ``sweep:`` block raises: the ASHA sweep scheduler
-is not ported yet (ROADMAP.md, A0).
+``trace_id`` aside). A ``sweep:`` block on a grid executor writes the
+``sweep`` row the supervisor's ASHA scheduler (server/sweep.py) drives
+and stamps the normalized spec on every cell.
 """
 
 import os
@@ -177,17 +178,64 @@ class DagStandardBuilder:
     def _create_executor_tasks(self, name, spec, depends, created):
         grid = spec.get('grid')
         cells = grid_cells(grid) if grid else [(None, None)]
+        sweep_info = None
+        if spec.get('sweep') is not None:
+            sweep_info = self._create_sweep(name, spec, grid, len(cells))
         tasks = []
         for cell_index, (cell, cell_name_str) in enumerate(cells):
             task = self._create_task(
-                name, spec, cell, cell_name_str, cell_index)
+                name, spec, cell, cell_name_str, cell_index,
+                sweep_info=sweep_info)
             for dep in depends:
                 for dep_task in created[dep]:
                     self.task_provider.add_dependency(task.id, dep_task.id)
             tasks.append(task)
         return tasks
 
-    def _create_task(self, name, spec, cell, cell_name_str, cell_index):
+    def _create_sweep(self, name, spec, grid, n_cells) -> dict:
+        """The ``sweep`` row of a grid executor's ``sweep:`` block and
+        the spec its cells carry in ``additional_info['sweep']`` (the
+        trainer reports rung scores and checkpoints at rung boundaries
+        from it). Validated here, so a bad block rejects the
+        submission instead of a sweep that never prunes."""
+        from mlcomp_tpu_torch.contrib.search.asha import (
+            normalize_sweep_spec,
+        )
+        from mlcomp_tpu_torch.server.sweep import create_sweep
+        if not grid:
+            raise ValueError(
+                f'executor {name!r}: sweep requires a grid (a '
+                f'sweep schedules grid cells)')
+        norm = normalize_sweep_spec(spec['sweep'])
+        # cross-check against the trainer's score contract: cells
+        # report main_metric under minimize's direction; a mismatch
+        # would judge another series, or prune the winners
+        if Executor.is_trainable(spec.get('type', name)):
+            # resolved as Executor._parse_config does: the params:
+            # block feeds constructor kwargs too, top-level keys win
+            params = dict(spec.get('params') or {})
+            resolved = {**params,
+                        **{k: v for k, v in spec.items() if k != 'params'}}
+            main_metric = resolved.get('main_metric', 'accuracy')
+            if norm['metric'] != main_metric:
+                raise ValueError(
+                    f'executor {name!r}: sweep.metric '
+                    f'{norm["metric"]!r} != the trainer\'s '
+                    f'main_metric {main_metric!r} — cells report '
+                    f'main_metric, so the sweep would judge a '
+                    f'different series than the spec names')
+            minimize = bool(resolved.get('minimize', False))
+            if (norm['mode'] == 'min') != minimize:
+                raise ValueError(
+                    f'executor {name!r}: sweep.mode '
+                    f'{norm["mode"]!r} contradicts the trainer\'s '
+                    f'minimize={minimize} — the sweep would prune '
+                    f'the best cells')
+        sweep = create_sweep(self.session, self.dag, name, norm, n_cells)
+        return dict(norm, id=sweep.id)
+
+    def _create_task(self, name, spec, cell, cell_name_str, cell_index,
+                     sweep_info=None):
         cores, cores_max = parse_cores(
             spec.get('cores', spec.get('gpu', 0)))
         executor_type = spec.get('type', name)
@@ -213,6 +261,8 @@ class DagStandardBuilder:
         if cell is not None:
             additional_info['grid_cell'] = cell_index
             additional_info['grid'] = cell
+        if sweep_info is not None:
+            additional_info['sweep'] = dict(sweep_info)
         if spec.get('env'):
             additional_info['env'] = spec['env']
         if self.info.get('stages'):
@@ -297,12 +347,6 @@ class DagStandardBuilder:
 
     # --------------------------------------------------------------- build
     def build(self):
-        for name, spec in (self.config.get('executors') or {}).items():
-            if isinstance(spec, dict) and spec.get('sweep') is not None:
-                # refused before any DB write
-                raise NotImplementedError(
-                    f'executor {name!r}: sweep scheduling is not ported '
-                    f'yet (ROADMAP.md, A0: ASHA sweeps)')
         if self.preflight:
             self.run_preflight()
         self.load_base()

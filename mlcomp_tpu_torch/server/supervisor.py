@@ -8,17 +8,22 @@ Each tick (``SupervisorBuilder.build``):
    child gang-aborts its siblings
 3. ``process_recovery``     — lease reclaim, strand sweep, retry of
    transient failures with backoff
-4. ``process_fleets``       — the serving-fleet reconciler
+4. ``process_sweeps``       — the ASHA sweep scheduler
+   (server/sweep.py): judges grid cells at budget rungs, prunes the
+   losers (``Failed``/``sweep-pruned``), finishes done sweeps; a pruned
+   cell's slot re-places in the same tick
+5. ``process_fleets``       — the serving-fleet reconciler
    (server/fleet.py): desired replica counts, health-gated respawn,
    rolling swaps; a replica task it mints dispatches in the same tick
-5. ``load_tasks``           — NotRan tasks in dispatch order (class,
+6. ``load_tasks``           — NotRan tasks in dispatch order (class,
    aging, fair share, age) + their dependency status sets
-6. ``load_computers``       — free-resource model per computer: card
+7. ``load_computers``       — free-resource model per computer: card
    slot array + cpu + memory, minus Queued/InProgress assignments
-7. ``process_tasks``        — preflight and dependency gating
+8. ``process_tasks``        — preflight and dependency gating
    (failed dependency → Skipped), then placement and dispatch onto the
-   DB queue ``{computer}_{docker}``
-8. ``write_auxiliary``      — the decision trace into ``auxiliary``
+   DB queue ``{computer}_{docker}``; sweep cells steer off hosts with a
+   history of transient failures
+9. ``write_auxiliary``      — the decision trace into ``auxiliary``
 
 With a :class:`~mlcomp_tpu_torch.server.ha.LeaderLease` (HA, the
 default of ``register_supervisor``) the builder issues every write on a
@@ -29,13 +34,13 @@ writes are rejected in the DB. The loop contends for the lease, runs
 stops.
 
 What the JAX tick does beyond this is not ported and refuses rather
-than being skipped silently (ROADMAP.md, A0): a DB holding sweep rows
-(the ASHA sweep scheduler), one holding quota rows, a tick whose
-preemption pass would evict (quotas and preemption), and the multi-host
-fan-out (A4), each raise ``NotImplementedError``. The tick telemetry
-and the watchdog, SLO and usage folds write observability and ledger
-rows no decision here reads, and are left out, but for the count of
-fenced-off writes; the tick flushes its dispatch spans.
+than being skipped silently (ROADMAP.md, A0): a DB holding quota rows,
+a tick whose preemption pass would evict (quotas and preemption), and
+the multi-host fan-out (A4), each raise ``NotImplementedError``. The
+tick telemetry and the watchdog, SLO and usage folds write
+observability and ledger rows no decision here reads, and are left
+out, but for the count of fenced-off writes; the tick flushes its
+dispatch spans.
 """
 
 import datetime
@@ -68,10 +73,9 @@ from mlcomp_tpu_torch.utils.misc import now
 STALL_DEADLINE_S = 1800.0
 
 #: tables whose rows only unported parts of the JAX tick act on, each
-#: with the ROADMAP.md item that brings it
-UNPORTED_TABLES = (
-    ('sweep', 'ASHA sweeps (server/sweep.py)'),
-)
+#: with the ROADMAP.md item that brings it (none at present: quota
+#: rows are refused where the scheduling snapshot reads them)
+UNPORTED_TABLES = ()
 
 
 def _refusal(what: str, item: str) -> NotImplementedError:
@@ -90,6 +94,7 @@ class SupervisorBuilder:
                  recovery_config: RecoveryConfig = None, fleet_config=None,
                  fleet_probe=None, lease=None):
         from mlcomp_tpu_torch.server.fleet import FleetReconciler
+        from mlcomp_tpu_torch.server.sweep import SweepScheduler
         session = session or Session.create_session(key='supervisor')
         if isinstance(session, FencedSession):    # heal-path re-init
             session = session._session
@@ -116,6 +121,12 @@ class SupervisorBuilder:
         self.fleet_reconciler = FleetReconciler(
             self.session, logger=logger, config=fleet_config,
             probe=fleet_probe)
+        # ASHA sweep scheduler (server/sweep.py): judges grid cells at
+        # budget rungs off the sweep.score series and prunes the
+        # losers — runs before load_tasks so a pruned cell's slot
+        # re-places into the next queued cell in the SAME tick
+        self.sweep_scheduler = SweepScheduler(
+            self.session, logger=logger, gang_abort=self.gang_abort)
 
         self.queues = []
         self.alive_computers = set()
@@ -129,6 +140,9 @@ class SupervisorBuilder:
         # tasks this tick's placement could not fit for capacity: the
         # JAX preemption pass's worklist
         self._capacity_blocked = []
+        # computer -> transient-failure count for the sweep cells'
+        # placement; tick-scoped, None = not read this tick
+        self._retry_prone = None
         # dag id -> [error findings] ([] = passed), filled the first
         # time a NotRan task of that dag reaches placement
         self._preflight_cache = {}
@@ -171,6 +185,7 @@ class SupervisorBuilder:
             self._pending_execute = None
         self._sched_snapshot = None
         self._capacity_blocked = []
+        self._retry_prone = None
 
     # -------------------------------------------------------- parent tasks
     def process_parent_tasks(self):
@@ -364,7 +379,42 @@ class SupervisorBuilder:
         fits = [c for c, _free in pack_candidates(
             [(c, len(self._free_cores(c))) for c in fits],
             int(want), multi_host, spread=bool(info.get('serve')))]
+        # preemption-aware placement of SWEEP cells: a cell is
+        # disposable work, so steer it off hosts whose recovery history
+        # says they eat tasks (transient failure verdicts). The sort is
+        # stable: equal-history hosts keep the packing order, and
+        # non-sweep tasks are untouched
+        if info.get('sweep') and len(fits) > 1:
+            prone = self._retry_prone_counts()
+            if any(prone.get(c['name']) for c in fits):
+                fits.sort(key=lambda c: prone.get(c['name'], 0))
         return fits, reasons
+
+    def _retry_prone_counts(self) -> dict:
+        """computer -> count of transient-failure verdicts attributed
+        to it (terminal task rows whose ``failure_reason`` is in the
+        recovery taxonomy's transient set). One grouped query, cached
+        per tick; the status filter in SQL keeps the read on the status
+        index."""
+        if self._retry_prone is not None:
+            return self._retry_prone
+        from mlcomp_tpu_torch.recovery import TRANSIENT_REASONS
+        reasons = sorted(TRANSIENT_REASONS)
+        marks = ','.join('?' * len(reasons))
+        try:
+            self._retry_prone = {
+                r['computer_assigned']: r['n']
+                for r in self.session.query(
+                    f'SELECT computer_assigned, COUNT(*) AS n '
+                    f'FROM task WHERE status IN (?, ?) '
+                    f'AND failure_reason IN ({marks}) '
+                    f'AND computer_assigned IS NOT NULL '
+                    f'GROUP BY computer_assigned',
+                    (int(TaskStatus.Failed), int(TaskStatus.Stopped),
+                     *reasons))}
+        except Exception:
+            self._retry_prone = {}
+        return self._retry_prone
 
     def find_port(self, comp) -> int:
         """Coordinator port from the per-computer range; released when
@@ -566,6 +616,23 @@ class SupervisorBuilder:
             raise           # zombie leader: stop the tick, demote
         except Exception:
             self._log_error(f'recovery pass failed:\n'
+                            f'{traceback.format_exc()}')
+
+    def process_sweeps(self):
+        """ASHA sweep scheduling (server/sweep.py): judge every cell
+        that reported a budget rung, prune the losers through the
+        kill/taxonomy path, finish completed sweeps. Runs before
+        load_tasks so a pruned cell's cores are free for this tick's
+        placement. Same containment as recovery: a scheduler crash
+        never takes the tick down, a fence loss demotes this leader."""
+        try:
+            sweep_aux = self.sweep_scheduler.tick()
+            if sweep_aux:
+                self.aux['sweeps'] = sweep_aux
+        except FenceLostError:
+            raise           # zombie leader: stop the tick, demote
+        except Exception:
+            self._log_error(f'sweep scheduling failed:\n'
                             f'{traceback.format_exc()}')
 
     def process_fleets(self):
@@ -895,6 +962,9 @@ class SupervisorBuilder:
             # recovery before load_tasks: a task requeued this tick
             # re-loads as NotRan and can re-dispatch at once
             self.process_recovery()
+            # sweeps before load_tasks for the same reason: a cell
+            # pruned this tick frees its cores for the placement below
+            self.process_sweeps()
             self.process_fleets()
             self.load_tasks()
             self.load_computers()

@@ -31,8 +31,11 @@ async checkpoint writer, resume through ``resume_plan``,
 task's ``additional_info``), running statistics (``batch_stats``) in
 checkpoints and the export, the ``model_name`` export, pretrained
 weights (``model.params_file``, ``train/pretrained.py``; a resume wins
-over them) and ``infer_valid`` (the validation set's predictions under
-``data/pred``, the best checkpoint's by default). ``mesh`` may
+over them), ASHA sweep cells (``additional_info['sweep']``: one
+``sweep.score`` row an epoch, a checkpoint at each rung, a stop at the
+epoch boundary after a verdict lands on the row) and ``infer_valid``
+(the validation set's predictions under ``data/pred``, the best
+checkpoint's by default). ``mesh`` may
 be ``{dp: 1}`` or ``{dp: -1}`` ("every device") on one device. Run by
 the task pipeline (a DB session and a task), it writes the JAX
 trainer's rows: ``ReportSeries`` of every train and valid metric and
@@ -51,8 +54,11 @@ windows as ``devtime.*`` (where ``profile_every`` asks: off by default),
 or ``MLCOMP_PEAK_TFLOPS`` says otherwise) and
 ``step.pipeline_efficiency``; ``/api/telemetry/profile`` traces
 epochs on demand and ``profile: {epochs, dir}`` traces the given
-ones. Checkpoints go to ``TASK_FOLDER/<task>/checkpoints`` and the
-export to ``MODEL_FOLDER/<project>/<model_name>``. Keys
+ones. The port adds, on every exit of a run with a task that launched
+any of the port's kernels (a SIGTERM's exit included),
+``train.kernel_launches.<kernel>`` (the launches of the train steps
+completed) and ``train.steps`` (those steps). Checkpoints go to
+``TASK_FOLDER/<task>/checkpoints`` and the export to ``MODEL_FOLDER/<project>/<model_name>``. Keys
 whose feature is not ported yet raise ``NotImplementedError`` with
 their ROADMAP.md item; unknown keys are logged as the JAX trainer logs
 them.
@@ -69,6 +75,7 @@ from mlcomp_tpu_torch.convert import (
     jax_kernel_shapes, state_dict_from_jax, variables_to_jax,
 )
 from mlcomp_tpu_torch.models import create_model, param_count
+from mlcomp_tpu_torch.ops import kernel_launches
 from mlcomp_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter, checkpoint_exists, load_meta, restore_checkpoint,
     resume_plan, save_checkpoint,
@@ -233,6 +240,53 @@ class Train(Executor):
             task=self.task.id, time=now(), epoch=int(epoch),
             value=float(value), name=name, part=part, stage=stage))
 
+    def _sweep_info(self):
+        info = dict(getattr(self, 'additional_info', None) or {})
+        sweep = info.get('sweep')
+        return dict(sweep) if isinstance(sweep, dict) else None
+
+    def _report_sweep(self, global_epoch: int, steps_per_epoch: int,
+                      score) -> bool:
+        """ASHA rung reporting for sweep cells (contrib/search/asha.py
+        contract): one ``sweep.score`` row per epoch boundary, budget
+        in the sweep's unit (epochs or optimizer steps), attributed to
+        the CELL task (``task.parent or task.id``: the supervisor judges
+        cells, not ranks). Returns True when a rung boundary was crossed
+        during this epoch, which is the train loop's cue to checkpoint:
+        step-unit boundaries generally fall mid-epoch. Best-effort like
+        every observability write."""
+        sweep = self._sweep_info()
+        if sweep is None or not self._tracked():
+            return False
+        from mlcomp_tpu_torch.contrib.search.asha import (
+            report_sweep_score, rung_boundaries,
+        )
+        epochs_done = global_epoch + 1
+        per_epoch = 1 if sweep.get('unit', 'epochs') == 'epochs' \
+            else int(steps_per_epoch)
+        budget = epochs_done * per_epoch
+        if score is not None:
+            cell_id = self.task.parent or self.task.id
+            report_sweep_score(self.session, cell_id, budget, score)
+        try:
+            base = int(sweep.get('base') or sweep.get('rung_epochs', 1))
+            eta = float(sweep.get('eta', 2))
+        except (TypeError, ValueError):
+            return False
+        prev_budget = budget - per_epoch
+        return any(prev_budget < b <= budget
+                   for b in rung_boundaries(base, eta, budget))
+
+    def _sweep_stopped(self) -> bool:
+        """Has a prune landed on this sweep cell's row? Polled at each
+        epoch boundary, so an in-process cell stops itself and frees
+        the slot the supervisor has already given to the next cell
+        (``cell_is_terminal``). Sweep cells only."""
+        if self._sweep_info() is None or not self._tracked():
+            return False
+        from mlcomp_tpu_torch.contrib.search.asha import cell_is_terminal
+        return cell_is_terminal(self.session, self.task.id)
+
     def _update_scores(self, score):
         """task.score and the Model row's score_local, best so far."""
         if not self._tracked():
@@ -305,6 +359,10 @@ class Train(Executor):
         self._attribution = None
         self._compile_events = None
         self._profile_tracer = None
+        # (train steps completed, the port's kernel launch counts after
+        # the last of them), against the counts when this run started
+        self._launch_base = kernel_launches()
+        self._progress = (0, self._launch_base)
         # the train loop's leg of the task's trace (a ``train.work`` root
         # with ``train.epoch`` children)
         span_cm = None
@@ -321,6 +379,7 @@ class Train(Executor):
             ok = True
             return result
         finally:
+            self._report_launches()
             if span_cm is not None:
                 import sys
                 try:
@@ -338,6 +397,42 @@ class Train(Executor):
                     self.error(f'checkpoint writer: {e}')
                     if ok:
                         raise
+
+    def _counted(self, train_step):
+        """``train_step`` that also marks the kernel launch counts after
+        each step it completes."""
+        def counted(*args, **kwargs):
+            out = train_step(*args, **kwargs)
+            # one attribute store: a signal between two would split them
+            self._progress = (self._progress[0] + 1, kernel_launches())
+            return out
+        return counted
+
+    def _report_launches(self):
+        """The port's kernels launched in the run's completed train
+        steps (``train.kernel_launches.<kernel>``) and those steps
+        (``train.steps``), as metric rows written at once, where the run
+        launched any (none do on the CPU). Runs on every exit, a
+        SIGTERM's ``SystemExit`` included; a step cut short by the exit
+        counts for neither. Best-effort."""
+        if not self._tracked():
+            return
+        from mlcomp_tpu_torch.db.providers import MetricProvider
+        from mlcomp_tpu_torch.utils.misc import now
+        (steps, marks), at = self._progress, now()
+        rows = [(self.task.id, f'train.kernel_launches.{name}', 'counter',
+                 steps, float(count - self._launch_base.get(name, 0)), at,
+                 'train', None)
+                for name, count in marks.items()
+                if count != self._launch_base.get(name, 0)]
+        if not rows:
+            return
+        rows.append((self.task.id, 'train.steps', 'counter', steps,
+                     float(steps), at, 'train', None))
+        try:
+            MetricProvider(self.session).add_many(rows)
+        except Exception as e:
+            self.error(f'kernel launch rows: {e}')
 
     def _close_telemetry(self):
         """Teardown, in the JAX trainer's order: the build listener goes
@@ -645,6 +740,7 @@ class Train(Executor):
                     memory=self._memory, deviceprof=self._deviceprof,
                     probe=self._probe)
             first_epoch = start_epoch if stage is remaining[0] else 0
+            train_step = self._counted(train_step)
             if first_epoch == 0 and stage is not self.stages[0]:
                 # stage boundary: fresh optimizer state, keep params
                 state.opt_state = optimizer.init(state.params)
@@ -743,6 +839,11 @@ class Train(Executor):
                 if is_best:
                     best = score
                     self._update_scores(score)
+                # ASHA sweep cell (additional_info['sweep'], stamped at
+                # submission): the rung score the supervisor judges on,
+                # written at once so a loser is pruned at the next tick
+                sweep_rung = self._report_sweep(
+                    global_epoch, steps_per_epoch, score)
                 for k, v in train_agg.items():
                     self._report_series(k, v, global_epoch, 'train',
                                         stage_name)
@@ -756,10 +857,16 @@ class Train(Executor):
                                           train_dt, n_train,
                                           steps_per_epoch)
                 last_of_stage = epoch == int(stage.get('epochs', 1)) - 1
+                # a sweep rung forces a save, so a promoted cell that
+                # later dies transiently resumes from its rung
+                # checkpoint (checkpoint_every: 0 still wins)
                 should_save = self.checkpoint_every != 0 and (
                     is_best or self.checkpoint_every <= 1
                     or (global_epoch + 1) % self.checkpoint_every == 0
-                    or last_of_stage)
+                    or last_of_stage or sweep_rung)
+                if should_save and sweep_rung:
+                    self.info(f'sweep rung checkpoint at epoch '
+                              f'{global_epoch}')
                 if should_save:
                     meta_d = {'stage': stage_name, 'stage_epoch': epoch,
                               'epoch': global_epoch, 'score': score,
@@ -781,6 +888,14 @@ class Train(Executor):
                 # submit; one module-global check when none is armed
                 fault_point('train.epoch', epoch=global_epoch,
                             task=self.task.id if self.task else None)
+                if self._sweep_stopped():
+                    # the Failed/sweep-pruned row stays as it is: the
+                    # task pipeline keeps a verdict that landed mid-run
+                    self.info(f'sweep cell stopped after epoch '
+                              f'{global_epoch - 1}: its row is terminal')
+                    self._drain_ckpt_writer()
+                    return {'pruned_at_epoch': global_epoch - 1,
+                            'best_score': best}
             if (dispatch_stage is not None or self.stage_per_dispatch) \
                     and stage_name != stage_names[-1]:
                 # return for the requeue: the next dispatch runs the next

@@ -17,8 +17,10 @@ ints (decimal, ``0x``, ``0b``, leading-0 octal, ``_`` separators, base
 60) and floats only with a dot or ``.inf``/``.nan`` — ``1e-3`` stays a
 string. Anything outside the subset raises ``YamlError`` naming the
 construct (anchors, aliases, tags, block scalars ``|``/``>``, explicit
-``?`` keys, merge keys ``<<``, timestamps, directives, document markers);
-it is never read as something else.
+``?`` keys in flow collections, merge keys ``<<``, timestamps,
+directives, document markers); it is never read as something else. A
+block ``? key`` / ``: value`` pair, which PyYAML writes for a key that
+holds a line break, is read.
 
 ``yaml_dump`` writes block style with keys in insertion order, the shape
 of ``yaml.safe_dump(data, default_flow_style=False, sort_keys=False)``,
@@ -406,6 +408,12 @@ class _Block:
         return text == '-' or text.startswith('- ') \
             or text.startswith('-\t')
 
+    @staticmethod
+    def is_explicit_key(text):
+        """A ``? key`` line, as PyYAML writes a key that holds a line
+        break (``\\L``, ``\\P``); its value follows on a ``: `` line."""
+        return text[:1] == '?' and text[1:2] in ('', ' ', '\t')
+
     def split_key(self, text):
         """``(key, rest)`` when ``text`` is a ``key: value`` line, else
         None. ``rest`` keeps its comment."""
@@ -415,9 +423,7 @@ class _Block:
         if c in _RESERVED_START:
             raise self.error(f'{_RESERVED_START[c]} are outside the YAML '
                              f'subset')
-        if c == '?' and text[1:2] in ('', ' ', '\t'):
-            raise self.error('explicit keys (?) are outside the YAML subset')
-        if c in '[{':
+        if c in '[{' or self.is_explicit_key(text):
             return None
         if c in '\'"':
             end = _find_quote_end(text, 0, c)
@@ -450,9 +456,23 @@ class _Block:
         indent, text, _ = self.lines[self.i]
         if self.is_item(text):
             return self.seq(indent)
-        if self.split_key(text) is not None:
+        if self.is_explicit_key(text) or self.split_key(text) is not None:
             return self.map(indent)
         return self.inline(parent)
+
+    def indicated(self, indent):
+        """The node after the one-character indicator (``?`` or ``:``)
+        that starts the current line, at ``indent``: on the rest of the
+        line, read as a line of its own, or on the lines below."""
+        text = self.lines[self.i][1]
+        rest = text[1:]
+        body = rest.lstrip(' \t')
+        if not _strip_comment(body):
+            self.i += 1
+        else:
+            self.lines[self.i] = [indent + 1 + len(rest) - len(body), body,
+                                  self.lines[self.i][2]]
+        return self.node(indent)
 
     def seq(self, indent):
         out = []
@@ -489,6 +509,20 @@ class _Block:
                 raise self.error('bad indentation of a mapping entry')
             if self.is_item(text):
                 break
+            if self.is_explicit_key(text):
+                key = self.indicated(indent)
+                if isinstance(key, (dict, list)):
+                    raise self.error('collection keys are outside the '
+                                     'YAML subset')
+                self.skip_blank()
+                value = None
+                if self.i < len(self.lines) and \
+                        self.lines[self.i][0] == indent and \
+                        self.lines[self.i][1][:1] == ':' and \
+                        self.lines[self.i][1][1:2] in ('', ' ', '\t'):
+                    value = self.indicated(indent)
+                out[key] = value
+                continue
             pair = self.split_key(text)
             if pair is None:
                 raise self.error('expected a "key: value" line')
@@ -509,7 +543,8 @@ class _Block:
             else:
                 col = ind + len(text) - len(body)
                 self.lines[self.i] = [col, body, self.lines[self.i][2]]
-                if self.is_item(body) or self.split_key(body) is not None:
+                if self.is_item(body) or self.is_explicit_key(body) or \
+                        self.split_key(body) is not None:
                     raise self.error('a block collection cannot start on '
                                      'the line of its key')
                 value = self.inline(indent)

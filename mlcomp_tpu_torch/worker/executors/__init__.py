@@ -3,8 +3,9 @@
 The builtin executors register on the first registry miss, so code that
 only looks names up never imports the training stack: ``train``, the
 Equation family (``equation``, ``infer``, ``infer_classify``, ``valid``,
-``valid_classify``, ``valid_segment``) and ``serve_replica`` (one
-replica of a serving fleet).
+``valid_classify``, ``valid_segment``), ``serve_replica`` (one
+replica of a serving fleet) and ``sweep_probe`` (a synthetic ASHA sweep
+cell).
 """
 
 from mlcomp_tpu_torch.worker.executors.base import Executor
@@ -15,6 +16,7 @@ Executor._builtin_modules = (
     'mlcomp_tpu_torch.worker.executors.infer',
     'mlcomp_tpu_torch.worker.executors.valid',
     'mlcomp_tpu_torch.worker.executors.serve_replica',
+    'mlcomp_tpu_torch.worker.executors.sweep_probe',
 )
 
 __all__ = ['Executor']

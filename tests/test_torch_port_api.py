@@ -758,10 +758,51 @@ def test_waiting_route_refuses_with_its_roadmap_item(twin, route):
 
 
 def test_waiting_get_mirrors_refuse(twin):
-    for route in ('/api/sweeps', '/api/usage', '/api/slos'):
+    for route in ('/api/usage', '/api/slos'):
         status, body = twin.port_call(route + '?task=1', method='GET',
                                       token=None)
         assert status == 501 and route in body['reason'], route
+    # /api/sweeps is ported: its GET mirror answers as JAX's does
+    assert '/api/sweeps' not in api.WAITING_ROUTES
+    assert twin.ok('/api/sweeps?task=1', method='GET',
+                   token=None) == {'data': []}
+
+
+def test_sweeps_roster_post_and_get_like_jax(twin):
+    """``/api/sweeps`` over a sweep the JAX package's builder and tick
+    wrote into both DBs (a prune recorded): POST and GET, with and
+    without ``all``, no token, JSON equal to JAX's."""
+    from mlcomp_tpu.contrib.search.asha import report_sweep_score
+    from mlcomp_tpu.db.providers import SweepProvider as JaxSweeps
+    from mlcomp_tpu.server.supervisor import (
+        SupervisorBuilder as JaxSupervisor,
+    )
+    config = {'info': {'name': 'sweep_dag', 'project': 'p_sweep'},
+              'executors': {'cells': {
+                  'type': 'sweep_probe', 'grid': [{'lr': [0.05, 0.1]}],
+                  'sweep': {'metric': 'score', 'rung_epochs': 1}}}}
+    _, tasks = jax_dag_standard(twin.jax, config)
+    for cell, value in zip(tasks['cells'], (0.9, 0.2)):
+        twin.jax.execute('UPDATE task SET status=? WHERE id=?',
+                         (int(TaskStatus.InProgress), cell))
+        report_sweep_score(twin.jax, cell, 1, value)
+    JaxSupervisor(session=twin.jax).sweep_scheduler.tick()
+    twin.close()
+    _copy_db(twin.tmp_path / 'jax.db', twin.tmp_path / 'port.db')
+    twin.jax = JaxSession.create_session(
+        key=jax_api._SESSION_KEY, connection_string=twin.jax_cs)
+    twin.port = Session.create_session(
+        key=api._SESSION_KEY, connection_string=twin.port_cs)
+    body = twin.ok('/api/sweeps', token=None)
+    assert body == twin.ok('/api/sweeps', method='GET', token=None)
+    assert body == twin.ok('/api/sweeps', {'all': True})
+    sweep = JaxSweeps(twin.jax).all()[0]
+    assert [c['pruned'] for c in body['data'][0]['cells']] == [False, True]
+    assert body['data'][0]['id'] == sweep.id
+    twin.both_sql("UPDATE sweep SET status='done'")
+    assert twin.ok('/api/sweeps')['data'] == []
+    assert len(twin.ok('/api/sweeps?all=1', method='GET',
+                       token=None)['data']) == 1
 
 
 # --------------------------------------------------------------- dashboard

@@ -195,13 +195,34 @@ def test_parse_cores(spec, want):
 
 
 def test_a_sweep_block_raises_before_any_row(sessions):
-    _, port_s = sessions
-    config = {'info': {'name': 's', 'project': 'p'}, 'executors': {
-        'train': {'type': 'jax_train', 'grid': [{'lr': [0.1, 0.2]}],
-                  'sweep': {'metric': 'accuracy'}}}}
-    with pytest.raises(NotImplementedError, match='A0'):
-        dag_standard(port_s, config)
-    assert port_s.query_one('SELECT COUNT(*) AS c FROM dag')['c'] == 0
+    """A sweep block is ported: one without a rung boundary raises
+    JAX's ``ValueError`` before any task or sweep row (the dag row is
+    written first, by both builders), and with one it builds JAX's
+    rows, the sweep spec stamped on each cell."""
+    jax_s, port_s = sessions
+
+    def config(**sweep):
+        return {'info': {'name': 's', 'project': 'p'}, 'executors': {
+            'train': {'type': 'jax_train', 'grid': [{'lr': [0.1, 0.2]}],
+                      'sweep': {'metric': 'accuracy', **sweep}}}}
+
+    with pytest.raises(ValueError) as theirs:
+        jax_dag_standard(jax_s, config())
+    with pytest.raises(ValueError, match='exactly one of rung_epochs') \
+            as mine:
+        dag_standard(port_s, config())
+    assert str(mine.value) == str(theirs.value)
+    for table in ('dag', 'task', 'sweep'):
+        count = f'SELECT COUNT(*) AS c FROM {table}'
+        assert port_s.query_one(count)['c'] == \
+            jax_s.query_one(count)['c'] == (table == 'dag')
+    jax_dag, _ = jax_dag_standard(jax_s, config(rung_epochs=2))
+    port_dag, _ = dag_standard(port_s, config(rung_epochs=2))
+    assert dag_rows(port_s, port_dag.id) == dag_rows(jax_s, jax_dag.id)
+    cells = port_s.query('SELECT additional_info FROM task WHERE dag=?',
+                         (port_dag.id,))
+    assert [_info(c['additional_info'])['sweep']['base'] for c in cells] \
+        == [2, 2]
 
 
 # ------------------------------------------------------------- commands

@@ -50,6 +50,10 @@ def test_port_files_exist():
     files = [os.path.relpath(f, REPO) for f in _port_files()]
     assert 'chip_smoke.py' in files
     assert 'mlcomp_tpu_torch/server/serve.py' in files
+    assert {'mlcomp_tpu_torch/server/sweep.py',
+            'mlcomp_tpu_torch/db/providers/sweep.py',
+            'mlcomp_tpu_torch/contrib/search/asha.py',
+            'mlcomp_tpu_torch/worker/executors/sweep_probe.py'} <= set(files)
     assert len(files) > 15
 
 
@@ -61,12 +65,17 @@ def test_no_forbidden_imports(path):
     assert not hits, f'{os.path.relpath(path, REPO)} imports {hits}'
 
 
-#: modules of the serving fleets' control plane that run in processes
-#: holding no CUDA context (the gateway, the site's reconciler): they
-#: must not import torch, even inside a function
+#: modules of the control plane that run in processes holding no CUDA
+#: context (the gateway; the site's fleet reconciler and ASHA sweep
+#: scheduler; the synthetic sweep cell): they must not import torch,
+#: even inside a function
 TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
               'mlcomp_tpu_torch/server/fleet.py',
-              'mlcomp_tpu_torch/db/providers/fleet.py')
+              'mlcomp_tpu_torch/db/providers/fleet.py',
+              'mlcomp_tpu_torch/server/sweep.py',
+              'mlcomp_tpu_torch/db/providers/sweep.py',
+              'mlcomp_tpu_torch/contrib/search/asha.py',
+              'mlcomp_tpu_torch/worker/executors/sweep_probe.py')
 
 
 @pytest.mark.parametrize('path', TORCH_FREE)

@@ -417,10 +417,20 @@ def test_ha_raises_naming_supervisor_ha(tmp_path):
      'quotas and preemption'),
 ])
 def test_fleet_sweep_and_quota_rows_raise(twin, table, row, item):
+    """Quota rows still raise, naming their ROADMAP.md item. A sweep
+    row no longer does: ASHA sweeps are ported, and both ticks serve
+    the row alike (a sweep whose dag has no cells stays active)."""
     twin.computer('host1')
-    twin.task('waits')
+    waits = twin.task('waits')
     twin.jax.execute(f'INSERT INTO {table} {row}')
     twin.start()
+    if table == 'sweep':
+        st = twin.tick()
+        assert _dispatched(st) == {waits: [0]}
+        rows = [tuple(session.query_one('SELECT * FROM sweep'))
+                for session in (twin.jax, twin.port)]
+        assert rows[0] == rows[1] and 'done' not in rows[1]
+        return
     with pytest.raises(NotImplementedError, match=item):
         twin.port_sup.build()
 

@@ -113,6 +113,12 @@ BLOCKS = [
     '"quoted key": 1\n\'single\': [a, b]\n',
     'a: [x: 1, y]\n',
     'a: {b, c: }\n',
+    '? "\\L"\n: \'\'\n',
+    '? "a\\Pb"\n: x: 1\n  y:\n  - 1\n  - 2\n',
+    'k:\n  ? "\\L"\n  : null\n  z: 2\n',
+    '? "\\L"\n: \'long\n  text\'\nb: [1]\n',
+    '- ? a\n  : b\n- ?\n    c\n  :\n    - 1\n',
+    '? a\nb: 1\n',
 ]
 
 
@@ -171,7 +177,7 @@ OUTSIDE = {
     'documents': ('a: 1\n---\nb: 2\n', 'document markers'),
     'document_end': ('a: 1\n...\n', 'document markers'),
     'directive': ('%YAML 1.1\na: 1\n', 'directives'),
-    'explicit_key': ('? a\n: b\n', 'explicit keys'),
+    'explicit_key': ('a: {? b: c}\n', 'explicit keys'),
     'merge_key': ('a: {b: 1}\n<<: {c: 2}\n', 'merge keys'),
     'timestamp': ('a: 2020-01-01\n', 'timestamp'),
     'tab_indent': ('a:\n\tb: 1\n', 'tabs'),
