@@ -373,6 +373,32 @@ Phase of the ASHA sweeps' slice, run after the fleets':
   process's exit and to the next dispatch, and the epochs trained
   against the exhaustive 12. The launches, summed over the cells, are
   the norm kernels' ``launches_by_path['sweep']``.
+- preempt (after sweep): quotas, checkpoint-preemption and the usage
+  ledger through ``server start 1`` in a fresh root (one card slot).
+  ``/api/quota/set`` locks tenant alice out (``cores`` 0) and V,
+  ``cifar_simple``'s ResNet-18 (``norm: fused``, 32768 / 512 images, 6
+  epochs, a checkpoint an epoch, ``dag --owner alice --priority
+  preemptible``), stays NotRan over three ticks with a ``quota`` entry
+  in the decision trace and the slot free (``/api/quotas`` and
+  ``mlcomp_quota_usage``: limit 0, used 0); ``quotas --delete`` releases
+  it. Once V saved epoch 1, H (4096 images, 2 epochs, ``dag --owner
+  bob --priority high`` through the command's ``main`` in this process:
+  a ``dag`` process starts slower than V's remaining epochs) evicts it:
+  one ``preemption`` row, V ``Failed``/``preempted`` and its
+  ``run-task`` exit 143, H dispatched
+  on a later tick, ``mlcomp_preemptions_total`` 1. After the retry
+  backoff V runs again as attempt 1 (never placed while H runs),
+  resumes at the epoch after its last checkpoint and ends Success with
+  its 6 epochs. ``usage --json`` and ``/api/usage`` hold exactly (V, 0,
+  Failed), (H, 0, Success), (V, 1, Success) with core-seconds, queue
+  wait and peak HBM; ``mlcomp_usage_core_seconds`` sums to the same.
+  Each run's ``train.kernel_launches.*`` rows are 20 forward and 20
+  backward norm launches a step: the norm kernels'
+  ``launches_by_path['preempt']``. A ``preemption pass failed`` or
+  ``usage fold failed`` log row fails the run. Prints the seconds from
+  the quota's delete to V's dispatch, from H's submit to the decision,
+  from it to V's exit and to H's dispatch, H's dispatch to InProgress,
+  V's failure to its requeue and to InProgress, and the epochs V lost.
 
 Phase of the device telemetry's slice, run after the wide step's:
 
@@ -4496,6 +4522,17 @@ def _cli(phase: str, module: str, *argv, env=None) -> str:
     return out.stdout
 
 
+def _wait_group_end(phase: str, root: str, timeout: float = 60):
+    """Wait for every process of the root ``root`` to end; the run fails
+    naming those left."""
+    deadline = time.monotonic() + timeout
+    while _port_processes(root):
+        if time.monotonic() > deadline:
+            fail(f'{phase}: processes left {timeout:.0f} s after the stop: '
+                 f'{_port_processes(root)}')
+        time.sleep(0.1)
+
+
 def _maps_libcuda(pid: int) -> bool:
     """Whether process ``pid`` has mapped the CUDA driver library, as
     every process that holds a CUDA context has."""
@@ -4803,9 +4840,7 @@ def phase_site(smi: str) -> dict:
         if off.returncode != 0 or off.stdout.strip() != 'stopped':
             fail(f'{phase}: server stop exited {off.returncode}: '
                  f'{off.stdout} {off.stderr}')
-        _wait_for(phase, 'end of every process of the group',
-                  lambda: not _port_processes(os.environ['MLCOMP_TPU_ROOT']),
-                  timeout=60)
+        _wait_group_end(phase, os.environ['MLCOMP_TPU_ROOT'])
         off_s = seconds_since(t_off)
         group.wait(timeout=30)
         if lease()['holder'] is not None:
@@ -5472,9 +5507,7 @@ def phase_fleet(seed: int, smi: str) -> dict:
         _stop_session(gateway)
         gateway = None
         command('stop')
-        _wait_for(phase, 'end of every process of the group',
-                  lambda: not _port_processes(os.environ['MLCOMP_TPU_ROOT']),
-                  timeout=60)
+        _wait_group_end(phase, os.environ['MLCOMP_TPU_ROOT'])
         group.wait(timeout=30)
         say(phase, part='a', fleet_stop_to_no_replica_s=stop_s,
             phase_s=seconds_since(t0), card=smi)
@@ -5957,8 +5990,7 @@ def phase_sweep(smi: str) -> dict:
         if off.returncode != 0:
             fail(f'{phase}: server stop exited {off.returncode}: '
                  f'{off.stdout} {off.stderr}')
-        _wait_for(phase, 'end of every process of the group',
-                  lambda: not _port_processes(root), timeout=60)
+        _wait_group_end(phase, root)
         group.wait(timeout=30)
         for tid, cell in report.items():
             say(phase, cell=tid, **{k: json.dumps(v).replace(' ', '')
@@ -5973,6 +6005,438 @@ def phase_sweep(smi: str) -> dict:
             site_ready_s=f'{ready_s:.2f}', sweep_s=f'{sweep_s:.2f}',
             phase_s=f'{time.monotonic() - t0:.2f}', card=smi)
         return {'sweep': launches}
+    finally:
+        _stop_session(group)
+        _reap(root)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ------------------------------------------------------------- preemption
+#: ``cifar_simple``'s train executor as the victim V (``preemptible``,
+#: tenant alice) and the initiator H (``high``, bob): (images, epochs).
+#: V's 32768 images (8192 in the example) keep it training while H is
+#: submitted and placed: an epoch of 8192 took ~1 s on the card, so V
+#: ended before the eviction could land
+PREEMPT_V, PREEMPT_H = (32768, 6), (4096, 2)
+PREEMPT_STEPS = {'v': PREEMPT_V[0] // 256, 'h': PREEMPT_H[0] // 256}
+#: seconds ``[preempt]`` waits for any one of its steps (V's retry
+#: backoff is 30-36 s)
+PREEMPT_TIMEOUT_S = 240
+#: the supervisor ticks ``[preempt]`` watches V held by its quota
+PREEMPT_QUOTA_TICKS = 3
+
+
+def preempt_config(name: str, n_train: int, epochs: int) -> dict:
+    """``examples/cifar_simple``'s DAG with its train executor as
+    ``type: train``, ``norm: fused``, one card slot, ``n_train`` / 512
+    images, ``epochs`` and a checkpoint an epoch."""
+    from mlcomp_tpu_torch.utils.io import yaml_load
+    config = yaml_load(file=os.path.join(HERE, CLI_CIFAR))
+    config['info']['name'] = name
+    spec = config['executors']['train']
+    spec['type'] = 'train'
+    spec['model']['norm'] = 'fused'
+    spec['model_name'] = name
+    spec['dataset'].update(n_train=n_train, n_valid=512)
+    spec['stages'] = [dict(spec['stages'][0], epochs=epochs)]
+    spec.update(cores=1, checkpoint_every=1)
+    return config
+
+
+def _rows(db: str, sql: str, params=()) -> list:
+    """The rows of one query on the sqlite DB at ``db``, as dicts."""
+    import sqlite3
+    conn = sqlite3.connect(db, timeout=30)
+    conn.row_factory = sqlite3.Row
+    try:
+        return [dict(r) for r in conn.execute(sql, params)]
+    finally:
+        conn.close()
+
+
+def _preempt_rows(db: str) -> dict:
+    """The rows ``[preempt]`` reads, with stdlib sqlite3: tasks, queue
+    messages, preemptions, the ledger, the supervisor's decision trace,
+    the trainers' launch and step rows, the retry rows, the epochs of
+    the train loss series and the log lines it checks."""
+    import sqlite3
+    conn = sqlite3.connect(db, timeout=30)
+    conn.row_factory = sqlite3.Row
+    try:
+        def rows(sql, params=()):
+            return [dict(r) for r in conn.execute(sql, params)]
+        aux = conn.execute("SELECT data FROM auxiliary WHERE "
+                           "name='supervisor'").fetchone()
+        return {
+            'tasks': {r['id']: r for r in rows('SELECT * FROM task')},
+            'messages': rows('SELECT * FROM queue_message ORDER BY id'),
+            'preemptions': rows('SELECT * FROM preemption ORDER BY id'),
+            'usage': rows('SELECT * FROM usage ORDER BY id'),
+            'aux': json.loads(aux[0]) if aux else {},
+            'metric': rows(
+                "SELECT task, name, step, value, time, tags FROM metric "
+                "WHERE name='train.steps' OR name='task.retry' OR name "
+                "LIKE 'train.kernel_launches.%' ORDER BY id"),
+            'epochs': rows(
+                "SELECT task, epoch, time FROM report_series WHERE "
+                "name='loss' AND part='train' ORDER BY id"),
+            'logs': rows(
+                "SELECT task, time, message FROM log WHERE message LIKE "
+                "'%run-task process exited%' OR message LIKE 'resumed "
+                "from checkpoint%' OR message LIKE 'preemption pass "
+                "failed%' OR message LIKE 'usage fold failed%' "
+                "ORDER BY id")}
+    finally:
+        conn.close()
+
+
+def phase_preempt(smi: str) -> dict:
+    """``[preempt]``: quota admission, checkpoint-preemption and the usage
+    ledger on the card, through the port's site.
+
+    ``python -m mlcomp_tpu_torch.server start 1`` in a fresh root (one
+    card slot, a ``run-task`` process per task). ``/api/quota/set`` locks
+    tenant alice out (``cores`` 0), then V (``cifar_simple``'s ResNet-18,
+    ``norm: fused``, 32768 images, 6 epochs, ``--owner alice --priority
+    preemptible``) is submitted: over three ticks V stays NotRan with a
+    ``quota`` entry in the decision trace and the slot free, and
+    ``/api/quotas`` and ``mlcomp_quota_usage`` show limit 0, used 0.
+    ``quotas --delete`` releases V. Once V saved epoch 1, H (4096
+    images, 2 epochs, ``--owner bob --priority high``) is submitted: one
+    ``preemption`` row (V, attempt 0, ``preemptible`` → ``high``,
+    ``capacity``, 1 core, applied), V ``Failed``/``preempted`` and its
+    process exited 143, H dispatched on a later tick,
+    ``mlcomp_preemptions_total{class="preemptible",reason="capacity"}``
+    1. After the retry backoff V runs again as attempt 1, resumes at the
+    epoch after its last checkpoint and ends Success with its 6 epochs;
+    H ends Success. The ledger (``usage --json`` and ``/api/usage``,
+    equal) holds exactly (V, 0, Failed), (H, 0, Success), (V, 1,
+    Success), each with core-seconds of its started → finished on one
+    card, a queue wait and a peak HBM within the card's memory;
+    ``mlcomp_usage_core_seconds`` sums to the same. Each attempt's
+    fused-norm launches are 20 × its train steps. Fails on a
+    ``preemption pass failed`` or ``usage fold failed`` log row. Returns
+    the launches summed over the three attempts."""
+    import datetime
+    from mlcomp_tpu_torch import TOKEN
+    from mlcomp_tpu_torch.db.enums import TaskStatus
+    from mlcomp_tpu_torch.telemetry.export import parse_openmetrics
+    from mlcomp_tpu_torch.train.checkpoint import load_meta
+    from mlcomp_tpu_torch.utils.io import yaml_dump
+
+    phase = 'preempt'
+    work = tempfile.mkdtemp(prefix='preempt_')
+    root = os.path.join(work, 'root')
+    db = os.path.join(root, 'db', 'sqlite.db')
+    group_log = os.path.join(work, 'group.log')
+    port = _free_port()
+    env = dict(os.environ, MLCOMP_TPU_ROOT=root, WEB_PORT=str(port),
+               MLCOMP_TPU_CORES='1')
+    group = None
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+
+    def group_alive():
+        """The group runs, and the supervisor's containment logged no
+        failed preemption pass or usage fold (the DB may not be
+        migrated yet while the site starts)."""
+        import sqlite3
+        _check_alive(phase, group, group_log)
+        if not os.path.exists(db):
+            return
+        try:
+            failed = [r['message'].split('\n')[0] for r in _rows(
+                db, "SELECT message FROM log WHERE message LIKE "
+                    "'preemption pass failed%' OR message LIKE "
+                    "'usage fold failed%'")]
+        except sqlite3.Error:
+            failed = []
+        if failed:
+            fail(f'{phase}: the supervisor logged {failed}')
+
+    def command(*args):
+        return _cli(phase, 'mlcomp_tpu_torch', *args, env=env)
+
+    def clock() -> str:
+        return str(datetime.datetime.now(datetime.timezone.utc).replace(
+            tzinfo=None))
+
+    def submit_here(config_path, *flags):
+        """``dag`` through the command's ``main`` in this process, on
+        the phase's DB."""
+        import mlcomp_tpu_torch
+        from mlcomp_tpu_torch.__main__ import main as cli_main
+        from mlcomp_tpu_torch.db.core import Session
+        saved = mlcomp_tpu_torch.SA_CONNECTION_STRING
+        Session.cleanup('default')
+        mlcomp_tpu_torch.SA_CONNECTION_STRING = f'sqlite:///{db}'
+        try:
+            cli_main(['dag', config_path, *flags])
+        finally:
+            Session.cleanup('default')
+            mlcomp_tpu_torch.SA_CONNECTION_STRING = saved
+
+    def metric_samples(family):
+        status, text = _api(port, '/metrics', method='GET')
+        if status != 200:
+            fail(f'{phase}: /metrics answered {status}')
+        return parse_openmetrics(text).get(family, {}).get('samples', [])
+
+    try:
+        # a folder of its own for each config: ``dag`` uploads the
+        # config's folder, and the root (checkpoints) must not be in it
+        configs = {}
+        for key, (n_train, epochs) in (('v', PREEMPT_V), ('h', PREEMPT_H)):
+            os.makedirs(os.path.join(work, key))
+            configs[key] = os.path.join(work, key, 'config.yml')
+            yaml_dump(preempt_config(f'preempt_{key}', n_train, epochs),
+                      file=configs[key])
+        t0 = time.monotonic()
+        group = _start_group(1, env, group_log)
+
+        def site_and_agent():
+            import sqlite3
+            try:
+                if _api(port, '/api/quotas')[0] != 200:
+                    return False
+                conn = sqlite3.connect(db, timeout=30)
+                try:
+                    return conn.execute('SELECT 1 FROM computer WHERE '
+                                        'cores=1').fetchone() is not None
+                finally:
+                    conn.close()
+            except (urllib.error.URLError, ConnectionError, sqlite3.Error):
+                return False
+
+        _wait_for(phase, 'site and worker agent', site_and_agent,
+                  group_alive, timeout=PREEMPT_TIMEOUT_S, interval=0.1)
+        ready_s = time.monotonic() - t0
+
+        # the quota holds V while the slot is free
+        lock = {'scope': 'owner', 'tenant': 'alice', 'resource': 'cores',
+                'limit': 0}
+        status, body = _api(port, '/api/quota/set', lock, token=TOKEN)
+        if status != 200 or not body.get('success'):
+            fail(f'{phase}: /api/quota/set {status} {body}')
+        if _api(port, '/api/quota/set', lock)[0] != 401:
+            fail(f'{phase}: /api/quota/set without the token was taken')
+        command('dag', configs['v'], '--owner', 'alice', '--priority',
+                'preemptible')
+        (v_dag,) = _dag_ids(db)
+        (v,) = [t for t, r in _preempt_rows(db)['tasks'].items()
+                if r['dag'] == v_dag]
+        held_ticks = set()
+
+        def held():
+            rows = _preempt_rows(db)
+            busy = [t for t, r in rows['tasks'].items() if r['status'] in (
+                int(TaskStatus.Queued), int(TaskStatus.InProgress))]
+            if rows['tasks'][v]['status'] != int(TaskStatus.NotRan) or \
+                    busy or rows['messages']:
+                fail(f'{phase}: V left NotRan under its quota: busy '
+                     f'{busy}, messages {rows["messages"]}')
+            block = (rows['aux'].get('not_placed') or {}).get(str(v))
+            if block and 'quota' in block:
+                held_ticks.add(rows['aux']['time'])
+            return len(held_ticks) >= PREEMPT_QUOTA_TICKS
+
+        _wait_for(phase, f'{PREEMPT_QUOTA_TICKS} ticks holding V', held,
+                  group_alive, timeout=PREEMPT_TIMEOUT_S, interval=0.2)
+        quota_block = _preempt_rows(db)['aux']['not_placed'][str(v)]
+        status, body = _api(port, '/api/quotas')
+        want = [{'scope': 'owner', 'tenant': 'alice', 'resource': 'cores',
+                 'limit': 0.0, 'window_s': 86400.0, 'used': 0.0}]
+        if status != 200 or body['data']['quotas'] != want or \
+                body['data']['classes']['preemptible'] != {
+                    'pending': 1, 'running': 0}:
+            fail(f'{phase}: /api/quotas {status} {body}')
+        gauge = sorted((s[1]['kind'], s[2])
+                       for s in metric_samples('mlcomp_quota_usage')
+                       if (s[1]['scope'], s[1]['tenant'],
+                           s[1]['resource']) == ('owner', 'alice', 'cores'))
+        if gauge != [('limit', 0.0), ('used', 0.0)]:
+            fail(f'{phase}: mlcomp_quota_usage {gauge}')
+        t_delete = clock()
+        command('quotas', '--delete', 'owner:alice:cores')
+
+        # V runs; H evicts it once it saved epoch 1
+        ck_dir = os.path.join(root, 'tasks', str(v), 'checkpoints')
+        _wait_for(phase, "V's checkpoint of epoch 1",
+                  lambda: (load_meta(ck_dir) or {}).get('epoch', -1) >= 1,
+                  group_alive, timeout=PREEMPT_TIMEOUT_S, interval=0.1)
+        # H through the command's main in this process: a ``dag``
+        # process takes longer to start than V's remaining epochs
+        t_submit = clock()
+        submit_here(configs['h'], '--owner', 'bob', '--priority', 'high')
+        (h,) = [t for t, r in _preempt_rows(db)['tasks'].items()
+                if r['dag'] == _dag_ids(db)[-1]]
+
+        def exited(task_id):
+            return lambda: _rows(
+                db, "SELECT time, message FROM log WHERE task=? AND "
+                    "message LIKE '%run-task process exited%' ORDER BY id",
+                (task_id,))
+
+        def v_exited():
+            if _rows(db, 'SELECT status FROM task WHERE id=?', (v,))[0][
+                    'status'] == int(TaskStatus.Success):
+                fail(f'{phase}: V ended Success before H evicted it')
+            return exited(v)()
+
+        _wait_for(phase, "V's process exit", v_exited, group_alive,
+                  timeout=PREEMPT_TIMEOUT_S, interval=0.1)
+        meta = load_meta(ck_dir) or {}
+
+        def finished():
+            done = [r['status'] for r in _rows(
+                db, 'SELECT status FROM task WHERE id IN (?, ?)', (v, h))]
+            return done == [int(TaskStatus.Success)] * 2 and \
+                len(exited(v)()) == 2 and exited(h)()
+
+
+        _wait_for(phase, 'V and H Success', finished, group_alive,
+                  timeout=PREEMPT_TIMEOUT_S, interval=0.25)
+        group_alive()
+        rows = _preempt_rows(db)
+
+        # the decision: one row, audited, applied
+        (dec,) = rows['preemptions']
+        got = {k: dec[k] for k in ('task', 'attempt', 'victim_class',
+                                   'initiator', 'initiator_class',
+                                   'reason', 'cores_freed', 'applied')}
+        if got != {'task': v, 'attempt': 0, 'victim_class': 'preemptible',
+                   'initiator': h, 'initiator_class': 'high',
+                   'reason': 'capacity', 'cores_freed': 1, 'applied': 1}:
+            fail(f'{phase}: preemption row {dec}')
+        v_row, h_row = rows['tasks'][v], rows['tasks'][h]
+        v_exits = exited(v)()
+        rc = v_exits[0]['message'].split('exited ')[1].split()[0]
+        if rc != '143':
+            fail(f'{phase}: V\'s evicted process exited {rc}')
+        retries = [m for m in rows['metric']
+                   if m['task'] == v and m['name'] == 'task.retry']
+        if v_row['attempt'] != 1 or len(retries) != 1 or \
+                json.loads(retries[0]['tags'])['reason'] != 'preempted':
+            fail(f'{phase}: V attempt {v_row["attempt"]}, retries '
+                 f'{retries}')
+        h_msgs = [m for m in rows['messages']
+                  if json.loads(m['payload']).get('task_id') == h]
+        v_msgs = [m for m in rows['messages']
+                  if json.loads(m['payload']).get('task_id') == v]
+        if len(h_msgs) != 1 or len(v_msgs) != 2 or \
+                _seconds(h_msgs[0]['created'], dec['time']) <= 0:
+            fail(f'{phase}: messages of H {h_msgs} and V {v_msgs}')
+        # attempt 1 was never placed while H ran (H is not evictable)
+        if _seconds(v_msgs[1]['created'], h_row['finished']) < 0:
+            fail(f'{phase}: V attempt 1 dispatched at '
+                 f'{v_msgs[1]["created"]} before H finished at '
+                 f'{h_row["finished"]}')
+        evictions = [s for s in metric_samples('mlcomp_preemptions')
+                     if s[1] == {'class': 'preemptible',
+                                 'reason': 'capacity'}]
+        if [s[2] for s in evictions] != [1.0]:
+            fail(f'{phase}: mlcomp_preemptions {evictions}')
+
+        # the resume: at the epoch after V's last checkpoint
+        resumed = [r['message'] for r in rows['logs']
+                   if r['task'] == v and
+                   r['message'].startswith('resumed from checkpoint')]
+        # attempt 0's rows were written before its process exited
+        last = int(meta.get('epoch', -1))
+        v_exit = v_exits[0]['time']
+        v_epochs = [(e['epoch'], _seconds(e['time'], v_exit) > 0)
+                    for e in rows['epochs'] if e['task'] == v]
+        before = [e for e, later in v_epochs if not later]
+        after = [e for e, later in v_epochs if later]
+        if len(resumed) != 1 or f'epoch={last} ' not in resumed[0] or \
+                after != list(range(last + 1, PREEMPT_V[1])) or \
+                before[:last + 1] != list(range(last + 1)) or last < 1:
+            fail(f'{phase}: V resumed {resumed} after checkpoint {last}; '
+                 f'epochs before the eviction {before}, after {after}')
+        lost = [e for e in before if e > last]
+
+        # the ledger through the command and the site
+        ledger = json.loads(command('usage', '--json', '--limit', '10'))
+        status, body = _api(port, '/api/usage', {'limit': 10})
+        if status != 200 or body['data'] != ledger:
+            fail(f'{phase}: /api/usage {status} against usage --json')
+        recent = list(reversed(ledger['recent']))
+        if [(r['task'], r['attempt'], r['status']) for r in recent] != [
+                (v, 0, 'Failed'), (h, 0, 'Success'), (v, 1, 'Success')]:
+            fail(f'{phase}: ledger {recent}')
+        for r in recent:
+            span = _seconds(r['finished'], r['started'])
+            owner = 'alice' if r['task'] == v else 'bob'
+            if abs(r['core_seconds'] - span) > 0.5 or r['cores'] != 1 or \
+                    r['queue_wait_s'] is None or not r['hbm_peak_bytes'] \
+                    or not 0 < r['hbm_peak_bytes'] <= card_bytes or \
+                    r['owner'] != owner or r['task_class'] != 'train':
+                fail(f'{phase}: ledger row {r} (span {span:.3f} s, card '
+                     f'{card_bytes} bytes)')
+        billed = sum(s[2] for s in metric_samples(
+            'mlcomp_usage_core_seconds'))
+        if abs(billed - sum(r['core_seconds'] for r in recent)) > 1e-3:
+            fail(f'{phase}: mlcomp_usage_core_seconds {billed}')
+
+        # launches: 20 of each norm kernel a completed train step
+        launches = {'fused_norm': 0, 'fused_norm_bwd': 0}
+        attempts = []
+        for tid in (v, h):
+            steps = [m for m in rows['metric']
+                     if m['task'] == tid and m['name'] == 'train.steps']
+            for i, step_row in enumerate(steps):
+                counts = {m['name'][len('train.kernel_launches.'):]:
+                          m['value'] for m in rows['metric']
+                          if m['task'] == tid and m['time'] ==
+                          step_row['time'] and m['name'].startswith(
+                              'train.kernel_launches.')}
+                n = int(step_row['value'])
+                if counts != {'fused_norm': 20.0 * n,
+                              'fused_norm_bwd': 20.0 * n}:
+                    fail(f'{phase}: task {tid} run {i}: {n} steps, '
+                         f'launches {counts}')
+                attempts.append(n)
+                for k in launches:
+                    launches[k] += int(counts[k])
+        if len(attempts) != 3 or \
+                attempts[0] < (last + 1) * PREEMPT_STEPS['v'] or \
+                attempts[1] != (PREEMPT_V[1] - last - 1) * \
+                PREEMPT_STEPS['v'] or \
+                attempts[2] != PREEMPT_H[1] * PREEMPT_STEPS['h']:
+            fail(f'{phase}: train steps of the three runs {attempts}')
+
+        off = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'stop'],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=120)
+        if off.returncode != 0:
+            fail(f'{phase}: server stop exited {off.returncode}: '
+                 f'{off.stdout} {off.stderr}')
+        _wait_group_end(phase, root)
+        group.wait(timeout=30)
+        first_v = v_msgs[0]
+        def span(later, earlier):
+            return f'{_seconds(later, earlier):.3f}'
+
+        say(phase, quota=json.dumps(quota_block).replace(' ', ''),
+            held_ticks=len(held_ticks),
+            delete_to_dispatch_s=span(first_v['created'], t_delete),
+            submit_to_decision_s=span(dec['time'], t_submit),
+            decision_to_exit_s=span(v_exits[0]['time'], dec['time']),
+            decision_to_dispatch_s=span(h_msgs[0]['created'], dec['time']),
+            h_dispatch_to_start_s=span(h_row['started'],
+                                       h_msgs[0]['created']),
+            v_failed_to_requeue_s=span(retries[0]['time'],
+                                       recent[0]['finished']),
+            v_requeue_to_start_s=span(v_row['started'], retries[0]['time']),
+            last_checkpoint_epoch=last, epochs_lost=len(lost),
+            steps_by_run=json.dumps(attempts).replace(' ', ''),
+            ledger=json.dumps([[r['task'], r['attempt'], r['status'],
+                                round(r['core_seconds'], 3),
+                                round(r['queue_wait_s'], 3),
+                                r['hbm_peak_bytes']] for r in recent]
+                              ).replace(' ', ''),
+            launches=launches, site_ready_s=f'{ready_s:.2f}',
+            phase_s=f'{time.monotonic() - t0:.2f}', card=smi)
+        return {'preempt': launches}
     finally:
         _stop_session(group)
         _reap(root)
@@ -6795,6 +7259,7 @@ def main():
         site = phase_site(smi)
         fleet = phase_fleet(args.seed, smi)
         sweep = phase_sweep(smi)
+        preempt = phase_preempt(smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -6866,6 +7331,7 @@ def main():
             'sched': sched['sched'][entry['name']],
             'site': site['site'][entry['name']],
             'sweep': sweep['sweep'][entry['name']],
+            'preempt': preempt['preempt'][entry['name']],
             'telemetry_cifar': telemetry['telemetry_cifar'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}

@@ -24,13 +24,20 @@ on ``argparse``:
 - ``python -m mlcomp_tpu_torch sweeps [--json] [--all]`` — the ASHA
   sweeps (server/sweep.py): the policy, the rung ladder and each cell's
   status and prune/promote verdicts
+- ``python -m mlcomp_tpu_torch usage [--json] [--group-by KEY] [--owner O]
+  [--project P] [--limit N]`` — the usage ledger: card-seconds, queue
+  wait and peak HBM per tenant, folded once per terminal task attempt
+- ``python -m mlcomp_tpu_torch quotas [--json] [--set
+  scope:tenant:resource=limit [--window S]] [--delete
+  scope:tenant:resource] [--limit N]`` — quota ceilings with their live
+  usage, the class roster and the newest preemptions
 
 ``--params a/b:c`` overrides merge into the stored config as the JAX
 package's do. The DB is the JAX package's (same root, same schema):
 ``<root>/db/sqlite.db``. Trainers run on the card; a config asks for the
 CPU with ``device: cpu``. The other commands of the JAX package (sync,
-alerts, recovery, gangs, supervisors, usage, quotas) are not ported
-yet (ROADMAP.md, A0).
+alerts, recovery, gangs, supervisors, slos) are not ported yet
+(ROADMAP.md, A0).
 """
 
 import argparse
@@ -439,6 +446,109 @@ def cmd_sweeps(args):
     return 0
 
 
+def cmd_usage(args):
+    """Usage ledger (migration v14): per-tenant card-seconds, queue-wait
+    and peak-HBM totals folded exactly once per terminal task attempt,
+    and the newest folded rows."""
+    from mlcomp_tpu_torch.server.api import api_usage
+    session = Session.create_session()
+    migrate(session)
+    data = api_usage({'group_by': args.group_by, 'owner': args.owner,
+                      'project': args.project, 'limit': args.limit},
+                     session)['data']
+    if args.as_json:
+        print(json.dumps(data))
+        return 0
+    if not data['totals']:
+        print('usage ledger is empty')
+        return 0
+    print(f"usage by {data['group_by']} ({data['count']} ledger rows):")
+    for t in data['totals']:
+        line = (f"  {t['key'] or 'default'}: "
+                f"{t['core_seconds'] or 0:.1f} core-s "
+                f"over {t['tasks']} tasks")
+        if t['queue_wait_s_max'] is not None:
+            line += f", max queue wait {t['queue_wait_s_max']:.1f}s"
+        if t['hbm_peak_bytes']:
+            line += f", peak HBM {t['hbm_peak_bytes'] / 2 ** 30:.2f} GiB"
+        print(line)
+    if data['recent']:
+        print('recent:')
+        for r in data['recent']:
+            line = (f"  task {r['task']} attempt {r['attempt']} "
+                    f"[{r['status']}] {r['owner']}/{r['project']} "
+                    f"{r['task_class']}: "
+                    f"{r['core_seconds'] or 0:.1f} core-s")
+            if r['queue_wait_s'] is not None:
+                line += f", waited {r['queue_wait_s']:.1f}s"
+            print(line)
+    return 0
+
+
+def cmd_quotas(args):
+    """Multi-tenant scheduling (migration v15): quota ceilings with live
+    usage, the class roster and the newest checkpoint-preemptions; no
+    quota row = unlimited, an explicit 0 locks the tenant out."""
+    from mlcomp_tpu_torch.db.providers import QuotaProvider
+    from mlcomp_tpu_torch.server.api import api_quotas
+    session = Session.create_session()
+    migrate(session)
+    if args.set_spec and args.delete_spec:
+        raise CliError('--set and --delete are exclusive')
+    if args.set_spec:
+        try:
+            key, limit_str = args.set_spec.split('=', 1)
+            scope, tenant, resource = key.split(':', 2)
+            q = QuotaProvider(session).set_quota(
+                scope, tenant, resource, float(limit_str),
+                window_s=args.window)
+        except ValueError as e:
+            raise CliError(f'bad --set spec {args.set_spec!r}: {e}')
+        print(f'quota {q.scope}:{q.tenant}:{q.resource} = '
+              f'{q.limit_value:g}'
+              + (f' over {q.window_s:g}s'
+                 if q.resource == 'core_seconds' else ''))
+        return 0
+    if args.delete_spec:
+        try:
+            scope, tenant, resource = args.delete_spec.split(':', 2)
+        except ValueError:
+            raise CliError(f'bad --delete spec {args.delete_spec!r}')
+        if not QuotaProvider(session).delete(scope, tenant, resource):
+            raise CliError('quota not found')
+        print(f'quota {args.delete_spec} removed (tenant unlimited)')
+        return 0
+    data = api_quotas({'limit': args.limit}, session)['data']
+    if args.as_json:
+        print(json.dumps(data))
+        return 0
+    if data['quotas']:
+        print('quotas:')
+        for q in data['quotas']:
+            unit = 'cores' if q['resource'] == 'cores' else 'core-s'
+            line = (f"  {q['scope']}:{q['tenant']}:{q['resource']} "
+                    f"{q['used']:g}/{q['limit']:g} {unit}")
+            if q['resource'] == 'core_seconds':
+                line += f" over {q['window_s']:g}s"
+            print(line)
+    else:
+        print('no quotas configured (every tenant unlimited)')
+    print('classes:')
+    for cls, counts in data['classes'].items():
+        print(f"  {cls}: {counts['pending']} pending, "
+              f"{counts['running']} running")
+    if data['preemptions']:
+        print('recent preemptions:')
+        for p in data['preemptions']:
+            line = (f"  task {p['task']} ({p['task_name']}, "
+                    f"{p['victim_class']}) attempt {p['attempt']} "
+                    f"← task {p['initiator']} "
+                    f"({p['initiator_class']}): {p['reason']}")
+            if not p['applied']:
+                line += ' [pending apply]'
+            print(line)
+    return 0
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog='python -m mlcomp_tpu_torch',
@@ -503,6 +613,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--all', dest='show_all', action='store_true',
                    help='include finished sweeps')
     p.set_defaults(fn=cmd_sweeps)
+    p = sub.add_parser('usage', help='usage ledger totals and rows')
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='machine-readable output')
+    p.add_argument('--group-by', dest='group_by', default='owner',
+                   choices=['owner', 'project', 'task_class', 'computer'],
+                   help='aggregation key for the totals table')
+    p.add_argument('--owner', default=None,
+                   help='filter the recent rows to one owner')
+    p.add_argument('--project', default=None,
+                   help='filter the recent rows to one project')
+    p.add_argument('--limit', type=int, default=20,
+                   help='recent rows to show')
+    p.set_defaults(fn=cmd_usage)
+    p = sub.add_parser('quotas', help='quotas, classes and preemptions')
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='machine-readable output')
+    p.add_argument('--set', dest='set_spec', default=None, metavar='SPEC',
+                   help='upsert a ceiling: scope:tenant:resource=limit, '
+                        'e.g. owner:alice:cores=16 or '
+                        'project:nlp:core_seconds=86400')
+    p.add_argument('--window', type=float, default=None,
+                   help='ledger window seconds for a core_seconds quota '
+                        '(with --set; default 86400)')
+    p.add_argument('--delete', dest='delete_spec', default=None,
+                   metavar='SCOPE:TENANT:RESOURCE',
+                   help='remove a ceiling (the tenant becomes unlimited)')
+    p.add_argument('--limit', type=int, default=20,
+                   help='recent preemptions to show')
+    p.set_defaults(fn=cmd_quotas)
     return parser
 
 

@@ -168,17 +168,26 @@ def report_sweep_score(session, cell_task_id: int, budget: int,
     return True
 
 
-def cell_is_terminal(session, task_id: int) -> bool:
-    """Has a verdict (a prune: ``Failed``/``sweep-pruned``) landed on
-    this cell's row? The in-process stop rule that the trainer and
-    ``sweep_probe`` share: a prune SIGTERMs a ``run-task`` process,
-    but under ``worker N --in-process`` no signal reaches the cell
-    (the row holds the daemon's pid), so it polls its row and stops
-    itself. One indexed read."""
+def cell_is_terminal(session, task_id: int, attempt: int = None) -> bool:
+    """Has the row of a running trainer gone terminal under it: a verdict
+    landed on it (a sweep prune ``Failed``/``sweep-pruned``, a preemption
+    ``Failed``/``preempted``, a stop), or, where ``attempt`` is given,
+    has the retry pass already moved it on to a newer attempt? The one
+    in-process stop rule that the trainer (any trainer with a task) and
+    ``sweep_probe`` share, polled at each epoch boundary: a verdict
+    SIGTERMs a ``run-task`` process, but under ``worker N --in-process``
+    no signal reaches the run (the row holds the daemon's pid), so it
+    stops itself and frees the card the supervisor has given away. The
+    attempt check keeps a preempted run that outlives its retry's
+    backoff from training beside its own next attempt. One indexed
+    read."""
     from mlcomp_tpu_torch.db.enums import TaskStatus
     from mlcomp_tpu_torch.db.providers import TaskProvider
     row = TaskProvider(session).by_id(task_id)
-    return row is not None and row.status >= int(TaskStatus.Failed)
+    if row is None:
+        return False
+    return row.status >= int(TaskStatus.Failed) or (
+        attempt is not None and int(row.attempt or 0) != int(attempt))
 
 
 __all__ = ['SWEEP_SCORE_METRIC', 'MAX_RUNGS', 'normalize_sweep_spec',

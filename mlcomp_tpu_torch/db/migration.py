@@ -400,22 +400,19 @@ def _v14_usage(session: Session):
         session.execute(
             'CREATE INDEX IF NOT EXISTS idx_metric_name_time '
             'ON metric("name", "time")')
-    # backfill: one ledger row per already-terminal attempt. The fold
-    # (UsageProvider) comes with the second half of A0 (ROADMAP.md): a
-    # DB that would need it is refused, never left half-migrated
+    # backfill: one ledger row per already-terminal attempt. Metric
+    # history may have aged out (hbm NULL) and old queue messages may be
+    # gone (queue_wait NULL): the fold degrades per fact, it never skips
+    # the row
     if session.table_columns('task'):
-        from mlcomp_tpu_torch.db.enums import TaskStatus
-        finished = [int(s) for s in TaskStatus.finished()]
-        row = session.query_one(
-            f'SELECT COUNT(*) AS c FROM task t WHERE t.status IN '
-            f'({",".join("?" * len(finished))}) AND NOT EXISTS (SELECT 1 '
-            f'FROM usage u WHERE u.task=t.id AND '
-            f'u.attempt=COALESCE(t.attempt, 0))', tuple(finished))
-        if row['c']:
-            raise NotImplementedError(
-                f'migration v14 would fold {row["c"]} finished tasks into '
-                f'the usage ledger; the fold is the second half of A0 '
-                f'(ROADMAP.md) — migrate this DB with the JAX package')
+        from mlcomp_tpu_torch.db.providers.usage import UsageProvider
+        provider = UsageProvider(session)
+        while True:
+            batch = provider.unfolded_terminal_tasks(limit=500)
+            if not batch:
+                break
+            for task in batch:
+                provider.fold_task(task)
 
 
 def _v15_scheduling(session: Session):

@@ -1,8 +1,9 @@
 """Data providers — one repository per entity (port of
 ``mlcomp_tpu/db/providers``: the ones the CLI, the DAG builder, the task
 pipeline, the trainer, the supervisor, its leader lease, the worker
-daemon, the API, the serving fleets and the ASHA sweeps use). The
-usage, quota and auth providers come with their ROADMAP.md items (A0)."""
+daemon, the API, the serving fleets, the ASHA sweeps, the quotas, the
+preemption engine and the usage ledger use). The auth providers come
+with their ROADMAP.md item (A0)."""
 
 from mlcomp_tpu_torch.db.providers.base import BaseDataProvider
 from mlcomp_tpu_torch.db.providers.project import ProjectProvider
@@ -31,6 +32,10 @@ from mlcomp_tpu_torch.db.providers.fleet import FleetProvider, ReplicaProvider
 from mlcomp_tpu_torch.db.providers.sweep import (
     SweepDecisionProvider, SweepProvider,
 )
+from mlcomp_tpu_torch.db.providers.usage import UsageProvider
+from mlcomp_tpu_torch.db.providers.quota import (
+    PreemptionProvider, QuotaProvider,
+)
 
 __all__ = [
     'MetricProvider', 'TelemetrySpanProvider', 'DagPreflightProvider',
@@ -42,5 +47,6 @@ __all__ = [
     'AuxiliaryProvider', 'ComputerProvider', 'DockerProvider',
     'QueueProvider', 'TaskSyncedProvider', 'SupervisorLeaseProvider',
     'PostmortemProvider', 'FleetProvider', 'ReplicaProvider',
-    'SweepProvider', 'SweepDecisionProvider',
+    'SweepProvider', 'SweepDecisionProvider', 'UsageProvider',
+    'QuotaProvider', 'PreemptionProvider',
 ]

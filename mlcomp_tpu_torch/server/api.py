@@ -31,6 +31,10 @@ Endpoint map (POST JSON unless noted):
   state the supervisor's fleet reconciler drives (server/fleet.py)
 - ``/api/sweeps`` (GET or POST, no auth) — ASHA sweep roster: rung
   ladder and per-cell verdicts (``all`` includes done sweeps)
+- ``/api/usage`` (GET or POST, no auth) — the usage ledger's totals by
+  ``group_by`` and its newest rows; ``/api/quotas`` (no auth) — quota
+  ceilings with their usage, the class roster, the newest preemptions;
+  ``/api/quota/set|delete`` (auth) — what the scheduler admits
 - ``/api/telemetry/series|spans|trace`` (also GET ``/telemetry/series``,
   ``/telemetry/spans``, ``/telemetry/trace/<id>``, no auth)
 - ``/api/alerts`` (GET or POST, no auth) + ``/api/alert/resolve`` (auth)
@@ -681,6 +685,117 @@ def api_sweeps(data, s):
     return {'data': out}
 
 
+def api_usage(data, s):
+    """Usage-ledger read (migration v14): per-tenant totals grouped by
+    ``group_by`` (owner|project|task_class|computer, default owner) and
+    the newest folded rows, filtered by owner/project. Same no-auth
+    introspection tier as /api/sweeps; the dashboard's usage card and
+    the ``usage`` command read this."""
+    from mlcomp_tpu_torch.db.providers import UsageProvider
+    up = UsageProvider(s)
+    group_by = data.get('group_by') or 'owner'
+    limit = _int_arg(data, 'limit') if data.get('limit') else 20
+    rows = up.recent(limit=limit, owner=data.get('owner') or None,
+                     project=data.get('project') or None)
+    return {'data': {
+        'group_by': group_by,
+        'totals': up.aggregate(group_by),
+        'count': up.count(),
+        'recent': [{
+            'task': r.task, 'attempt': r.attempt, 'dag': r.dag,
+            'owner': r.owner, 'project': r.project,
+            'task_class': r.task_class, 'computer': r.computer,
+            'cores': r.cores, 'core_seconds': r.core_seconds,
+            'queue_wait_s': r.queue_wait_s,
+            'hbm_peak_bytes': r.hbm_peak_bytes,
+            'status': TaskStatus(r.status).name
+            if r.status is not None else None,
+            'started': str(r.started or ''),
+            'finished': str(r.finished or ''),
+        } for r in rows],
+    }}
+
+
+def api_quotas(data, s):
+    """Multi-tenant scheduling read (migration v15): the quota table
+    with the usage admission measures next to each ceiling, the class
+    roster (live retryable tasks per effective class) and the newest
+    preemptions with their victims' and initiators' names. Same no-auth
+    tier as /api/usage; the dashboard's scheduling card and the
+    ``quotas`` command read this."""
+    from mlcomp_tpu_torch.db.providers import (
+        PreemptionProvider, QuotaProvider,
+    )
+    from mlcomp_tpu_torch.server.scheduler import (
+        PRIORITY_CLASSES, task_priority_of,
+    )
+    quotas = [{
+        'scope': q.scope, 'tenant': q.tenant, 'resource': q.resource,
+        'limit': float(q.limit_value or 0.0),
+        'window_s': float(q.window_s or 86400.0), 'used': float(used)}
+        for q, used in QuotaProvider(s).all_with_usage()]
+    roster = {cls: {'pending': 0, 'running': 0}
+              for cls in PRIORITY_CLASSES}
+    for r in s.query(
+            'SELECT status, priority, executor, type, additional_info '
+            'FROM task WHERE status IN (?, ?, ?) AND parent IS NULL',
+            (int(TaskStatus.NotRan), int(TaskStatus.Queued),
+             int(TaskStatus.InProgress))):
+        bucket = 'pending' if r['status'] == int(TaskStatus.NotRan) \
+            else 'running'
+        roster[task_priority_of(dict(r))][bucket] += 1
+    limit = _int_arg(data, 'limit') if data.get('limit') else 20
+    names = {}
+    preemptions = []
+    for p in PreemptionProvider(s).recent(limit=limit):
+        for tid in (p.task, p.initiator):
+            if tid is not None and tid not in names:
+                row = s.query_one('SELECT name FROM task WHERE id=?',
+                                  (tid,))
+                names[tid] = row['name'] if row else None
+        preemptions.append({
+            'task': p.task, 'task_name': names.get(p.task),
+            'attempt': p.attempt, 'victim_class': p.victim_class,
+            'gang_id': p.gang_id, 'initiator': p.initiator,
+            'initiator_name': names.get(p.initiator),
+            'initiator_class': p.initiator_class,
+            'reason': p.reason, 'computer': p.computer,
+            'cores_freed': p.cores_freed,
+            'applied': bool(p.applied), 'time': str(p.time or '')})
+    return {'data': {'quotas': quotas, 'classes': roster,
+                     'preemptions': preemptions}}
+
+
+def _quota_key(data):
+    for field in ('scope', 'tenant', 'resource'):
+        if not data.get(field):
+            raise ApiError(f'{field} required')
+    return data['scope'], data['tenant'], data['resource']
+
+
+def api_quota_set(data, s):
+    """Upsert one (scope, tenant, resource) ceiling. Needs the token:
+    quota writes change what the scheduler admits."""
+    from mlcomp_tpu_torch.db.providers import QuotaProvider
+    key = _quota_key(data)
+    if data.get('limit') is None:
+        raise ApiError('limit required')
+    try:
+        limit = float(data['limit'])
+        window = float(data['window_s']) \
+            if data.get('window_s') is not None else None
+        q = QuotaProvider(s).set_quota(*key, limit, window_s=window)
+    except ValueError as e:
+        raise ApiError(str(e))
+    return {'success': True, 'quota': q.id}
+
+
+def api_quota_delete(data, s):
+    from mlcomp_tpu_torch.db.providers import QuotaProvider
+    if not QuotaProvider(s).delete(*_quota_key(data)):
+        raise ApiError('quota not found', status=404)
+    return {'success': True}
+
 def _fleet_or_404(data, s):
     from mlcomp_tpu_torch.db.providers import FleetProvider
     fleet = None
@@ -975,11 +1090,7 @@ def api_stop(data, s):
 #: the JAX package's routes whose backing module is not ported yet, with
 #: the ROADMAP.md item each waits for
 WAITING_ROUTES = {
-    '/api/usage': 'A0: quotas and usage',
-    '/api/slos': 'A0: quotas and usage',
-    '/api/quotas': 'A0: quotas and usage',
-    '/api/quota/set': 'A0: quotas and usage',
-    '/api/quota/delete': 'A0: quotas and usage',
+    '/api/slos': 'A0: the watchdog and SLO engine',
     '/api/model/add': 'A0: the model_add / model_start DAGs',
     '/api/model/start_begin': 'A0: the model_add / model_start DAGs',
     '/api/model/start_end': 'A0: the model_add / model_start DAGs',
@@ -1034,13 +1145,13 @@ _ROUTES = {
     '/api/sweeps': (api_sweeps, False),
     # cluster-economy reads (migration v14 + telemetry/slo.py):
     # aggregates + objective verdicts, no secrets — introspection tier
-    '/api/usage': (_waits('/api/usage'), False),
+    '/api/usage': (api_usage, False),
     '/api/slos': (_waits('/api/slos'), False),
     # multi-tenant scheduling (migration v15): the roster read is
     # introspection; quota writes change what the scheduler admits
-    '/api/quotas': (_waits('/api/quotas'), False),
-    '/api/quota/set': (_waits('/api/quota/set'), True),
-    '/api/quota/delete': (_waits('/api/quota/delete'), True),
+    '/api/quotas': (api_quotas, False),
+    '/api/quota/set': (api_quota_set, True),
+    '/api/quota/delete': (api_quota_delete, True),
     '/api/fleet/create': (api_fleet_create, True),
     '/api/fleet/scale': (api_fleet_scale, True),
     '/api/fleet/swap': (api_fleet_swap, True),
@@ -1278,6 +1389,8 @@ class ApiHandler(BaseHTTPRequestHandler):
                 handler = api_fleets
             elif parsed.path == '/api/sweeps':
                 handler = api_sweeps
+            elif parsed.path == '/api/usage':
+                handler = api_usage
             elif parsed.path in WAITING_ROUTES:
                 handler = _ROUTES[parsed.path][0]
             else:

@@ -9,11 +9,11 @@ code browser, zip download, preflight), tasks (step tree, logs, metric
 series, spans, the cross-process trace, the recovery and gang cards),
 computers (usage and its history), models, logs, reports with their
 layouts and galleries, the layout editor, and the supervisor tab (the
-decision trace and the watchdog alerts) and the serving-fleet card
-(the roster, create, scale, swap and stop). Its cards for sweeps,
-usage, SLOs and quotas call routes that refuse with status 501 until
-their modules are ported (``api.WAITING_ROUTES``); the page shows the
-refusal's reason.
+decision trace and the watchdog alerts), the serving-fleet card (the
+roster, create, scale, swap and stop), and the sweep, usage and
+scheduling (quotas, classes, preemptions) cards. Its SLO card calls
+``/api/slos``, which refuses with status 501 until the SLO engine is
+ported (``api.WAITING_ROUTES``); the page shows the refusal's reason.
 """
 
 _DASHBOARD = r"""<!doctype html>

@@ -11,11 +11,13 @@ quota admission and bin packing). The supervisor
   ``critical`` work after at most ``3 * AGING_STEP_S``.
 - **fair share** — among equals, the tenant who consumed the least of
   its quota window goes first.
+- **victim selection** — when a higher class cannot fit, evict
+  strictly-lower-class work, cheapest first (class, then cores x
+  runtime, then youngest), until the blocked ask fits; a multi-host
+  gang's plan ranks hosts by reclaimable capacity (``plan_gang``; its
+  fan-out, and so its plans' application, is A4).
 - **bin packing** — single-node asks best-fit into the tightest
   computer that still fits; gangs and spread work take the most free.
-
-(The preemption planners, ``victim_*`` and ``plan_*``, wait with
-preemption: ROADMAP.md, A0.)
 """
 
 from mlcomp_tpu_torch.db.enums import TaskType
@@ -37,6 +39,10 @@ DEFAULT_PRIORITY_BY_CLASS = {
 
 #: seconds of queue wait that escalate effective priority one class
 AGING_STEP_S = 300.0
+
+#: evictions one tick may apply: a burst of high-class asks drains a
+#: pool in steps, each step's frees re-placing before the next
+MAX_PREEMPTIONS_PER_TICK = 8
 
 
 def normalize_priority(value, default: str = None):
@@ -159,6 +165,92 @@ def quota_block(priority: str, cores_wanted: int, owner: str,
     return None
 
 
+# ------------------------------------------------------- victim choice
+def victim_cost(victim: dict) -> float:
+    """What evicting this victim throws away: held cores x seconds of
+    progress since the attempt started."""
+    return float(victim.get('cores') or 0) * \
+        max(0.0, float(victim.get('run_s') or 0.0))
+
+
+def victim_order(victims):
+    """Cheapest-first eviction order: weakest class, then least sunk
+    cost, then youngest row."""
+    return sorted(victims, key=lambda v: (
+        PRIORITY_RANK.get(v.get('priority'), 1),
+        victim_cost(v),
+        -int(v.get('task_id') or 0)))
+
+
+def eligible_victims(victims, blocked_rank: int):
+    """Only a strictly lower CLASS rank may be evicted: the aging boost
+    earns earlier dispatch, not the power to evict running work."""
+    return [v for v in victims
+            if PRIORITY_RANK.get(v.get('priority'), 1) < blocked_rank]
+
+
+def plan_single_node(need: int, free: int, victims,
+                     blocked_rank: int):
+    """Victims to evict on ONE computer so a single-node ask fits:
+    cheapest first until ``free + freed >= need``; [] when it already
+    fits, None when evicting everything eligible cannot fit it."""
+    if free >= need:
+        return []
+    chosen, freed = [], 0
+    for v in victim_order(eligible_victims(victims, blocked_rank)):
+        chosen.append(v)
+        freed += int(v.get('cores') or 0)
+        if free + freed >= need:
+            return chosen
+    return None
+
+
+def plan_gang(need: int, grain: int, hosts, blocked_rank: int):
+    """Defragmentation for a blocked multi-host gang: hosts ranked by
+    reclaimable capacity (free + evictable), descending, so the gang's
+    ``grain``-sized slices land on the FEWEST hosts; per host only what
+    its slice needs is evicted.
+
+    ``hosts`` is ``[{name, free, victims}]``; returns ``(plan, used)``,
+    plan mapping host name -> victims to evict there (possibly empty),
+    or (None, []) when even full eviction cannot fit the gang."""
+    if grain <= 0:
+        grain = need
+    ranked = []
+    for h in hosts:
+        evictable = eligible_victims(h.get('victims') or [],
+                                     blocked_rank)
+        reclaimable = int(h.get('free') or 0) + \
+            sum(int(v.get('cores') or 0) for v in evictable)
+        if min(reclaimable, grain) > 0:
+            ranked.append((reclaimable, h, evictable))
+    ranked.sort(key=lambda t: (-t[0], t[1].get('name') or ''))
+    plan, used, remaining = {}, [], need
+    for reclaimable, h, evictable in ranked:
+        if remaining <= 0:
+            break
+        take = min(grain, remaining, reclaimable)
+        if take <= 0:
+            continue
+        shortfall = take - int(h.get('free') or 0)
+        evictions = []
+        if shortfall > 0:
+            freed = 0
+            for v in victim_order(evictable):
+                evictions.append(v)
+                freed += int(v.get('cores') or 0)
+                if freed >= shortfall:
+                    break
+            if freed < shortfall:
+                continue    # the host cannot cover its slice
+        plan[h.get('name')] = evictions
+        used.append((h.get('name'), take))
+        remaining -= take
+    if remaining > 0:
+        return None, []
+    return plan, used
+
+
 def pack_candidates(fits, want: int, multi_host: bool,
                     spread: bool = False):
     """Bin-packing order of ``[(computer, free_core_count)]``:
@@ -174,8 +266,9 @@ def pack_candidates(fits, want: int, multi_host: bool,
 
 __all__ = [
     'PRIORITY_CLASSES', 'PRIORITY_RANK', 'DEFAULT_PRIORITY_BY_CLASS',
-    'AGING_STEP_S', 'normalize_priority', 'task_class_of',
-    'task_priority_of', 'effective_rank', 'dispatch_order_key',
-    'wait_seconds', 'fair_share_of', 'tenant_share', 'quota_block',
-    'pack_candidates',
+    'AGING_STEP_S', 'MAX_PREEMPTIONS_PER_TICK', 'normalize_priority',
+    'task_class_of', 'task_priority_of', 'effective_rank',
+    'dispatch_order_key', 'wait_seconds', 'fair_share_of', 'tenant_share',
+    'quota_block', 'victim_cost', 'victim_order', 'eligible_victims',
+    'plan_single_node', 'plan_gang', 'pack_candidates',
 ]

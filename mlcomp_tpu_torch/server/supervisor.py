@@ -7,7 +7,8 @@ Each tick (``SupervisorBuilder.build``):
 2. ``process_parent_tasks`` — child→parent status aggregation; a failed
    child gang-aborts its siblings
 3. ``process_recovery``     — lease reclaim, strand sweep, retry of
-   transient failures with backoff
+   transient failures (a preempted victim among them) with backoff and
+   resume from the last checkpoint
 4. ``process_sweeps``       — the ASHA sweep scheduler
    (server/sweep.py): judges grid cells at budget rungs, prunes the
    losers (``Failed``/``sweep-pruned``), finishes done sweeps; a pruned
@@ -16,14 +17,22 @@ Each tick (``SupervisorBuilder.build``):
    (server/fleet.py): desired replica counts, health-gated respawn,
    rolling swaps; a replica task it mints dispatches in the same tick
 6. ``load_tasks``           — NotRan tasks in dispatch order (class,
-   aging, fair share, age) + their dependency status sets
+   aging, fair share over the usage ledger's window, age) + their
+   dependency status sets
 7. ``load_computers``       — free-resource model per computer: card
    slot array + cpu + memory, minus Queued/InProgress assignments
 8. ``process_tasks``        — preflight and dependency gating
-   (failed dependency → Skipped), then placement and dispatch onto the
-   DB queue ``{computer}_{docker}``; sweep cells steer off hosts with a
-   history of transient failures
-9. ``write_auxiliary``      — the decision trace into ``auxiliary``
+   (failed dependency → Skipped), quota admission (a tenant at its
+   ceiling waits, ``critical`` exempt), then placement and dispatch onto
+   the DB queue ``{computer}_{docker}``; sweep cells steer off hosts
+   with a history of transient failures
+9. ``process_preemptions``  — the checkpoint-preemption engine: repair
+   of decisions a dead leader recorded but never applied, then eviction
+   of strictly-lower-class work for the tasks placement could not fit
+   (decision row first, kill second; at most 8 a tick)
+10. ``process_usage``       — the usage ledger: every terminal task
+    attempt folded exactly once (a victim in the tick that evicted it)
+11. ``write_auxiliary``     — the decision trace into ``auxiliary``
 
 With a :class:`~mlcomp_tpu_torch.server.ha.LeaderLease` (HA, the
 default of ``register_supervisor``) the builder issues every write on a
@@ -33,14 +42,15 @@ writes are rejected in the DB. The loop contends for the lease, runs
 ``reconcile_dispatches`` at promotion and releases the lease when it
 stops.
 
-What the JAX tick does beyond this is not ported and refuses rather
-than being skipped silently (ROADMAP.md, A0): a DB holding quota rows,
-a tick whose preemption pass would evict (quotas and preemption), and
-the multi-host fan-out (A4), each raise ``NotImplementedError``. The
-tick telemetry and the watchdog, SLO and usage folds write
-observability and ledger rows no decision here reads, and are left
-out, but for the count of fenced-off writes; the tick flushes its
-dispatch spans.
+What the JAX tick does beyond this: the multi-host fan-out (A4) raises
+``NotImplementedError``, in placement and where the preemption engine
+would evict for a gang, before any decision row. The watchdog, the SLO
+engine and the tick's telemetry gauges (``supervisor.preempt_ms``,
+``scheduler.quota_denied``, ``supervisor.usage_fold_ms``, the
+starvation gauges) decide nothing in this tick and come with
+ROADMAP.md's next A0 item, "the watchdog and SLO engine"; the tick
+writes the count of fenced-off writes, the ``scheduler.preemption`` row
+of each eviction, and flushes its dispatch spans.
 """
 
 import datetime
@@ -60,9 +70,11 @@ from mlcomp_tpu_torch.db.fencing import (
 from mlcomp_tpu_torch.db.models import QueueMessage, Task
 from mlcomp_tpu_torch.db.providers import (
     AlertProvider, AuxiliaryProvider, ComputerProvider, DagPreflightProvider,
-    DagProvider, DockerProvider, MetricProvider, QueueProvider, TaskProvider,
+    DagProvider, DockerProvider, MetricProvider, PreemptionProvider,
+    QueueProvider, QuotaProvider, TaskProvider, UsageProvider,
 )
 from mlcomp_tpu_torch.recovery import RecoveryConfig
+from mlcomp_tpu_torch.testing.faults import fault_point
 from mlcomp_tpu_torch.utils.io import yaml_load
 from mlcomp_tpu_torch.utils.misc import now
 
@@ -73,8 +85,7 @@ from mlcomp_tpu_torch.utils.misc import now
 STALL_DEADLINE_S = 1800.0
 
 #: tables whose rows only unported parts of the JAX tick act on, each
-#: with the ROADMAP.md item that brings it (none at present: quota
-#: rows are refused where the scheduling snapshot reads them)
+#: with the ROADMAP.md item that brings it (none at present)
 UNPORTED_TABLES = ()
 
 
@@ -127,6 +138,12 @@ class SupervisorBuilder:
         # re-places into the next queued cell in the SAME tick
         self.sweep_scheduler = SweepScheduler(
             self.session, logger=logger, gang_abort=self.gang_abort)
+        # the usage ledger's fold, quota admission and the preemption
+        # audit trail, all on the fenced session: a zombie ex-leader can
+        # neither double-bill, double-preempt nor deny admission
+        self.usage_provider = UsageProvider(self.session)
+        self.quota_provider = QuotaProvider(self.session)
+        self.preemption_provider = PreemptionProvider(self.session)
 
         self.queues = []
         self.alive_computers = set()
@@ -137,8 +154,8 @@ class SupervisorBuilder:
         # per-tick scheduling snapshot (quota limits, live cores,
         # windowed core-seconds); None = not read this tick
         self._sched_snapshot = None
-        # tasks this tick's placement could not fit for capacity: the
-        # JAX preemption pass's worklist
+        # this tick's placements that failed for capacity, as
+        # ``{task, need, grain, multi}``: the preemption engine's worklist
         self._capacity_blocked = []
         # computer -> transient-failure count for the sweep cells'
         # placement; tick-scoped, None = not read this tick
@@ -280,16 +297,51 @@ class SupervisorBuilder:
         self.aux['tasks_to_process'] = [t.id for t in self.tasks]
 
     def _scheduling_snapshot(self):
-        """(limits, live, windowed), read once per tick. Quota rows
-        raise (their admission reads the usage ledger, whose fold is not
-        ported), so every tenant is unlimited and every fair-share
-        weight 0, as the JAX tick reads a DB without quota rows."""
-        if self._sched_snapshot is None:
-            if self.session.query_one('SELECT 1 FROM quota LIMIT 1'):
-                raise _refusal('a DB with quota rows',
-                               'quotas and preemption')
-            self._sched_snapshot = ({}, {}, {})
+        """(limits, live, windowed): the quota table, live cores and the
+        ledger window's core-seconds, read ONCE per tick. ``limits`` maps
+        (scope, tenant, resource) -> (limit, window_s); ``live`` and
+        ``windowed`` map (scope, tenant) -> cores / core-seconds. Later
+        dispatches of the same tick bill into ``live`` (``_bill_live``),
+        so a burst cannot leak past a ceiling. A read failure admits
+        every tenant unlimited: quota must never stop scheduling."""
+        if self._sched_snapshot is not None:
+            return self._sched_snapshot
+        limits, live, windowed = {}, {}, {}
+        try:
+            quotas = self.quota_provider.all()
+            for q in quotas:
+                limits[(q.scope, q.tenant, q.resource)] = (
+                    float(q.limit_value or 0.0),
+                    float(q.window_s or 86400.0))
+            if limits:
+                for scope in {q.scope for q in quotas}:
+                    for tenant, cores in \
+                            self.quota_provider.live_cores(scope).items():
+                        live[(scope, tenant)] = cores
+                    window = max(
+                        [w for (sc, _t, r), (_l, w) in limits.items()
+                         if sc == scope and r == 'core_seconds'],
+                        default=86400.0)
+                    for tenant, cs in self.quota_provider \
+                            .window_core_seconds(scope, window).items():
+                        windowed[(scope, tenant)] = cs
+        except Exception:
+            limits, live, windowed = {}, {}, {}
+            self._log_error(f'quota snapshot failed (admitting '
+                            f'unlimited):\n{traceback.format_exc()}')
+        self._sched_snapshot = (limits, live, windowed)
         return self._sched_snapshot
+
+    def _bill_live(self, task: Task, cores_n: int):
+        """Count a dispatch against the snapshot's live cores, so later
+        admissions of the same tick see it."""
+        if self._sched_snapshot is None or not cores_n:
+            return
+        _limits, live, _windowed = self._sched_snapshot
+        for scope, tenant in (('owner', task.owner or 'default'),
+                              ('project', task.project or 'default')):
+            live[(scope, tenant)] = \
+                live.get((scope, tenant), 0) + int(cores_n)
 
     def load_computers(self):
         """Free-resource model per computer: card slot array + cpu +
@@ -554,21 +606,49 @@ class SupervisorBuilder:
         return out
 
     def process_task(self, task: Task):
-        """Placement + dispatch of one runnable task onto one computer.
-        A task that asks for distributed execution over several
-        computers raises: the multi-host fan-out is A4."""
+        """Placement + dispatch of one runnable task onto one computer,
+        behind quota admission (``server/scheduler.py`` ``quota_block``):
+        a tenant at its cores ceiling, or past its core-seconds window,
+        is refused placement this tick; ``critical`` work is exempt. A
+        task that asks for distributed execution over several computers
+        raises: the multi-host fan-out is A4."""
+        from mlcomp_tpu_torch.parallel.meshspec import (
+            check_mesh_spec, host_grant_granularity,
+        )
+        from mlcomp_tpu_torch.server.scheduler import (
+            quota_block, task_priority_of,
+        )
+        limits, live, windowed = self._scheduling_snapshot()
+        if limits:
+            block = quota_block(
+                task_priority_of(task), int(task.cores or task.cores_max
+                                            or 0),
+                task.owner, task.project, limits, live, windowed)
+            if block:
+                self.aux.setdefault('not_placed', {})[task.id] = {
+                    'quota': block}
+                return
+        info = _info(task)
         fits, reasons = self._candidate_computers(task)
         if not fits:
             self.aux.setdefault('not_placed', {})[task.id] = reasons
+            # a FULL pool rejects every computer with the capacity
+            # verdict: still a preemption candidate
             if any(str(r).startswith('no free cores')
                    for r in reasons.values()):
-                self._capacity_blocked.append(task)
+                multi = (task.cores_max or 0) > 1 \
+                    and not task.single_node \
+                    and bool(info.get('distr', task.cores_max > 1))
+                mesh = info.get('mesh') \
+                    if isinstance(info.get('mesh'), dict) else None
+                self._capacity_blocked.append(
+                    {'task': task, 'need': int(task.cores or 0),
+                     'grain': int(host_grant_granularity(mesh))
+                     if multi else 0, 'multi': multi})
             return
-        info = _info(task)
         distr = bool(info.get('distr', task.cores_max > 1))
         mesh_spec = info.get('mesh') \
             if isinstance(info.get('mesh'), dict) else None
-        from mlcomp_tpu_torch.parallel.meshspec import check_mesh_spec
         mesh_exact = None
         mesh_fixed = 1   # fixed-axes product a wildcard grant must divide
         if mesh_spec:
@@ -598,9 +678,14 @@ class SupervisorBuilder:
                               + (f' (mesh {mesh_spec})' if mesh_spec
                                  else '')
                               + f', free {len(free)}'}
-            self._capacity_blocked.append(task)
+            # a capacity shortfall: the preemption engine may evict
+            # lower-class work for it this tick
+            self._capacity_blocked.append(
+                {'task': task, 'need': int(need), 'grain': 0,
+                 'multi': False})
             return
         queue = self.dispatch(task, comp, cores)
+        self._bill_live(task, len(cores))
         self.aux.setdefault('dispatched', []).append(
             {'task': task.id, 'queue': queue, 'cores': cores})
 
@@ -901,36 +986,246 @@ class SupervisorBuilder:
                 self._log_error(f'failed processing task {task.id}:\n'
                                 f'{traceback.format_exc()}', task.id)
 
-    def refuse_preemption(self):
-        """The JAX tick's preemption pass evicts strictly-lower-class
-        busy work for a capacity-blocked task above ``preemptible``.
-        Where it could, this raises instead of leaving the blocked task
-        waiting behind work JAX would have evicted."""
-        if not self._capacity_blocked:
-            return
-        from mlcomp_tpu_torch.server.scheduler import (
-            PRIORITY_RANK, task_priority_of,
-        )
-        ranks = []
+    # ---------------------------------------------------------- preemption
+    def process_preemptions(self):
+        """Checkpoint-preemption: where a higher-class placement could
+        not fit this tick, evict strictly-lower-class work. The decision
+        row comes FIRST (exactly once per victim attempt, epoch-fenced),
+        the kill second, so a leader killed between the two leaves an
+        unapplied row the next leader's repair finishes: never a lost
+        victim, never a double eviction. Victims fail with the transient
+        reason ``preempted``, so the retry pass requeues them once with
+        backoff and resume; their cores re-place next tick, where the
+        blocked task sorts first by class. A crash here never takes the
+        tick down; a fence loss demotes this leader."""
+        try:
+            self._repair_preemptions()
+            self._preempt_for_blocked()
+        except FenceLostError:
+            raise           # zombie leader: stop the tick, demote
+        except Exception:
+            self._log_error(f'preemption pass failed:\n'
+                            f'{traceback.format_exc()}')
+
+    def _repair_preemptions(self):
+        """Finish decisions a dead leader recorded but never applied. A
+        decision whose victim is gone, already terminal or on a NEWER
+        attempt is closed without action: re-killing it would be the
+        double preemption the audit trail exists to prevent."""
+        live = {int(TaskStatus.NotRan), int(TaskStatus.Queued),
+                int(TaskStatus.InProgress)}
+        for dec in self.preemption_provider.unapplied():
+            victim = self.provider.by_id(dec.task)
+            if victim is None or int(victim.status) not in live \
+                    or int(victim.attempt or 0) != int(dec.attempt or 0):
+                self.preemption_provider.mark_applied(
+                    dec.task, dec.attempt or 0)
+                continue
+            self._apply_preemption(victim, dec.reason or 'capacity',
+                                   repair=True)
+
+    def _victim_candidates(self) -> dict:
+        """``{computer: [victim dicts]}`` over the busy task rows. The
+        unit of eviction is the RETRYABLE row (a gang rank's parent, else
+        the task itself); the cores counted are the LOCAL slice, so a
+        gang parent on several hosts frees each host's slice with one
+        preemption."""
+        from mlcomp_tpu_torch.server.scheduler import task_priority_of
+        now_dt = now()
         parents = {}
-        for t in self.provider.by_status(TaskStatus.Queued,
-                                         TaskStatus.InProgress):
-            if not t.computer_assigned or not t.cores_assigned \
-                    or t.cores_assigned == '[]':
+        out = {}
+        for t in self.provider.by_status(
+                TaskStatus.Queued, TaskStatus.InProgress):
+            if not t.computer_assigned or not t.cores_assigned:
+                continue
+            try:
+                local = len(json.loads(t.cores_assigned))
+            except (TypeError, ValueError):
+                local = int(t.cores or 0)
+            if not local:
                 continue
             unit = t
             if t.parent is not None:
                 if t.parent not in parents:
                     parents[t.parent] = self.provider.by_id(t.parent)
-                unit = parents[t.parent] or t
-            ranks.append(PRIORITY_RANK.get(task_priority_of(unit), 1))
-        for task in self._capacity_blocked:
-            rank = PRIORITY_RANK.get(task_priority_of(task), 1)
-            if rank > PRIORITY_RANK['preemptible'] and \
-                    any(r < rank for r in ranks):
-                raise _refusal(
-                    f'preempting lower-class work for task {task.id}',
-                    'quotas and preemption')
+                unit = parents[t.parent]
+                if unit is None:
+                    continue
+            started = t.started or t.last_activity
+            run_s = max(0.0, (now_dt - started).total_seconds()) \
+                if started else 0.0
+            out.setdefault(t.computer_assigned, []).append({
+                'task_id': int(unit.id), 'unit': unit,
+                'priority': task_priority_of(unit),
+                'cores': local, 'run_s': run_s,
+                'gang': bool(unit.gang_id)})
+        return out
+
+    def _plan_for(self, blocked: dict, rank: int, victims_by_comp,
+                  chosen_ids):
+        """The victims that let one blocked ask fit, or []: the cheapest
+        per-computer plan (fewest victims, then least sunk cost). Victims
+        chosen for a stronger blocked task this tick are off the table.
+        A gang's ask (``multi``) would be placed by the multi-host
+        fan-out, which is A4: it raises here, before any decision row,
+        so nothing is evicted for an ask the port cannot place."""
+        from mlcomp_tpu_torch.server.scheduler import (
+            plan_single_node, victim_cost,
+        )
+        task = blocked['task']
+        if blocked['multi']:
+            raise NotImplementedError(
+                f'preempting for task {task.id}, a gang over several '
+                f'computers: the multi-host fan-out is not ported yet '
+                f'(ROADMAP.md, A4)')
+        best = None
+        for comp in self.computers:
+            reason = self._valid_computer(task, comp)
+            # a FULL host is where preemption applies: only the capacity
+            # verdict is ignorable here
+            if reason and not reason.startswith('no free cores'):
+                continue
+            victims = [v for v in victims_by_comp.get(comp['name'], [])
+                       if v['task_id'] not in chosen_ids]
+            plan = plan_single_node(
+                blocked['need'], len(self._free_cores(comp)), victims,
+                rank)
+            if not plan:        # fits free, or no plan
+                continue
+            key = (len(plan), sum(victim_cost(v) for v in plan))
+            if best is None or key < best[0]:
+                best = (key, plan)
+        return best[1] if best else []
+
+    def _preempt_for_blocked(self):
+        """Evict for this tick's capacity-blocked tasks, strongest CLASS
+        first: aging earns earlier dispatch, never the power to evict,
+        so even an aged ``preemptible`` task evicts nobody. At most
+        ``MAX_PREEMPTIONS_PER_TICK`` victims a tick."""
+        if not self._capacity_blocked:
+            return
+        from mlcomp_tpu_torch.server.scheduler import (
+            MAX_PREEMPTIONS_PER_TICK, PRIORITY_RANK, task_priority_of,
+        )
+        victims_by_comp = self._victim_candidates()
+        if not victims_by_comp:
+            return
+        budget = MAX_PREEMPTIONS_PER_TICK
+        chosen = set()
+        blocked = sorted(
+            self._capacity_blocked,
+            key=lambda b: (-PRIORITY_RANK.get(
+                task_priority_of(b['task']), 1), int(b['task'].id)))
+        for b in blocked:
+            if budget <= 0:
+                break
+            rank = PRIORITY_RANK.get(task_priority_of(b['task']), 1)
+            if rank <= PRIORITY_RANK['preemptible']:
+                continue        # the lowest class never evicts anyone
+            try:
+                plan = self._plan_for(b, rank, victims_by_comp, chosen)
+            except NotImplementedError:
+                self._log_error(f'failed preempting for task '
+                                f'{b["task"].id}:\n'
+                                f'{traceback.format_exc()}', b['task'].id)
+                continue
+            for v in plan:
+                if budget <= 0:
+                    break
+                if v['task_id'] in chosen:
+                    continue
+                if self._preempt_victim(v['unit'], b['task'], 'capacity',
+                                        v['cores']):
+                    chosen.add(v['task_id'])
+                    budget -= 1
+
+    def _preempt_victim(self, victim: Task, initiator: Task,
+                        reason: str, cores_freed: int) -> bool:
+        """Decision row first, kill second. The conditional insert is
+        the linearization point: whoever records it owns the eviction; a
+        raced standby or a zombie ex-leader records and kills nothing."""
+        from mlcomp_tpu_torch.server.scheduler import task_priority_of
+        epoch = getattr(self.session, 'fence_epoch', None)
+        recorded = self.preemption_provider.record(
+            victim, initiator, reason, cores_freed, epoch,
+            victim_class=task_priority_of(victim),
+            initiator_class=task_priority_of(initiator))
+        if not recorded:
+            return False
+        # the chaos seam between decision and apply: a leader dying HERE
+        # leaves the unapplied row the repair finishes
+        fault_point('supervisor.preempt', task=victim.id,
+                    initiator=initiator.id)
+        self._apply_preemption(victim, reason)
+        self._log_warning(
+            f'preempted task {victim.id} ({victim.name}, class '
+            f'{task_priority_of(victim)}) for task {initiator.id} '
+            f'({initiator.name}, class {task_priority_of(initiator)}): '
+            f'{reason}', victim.id)
+        return True
+
+    def _apply_preemption(self, victim: Task, reason: str,
+                          repair: bool = False):
+        """Checkpoint-stop one victim: a gang parent's ranks aborted, the
+        row Failed ``preempted`` (transient: the retry pass requeues it
+        with backoff and resume), its process killed, the decision
+        flipped to applied, a ``scheduler.preemption`` metric row
+        written at once. Each step is idempotent, so a repair after a
+        crash mid-apply converges."""
+        from mlcomp_tpu_torch.server.scheduler import task_priority_of
+        from mlcomp_tpu_torch.worker.tasks import kill_task
+        if victim.gang_id and victim.parent is None:
+            self.gang_abort(victim.id)
+        if int(victim.status) != int(TaskStatus.Failed):
+            self.provider.fail_with_reason(victim, 'preempted')
+        try:
+            kill_task(victim.id, session=self.session)
+        except FenceLostError:
+            raise
+        except Exception:
+            self._log_error(f'kill of preempted task {victim.id} '
+                            f'failed:\n{traceback.format_exc()}')
+        self.preemption_provider.mark_applied(
+            victim.id, victim.attempt or 0)
+        try:
+            MetricProvider(self.session).add_many([(
+                victim.id, 'scheduler.preemption', 'counter',
+                victim.attempt or 0, 1.0, now(), 'supervisor',
+                json.dumps({'class': task_priority_of(victim),
+                            'reason': reason,
+                            'repair': int(bool(repair))}))])
+        except Exception:
+            pass            # observability must not block the eviction
+        self.aux.setdefault('preempted', []).append(
+            {'task': victim.id, 'attempt': victim.attempt or 0,
+             'class': task_priority_of(victim), 'reason': reason,
+             'repair': bool(repair)})
+
+    # ---------------------------------------------------------------- usage
+    def process_usage(self):
+        """Fold every terminal task attempt without a ledger row into
+        ``usage``: one row per (task, attempt), exactly once however many
+        leaders race (``UsageProvider.fold_task``). Runs after placement
+        and preemption, so an attempt that went terminal this tick (a
+        victim) is billed before the next tick's retry resets its row. A
+        crash here never takes the tick down."""
+        folded = 0
+        try:
+            while True:
+                batch = self.usage_provider.unfolded_terminal_tasks(
+                    limit=500)
+                if not batch:
+                    break
+                for task in batch:
+                    if self.usage_provider.fold_task(task):
+                        folded += 1
+        except FenceLostError:
+            raise           # zombie leader: stop the tick, demote
+        except Exception:
+            self._log_error(f'usage fold failed:\n'
+                            f'{traceback.format_exc()}')
+        if folded:
+            self.aux['usage_folded'] = folded
 
     def write_auxiliary(self):
         """Persist the tick's decision trace."""
@@ -969,7 +1264,12 @@ class SupervisorBuilder:
             self.load_tasks()
             self.load_computers()
             self.process_tasks()
-            self.refuse_preemption()
+            # preemption after placement: it works off the tasks that
+            # placement could not fit; its frees re-place next tick
+            self.process_preemptions()
+            # usage after both, so attempts that went terminal this tick
+            # are folded in it
+            self.process_usage()
             self.aux['duration'] = (now() - start).total_seconds()
             self.write_auxiliary()
             self.record_fence_rejections()

@@ -14,9 +14,9 @@ Three parts:
   a monitoring endpoint that dies when the system is sick is useless
   exactly when it matters).
 
-The JAX package's families that read through a module the port lacks
-are not collected (``WAITING_FAMILIES`` names each with the ROADMAP.md
-item that brings it); every other family is the JAX package's.
+A JAX family that reads through a module the port lacks is not
+collected (``WAITING_FAMILIES`` names each with the ROADMAP.md item that
+brings it; none at present); every other family is the JAX package's.
 """
 
 import json
@@ -29,10 +29,7 @@ OPENMETRICS_CONTENT_TYPE = \
 
 #: the JAX package's families that read through a module the port does
 #: not have yet, with the ROADMAP.md item (A0) that brings each
-WAITING_FAMILIES = {
-    'mlcomp_quota_usage': 'A0, quotas and preemption '
-                          '(db/providers/quota.py)',
-}
+WAITING_FAMILIES = {}
 
 #: families GET /metrics always declares (headers render even with no
 #: samples); the tests assert this cover
@@ -55,7 +52,7 @@ REQUIRED_FAMILIES = (
     'mlcomp_db_listener_reconnects',
     'mlcomp_usage_core_seconds', 'mlcomp_usage_tasks',
     'mlcomp_queue_wait_seconds', 'mlcomp_queue_max_wait_seconds',
-    'mlcomp_preemptions',
+    'mlcomp_preemptions', 'mlcomp_quota_usage',
     'mlcomp_slo_bad_fraction', 'mlcomp_slo_burn_rate',
     'mlcomp_scrape_errors', 'mlcomp_scrape_duration_seconds',
 )
@@ -795,6 +792,22 @@ def _collect_preemptions(session, samples):
              'reason': r['reason'] or 'unknown'}, r['n']))
 
 
+def _collect_quota(session, samples):
+    """``mlcomp_quota_usage{scope,tenant,resource,kind}``: every quota
+    ceiling (kind=limit) beside the usage admission measures against it
+    (kind=used): live held cores, or core-seconds settled in the
+    tenant's ledger window. A tenant without a row is unlimited, and
+    absent."""
+    if not session.table_columns('quota'):
+        return
+    from mlcomp_tpu_torch.db.providers.quota import QuotaProvider
+    for q, used in QuotaProvider(session).all_with_usage():
+        labels = {'scope': q.scope, 'tenant': q.tenant,
+                  'resource': q.resource}
+        samples.append(('', {**labels, 'kind': 'limit'},
+                        float(q.limit_value or 0.0)))
+        samples.append(('', {**labels, 'kind': 'used'}, float(used)))
+
 def _collect_queue_max_wait(session, samples):
     """``mlcomp_queue_max_wait_seconds{class}`` — the supervisor's
     per-tick starvation gauge over the LIVE pending queue: age of the
@@ -931,7 +944,7 @@ def collect_server_families(session):
     leader, epoch, failovers, fenced, reconnects = [], [], [], [], []
     usage_cores, usage_tasks = [], []
     qwait, qmax, slo_bad, slo_burn = [], [], [], []
-    preemptions = []
+    preemptions, quota = [], []
     guarded('tasks', _collect_tasks, session, tasks)
     guarded('queue_depth', _collect_queue_depth, session, queues)
     guarded('worker_slots', _collect_worker_slots, session, slots)
@@ -960,6 +973,7 @@ def collect_server_families(session):
     guarded('queue_wait', _collect_queue_wait, session, qwait)
     guarded('queue_max_wait', _collect_queue_max_wait, session, qmax)
     guarded('preemptions', _collect_preemptions, session, preemptions)
+    guarded('quota', _collect_quota, session, quota)
     guarded('slo', _collect_slo, session, slo_bad, slo_burn)
     running = []
     errors.setdefault('running_tasks', 0)
@@ -1100,6 +1114,11 @@ def collect_server_families(session):
                'reason (preemption audit table — durable counter, '
                'exactly-once per victim attempt; migration v15)',
                preemptions),
+        family('mlcomp_quota_usage', 'gauge',
+               'fair-share quota ceilings (kind=limit) and the usage '
+               'admission measures against them (kind=used) per '
+               'scope/tenant/resource — absent tenant = unlimited',
+               quota),
         family('mlcomp_slo_bad_fraction', 'gauge',
                'latest instantaneous SLI bad-fraction per SLO '
                'objective (telemetry/slo.py)', slo_bad),

@@ -14,7 +14,9 @@ The serving seams: ``serve.request``, ``replica.slow`` and
 ``replica.crash`` also fires in the ``serve_replica`` executor's
 heartbeat (worker/executors/serve_replica.py, ctx ``phase='beat'`` with
 ``fleet`` and ``replica``), so a ``when`` filter kills exactly one
-replica of a fleet.
+replica of a fleet. The control plane's: ``supervisor.preempt`` (ctx
+``task``, ``initiator``), between an eviction's decision row and its
+kill, and ``sweep.prune``; the trainer's ``train.epoch``.
 """
 
 import json

@@ -277,15 +277,18 @@ class Train(Executor):
         return any(prev_budget < b <= budget
                    for b in rung_boundaries(base, eta, budget))
 
-    def _sweep_stopped(self) -> bool:
-        """Has a prune landed on this sweep cell's row? Polled at each
-        epoch boundary, so an in-process cell stops itself and frees
-        the slot the supervisor has already given to the next cell
-        (``cell_is_terminal``). Sweep cells only."""
-        if self._sweep_info() is None or not self._tracked():
+    def _row_went_terminal(self) -> bool:
+        """Has a verdict landed on this run's row (a sweep prune, a
+        preemption, a stop), or the retry pass moved it to a newer
+        attempt? Polled at each epoch boundary by any trainer with a
+        task, so a run under ``worker N --in-process``, which no signal
+        reaches, stops itself and frees the card the supervisor has
+        already given away (``cell_is_terminal``)."""
+        if not self._tracked():
             return False
         from mlcomp_tpu_torch.contrib.search.asha import cell_is_terminal
-        return cell_is_terminal(self.session, self.task.id)
+        return cell_is_terminal(self.session, self.task.id,
+                                attempt=int(self.task.attempt or 0))
 
     def _update_scores(self, score):
         """task.score and the Model row's score_local, best so far."""
@@ -888,13 +891,16 @@ class Train(Executor):
                 # submit; one module-global check when none is armed
                 fault_point('train.epoch', epoch=global_epoch,
                             task=self.task.id if self.task else None)
-                if self._sweep_stopped():
-                    # the Failed/sweep-pruned row stays as it is: the
-                    # task pipeline keeps a verdict that landed mid-run
-                    self.info(f'sweep cell stopped after epoch '
-                              f'{global_epoch - 1}: its row is terminal')
+                if self._row_went_terminal():
+                    # the row stays as it is: the task pipeline keeps a
+                    # verdict (or a newer attempt) that landed mid-run
+                    sweep = self._sweep_info() is not None
+                    self.info(('sweep cell ' if sweep else '')
+                              + f'stopped after epoch {global_epoch - 1}: '
+                              f'its row is terminal or a newer attempt')
                     self._drain_ckpt_writer()
-                    return {'pruned_at_epoch': global_epoch - 1,
+                    return {('pruned_at_epoch' if sweep
+                             else 'stopped_at_epoch'): global_epoch - 1,
                             'best_score': best}
             if (dispatch_stage is not None or self.stage_per_dispatch) \
                     and stage_name != stage_names[-1]:

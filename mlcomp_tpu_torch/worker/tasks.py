@@ -255,13 +255,19 @@ class ExecuteBuilder:
                     return self._requeue()
                 return self.build()
         # a verdict may have landed on the row mid-run: a terminal one
-        # wins over this run's late "it returned fine"
+        # wins over this run's late "it returned fine", and so does a
+        # newer attempt the retry pass made of a preempted row
         current = self.provider.by_id(self.task.id)
-        if current is not None and \
-                current.status >= int(TaskStatus.Failed):
+        if current is not None and self._moved_on(current):
             return TaskStatus(current.status).name.lower()
         self.provider.change_status(self.task, TaskStatus.Success)
         return 'success'
+
+    def _moved_on(self, current) -> bool:
+        """Is the row no longer this run's to write: terminal, or on a
+        newer attempt than the one this run claimed?"""
+        return current.status >= int(TaskStatus.Failed) or \
+            int(current.attempt or 0) != int(self.task.attempt or 0)
 
     def personal_queue(self) -> str:
         docker = self.task.docker_assigned or 'default'
@@ -323,8 +329,7 @@ class ExecuteBuilder:
                     f'{traceback.format_exc()}',
                     ComponentType.Worker, None, self.task_id)
                 task = self.provider.by_id(self.task_id)
-                if task is not None and task.status < int(
-                        TaskStatus.Failed):
+                if task is not None and not self._moved_on(task):
                     from mlcomp_tpu_torch.recovery import classify_exception
                     self.provider.fail_with_reason(
                         task, classify_exception(e))

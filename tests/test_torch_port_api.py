@@ -758,14 +758,16 @@ def test_waiting_route_refuses_with_its_roadmap_item(twin, route):
 
 
 def test_waiting_get_mirrors_refuse(twin):
-    for route in ('/api/usage', '/api/slos'):
-        status, body = twin.port_call(route + '?task=1', method='GET',
-                                      token=None)
-        assert status == 501 and route in body['reason'], route
-    # /api/sweeps is ported: its GET mirror answers as JAX's does
-    assert '/api/sweeps' not in api.WAITING_ROUTES
-    assert twin.ok('/api/sweeps?task=1', method='GET',
-                   token=None) == {'data': []}
+    """``/api/slos``'s GET mirror refuses naming the watchdog and SLO
+    engine; ``/api/sweeps`` and ``/api/usage`` are ported, and their
+    GET mirrors answer as JAX's do."""
+    status, body = twin.port_call('/api/slos?task=1', method='GET',
+                                  token=None)
+    assert status == 501 and '/api/slos' in body['reason']
+    assert 'the watchdog and SLO engine' in body['reason']
+    for route in ('/api/sweeps', '/api/usage'):
+        assert route not in api.WAITING_ROUTES
+        twin.ok(route + '?task=1', method='GET', token=None)
 
 
 def test_sweeps_roster_post_and_get_like_jax(twin):
@@ -874,7 +876,7 @@ def test_metrics_families_equal_but_the_waiting(twin, dag):
     assert set(REQUIRED_FAMILIES) <= set(mine)
     assert set(theirs) - set(mine) == set(WAITING_FAMILIES)
     assert set(mine) <= set(theirs)
-    waiting_collectors = {'quota'}
+    waiting_collectors = set()
     for name in mine:
         a, b = mine[name], theirs[name]
         assert a['type'] == b['type'], name

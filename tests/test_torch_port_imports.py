@@ -53,7 +53,9 @@ def test_port_files_exist():
     assert {'mlcomp_tpu_torch/server/sweep.py',
             'mlcomp_tpu_torch/db/providers/sweep.py',
             'mlcomp_tpu_torch/contrib/search/asha.py',
-            'mlcomp_tpu_torch/worker/executors/sweep_probe.py'} <= set(files)
+            'mlcomp_tpu_torch/worker/executors/sweep_probe.py',
+            'mlcomp_tpu_torch/db/providers/usage.py',
+            'mlcomp_tpu_torch/db/providers/quota.py'} <= set(files)
     assert len(files) > 15
 
 
@@ -66,8 +68,9 @@ def test_no_forbidden_imports(path):
 
 
 #: modules of the control plane that run in processes holding no CUDA
-#: context (the gateway; the site's fleet reconciler and ASHA sweep
-#: scheduler; the synthetic sweep cell): they must not import torch,
+#: context (the gateway; the site's fleet reconciler, ASHA sweep
+#: scheduler, scheduling policy, quota admission, preemption audit and
+#: usage ledger; the synthetic sweep cell): they must not import torch,
 #: even inside a function
 TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
               'mlcomp_tpu_torch/server/fleet.py',
@@ -75,7 +78,10 @@ TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
               'mlcomp_tpu_torch/server/sweep.py',
               'mlcomp_tpu_torch/db/providers/sweep.py',
               'mlcomp_tpu_torch/contrib/search/asha.py',
-              'mlcomp_tpu_torch/worker/executors/sweep_probe.py')
+              'mlcomp_tpu_torch/worker/executors/sweep_probe.py',
+              'mlcomp_tpu_torch/server/scheduler.py',
+              'mlcomp_tpu_torch/db/providers/quota.py',
+              'mlcomp_tpu_torch/db/providers/usage.py')
 
 
 @pytest.mark.parametrize('path', TORCH_FREE)

@@ -5,13 +5,17 @@ package ticks its own copy. After every tick both DBs hold the same task
 rows (status, assignment, cores, queue id, failure reason, attempt), the
 same queue messages (payload without its trace id) and alerts, and the
 same decision trace (dispatched, not placed, tasks to process, parent
-aggregation, preflight blocks, retries, lease reclaims and strands).
+aggregation, preflight blocks, retries, lease reclaims and strands,
+preemptions, usage folds) and the same ``preemption`` and ``usage``
+rows.
 Times are set far from every boundary (aging, backoff, lease, liveness),
 so the two ticks' clocks, a few milliseconds apart, decide alike.
 
 Also here: the queue provider on both claim paths against JAX's (and
 at-most-once claims under threads), the event bus, the scheduling
-policy's pure functions, and the refusals of what is not ported."""
+policy's pure functions, and the refusals of what is not ported.
+Quotas, preemption and the usage ledger have their own scenarios in
+``tests/test_torch_port_quota.py``."""
 
 import datetime
 import json
@@ -50,7 +54,7 @@ from mlcomp_tpu_torch.server.supervisor import (
 AUX_KEYS = ('dispatched', 'not_placed', 'tasks_to_process',
             'parent_tasks', 'preflight_blocked', 'retried',
             'retry_exhausted', 'lease_reclaimed', 'lease_stranded',
-            'gang_aborted', 'queues')
+            'gang_aborted', 'queues', 'preempted', 'usage_folded')
 
 #: recovery knobs of every scenario: a 60 s lease, a 60 s backoff
 RECOVERY = {'lease_seconds': 60, 'backoff_base_s': 60, 'max_retries': 3}
@@ -147,6 +151,19 @@ class Twin:
         Session.cleanup(self.key)
 
 
+class TickSeconds(float):
+    """A duration that a tick's clock stamped: equal to another within
+    0.5 s (the two packages' ticks run milliseconds apart)."""
+
+    def __eq__(self, other):
+        return other is not None and abs(float(self) - float(other)) <= 0.5
+
+    def __ne__(self, other):
+        return not self.__eq__(other)
+
+    __hash__ = float.__hash__
+
+
 def state(session) -> dict:
     tasks = [(r['id'], r['name'], r['status'], r['computer_assigned'],
               r['cores_assigned'], r['queue_id'], r['failure_reason'],
@@ -160,11 +177,23 @@ def state(session) -> dict:
                          r['claimed_by'], r['redelivered']))
     alerts = [(r['rule'], r['task'], r['severity'], r['status'])
               for r in session.query('SELECT * FROM alert ORDER BY id')]
+    # the ledger and the audit trail, their write times aside; a task
+    # that a tick starts or finishes, or a message a scenario's worker
+    # claims, carries that package's clock, so the seconds derived from
+    # them are held to 0.5 s
+    usage = [tuple(TickSeconds(v) if k in ('core_seconds', 'queue_wait_s')
+                   and v is not None else v for k, v in dict(r).items()
+                   if k not in ('created', 'started', 'finished'))
+             for r in session.query('SELECT * FROM usage ORDER BY id')]
+    preemptions = [tuple(v for k, v in dict(r).items() if k != 'time')
+                   for r in session.query(
+                       'SELECT * FROM preemption ORDER BY id')]
     row = session.query_one(
         "SELECT data FROM auxiliary WHERE name='supervisor'")
     aux = json.loads(row['data']) if row else {}
     assert aux.get('duration') is not None, 'the tick failed and healed'
     return {'tasks': tasks, 'messages': messages, 'alerts': alerts,
+            'usage': usage, 'preemptions': preemptions,
             'aux': {k: aux.get(k) for k in AUX_KEYS}}
 
 
@@ -417,37 +446,40 @@ def test_ha_raises_naming_supervisor_ha(tmp_path):
      'quotas and preemption'),
 ])
 def test_fleet_sweep_and_quota_rows_raise(twin, table, row, item):
-    """Quota rows still raise, naming their ROADMAP.md item. A sweep
-    row no longer does: ASHA sweeps are ported, and both ticks serve
-    the row alike (a sweep whose dag has no cells stays active)."""
+    """Neither a sweep row nor a quota row raises any more (ASHA sweeps
+    and quotas are ported, the ROADMAP.md items named here): both ticks
+    serve the row alike. A sweep whose dag has no cells stays active; a
+    quota on another tenant leaves this one's task unlimited."""
     twin.computer('host1')
     waits = twin.task('waits')
     twin.jax.execute(f'INSERT INTO {table} {row}')
     twin.start()
-    if table == 'sweep':
-        st = twin.tick()
-        assert _dispatched(st) == {waits: [0]}
-        rows = [tuple(session.query_one('SELECT * FROM sweep'))
-                for session in (twin.jax, twin.port)]
-        assert rows[0] == rows[1] and 'done' not in rows[1]
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        twin.port_sup.build()
+    st = twin.tick()
+    assert _dispatched(st) == {waits: [0]}
+    rows = [tuple(session.query_one(f'SELECT * FROM {table}'))
+            for session in (twin.jax, twin.port)]
+    assert rows[0] == rows[1] and 'done' not in rows[1]
 
 
 def test_preemption_raises_where_jax_evicts(twin):
+    """Where the JAX tick evicts, the port's evicts the same victim
+    (``preempted``, one applied ``preemption`` row), bills its attempt
+    in the same tick and places the initiator on the next."""
     twin.computer('host1', cores=1)
     victim = twin.task('victim', status=JaxStatus.InProgress,
                        priority='preemptible', computer_assigned='host1',
-                       cores_assigned='[0]')
-    twin.task('blocked', priority='high')
+                       cores_assigned='[0]', started=_ago(30))
+    blocked = twin.task('blocked', priority='high')
     twin.start()
-    twin.jax_sup.build()
-    assert state(twin.jax)['tasks'][0][2:7:4] == (
-        int(TaskStatus.Failed), 'preempted')
-    assert state(twin.jax)['tasks'][0][0] == victim
-    with pytest.raises(NotImplementedError, match='quotas and preemption'):
-        twin.port_sup.build()
+    st = twin.tick()
+    assert st['tasks'][0][0] == victim
+    assert st['tasks'][0][2:7:4] == (int(TaskStatus.Failed), 'preempted')
+    assert st['aux']['preempted'] == [
+        {'task': victim, 'attempt': 0, 'class': 'preemptible',
+         'reason': 'capacity', 'repair': False}]
+    assert len(st['preemptions']) == 1 and len(st['usage']) == 1
+    st = twin.tick()
+    assert _dispatched(st) == {blocked: [0]}
 
 
 # --------------------------------------------------------------- the queue
