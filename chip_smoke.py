@@ -399,6 +399,33 @@ Phase of the ASHA sweeps' slice, run after the fleets':
   the quota's delete to V's dispatch, from H's submit to the decision,
   from it to V's exit and to H's dispatch, H's dispatch to InProgress,
   V's failure to its requeue and to InProgress, and the epochs V lost.
+- watchdog (after preempt): the watchdog and SLO engine. The
+  supervisor loop in this process (``register_supervisor(ha=False)``
+  on a fresh root, its watchdog at a 20 s stall deadline evaluating
+  every second, its SLO engine every second, a 2 s retry backoff),
+  ``worker start 1`` as processes with ``MLCOMP_FAULTS`` arming a 300 s
+  sleep at the ``train.epoch`` seam after epoch 1. S, ``cifar_simple``'s
+  ResNet-18 (``norm: fused``, 32768 / 512 images, 5 epochs, a
+  checkpoint an epoch), trains two epochs and hangs: one critical
+  ``task-stall`` alert 20-23 s after its newest metric sample, S
+  ``Failed``/``stall-killed``, its ``run-task`` exit 143 within 3 s,
+  the watchdog's log line naming the alert. The retry pass requeues S
+  as attempt 1, which resumes at epoch 2 and ends Success; no other
+  alert in either attempt at the default thresholds. A second
+  ``Watchdog`` with ``hbm_threshold`` at half S's last occupancy raises
+  one ``hbm-pressure`` finding, which the builder's watchdog resolves.
+  ``alerts --json`` equals ``/api/alerts``; ``slos --json`` equals
+  ``api_slos`` with ``dispatch-p99``, ``queue-wait-train`` and
+  ``step-time`` ``ok``; the tick recorder's rows (tick time, dispatch
+  latency and queue wait of S's two claims, starvation gauges, the
+  fold, preemption and SLO pass times, one retry) and their
+  ``/metrics`` families. Each attempt's norm launches are 20 a train
+  step: the norm kernels' ``launches_by_path['watchdog']``. Prints the
+  seconds from the newest sample to the alert and to the exit, from
+  the failure to the requeue and to InProgress, the epochs lost, and
+  ``supervisor.tick_ms`` and ``supervisor.slo_eval_ms`` (median, max).
+  A contained watchdog or SLO failure in any site phase's log (and
+  ``[sched]``'s) fails the run.
 
 Phase of the device telemetry's slice, run after the wide step's:
 
@@ -4333,6 +4360,7 @@ def phase_sched(smi: str) -> dict:
                  f'{beat and dict(beat)}, process log {exited}')
         process_s = float(re.search(r'after ([\d.]+) s',
                                     exited['message']).group(1))
+        _no_containment(phase, db)
         say(phase, part='a', dag=dag_id, task=task_id,
             computer=host, cores=computer['cores'],
             cores_assigned=task['cores_assigned'],
@@ -4408,6 +4436,7 @@ def phase_sched(smi: str) -> dict:
                 layers * (CLI_GRID_STEPS + CLI_GRID_VALID) * CLI_EPOCHS,
             'flash_attention_bwd_dq': layers * steps,
             'flash_attention_bwd_dkv': layers * steps})
+        _no_containment(phase, db)
         say(phase, part='b', ticks=tick + 1, tasks=len(tasks),
             cifar_cores_assigned=placed[dag_ids[0]],
             cuda_visible_devices=os.environ.get('CUDA_VISIBLE_DEVICES'),
@@ -4483,14 +4512,42 @@ def _reap(root: str):
             pass
 
 
-def _start_group(n: int, env: dict, log: str) -> subprocess.Popen:
-    """``python -m mlcomp_tpu_torch.server start n`` in a session of its
-    own, its output to ``log``."""
+def _start_group(n: int, env: dict, log: str,
+                 module: str = 'mlcomp_tpu_torch.server') -> subprocess.Popen:
+    """``python -m <module> start n`` (the site, or with
+    ``mlcomp_tpu_torch.worker`` the host agent and its workers alone) in
+    a session of its own, its output to ``log``."""
     with open(log, 'w') as out:
         return subprocess.Popen(
-            [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'start',
-             str(n)], cwd=HERE, env=env, stdout=out,
-            stderr=subprocess.STDOUT, start_new_session=True)
+            [sys.executable, '-m', module, 'start', str(n)], cwd=HERE,
+            env=env, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+
+#: the first words of the log lines where the supervisor contained a
+#: crash of the watchdog or the SLO engine instead of breaking its tick
+CONTAINED = ('watchdog evaluation failed', 'watchdog rule failed',
+             'slo evaluation failed', 'slo measurement failed',
+             'slo objective ')
+
+
+def _no_containment(phase: str, db: str, extra=()):
+    """Fail the run on a log row of the sqlite DB at ``db`` where the
+    supervisor contained a crash of the watchdog or the SLO engine, or
+    one starting with a line of ``extra`` (the DB may not be there or be
+    migrated yet while a site starts)."""
+    import sqlite3
+    heads = CONTAINED + tuple(extra)
+    if not os.path.exists(db):
+        return
+    try:
+        rows = _rows(db, 'SELECT message FROM log WHERE ' + ' OR '.join(
+            ['message LIKE ?'] * len(heads)), tuple(f'{h}%' for h in heads))
+    except sqlite3.Error:
+        return
+    if rows:
+        fail(f'{phase}: the supervisor logged '
+             f'{[r["message"].splitlines()[0] for r in rows]}')
 
 
 def _check_alive(phase: str, proc, log: str, what: str = 'group'):
@@ -4628,6 +4685,7 @@ def phase_site(smi: str) -> dict:
 
     def group_alive():
         _check_alive(phase, group, group_log)
+        _no_containment(phase, db)
 
     def lease():
         return dict(session.query_one(
@@ -4941,6 +4999,7 @@ def phase_site(smi: str) -> dict:
         if lease()['holder'] is not None:
             fail(f'{phase}: the in-process supervisor left the lease '
                  f'{lease()}')
+        _no_containment(phase, db)
         say(phase, part='b', dag=dag_b, task=task_b, promote_s=promote_s,
             trained_s=trained_s, launches=launches,
             resume_s=seconds_since(t_r), resume_launches=again,
@@ -5228,6 +5287,7 @@ def phase_fleet(seed: int, smi: str) -> dict:
     def alive():
         _check_alive(phase, group, group_log)
         _check_alive(phase, gateway, gateway_log, 'gateway')
+        _no_containment(phase, os.path.join(DB_FOLDER, 'sqlite.db'))
 
     def command(*argv, cli='mlcomp_tpu_torch.server'):
         return _cli(phase, cli, *argv)
@@ -5514,6 +5574,7 @@ def phase_fleet(seed: int, smi: str) -> dict:
 
         # (b) in this process, the launches counted
         launches = _fleet_in_process(paths, requests, session, smi)
+        _no_containment(phase, os.path.join(DB_FOLDER, 'sqlite.db'))
         say(phase, part='b', launches=json.dumps(launches),
             prepare_s=f'{prepared_s:.1f}',
             phase_s=f'{time.monotonic() - t_phase:.1f}', card=smi)
@@ -5785,6 +5846,7 @@ def phase_sweep(smi: str) -> dict:
 
     def group_alive():
         _check_alive(phase, group, group_log)
+        _no_containment(phase, db)
 
     def command(*args):
         return _cli(phase, 'mlcomp_tpu_torch', *args, env=env)
@@ -5996,6 +6058,7 @@ def phase_sweep(smi: str) -> dict:
             say(phase, cell=tid, **{k: json.dumps(v).replace(' ', '')
                                     for k, v in cell.items()})
         epochs = sum(r['epochs'] for r in report.values())
+        _no_containment(phase, db)
         say(phase, dag=dag_id, prunes=len(prunes),
             prune_latency=json.dumps(latency).replace(' ', ''),
             epochs_trained=epochs,
@@ -6137,21 +6200,10 @@ def phase_preempt(smi: str) -> dict:
 
     def group_alive():
         """The group runs, and the supervisor's containment logged no
-        failed preemption pass or usage fold (the DB may not be
-        migrated yet while the site starts)."""
-        import sqlite3
+        failed preemption pass, usage fold, watchdog or SLO pass."""
         _check_alive(phase, group, group_log)
-        if not os.path.exists(db):
-            return
-        try:
-            failed = [r['message'].split('\n')[0] for r in _rows(
-                db, "SELECT message FROM log WHERE message LIKE "
-                    "'preemption pass failed%' OR message LIKE "
-                    "'usage fold failed%'")]
-        except sqlite3.Error:
-            failed = []
-        if failed:
-            fail(f'{phase}: the supervisor logged {failed}')
+        _no_containment(phase, db, ('preemption pass failed',
+                                    'usage fold failed'))
 
     def command(*args):
         return _cli(phase, 'mlcomp_tpu_torch', *args, env=env)
@@ -6416,6 +6468,8 @@ def phase_preempt(smi: str) -> dict:
         def span(later, earlier):
             return f'{_seconds(later, earlier):.3f}'
 
+        _no_containment(phase, db, ('preemption pass failed',
+                                    'usage fold failed'))
         say(phase, quota=json.dumps(quota_block).replace(' ', ''),
             held_ticks=len(held_ticks),
             delete_to_dispatch_s=span(first_v['created'], t_delete),
@@ -6440,6 +6494,409 @@ def phase_preempt(smi: str) -> dict:
     finally:
         _stop_session(group)
         _reap(root)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ------------------------------------------------------ watchdog and SLOs
+#: ``[watchdog]``'s task S: ``cifar_simple``'s ResNet-18 (images, epochs)
+WATCHDOG_S = (32768, 5)
+WATCHDOG_STEPS = WATCHDOG_S[0] // 256          # the example's batch 256
+#: the hang, armed in every ``run-task`` process of the phase: a sleep at
+#: the ``train.epoch`` seam after epoch 1 (its checkpoint submitted); the
+#: resumed attempt passes the seam at epochs 3 and later only
+WATCHDOG_FAULTS = {'train.epoch': {'action': 'sleep', 'ms': 300000,
+                                   'when': {'epoch': 2}}}
+#: the builder's stall deadline and evaluation cadence, as the JAX
+#: package's tests set them, and the retry backoff's base
+WATCHDOG_STALL_S, WATCHDOG_EVERY_S, WATCHDOG_BACKOFF_S = 20, 1, 2
+#: the alert lands within this many seconds past the deadline, and the
+#: killed process exits within this many seconds of the alert
+WATCHDOG_ALERT_SLACK_S, WATCHDOG_EXIT_S = 3, 3
+#: seconds ``[watchdog]`` waits for any one of its steps
+WATCHDOG_TIMEOUT_S = 240
+#: objectives the scoreboard lists ``ok`` at the end
+WATCHDOG_OBJECTIVES = ('dispatch-p99', 'queue-wait-train', 'step-time')
+#: families the exporter fills from the phase's rows
+WATCHDOG_FAMILIES = ('mlcomp_dispatch_latency_seconds',
+                     'mlcomp_queue_wait_seconds',
+                     'mlcomp_queue_max_wait_seconds', 'mlcomp_task_retries',
+                     'mlcomp_slo_bad_fraction')
+
+
+def _watchdog_rows(db: str, task: int) -> dict:
+    """The rows ``[watchdog]`` reads of task ``task``, with stdlib
+    sqlite3."""
+    def rows(sql, params=()):
+        return _rows(db, sql, params)
+    return {
+        'task': rows('SELECT * FROM task WHERE id=?', (task,))[0],
+        'alerts': rows('SELECT * FROM alert ORDER BY id'),
+        'messages': rows('SELECT * FROM queue_message ORDER BY id'),
+        'metric': rows(
+            "SELECT task, name, step, value, time, tags FROM metric "
+            "WHERE task=? AND (name='train.steps' OR name='task.retry' "
+            "OR name LIKE 'train.kernel_launches.%') ORDER BY id", (task,)),
+        'epochs': rows("SELECT epoch, time FROM report_series WHERE task=? "
+                       "AND name='loss' AND part='train' ORDER BY id",
+                       (task,)),
+        'logs': rows(
+            "SELECT time, message FROM log WHERE task=? AND (message LIKE "
+            "'%run-task process exited%' OR message LIKE 'resumed from "
+            "checkpoint%' OR message LIKE 'watchdog: %') ORDER BY id",
+            (task,))}
+
+
+def _supervisor_series(db: str) -> dict:
+    """name -> [(value, time)] of the supervisor's recorder rows."""
+    out = {}
+    for r in _rows(db, "SELECT name, value, time FROM metric WHERE "
+                       "component='supervisor' ORDER BY id"):
+        out.setdefault(r['name'], []).append((r['value'], r['time']))
+    return out
+
+
+def phase_watchdog(smi: str) -> dict:
+    """``[watchdog]``: the watchdog and the SLO engine on the card. A hung
+    ResNet-18 run is killed, retried and resumed from its checkpoint.
+
+    The supervisor loop runs in this process (``register_supervisor(ha=
+    False)`` on a fresh root's DB), its builder set as the JAX package's
+    tests set theirs: ``WatchdogConfig(stall_deadline_s=20,
+    evaluate_every_s=1)``, ``SloConfig(evaluate_every_s=1)``,
+    ``RecoveryConfig(backoff_base_s=2)``. ``worker start 1``
+    (``worker-supervisor`` + ``worker 0``, a ``run-task`` process per
+    task) runs with ``MLCOMP_FAULTS`` arming a 300 s sleep at the
+    ``train.epoch`` seam after epoch 1. S is ``cifar_simple``'s train
+    executor (``preempt_config``: ResNet-18 at full width, ``norm:
+    fused``, batch 256, 32768 / 512 synthetic images, 5 epochs, a
+    checkpoint an epoch).
+
+    Checks: S trains epochs 0 and 1 and hangs; one ``task-stall`` alert,
+    critical, on S, within 20 + 3 s of S's newest metric sample; S
+    ``Failed``/``stall-killed``, its process exiting 143 within 3 s of
+    the alert, the supervisor's log line naming the alert. After the
+    backoff the retry pass requeues S as attempt 1, which resumes at
+    epoch 2 and ends Success with its 5 epochs; no second stall alert,
+    the first still open. While attempt 1 runs a second ``Watchdog`` on
+    the DB, its ``hbm_threshold`` half the occupancy S last recorded,
+    raises one ``hbm-pressure`` finding for S, which the builder's
+    watchdog resolves. No other alert is raised in either attempt.
+    ``alerts --json`` and ``/api/alerts`` agree, and with ``--all`` the
+    HBM alert shows resolved; ``mlcomp_alerts_open{rule="task-stall",severity=
+    "critical"}`` is 1. The tick recorder's rows: ``supervisor.tick_ms``,
+    ``supervisor.dispatch_latency_s.*`` and ``queue.wait_s.train.normal.*``
+    with one observation for each of S's two claims,
+    ``queue.max_wait_s.<class>`` for every class, ``supervisor.
+    usage_fold_ms|preempt_ms|slo_eval_ms`` and ``supervisor.task_retries``
+    1 (flushed by the recorder, or by an explicit flush and one SLO
+    evaluation after the loop stopped: printed). ``slos --json`` and
+    ``api_slos`` agree, listing ``dispatch-p99``, ``queue-wait-train``
+    and ``step-time`` ``ok`` with bad 0; ``/metrics`` has samples in
+    ``WATCHDOG_FAMILIES``. Each attempt's norm launches are 20 x its
+    train steps. A contained watchdog or SLO failure in the log fails
+    the run. Returns the launches summed over the two attempts."""
+    import statistics
+    from mlcomp_tpu_torch import DOCKER_IMG
+    from mlcomp_tpu_torch.db.core import Session
+    from mlcomp_tpu_torch.db.enums import TaskStatus
+    from mlcomp_tpu_torch.db.migration import migrate
+    from mlcomp_tpu_torch.recovery import RecoveryConfig
+    from mlcomp_tpu_torch.server import api
+    from mlcomp_tpu_torch.server.scheduler import TASK_CLASSES
+    from mlcomp_tpu_torch.server.supervisor import register_supervisor
+    from mlcomp_tpu_torch.telemetry import (
+        SloConfig, Watchdog, WatchdogConfig,
+    )
+    from mlcomp_tpu_torch.telemetry.export import parse_openmetrics
+    from mlcomp_tpu_torch.train.checkpoint import load_meta
+    from mlcomp_tpu_torch.utils.io import yaml_dump
+    from mlcomp_tpu_torch.utils.logging import create_logger
+    from mlcomp_tpu_torch.utils.misc import hostname
+
+    phase = 'watchdog'
+    t0 = time.monotonic()
+    work = tempfile.mkdtemp(prefix='watchdog_')
+    root = os.path.join(work, 'root')
+    db = os.path.join(root, 'db', 'sqlite.db')
+    url = f'sqlite:///{db}'
+    group_log = os.path.join(work, 'group.log')
+    env = dict(os.environ, MLCOMP_TPU_ROOT=root, MLCOMP_TPU_CORES='1',
+               MLCOMP_FAULTS=json.dumps(WATCHDOG_FAULTS))
+    group, loop, server = None, None, None
+    keys = ('watchdog', 'watchdog-probe')
+
+    def alive():
+        _check_alive(phase, group, group_log)
+        _no_containment(phase, db)
+        if loop is not None and not loop.is_alive():
+            fail(f'{phase}: the supervisor loop stopped')
+
+    def command(*args):
+        return _cli(phase, 'mlcomp_tpu_torch', *args, env=env)
+
+    def row(task):
+        return _rows(db, 'SELECT * FROM task WHERE id=?', (task,))[0]
+
+    def exits(task):
+        return _rows(db, "SELECT time, message FROM log WHERE task=? AND "
+                         "message LIKE '%run-task process exited%' "
+                         "ORDER BY id", (task,))
+
+    try:
+        os.makedirs(os.path.dirname(db))
+        session = Session.create_session(key=keys[0], connection_string=url)
+        migrate(session)
+        builder, (loop,) = register_supervisor(
+            session=session, logger=create_logger(session), ha=False)
+        builder.watchdog.config = WatchdogConfig(
+            stall_deadline_s=WATCHDOG_STALL_S,
+            evaluate_every_s=WATCHDOG_EVERY_S)
+        builder.slo_engine.config = SloConfig(
+            evaluate_every_s=WATCHDOG_EVERY_S)
+        builder.recovery_config = RecoveryConfig(
+            backoff_base_s=WATCHDOG_BACKOFF_S)
+        group = _start_group(1, env, group_log,
+                             module='mlcomp_tpu_torch.worker')
+        _wait_for(phase, 'the host agent', lambda: _rows(
+            db, 'SELECT 1 FROM docker WHERE computer=? AND name=?',
+            (hostname(), DOCKER_IMG)), alive, timeout=WATCHDOG_TIMEOUT_S)
+        ready_s = time.monotonic() - t0
+        os.makedirs(os.path.join(work, 's'))
+        config = os.path.join(work, 's', 'config.yml')
+        yaml_dump(preempt_config('watchdog_s', *WATCHDOG_S), file=config)
+        command('dag', config)
+        (dag_id,) = _dag_ids(db)
+        (s,) = [r['id'] for r in _rows(db, 'SELECT id FROM task WHERE '
+                                           'dag=?', (dag_id,))]
+        ck_dir = os.path.join(root, 'tasks', str(s), 'checkpoints')
+
+        # the hang and the kill
+        def stall_alert():
+            if row(s)['status'] == int(TaskStatus.Success):
+                fail(f'{phase}: S ended Success without hanging')
+            return _rows(db, "SELECT * FROM alert WHERE rule='task-stall'")
+
+        (alert,) = _wait_for(phase, 'the task-stall alert', stall_alert,
+                             alive, timeout=WATCHDOG_TIMEOUT_S, interval=0.1)
+        meta = load_meta(ck_dir) or {}
+        def stall_killed():
+            r = row(s)
+            return r if (r['status'], r['failure_reason']) == (
+                int(TaskStatus.Failed), 'stall-killed') else None
+        failed = _wait_for(phase, 'S Failed/stall-killed', stall_killed,
+                           alive, timeout=10, interval=0.02)
+        newest = _rows(db, 'SELECT MAX(time) AS t FROM metric WHERE task=? '
+                           'AND time < ?', (s, alert['time']))[0]['t']
+        silence = _seconds(alert['time'], newest)
+        if (alert['task'], alert['severity'], alert['status']) != (
+                s, 'critical', 'open') or failed['attempt'] != 0 or \
+                not WATCHDOG_STALL_S < silence <= \
+                WATCHDOG_STALL_S + WATCHDOG_ALERT_SLACK_S or \
+                int(meta.get('epoch', -1)) != 1:
+            fail(f'{phase}: alert {alert} {silence:.3f} s after the newest '
+                 f'sample {newest}; S {failed}; checkpoint {meta}')
+        (exit0,) = _wait_for(phase, "the hung process's exit",
+                             lambda: exits(s), alive,
+                             timeout=WATCHDOG_TIMEOUT_S)
+        rc = exit0['message'].split('exited ')[1].split()[0]
+        alert_to_exit = _seconds(exit0['time'], alert['time'])
+        if rc != '143' or not 0 <= alert_to_exit <= WATCHDOG_EXIT_S:
+            fail(f'{phase}: the hung process exited {rc} '
+                 f'{alert_to_exit:.3f} s after the alert')
+
+        # the retry, and the second watchdog while attempt 1 trains
+        def attempt1_training():
+            r = row(s)
+            if r['status'] == int(TaskStatus.Success):
+                fail(f'{phase}: attempt 1 ended before the HBM probe')
+            return r['attempt'] == 1 and r['status'] == int(
+                TaskStatus.InProgress) and _rows(
+                db, "SELECT 1 FROM metric WHERE task=? AND name="
+                    "'device0.hbm_used' AND time > ?", (s, r['started']))
+        _wait_for(phase, 'attempt 1 training', attempt1_training, alive,
+                  timeout=WATCHDOG_TIMEOUT_S)
+        used, limit = (_rows(db, 'SELECT value FROM metric WHERE task=? AND '
+                                 'name=? ORDER BY id DESC LIMIT 1',
+                             (s, f'device0.hbm_{k}'))[0]['value']
+                       for k in ('used', 'limit'))
+        probe = Session.create_session(key=keys[1], connection_string=url)
+        findings = Watchdog(probe, WatchdogConfig(
+            hbm_threshold=used / limit / 2, stall_deadline_s=3600,
+            evaluate_every_s=0)).evaluate()
+        hbm = [f for f in findings if f['rule'] == 'hbm-pressure']
+        if [(f['task'], f['severity']) for f in hbm] != [(s, 'critical')] \
+                or len(findings) != 1:
+            fail(f'{phase}: the probe watchdog found {findings} at '
+                 f'occupancy {used / limit:.4f}')
+
+        def finished():
+            return row(s)['status'] == int(TaskStatus.Success) and \
+                len(exits(s)) == 2
+        _wait_for(phase, 'S Success', finished, alive,
+                  timeout=WATCHDOG_TIMEOUT_S, interval=0.25)
+        # one evaluation past S's end by the builder's watchdog
+        time.sleep(2 * WATCHDOG_EVERY_S)
+        alive()
+        loop.stop()
+        loop.join(timeout=30)
+        loop = None
+        rows = _watchdog_rows(db, s)
+        s_row = rows['task']
+
+        def described(alerts):
+            return [(a['rule'], a['task'], a['severity'], a['status'],
+                     a['message'], a['details']) for a in alerts]
+        stalls = [a for a in rows['alerts'] if a['rule'] == 'task-stall']
+        probed = [a for a in rows['alerts'] if a['rule'] == 'hbm-pressure']
+        # in either attempt, no alert but the stall and the probe's
+        others = [a for a in rows['alerts']
+                  if a['rule'] not in ('task-stall', 'hbm-pressure')]
+        if [(a['id'], a['task'], a['severity'], a['status'])
+                for a in stalls] != [(alert['id'], s, 'critical', 'open')] \
+                or [(a['task'], a['severity'], a['status'])
+                    for a in probed] != [(s, 'critical', 'resolved')] \
+                or others:
+            fail(f'{phase}: alerts {described(rows["alerts"])}')
+        retries = [m for m in rows['metric'] if m['name'] == 'task.retry']
+        if s_row['attempt'] != 1 or len(retries) != 1 or json.loads(
+                retries[0]['tags'])['reason'] != 'stall-killed':
+            fail(f'{phase}: S attempt {s_row["attempt"]}, retries {retries}')
+        lines = [r['message'] for r in rows['logs']
+                 if r['message'].startswith('watchdog: ')]
+        if len(lines) != 1 or not lines[0].endswith(
+                f'task marked Failed (alert {alert["id"]})'):
+            fail(f'{phase}: watchdog log lines {lines}')
+        resumed = [r['message'] for r in rows['logs']
+                   if r['message'].startswith('resumed from checkpoint')]
+        kill = failed['finished']
+        epochs = [(e['epoch'], _seconds(e['time'], kill) > 0)
+                  for e in rows['epochs']]
+        before = [e for e, later in epochs if not later]
+        after = [e for e, later in epochs if later]
+        if len(resumed) != 1 or 'epoch=1 ' not in resumed[0] or \
+                before != [0, 1] or after != [2, 3, 4]:
+            fail(f'{phase}: resumed {resumed}; epochs before the kill '
+                 f'{before}, after {after}')
+        lost = [e for e in before if e > int(meta['epoch'])]
+
+        # alerts through the command and the API, the scoreboard, metrics
+        series = _supervisor_series(db)
+        want = ('supervisor.tick_ms', 'supervisor.dispatch_latency_s.count',
+                'queue.wait_s.train.normal.count',
+                'queue.wait_s.train.normal.p95',
+                'supervisor.usage_fold_ms', 'supervisor.preempt_ms',
+                'supervisor.slo_eval_ms', 'supervisor.task_retries',
+                'supervisor.dispatch_latency_s.p99') + tuple(
+            f'queue.max_wait_s.{cls}' for cls in TASK_CLASSES)
+
+        def claims(name):
+            """Observations of a histogram: a bucket-less one restarts at
+            each flush, a bucketed one's rows are cumulative."""
+            values = [v for v, _ in series.get(name, [])]
+            if name.startswith('queue.wait_s.'):
+                return values[-1] if values else 0
+            return sum(values)
+        flushed_by = 'recorder'
+        if any(name not in series for name in want) or \
+                claims('supervisor.dispatch_latency_s.count') != 2:
+            flushed_by = 'explicit'
+            builder.telemetry.flush()
+            builder.slo_engine.evaluate()
+            series = _supervisor_series(db)
+        missing = [name for name in want if name not in series]
+        if missing or claims('supervisor.dispatch_latency_s.count') != 2 \
+                or claims('queue.wait_s.train.normal.count') != 2 or \
+                claims('supervisor.task_retries') != 1:
+            fail(f'{phase}: supervisor rows missing {missing}: '
+                 f'{ {k: len(v) for k, v in series.items()} }')
+        server = api.start_server(port=_free_port(), with_supervisor=False,
+                                  background=True, connection_string=url)
+        listed = json.loads(command('alerts', '--json'))
+        every = json.loads(command('alerts', '--all', '--json'))
+        for flags, cli_rows in (({}, listed), ({'status': 'all'}, every)):
+            status, body = _api(server.port, '/api/alerts', flags)
+            if status != 200 or body['data'] != cli_rows:
+                fail(f'{phase}: /api/alerts {flags} {status} against '
+                     f'alerts --json')
+        if [(a['rule'], a['status']) for a in listed] != [
+                ('task-stall', 'open')] or len(every) != len(
+                rows['alerts']) or not {('hbm-pressure', 'resolved'),
+                                        ('task-stall', 'open')} <= {
+                (a['rule'], a['status']) for a in every}:
+            fail(f'{phase}: alerts {listed}, --all {every}')
+        board = json.loads(command('slos', '--json'))
+        if board != api.api_slos({}, probe)['data']:
+            fail(f'{phase}: slos --json against api_slos')
+        entries = {e['key']: e for e in board}
+        if any((entries.get(k) or {}).get('status') != 'ok' or
+               entries[k]['bad'] != 0 for k in WATCHDOG_OBJECTIVES):
+            fail(f'{phase}: the scoreboard {board}')
+        status, text = _api(server.port, '/metrics', method='GET')
+        parsed = parse_openmetrics(text)
+        empty = [f for f in WATCHDOG_FAMILIES
+                 if not parsed.get(f, {}).get('samples')]
+        open_stall = [s_[2] for s_ in parsed['mlcomp_alerts_open']['samples']
+                      if s_[1] == {'rule': 'task-stall',
+                                   'severity': 'critical'}]
+        if status != 200 or empty or open_stall != [1.0]:
+            fail(f'{phase}: /metrics {status}, empty families {empty}, '
+                 f'open stall alerts {open_stall}')
+
+        # launches: 20 of each norm kernel a completed train step
+        launches = {'fused_norm': 0, 'fused_norm_bwd': 0}
+        steps = [m for m in rows['metric'] if m['name'] == 'train.steps']
+        runs = []
+        for step_row in steps:
+            counts = {m['name'][len('train.kernel_launches.'):]: m['value']
+                      for m in rows['metric'] if m['time'] ==
+                      step_row['time'] and m['name'].startswith(
+                          'train.kernel_launches.')}
+            n = int(step_row['value'])
+            if counts != {k: 20.0 * n for k in launches}:
+                fail(f'{phase}: {n} steps, launches {counts}')
+            runs.append(n)
+            for k in launches:
+                launches[k] += int(counts[k])
+        if runs != [2 * WATCHDOG_STEPS, 3 * WATCHDOG_STEPS]:
+            fail(f'{phase}: train steps of the two runs {runs}')
+
+        # the healthy attempt's longest silence the stall rule could see:
+        # InProgress -> first metric row -> ... -> the end
+        lives = [s_row['started']] + sorted({r['time'] for r in _rows(
+            db, 'SELECT time FROM metric WHERE task=? AND time >= ?',
+            (s, s_row['started']))}) + [s_row['finished']]
+        quiet = max(_seconds(b, a) for a, b in zip(lives, lives[1:]))
+        msgs = [m for m in rows['messages']
+                if json.loads(m['payload']).get('task_id') == s]
+        tick_ms = [v for v, _ in series['supervisor.tick_ms']]
+        slo_ms = [v for v, _ in series['supervisor.slo_eval_ms']]
+        say(phase, task=s, alert=alert['id'],
+            sample_to_alert_s=f'{silence:.3f}',
+            alert_to_exit_s=f'{alert_to_exit:.3f}',
+            failed_to_requeue_s=f'{_seconds(retries[0]["time"], kill):.3f}',
+            requeue_to_start_s=(
+                f'{_seconds(s_row["started"], retries[0]["time"]):.3f}'),
+            epochs_lost=len(lost), steps_by_run=json.dumps(runs).replace(
+                ' ', ''),
+            claims=len(msgs), healthy_quiet_s=f'{quiet:.3f}',
+            hbm_occupancy=f'{used / limit:.4f}',
+            tick_ms_median=f'{statistics.median(tick_ms):.3f}',
+            tick_ms_max=f'{max(tick_ms):.3f}', ticks_recorded=len(tick_ms),
+            slo_eval_ms_median=f'{statistics.median(slo_ms):.3f}',
+            slo_eval_ms_max=f'{max(slo_ms):.3f}', flushed_by=flushed_by,
+            launches=launches, agent_ready_s=f'{ready_s:.2f}',
+            phase_s=f'{time.monotonic() - t0:.2f}', card=smi)
+        return {'watchdog': launches}
+    finally:
+        if loop is not None:
+            loop.stop()
+            loop.join(timeout=30)
+        if server is not None:
+            server.shutdown()
+        _stop_session(group)
+        _reap(root)
+        for key in keys + (api._SESSION_KEY,):
+            Session.cleanup(key)
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -7260,6 +7717,7 @@ def main():
         fleet = phase_fleet(args.seed, smi)
         sweep = phase_sweep(smi)
         preempt = phase_preempt(smi)
+        watchdog = phase_watchdog(smi)
         # a profiler window can leave CUDA tracing on, which slows later
         # launches from the host: the step phases, which profile, come
         # last, the ViT's (timed here, profiled at the end) and the
@@ -7332,6 +7790,7 @@ def main():
             'site': site['site'][entry['name']],
             'sweep': sweep['sweep'][entry['name']],
             'preempt': preempt['preempt'][entry['name']],
+            'watchdog': watchdog['watchdog'][entry['name']],
             'telemetry_cifar': telemetry['telemetry_cifar'][entry['name']]}
         entry['launches'] = sum(entry['launches_by_path'].values())
     norm['device_ms'] = {site: {k: v for k, v in ms.items() if k != 'bwd'}

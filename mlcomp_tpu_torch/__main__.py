@@ -31,13 +31,17 @@ on ``argparse``:
   scope:tenant:resource=limit [--window S]] [--delete
   scope:tenant:resource] [--limit N]`` — quota ceilings with their live
   usage, the class roster and the newest preemptions
+- ``python -m mlcomp_tpu_torch alerts [--all] [--task ID] [--rule R]
+  [--resolve ID] [--json]`` — the watchdog's and the SLO engine's
+  alerts; ``--resolve`` exits 1 for an alert that is not open
+- ``python -m mlcomp_tpu_torch slos [--json]`` — the SLO scoreboard: each
+  objective's bad fraction, fast and slow burn rates and open alert
 
 ``--params a/b:c`` overrides merge into the stored config as the JAX
 package's do. The DB is the JAX package's (same root, same schema):
 ``<root>/db/sqlite.db``. Trainers run on the card; a config asks for the
 CPU with ``device: cpu``. The other commands of the JAX package (sync,
-alerts, recovery, gangs, supervisors, slos) are not ported yet
-(ROADMAP.md, A0).
+recovery, gangs, supervisors) are not ported yet (ROADMAP.md, A0).
 """
 
 import argparse
@@ -549,6 +553,68 @@ def cmd_quotas(args):
             print(line)
     return 0
 
+
+def cmd_alerts(args):
+    """Watchdog and SLO alerts: stalled tasks, step-time regressions,
+    stragglers, HBM pressure, burning objectives (telemetry/watchdog.py,
+    telemetry/slo.py)."""
+    from mlcomp_tpu_torch.db.providers import AlertProvider
+    session = Session.create_session()
+    migrate(session)
+    provider = AlertProvider(session)
+    if args.resolve_id is not None:
+        ok = provider.resolve(args.resolve_id)
+        print(f'alert {args.resolve_id}: '
+              + ('resolved' if ok else 'not open / not found'))
+        return 0 if ok else 1
+    rows = provider.get(status=None if args.show_all else 'open',
+                        task=args.task, rule=args.rule)
+    if args.as_json:
+        print(json.dumps([provider.serialize(r) for r in rows]))
+        return 0
+    if not rows:
+        print('no ' + ('' if args.show_all else 'open ') + 'alerts')
+        return 0
+    for a in rows:
+        where = f' task={a.task}' if a.task is not None else ''
+        where += f' on {a.computer}' if a.computer else ''
+        flag = '!' if a.severity == 'critical' else '~'
+        state = '' if a.status == 'open' else f' [{a.status}]'
+        print(f'{flag} #{a.id} [{a.rule}]{where}{state} '
+              f'({a.time}): {a.message}')
+    return 0
+
+
+def cmd_slos(args):
+    """SLO scoreboard (telemetry/slo.py): every objective the burn-rate
+    engine evaluates — latest bad fraction, fast (5m) and slow (6h)
+    error-budget burn rates, and the open alert when burning."""
+    from mlcomp_tpu_torch.server.api import api_slos
+    session = Session.create_session()
+    migrate(session)
+    items = api_slos({}, session)['data']
+    if args.as_json:
+        print(json.dumps(items))
+        return 0
+    if not items:
+        print('no SLO objectives evaluated yet '
+              '(the supervisor records them while running)')
+        return 0
+    for it in items:
+        line = f"  {it['key']} [{it['status']}]"
+        if it['bad'] is not None:
+            line += f" bad={it['bad']:.4f}"
+        if it.get('burn_fast') is not None:
+            line += f" burn_fast={it['burn_fast']:.2f}"
+        if it.get('burn_slow') is not None:
+            line += f" burn_slow={it['burn_slow']:.2f}"
+        if it.get('alert'):
+            line += (f" — {it['alert']['severity']}: "
+                     f"{it['alert']['message']}")
+        print(line)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog='python -m mlcomp_tpu_torch',
@@ -642,6 +708,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--limit', type=int, default=20,
                    help='recent preemptions to show')
     p.set_defaults(fn=cmd_quotas)
+    p = sub.add_parser('alerts', help='watchdog and SLO alerts')
+    p.add_argument('--all', dest='show_all', action='store_true',
+                   help='include resolved alerts')
+    p.add_argument('--task', type=int, default=None,
+                   help='filter by task id')
+    p.add_argument('--rule', default=None,
+                   help='filter by rule (task-stall, step-regression, ...)')
+    p.add_argument('--resolve', dest='resolve_id', type=int, default=None,
+                   help='resolve (ack) the alert with this id')
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='machine-readable output')
+    p.set_defaults(fn=cmd_alerts)
+    p = sub.add_parser('slos', help='SLO scoreboard')
+    p.add_argument('--json', dest='as_json', action='store_true',
+                   help='machine-readable output')
+    p.set_defaults(fn=cmd_slos)
     return parser
 
 

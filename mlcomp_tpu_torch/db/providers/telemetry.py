@@ -1,18 +1,19 @@
 """Telemetry providers (port of ``mlcomp_tpu/db/providers/telemetry.py``:
 metric, span and alert rows) — batch ingest, and the reads the API
 serves (series and their tails, span forests, assembled traces,
-alerts).
+alerts, and the watchdog's per-task windows).
 
 The write path is ``add_many`` (one executemany per flush) because the
 telemetry buffers hand over hundreds of rows at a time; per-row ``add``
 would pay a commit each. ``AlertProvider.raise_alert`` is what the
-supervisor's retry pass writes; ``PostmortemProvider`` holds the
-bundles ``TaskProvider.fail_with_reason`` freezes
-(``telemetry/memory.py``).
+supervisor's retry pass, the watchdog and the SLO engine write;
+``PostmortemProvider`` holds the bundles
+``TaskProvider.fail_with_reason`` freezes (``telemetry/memory.py``).
 """
 
 import json
 
+from mlcomp_tpu_torch.db.core import parse_datetime
 from mlcomp_tpu_torch.db.models import (
     Alert, Metric, Postmortem, TelemetrySpan,
 )
@@ -111,6 +112,54 @@ class MetricProvider(BaseDataProvider):
             sql += ' WHERE ' + ' AND '.join(where)
         return [r['name'] for r in self.session.query(
             sql + ' ORDER BY name', tuple(params))]
+
+    def recent_values(self, task_id: int, name: str, limit: int = 32):
+        """Latest ``limit`` values of one metric, NEWEST FIRST — the
+        small fixed-size window the watchdog rules read per task.
+        Ordered by insertion (id DESC): appends are chronological per
+        (task, name), and unlike ``COALESCE(step, id)`` a bare id sort
+        rides the composite index instead of sorting the full
+        series."""
+        rows = self.session.query(
+            'SELECT value FROM metric WHERE task=? AND name=? '
+            'ORDER BY id DESC LIMIT ?',
+            (int(task_id), name, int(limit)))
+        return [r['value'] for r in rows if r['value'] is not None]
+
+    def recent_step_values(self, task_id: int, name: str,
+                           limit: int = 32):
+        """Latest ``limit`` (step, value) pairs of one metric, NEWEST
+        FIRST — for consumers that must JOIN two series on step (the
+        watchdog's hbm_used/hbm_limit pairing; aligning two
+        independently-fetched windows by index would garble on any
+        dropped sample)."""
+        rows = self.session.query(
+            'SELECT step, value FROM metric WHERE task=? AND name=? '
+            'ORDER BY id DESC LIMIT ?',
+            (int(task_id), name, int(limit)))
+        return [(r['step'], r['value']) for r in rows
+                if r['value'] is not None]
+
+    def recent_samples(self, task_id: int, name: str, limit: int = 32):
+        """Latest ``limit`` (step, value, time) triples of one metric,
+        NEWEST FIRST — for rules that need BOTH the series position and
+        the wall-clock of each sample (the recompile-storm window is
+        time-bounded, its warmup is step-bounded)."""
+        rows = self.session.query(
+            'SELECT step, value, time FROM metric WHERE task=? AND '
+            'name=? ORDER BY id DESC LIMIT ?',
+            (int(task_id), name, int(limit)))
+        return [(r['step'], r['value'], r['time']) for r in rows]
+
+    def last_sample_time(self, task_id: int):
+        """Wall-clock of the newest sample of a task (datetime or
+        None) — heartbeat evidence for the stall rule. Newest row by
+        insertion order, not MAX(time) over every row of the task."""
+        row = self.session.query_one(
+            'SELECT time FROM metric WHERE task=? '
+            'ORDER BY id DESC LIMIT 1', (int(task_id),))
+        return parse_datetime(row['time']) if row and row['time'] \
+            else None
 
 
 class TelemetrySpanProvider(BaseDataProvider):
@@ -299,6 +348,28 @@ class AlertProvider(BaseDataProvider):
             "UPDATE alert SET status='resolved', resolved_time=? "
             "WHERE id=? AND status='open'", (now(), int(alert_id)))
         return cur.rowcount > 0
+
+    def resolve_rule(self, rule: str) -> int:
+        """Close every open TASK-LESS alert of one rule — the SLO
+        engine's auto-resolve path. ``resolve_for_task`` requires a
+        task id, and burn-rate alerts describe the platform, not a
+        task, so they dedup and resolve on (rule, task IS NULL)."""
+        return self.session.execute(
+            "UPDATE alert SET status='resolved', resolved_time=? "
+            "WHERE rule=? AND task IS NULL AND status='open'",
+            (now(), rule)).rowcount
+
+    def resolve_for_task(self, task_id: int, rule: str = None) -> int:
+        """Close every open alert of a task (optionally one rule) —
+        called when the condition clears or the task leaves the
+        running state."""
+        sql = ("UPDATE alert SET status='resolved', resolved_time=? "
+               "WHERE task=? AND status='open'")
+        params = [now(), int(task_id)]
+        if rule is not None:
+            sql += ' AND rule=?'
+            params.append(rule)
+        return self.session.execute(sql, tuple(params)).rowcount
 
 
 __all__ = ['MetricProvider', 'TelemetrySpanProvider', 'AlertProvider',

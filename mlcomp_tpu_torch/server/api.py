@@ -35,6 +35,9 @@ Endpoint map (POST JSON unless noted):
   ``group_by`` and its newest rows; ``/api/quotas`` (no auth) — quota
   ceilings with their usage, the class roster, the newest preemptions;
   ``/api/quota/set|delete`` (auth) — what the scheduler admits
+- ``/api/slos`` (GET or POST, no auth) — the SLO scoreboard: each
+  objective's latest bad fraction, burn rates and open alert
+  (telemetry/slo.py)
 - ``/api/telemetry/series|spans|trace`` (also GET ``/telemetry/series``,
   ``/telemetry/spans``, ``/telemetry/trace/<id>``, no auth)
 - ``/api/alerts`` (GET or POST, no auth) + ``/api/alert/resolve`` (auth)
@@ -716,6 +719,16 @@ def api_usage(data, s):
     }}
 
 
+def api_slos(data, s):
+    """SLO scoreboard (telemetry/slo.py): every objective the burn-rate
+    engine has evaluated — latest bad fraction, fast/slow burn rates,
+    and the open ``slo-*`` alert when one is burning. Same no-auth
+    introspection tier as ``/api/alerts``; the dashboard's SLO card and
+    the ``slos`` command read this."""
+    from mlcomp_tpu_torch.telemetry import slo_status
+    return {'data': slo_status(s)}
+
+
 def api_quotas(data, s):
     """Multi-tenant scheduling read (migration v15): the quota table
     with the usage admission measures next to each ceiling, the class
@@ -1090,7 +1103,6 @@ def api_stop(data, s):
 #: the JAX package's routes whose backing module is not ported yet, with
 #: the ROADMAP.md item each waits for
 WAITING_ROUTES = {
-    '/api/slos': 'A0: the watchdog and SLO engine',
     '/api/model/add': 'A0: the model_add / model_start DAGs',
     '/api/model/start_begin': 'A0: the model_add / model_start DAGs',
     '/api/model/start_end': 'A0: the model_add / model_start DAGs',
@@ -1146,7 +1158,7 @@ _ROUTES = {
     # cluster-economy reads (migration v14 + telemetry/slo.py):
     # aggregates + objective verdicts, no secrets — introspection tier
     '/api/usage': (api_usage, False),
-    '/api/slos': (_waits('/api/slos'), False),
+    '/api/slos': (api_slos, False),
     # multi-tenant scheduling (migration v15): the roster read is
     # introspection; quota writes change what the scheduler admits
     '/api/quotas': (api_quotas, False),
@@ -1391,8 +1403,8 @@ class ApiHandler(BaseHTTPRequestHandler):
                 handler = api_sweeps
             elif parsed.path == '/api/usage':
                 handler = api_usage
-            elif parsed.path in WAITING_ROUTES:
-                handler = _ROUTES[parsed.path][0]
+            elif parsed.path == '/api/slos':
+                handler = api_slos
             else:
                 data['id'] = parsed.path[len('/telemetry/trace/'):]
                 handler = api_telemetry_trace

@@ -11,9 +11,9 @@ computers (usage and its history), models, logs, reports with their
 layouts and galleries, the layout editor, and the supervisor tab (the
 decision trace and the watchdog alerts), the serving-fleet card (the
 roster, create, scale, swap and stop), and the sweep, usage and
-scheduling (quotas, classes, preemptions) cards. Its SLO card calls
-``/api/slos``, which refuses with status 501 until the SLO engine is
-ported (``api.WAITING_ROUTES``); the page shows the refusal's reason.
+scheduling (quotas, classes, preemptions) cards, and the SLO card
+(``/api/slos``: each objective's bad fraction, burn rates and open
+alert, as the supervisor's SLO engine records them).
 """
 
 _DASHBOARD = r"""<!doctype html>

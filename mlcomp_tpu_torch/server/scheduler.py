@@ -58,6 +58,12 @@ def normalize_priority(value, default: str = None):
     return name
 
 
+#: the task classes ``task_class_of`` tells apart, in the order of the
+#: JAX usage ledger's ``TASK_CLASSES`` (the starvation gauges and the
+#: SLO engine's queue-wait objectives go through them)
+TASK_CLASSES = ('train', 'sweep', 'serve-replica', 'service')
+
+
 def task_class_of(task) -> str:
     """Scheduling class of a task row (the JAX usage ledger's
     ``task_class_of``): a sweep cell is 'sweep' even though its
@@ -266,6 +272,7 @@ def pack_candidates(fits, want: int, multi_host: bool,
 
 __all__ = [
     'PRIORITY_CLASSES', 'PRIORITY_RANK', 'DEFAULT_PRIORITY_BY_CLASS',
+    'TASK_CLASSES',
     'AGING_STEP_S', 'MAX_PREEMPTIONS_PER_TICK', 'normalize_priority',
     'task_class_of', 'task_priority_of', 'effective_rank',
     'dispatch_order_key', 'wait_seconds', 'fair_share_of', 'tenant_share',

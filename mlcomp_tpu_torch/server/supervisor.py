@@ -6,9 +6,10 @@ Each tick (``SupervisorBuilder.build``):
 1. ``create_base``          — live queues from docker heartbeats (< 15 s)
 2. ``process_parent_tasks`` — child→parent status aggregation; a failed
    child gang-aborts its siblings
-3. ``process_recovery``     — lease reclaim, strand sweep, retry of
-   transient failures (a preempted victim among them) with backoff and
-   resume from the last checkpoint
+3. ``process_recovery``     — lease reclaim (an InProgress claim only
+   past the watchdog's ``stall_deadline_s``), strand sweep, retry of
+   transient failures (a preempted or stall-killed task among them) with
+   backoff and resume from the last checkpoint
 4. ``process_sweeps``       — the ASHA sweep scheduler
    (server/sweep.py): judges grid cells at budget rungs, prunes the
    losers (``Failed``/``sweep-pruned``), finishes done sweeps; a pruned
@@ -32,7 +33,24 @@ Each tick (``SupervisorBuilder.build``):
    (decision row first, kill second; at most 8 a tick)
 10. ``process_usage``       — the usage ledger: every terminal task
     attempt folded exactly once (a victim in the tick that evicted it)
-11. ``write_auxiliary``     — the decision trace into ``auxiliary``
+11. ``run_watchdog``        — the health rules (telemetry/watchdog.py,
+    rate-limited to ``evaluate_every_s``) into ``alert`` rows; a
+    ``task-stall`` is failed ``stall-killed`` and killed, a
+    ``gang-stall`` rank failed ``worker-lost`` and its gang aborted
+12. ``run_slo``             — the SLO burn-rate engine
+    (telemetry/slo.py, rate-limited the same way): ``slo.*`` rows,
+    ``slo-*`` alerts raised and auto-resolved
+13. ``write_auxiliary``     — the decision trace into ``auxiliary``
+14. ``record_tick_telemetry`` — the tick's gauges into its recorder
+    (``supervisor.tick_ms``, the ``db.*`` and ``supervisor.fenced_writes``
+    deltas, the dispatch-latency and per-class queue-wait histograms,
+    the ``queue.max_wait_s.<class>`` starvation gauges), then the
+    dispatch spans flushed
+
+The recorder (``self.telemetry``, component ``supervisor``) buffers in
+memory and writes one batch every 60 samples, about a minute of ticks;
+the sweep scheduler, the fleet reconciler, recovery, preemption and the
+usage fold count into it too.
 
 With a :class:`~mlcomp_tpu_torch.server.ha.LeaderLease` (HA, the
 default of ``register_supervisor``) the builder issues every write on a
@@ -44,25 +62,22 @@ stops.
 
 What the JAX tick does beyond this: the multi-host fan-out (A4) raises
 ``NotImplementedError``, in placement and where the preemption engine
-would evict for a gang, before any decision row. The watchdog, the SLO
-engine and the tick's telemetry gauges (``supervisor.preempt_ms``,
-``scheduler.quota_denied``, ``supervisor.usage_fold_ms``, the
-starvation gauges) decide nothing in this tick and come with
-ROADMAP.md's next A0 item, "the watchdog and SLO engine"; the tick
-writes the count of fenced-off writes, the ``scheduler.preemption`` row
-of each eviction, and flushes its dispatch spans.
+would evict for a gang, before any decision row.
 """
 
 import datetime
 import json
 import threading
+import time
 import traceback
 
 from mlcomp_tpu_torch import MASTER_PORT_RANGE
-from mlcomp_tpu_torch.db.core import Session, parse_datetime
+from mlcomp_tpu_torch.db.core import (
+    Session, busy_retry_stats, parse_datetime,
+)
 from mlcomp_tpu_torch.db.enums import ComponentType, TaskStatus, TaskType
 from mlcomp_tpu_torch.db.events import (
-    CH_QUEUE_DONE, CH_SUPERVISOR_LEASE, CH_TASKS,
+    CH_QUEUE_DONE, CH_SUPERVISOR_LEASE, CH_TASKS, listener_stats,
 )
 from mlcomp_tpu_torch.db.fencing import (
     FencedSession, FenceLostError, fence_rejections,
@@ -74,15 +89,18 @@ from mlcomp_tpu_torch.db.providers import (
     QueueProvider, QuotaProvider, TaskProvider, UsageProvider,
 )
 from mlcomp_tpu_torch.recovery import RecoveryConfig
+from mlcomp_tpu_torch.telemetry import (
+    MetricRecorder, SloEngine, Watchdog, flush_spans,
+)
 from mlcomp_tpu_torch.testing.faults import fault_point
 from mlcomp_tpu_torch.utils.io import yaml_load
 from mlcomp_tpu_torch.utils.misc import now
 
-#: an InProgress task's silence after which its lease may be reclaimed
-#: (the JAX watchdog's default ``stall_deadline_s``): sized for the
-#: longest legitimate gap without a metric flush (first compile, a
-#: dataset download)
-STALL_DEADLINE_S = 1800.0
+#: queue-wait histogram bucket bounds (seconds): an event-driven
+#: same-tick claim (sub-second) through a starved class waiting hours;
+#: +Inf is implicit (telemetry Histogram)
+QUEUE_WAIT_BUCKETS_S = (1.0, 5.0, 15.0, 30.0, 60.0, 120.0, 300.0,
+                        600.0, 1800.0, 3600.0)
 
 #: tables whose rows only unported parts of the JAX tick act on, each
 #: with the ROADMAP.md item that brings it (none at present)
@@ -126,18 +144,29 @@ class SupervisorBuilder:
         self.queue_provider = QueueProvider(self.session)
         self.dag_provider = DagProvider(self.session)
         self.auxiliary_provider = AuxiliaryProvider(self.session)
+        # tick telemetry: gauges, counts and histograms buffered in
+        # memory, one DB batch per 60 samples (~1/min at the 1 Hz tick)
+        self.telemetry = MetricRecorder(
+            session=self.session, component='supervisor',
+            flush_every=60)
+        # health watchdog and SLO burn-rate engine: consumers of the
+        # telemetry in the DB, each rate-limited inside the tick to its
+        # ``evaluate_every_s`` (an off-cadence tick pays a clock read)
+        self.watchdog = Watchdog(self.session, logger=logger)
+        self.slo_engine = SloEngine(self.session, logger=logger)
         # serving-fleet reconciler (server/fleet.py): runs inside the
         # tick before load_tasks, so a spawned replica task dispatches
         # on the same tick through the normal placement path
         self.fleet_reconciler = FleetReconciler(
             self.session, logger=logger, config=fleet_config,
-            probe=fleet_probe)
+            probe=fleet_probe, telemetry=self.telemetry)
         # ASHA sweep scheduler (server/sweep.py): judges grid cells at
         # budget rungs off the sweep.score series and prunes the
         # losers — runs before load_tasks so a pruned cell's slot
         # re-places into the next queued cell in the SAME tick
         self.sweep_scheduler = SweepScheduler(
-            self.session, logger=logger, gang_abort=self.gang_abort)
+            self.session, logger=logger, telemetry=self.telemetry,
+            gang_abort=self.gang_abort)
         # the usage ledger's fold, quota admission and the preemption
         # audit trail, all on the fenced session: a zombie ex-leader can
         # neither double-bill, double-preempt nor deny admission
@@ -167,7 +196,13 @@ class SupervisorBuilder:
         # dispatch's restart-idempotency check costs no round trip per
         # task; None outside a tick (dispatch falls back to find_active)
         self._pending_execute = None
-        # fence rejections already counted into supervisor.fenced_writes
+        # claims already observed into the dispatch-latency and
+        # queue-wait histograms
+        self._last_claim_ts = now()
+        # process-wide counters already folded into the db.busy_*,
+        # db.listener_reconnects and supervisor.fenced_writes deltas
+        self._busy_seen = busy_retry_stats()
+        self._listener_seen = listener_stats()
         self._fence_seen = fence_rejections()
 
     def _log_error(self, msg: str, task: int = None):
@@ -271,6 +306,8 @@ class SupervisorBuilder:
                 self._log_error(f'gang abort of child {child.id} failed:\n'
                                 f'{traceback.format_exc()}')
         if aborted:
+            self.telemetry.count('supervisor.gang_aborted_ranks',
+                                 len(aborted))
             self.aux.setdefault('gang_aborted', {})[parent_id] = aborted
             self._log_warning(f'gang of task {parent_id}: aborted '
                               f'surviving rank task(s) {aborted}',
@@ -627,6 +664,7 @@ class SupervisorBuilder:
             if block:
                 self.aux.setdefault('not_placed', {})[task.id] = {
                     'quota': block}
+                self.telemetry.count('scheduler.quota_denied')
                 return
         info = _info(task)
         fits, reasons = self._candidate_computers(task)
@@ -756,10 +794,13 @@ class SupervisorBuilder:
             if task is not None and task.queue_id == msg.id and \
                     task.status == int(TaskStatus.InProgress):
                 # a claim spans the whole run: an InProgress task is
-                # reclaimed only once its own silence passes the stall
-                # deadline
+                # reclaimed only once its own silence passes the
+                # watchdog's stall deadline, the system's definition of
+                # "dead quiet" (a run dead past it is stall-killed at
+                # that same horizon anyway)
                 last = parse_datetime(task.last_activity)
-                horizon = max(lease, STALL_DEADLINE_S)
+                horizon = max(
+                    lease, float(self.watchdog.config.stall_deadline_s))
                 if last is not None and \
                         (now() - last).total_seconds() < horizon:
                     continue
@@ -786,6 +827,7 @@ class SupervisorBuilder:
                 self.provider.update(task, ['pid'])
                 if task.status == int(TaskStatus.InProgress):
                     self.provider.change_status(task, TaskStatus.Queued)
+            self.telemetry.count('supervisor.lease_reclaimed')
             self.aux.setdefault('lease_reclaimed', []).append(
                 {'msg': msg.id, 'queue': msg.queue,
                  'worker': msg.claimed_by})
@@ -908,10 +950,12 @@ class SupervisorBuilder:
                 task.id, 'gang.generation', 'counter',
                 task.gang_generation, 1.0, now(), 'supervisor',
                 json.dumps({'gang': task.gang_id, 'reason': reason})))
+            self.telemetry.count('supervisor.gang_requeues')
         try:
             MetricProvider(self.session).add_many(rows)
         except Exception:
             pass                # observability must not block the retry
+        self.telemetry.count('supervisor.task_retries')
         self.aux.setdefault('retried', []).append(
             {'task': task.id, 'attempt': task.attempt,
              'reason': reason, 'excluded': exclude,
@@ -997,7 +1041,9 @@ class SupervisorBuilder:
         reason ``preempted``, so the retry pass requeues them once with
         backoff and resume; their cores re-place next tick, where the
         blocked task sorts first by class. A crash here never takes the
-        tick down; a fence loss demotes this leader."""
+        tick down; a fence loss demotes this leader. The pass's wall
+        goes into ``supervisor.preempt_ms``."""
+        t0 = time.monotonic()
         try:
             self._repair_preemptions()
             self._preempt_for_blocked()
@@ -1006,6 +1052,8 @@ class SupervisorBuilder:
         except Exception:
             self._log_error(f'preemption pass failed:\n'
                             f'{traceback.format_exc()}')
+        self.telemetry.gauge('supervisor.preempt_ms',
+                             round((time.monotonic() - t0) * 1e3, 3))
 
     def _repair_preemptions(self):
         """Finish decisions a dead leader recorded but never applied. A
@@ -1170,8 +1218,10 @@ class SupervisorBuilder:
         row Failed ``preempted`` (transient: the retry pass requeues it
         with backoff and resume), its process killed, the decision
         flipped to applied, a ``scheduler.preemption`` metric row
-        written at once. Each step is idempotent, so a repair after a
-        crash mid-apply converges."""
+        written at once (the exporter and the dashboard see the eviction
+        now, not at the recorder's next flush) and
+        ``supervisor.preemptions`` counted. Each step is idempotent, so a
+        repair after a crash mid-apply converges."""
         from mlcomp_tpu_torch.server.scheduler import task_priority_of
         from mlcomp_tpu_torch.worker.tasks import kill_task
         if victim.gang_id and victim.parent is None:
@@ -1196,6 +1246,7 @@ class SupervisorBuilder:
                             'repair': int(bool(repair))}))])
         except Exception:
             pass            # observability must not block the eviction
+        self.telemetry.count('supervisor.preemptions')
         self.aux.setdefault('preempted', []).append(
             {'task': victim.id, 'attempt': victim.attempt or 0,
              'class': task_priority_of(victim), 'reason': reason,
@@ -1208,7 +1259,10 @@ class SupervisorBuilder:
         leaders race (``UsageProvider.fold_task``). Runs after placement
         and preemption, so an attempt that went terminal this tick (a
         victim) is billed before the next tick's retry resets its row. A
-        crash here never takes the tick down."""
+        crash here never takes the tick down. The fold's wall goes into
+        ``supervisor.usage_fold_ms``, its rows into
+        ``supervisor.usage_folds``."""
+        t0 = time.monotonic()
         folded = 0
         try:
             while True:
@@ -1224,31 +1278,245 @@ class SupervisorBuilder:
         except Exception:
             self._log_error(f'usage fold failed:\n'
                             f'{traceback.format_exc()}')
+        self.telemetry.gauge('supervisor.usage_fold_ms',
+                             round((time.monotonic() - t0) * 1e3, 3))
         if folded:
+            self.telemetry.count('supervisor.usage_folds', folded)
             self.aux['usage_folded'] = folded
 
+    # ------------------------------------------------------------ watchdog
+    def run_watchdog(self):
+        """Evaluate the health rules (rate-limited inside the watchdog)
+        and act on the stall findings: a stalled task is failed
+        ``stall-killed`` (transient: the retry pass requeues it from its
+        last checkpoint) and killed, its alert row the paper trail; a
+        ``gang-stall`` goes to ``_act_on_gang_stall``. A crashing
+        evaluation is logged and contained; a fence loss in an action
+        demotes this leader.
+
+        The order of the two writes is the preemption engine's, not the
+        JAX tick's (kill, then fail): the Failed verdict lands before the
+        SIGTERM. A ``run-task`` process turns SIGTERM into
+        ``SystemExit(143)`` and writes no status on its way out, but the
+        worker's post-exit verdict (``classify_returncode(143)``,
+        ``preempted``) is written while the row still reads Queued or
+        InProgress with its claim; after a kill first, a supervisor
+        delayed between the signal and its own writes could see that
+        verdict land in between and overwrite it. Failed first, the
+        worker's guard never passes, so the task ends ``stall-killed``
+        whichever process exits first. The rows are the JAX tick's:
+        ``kill_task`` never downgrades a Failed row, so the Stopped step
+        of JAX's order leaves no trace in the final row.
+
+        Which process stops: ``kill_task`` signals a Failed row's pid
+        only when that process carries the task's ``MLCOMP_TASK_ID``
+        marker, i.e. a ``run-task`` process (the worker's default mode).
+        Under ``worker N --in-process`` the row holds the daemon's own
+        pid, which is never signalled: the task is failed and retried,
+        but a run hung inside one epoch never reaches the epoch-boundary
+        check that stops an in-process trainer whose row went terminal,
+        and keeps the daemon until it returns. The JAX package's
+        in-process worker has the same limit."""
+        from mlcomp_tpu_torch.worker.tasks import kill_task
+        try:
+            findings = self.watchdog.maybe_evaluate()
+        except Exception:
+            self._log_error(f'watchdog evaluation failed:\n'
+                            f'{traceback.format_exc()}')
+            return
+        if not findings:
+            return
+        self.aux['watchdog'] = [
+            {k: f.get(k) for k in ('rule', 'task', 'severity', 'message')}
+            for f in findings]
+        for finding in findings:
+            if finding['rule'] == 'gang-stall':
+                self._act_on_gang_stall(finding)
+                continue
+            if finding['rule'] != 'task-stall':
+                continue
+            task_id = finding['task']
+            try:
+                task = self.provider.by_id(task_id)
+                if task is not None and \
+                        task.status != int(TaskStatus.Failed):
+                    self.provider.fail_with_reason(task, 'stall-killed')
+                kill_task(task_id, session=self.session)
+                self._log_error(
+                    f'watchdog: {finding["message"]} — task marked '
+                    f'Failed (alert {finding.get("alert_id")})', task_id)
+            except FenceLostError:
+                raise       # zombie leader: stop the tick, demote
+            except Exception:
+                self._log_error(f'watchdog failed stopping stalled task '
+                                f'{task_id}:\n{traceback.format_exc()}')
+
+    def _act_on_gang_stall(self, finding):
+        """A gang rank's host went silent: fail the silent rank
+        (``worker-lost``, the root cause the gang verdict retries on),
+        kill it and gang-abort its siblings in this tick, so the
+        survivors stop burning their slots at a dead collective."""
+        from mlcomp_tpu_torch.worker.tasks import kill_task
+        task_id = finding['task']
+        try:
+            task = self.provider.by_id(task_id)
+            if task is None or task.status >= int(TaskStatus.Failed):
+                return          # raced: someone else already acted
+            self.provider.fail_with_reason(task, 'worker-lost')
+            kill_task(task_id, session=self.session)
+            parent = self.provider.by_id(task.parent) \
+                if task.parent else None
+            if parent is not None and \
+                    parent.status < int(TaskStatus.Failed):
+                self._fail_gang_parent(parent)
+            self._log_error(
+                f'watchdog: {finding["message"]} — rank failed '
+                f'worker-lost, gang aborted (alert '
+                f'{finding.get("alert_id")})', task_id)
+        except FenceLostError:
+            raise           # zombie leader: stop the tick, demote
+        except Exception:
+            self._log_error(f'watchdog failed acting on gang-stall for '
+                            f'task {task_id}:\n{traceback.format_exc()}')
+
+    def run_slo(self):
+        """Evaluate the SLO burn-rate engine (rate-limited inside the
+        engine): breached objectives raise deduped ``slo-*`` alerts,
+        recovered ones auto-resolve. The pass's wall goes into
+        ``supervisor.slo_eval_ms``. A crash is logged and contained; a
+        fence loss demotes this leader."""
+        t0 = time.monotonic()
+        try:
+            findings = self.slo_engine.maybe_evaluate()
+        except FenceLostError:
+            raise       # zombie leader: stop the tick, demote
+        except Exception:
+            self._log_error(f'slo evaluation failed:\n'
+                            f'{traceback.format_exc()}')
+            findings = None
+        self.telemetry.gauge('supervisor.slo_eval_ms',
+                             round((time.monotonic() - t0) * 1e3, 3))
+        if findings:
+            self.aux['slo'] = [
+                {k: f.get(k) for k in ('rule', 'severity', 'burn',
+                                       'message')}
+                for f in findings]
+
+    # ------------------------------------------------------------- trace
     def write_auxiliary(self):
         """Persist the tick's decision trace."""
         self.auxiliary_provider.create_or_update('supervisor', self.aux)
 
-    def record_fence_rejections(self):
-        """Writes the epoch fence rejected since the last tick, as a
-        ``supervisor.fenced_writes`` counter row (``/metrics`` sums
-        them): rare, and each one is a failover story."""
+    def record_tick_telemetry(self):
+        """The tick's gauges into the recorder, then the dispatch spans
+        flushed: ``supervisor.tick_ms``; the deltas since the last tick
+        of the store's busy retries, the event listener's reconnects and
+        the writes the epoch fence rejected; the lease epoch, the tick's
+        dispatches and unplaced tasks; and, for every queue message
+        claimed since the last tick, its enqueue→claim wait into
+        ``supervisor.dispatch_latency_s`` and into
+        ``queue.wait_s.<class>.<priority>`` (the exporter splits the
+        priority back out as a label)."""
+        from mlcomp_tpu_torch.server.scheduler import (
+            task_class_of, task_priority_of,
+        )
+        tel = self.telemetry
+        if self.aux.get('duration') is not None:
+            tel.gauge('supervisor.tick_ms', self.aux['duration'] * 1e3)
+        stats = busy_retry_stats()
+        for kind, series in (('retries', 'db.busy_retries'),
+                             ('gave_up', 'db.busy_gave_up')):
+            delta = stats[kind] - self._busy_seen.get(kind, 0)
+            if delta > 0:
+                tel.count(series, delta)
+        self._busy_seen = stats
+        lstats = listener_stats()
+        delta = lstats['reconnects'] - \
+            self._listener_seen.get('reconnects', 0)
+        if delta > 0:
+            tel.count('db.listener_reconnects', delta)
+        self._listener_seen = lstats
+        # rejected zombie writes are rare, and each is a failover story
         rejections = fence_rejections()
         delta = rejections - self._fence_seen
         if delta > 0:
-            MetricProvider(self.raw_session).add_many([
-                (None, 'supervisor.fenced_writes', 'counter', None,
-                 float(delta), now(), 'supervisor', None)])
+            tel.count('supervisor.fenced_writes', delta)
         self._fence_seen = rejections
+        if self.lease is not None:
+            tel.gauge('supervisor.epoch', float(self.lease.epoch or 0))
+        dispatched = self.aux.get('dispatched')
+        if dispatched:
+            tel.count('supervisor.dispatched', len(dispatched))
+        if self.aux.get('not_placed'):
+            tel.gauge('supervisor.not_placed', len(self.aux['not_placed']))
+        try:
+            # a message whose task is gone classifies as 'train'
+            rows = self.session.query(
+                'SELECT qm.created, qm.claimed_at, t.executor, '
+                't.type, t.additional_info, t.priority '
+                'FROM queue_message qm '
+                'LEFT JOIN task t ON t.queue_id = qm.id '
+                'WHERE qm.claimed_at IS NOT NULL AND qm.claimed_at > ?',
+                (self._last_claim_ts,))
+        except Exception:
+            rows = []
+        latest = None
+        for r in rows:
+            created = parse_datetime(r['created'])
+            claimed = parse_datetime(r['claimed_at'])
+            if created and claimed:
+                wait = (claimed - created).total_seconds()
+                tel.observe('supervisor.dispatch_latency_s', wait)
+                row = {'executor': r['executor'], 'type': r['type'],
+                       'additional_info': r['additional_info'],
+                       'priority': r['priority']}
+                tel.observe(
+                    f'queue.wait_s.{task_class_of(row)}.'
+                    f'{task_priority_of(row)}',
+                    wait, buckets=QUEUE_WAIT_BUCKETS_S)
+            if claimed and (latest is None or claimed > latest):
+                latest = claimed
+        if latest is not None:
+            self._last_claim_ts = latest
+        self._record_starvation_gauges(tel)
+        flush_spans(self.session)
+
+    def _record_starvation_gauges(self, tel):
+        """``queue.max_wait_s.<class>``: the oldest pending dispatch of
+        each class, over the live queue every tick (the claim-time
+        histograms see only waits that ended). A class with an empty
+        queue gauges 0."""
+        from mlcomp_tpu_torch.server.scheduler import (
+            TASK_CLASSES, task_class_of,
+        )
+        try:
+            rows = self.session.query(
+                "SELECT qm.created, t.executor, t.type, "
+                "t.additional_info FROM queue_message qm "
+                "LEFT JOIN task t ON t.queue_id = qm.id "
+                "WHERE qm.status='pending'")
+        except Exception:
+            return
+        now_dt = now()
+        max_wait = {cls: 0.0 for cls in TASK_CLASSES}
+        for r in rows:
+            created = parse_datetime(r['created'])
+            if created is None:
+                continue
+            wait = (now_dt - created).total_seconds()
+            cls = task_class_of({'executor': r['executor'],
+                                 'type': r['type'],
+                                 'additional_info': r['additional_info']})
+            if wait > max_wait.get(cls, 0.0):
+                max_wait[cls] = wait
+        for cls, wait in max_wait.items():
+            tel.gauge(f'queue.max_wait_s.{cls}', round(wait, 3))
 
     # ---------------------------------------------------------------- main
     def build(self):
         """One tick. A failing tick heals by rebuilding the builder on a
         fresh session; a refusal (``NotImplementedError``) and a fenced
         write (``FenceLostError``: a newer leader exists) propagate."""
-        from mlcomp_tpu_torch.telemetry import flush_spans
         start = now()
         try:
             self.refuse_unported()
@@ -1270,10 +1538,11 @@ class SupervisorBuilder:
             # usage after both, so attempts that went terminal this tick
             # are folded in it
             self.process_usage()
+            self.run_watchdog()
+            self.run_slo()
             self.aux['duration'] = (now() - start).total_seconds()
             self.write_auxiliary()
-            self.record_fence_rejections()
-            flush_spans(self.session)
+            self.record_tick_telemetry()
             # the pending index is tick-scoped
             self._pending_execute = None
         except (NotImplementedError, FenceLostError):
@@ -1510,4 +1779,4 @@ def register_supervisor(session: Session = None, logger=None,
 
 
 __all__ = ['SupervisorBuilder', 'SupervisorLoop', 'register_supervisor',
-           'STALL_DEADLINE_S']
+           'QUEUE_WAIT_BUCKETS_S']

@@ -76,14 +76,18 @@ def create_sweep(session, dag, executor_name: str, norm: dict,
 
 class SweepScheduler:
     """Per-tick ASHA pass over every active sweep. Constructed by the
-    SupervisorBuilder with ITS session (fenced under HA) and its
-    logger; ``gang_abort`` is the builder's gang-abort
-    sweep so pruning a DISTRIBUTED cell kills its fanned-out ranks in
-    the same tick instead of leaving them at a dead collective."""
+    SupervisorBuilder with ITS session (fenced under HA), its logger
+    and its tick recorder (``telemetry``: each prune counts into
+    ``supervisor.sweep_pruned``); ``gang_abort`` is the builder's
+    gang-abort sweep so pruning a DISTRIBUTED cell kills its fanned-out
+    ranks in the same tick instead of leaving them at a dead
+    collective."""
 
-    def __init__(self, session, logger=None, gang_abort=None):
+    def __init__(self, session, logger=None, telemetry=None,
+                 gang_abort=None):
         self.session = session
         self.logger = logger
+        self.telemetry = telemetry
         self.gang_abort = gang_abort
         self.provider = TaskProvider(session)
         self.sweeps = SweepProvider(session)
@@ -246,6 +250,8 @@ class SweepScheduler:
             self.gang_abort(cell.id)
         self.provider.fail_with_reason(cell, SWEEP_PRUNED_REASON)
         kill_task(cell.id, session=self.session)
+        if self.telemetry is not None:
+            self.telemetry.count('supervisor.sweep_pruned')
         if self.logger:
             self.logger.warning(
                 f'sweep {sweep.id} ({sweep.name}): pruned cell '

@@ -17,7 +17,12 @@ the JAX package's names:
   parsed into ``devtime.*`` series;
 - ``profiler`` — on-demand traces toggled through
   ``/api/telemetry/profile``;
-- ``export`` — OpenMetrics rendering behind ``GET /metrics``.
+- ``export`` — OpenMetrics rendering behind ``GET /metrics``;
+- ``watchdog`` — the health rules (stall, gang stall, step regression,
+  straggler, HBM pressure, recompile storm, exposed comm) the supervisor
+  tick evaluates into ``alert`` rows;
+- ``slo`` — the SLO burn-rate engine: objectives, ``slo.*`` rows,
+  ``slo-*`` alerts and the scoreboard (``slo_status``).
 
 ``collectives`` waits for A4 (ROADMAP.md): on one card there is no
 collective to tally.
@@ -51,6 +56,8 @@ from mlcomp_tpu_torch.telemetry.spans import (
 from mlcomp_tpu_torch.telemetry.trace_parse import (
     parse_trace_dir, parse_trace_events, parse_trace_file,
 )
+from mlcomp_tpu_torch.telemetry.watchdog import Watchdog, WatchdogConfig
+from mlcomp_tpu_torch.telemetry.slo import SloConfig, SloEngine, slo_status
 
 __all__ = [
     'span', 'record_span', 'flush_spans', 'new_trace_id',
@@ -66,4 +73,5 @@ __all__ = [
     'DeviceProfiler', 'TorchTracer', 'persist_attribution',
     'prune_profile_dirs', 'close_live_profilers',
     'parse_trace_dir', 'parse_trace_file', 'parse_trace_events',
+    'Watchdog', 'WatchdogConfig', 'SloEngine', 'SloConfig', 'slo_status',
 ]

@@ -172,6 +172,7 @@ class MetricRecorder:
         # an approximate trigger by design: a racy len() can only defer
         # or add one flush (taking the lock here would deadlock: flush()
         # takes it and Lock is not reentrant)
+        # preflight: disable=cc-lockset — see above
         if len(self._pending) < self.flush_every or self.session is None:
             return
         if not self.async_flush:

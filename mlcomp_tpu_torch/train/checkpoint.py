@@ -21,7 +21,6 @@ import json
 import logging
 import os
 import queue
-import shutil
 import threading
 import time
 from typing import Any, Callable, Optional, Tuple
@@ -36,24 +35,43 @@ def _meta_path(path: str) -> str:
     return path + '.meta.json'
 
 
-def _write_durable(path: str, chunks, mode: str = 'wb'):
-    """Write + flush + fsync (the rename after it is then atomic against
-    power loss as well as against a crash of this process)."""
-    with open(path, mode) as fh:
-        fh.writelines(chunks)
-        fh.flush()
-        os.fsync(fh.fileno())
+#: the most buffers one ``writev`` call takes (Linux's IOV_MAX)
+_IOV_MAX = 1024
 
 
-def _copy_durable(src: str, dst: str):
-    """tmp + fsync + os.replace copy: ``best`` is the torn-``last``
-    fallback target, so it is committed at least as durably."""
-    tmp = dst + '.tmp'
-    with open(src, 'rb') as s, open(tmp, 'wb') as d:
-        shutil.copyfileobj(s, d)
-        d.flush()
-        os.fsync(d.fileno())
-    os.replace(tmp, dst)
+def _write_durable(path: str, chunks):
+    """Write ``chunks`` (bytes-like) to ``path``, then fsync (the rename
+    after it is then atomic against power loss as well as against a
+    crash of this process). One ``writev`` call takes up to ``_IOV_MAX``
+    buffers and releases the GIL once for all of them. A checkpoint is
+    written on the writer thread while the training thread runs, and a
+    buffered write or a 64 KiB copy loop hands the GIL to and fro
+    thousands of times: on the card that slowed a host-bound ResNet-18
+    step by up to 2.2x while its first checkpoint was written
+    (PERF.md)."""
+    views = [memoryview(c).cast('B') for c in chunks if len(c)]
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o666)
+    try:
+        first = 0
+        while first < len(views):
+            n = os.writev(fd, views[first:first + _IOV_MAX])
+            # skip what was written; a short write leaves part of a buffer
+            while first < len(views) and n >= len(views[first]):
+                n -= len(views[first])
+                first += 1
+            if n:
+                views[first] = views[first][n:]
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _commit(path: str, chunks):
+    """``chunks`` durably at ``path``: a tmp file written and fsync'd,
+    then renamed over ``path``."""
+    tmp = path + '.tmp'
+    _write_durable(tmp, chunks)
+    os.replace(tmp, path)
 
 
 def _fsync_dir(directory: str):
@@ -74,24 +92,23 @@ def _fsync_dir(directory: str):
 def save_checkpoint(directory: str, state: dict, meta: dict,
                     best: bool = False) -> str:
     """Serialise ``state`` (a nested dict of host arrays, CPU tensors and
-    ints) to ``last.msgpack`` (and ``best.msgpack`` when ``best``).
-    Returns the last-checkpoint path."""
+    ints) to ``last.msgpack`` (and ``best.msgpack`` when ``best``: the
+    same bytes written a second time, so ``best``, the torn-``last``
+    fallback, is a file of its own, committed as durably). Returns the
+    last-checkpoint path."""
     os.makedirs(directory, exist_ok=True)
-    meta = dict(meta, time=time.time())
+    chunks = msgpack_chunks(state)
+    meta = [json.dumps(dict(meta, time=time.time())).encode()]
     last = os.path.join(directory, 'last.msgpack')
-    tmp = last + '.tmp'
-    _write_durable(tmp, msgpack_chunks(state))
-    os.replace(tmp, last)
+    _commit(last, chunks)
     # chaos: crash between the two commits — blob new, meta old
     fault_point('checkpoint.between_writes', path=last)
-    meta_tmp = _meta_path(last) + '.tmp'
-    _write_durable(meta_tmp, [json.dumps(meta)], mode='w')
-    os.replace(meta_tmp, _meta_path(last))
+    _commit(_meta_path(last), meta)
     _fsync_dir(directory)
     if best:
         best_path = os.path.join(directory, 'best.msgpack')
-        _copy_durable(last, best_path)
-        _copy_durable(_meta_path(last), _meta_path(best_path))
+        _commit(best_path, chunks)
+        _commit(_meta_path(best_path), meta)
         _fsync_dir(directory)
     return last
 

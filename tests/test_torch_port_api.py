@@ -758,14 +758,14 @@ def test_waiting_route_refuses_with_its_roadmap_item(twin, route):
 
 
 def test_waiting_get_mirrors_refuse(twin):
-    """``/api/slos``'s GET mirror refuses naming the watchdog and SLO
-    engine; ``/api/sweeps`` and ``/api/usage`` are ported, and their
-    GET mirrors answer as JAX's do."""
-    status, body = twin.port_call('/api/slos?task=1', method='GET',
-                                  token=None)
-    assert status == 501 and '/api/slos' in body['reason']
-    assert 'the watchdog and SLO engine' in body['reason']
-    for route in ('/api/sweeps', '/api/usage'):
+    """No route that waits has a GET mirror: a GET of one answers 404 in
+    both servers, and its POST still refuses with 501. ``/api/slos``,
+    ``/api/sweeps`` and ``/api/usage`` are ported, and their GET mirrors
+    answer as JAX's do."""
+    for route in api.WAITING_ROUTES:
+        assert twin.call(route, method='GET', token=None)[0] == 404
+        assert twin.port_call(route, {})[0] == 501
+    for route in ('/api/slos', '/api/sweeps', '/api/usage'):
         assert route not in api.WAITING_ROUTES
         twin.ok(route + '?task=1', method='GET', token=None)
 

@@ -471,8 +471,10 @@ class TestCrashConsistentDispatch:
 
     def test_zombie_tick_demotes_and_counts_the_fenced_write(self, session):
         """A leader whose epoch moved under it: its next tick's first
-        fenced write raises, the loop demotes, and the rejection lands
-        in ``supervisor.fenced_writes`` at its next good tick."""
+        fenced write raises, the loop demotes, and its next good tick
+        counts the rejection into the tick recorder's
+        ``supervisor.fenced_writes``, which lands at the recorder's
+        flush."""
         _add_computer(session)
         lease = LeaderLease(session, holder='l:1:a', lease_seconds=30)
         sup = SupervisorBuilder(session=session, lease=lease)
@@ -492,6 +494,7 @@ class TestCrashConsistentDispatch:
         rival.release()
         assert loop._ha_gate() is True
         sup.build()
+        sup.telemetry.flush()
         assert session.query_one(
             "SELECT SUM(value) AS n FROM metric "
             "WHERE name='supervisor.fenced_writes'")['n'] >= 1.0

@@ -55,7 +55,9 @@ def test_port_files_exist():
             'mlcomp_tpu_torch/contrib/search/asha.py',
             'mlcomp_tpu_torch/worker/executors/sweep_probe.py',
             'mlcomp_tpu_torch/db/providers/usage.py',
-            'mlcomp_tpu_torch/db/providers/quota.py'} <= set(files)
+            'mlcomp_tpu_torch/db/providers/quota.py',
+            'mlcomp_tpu_torch/telemetry/watchdog.py',
+            'mlcomp_tpu_torch/telemetry/slo.py'} <= set(files)
     assert len(files) > 15
 
 
@@ -69,9 +71,9 @@ def test_no_forbidden_imports(path):
 
 #: modules of the control plane that run in processes holding no CUDA
 #: context (the gateway; the site's fleet reconciler, ASHA sweep
-#: scheduler, scheduling policy, quota admission, preemption audit and
-#: usage ledger; the synthetic sweep cell): they must not import torch,
-#: even inside a function
+#: scheduler, scheduling policy, quota admission, preemption audit,
+#: usage ledger, watchdog and SLO engine; the synthetic sweep cell):
+#: they must not import torch, even inside a function
 TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
               'mlcomp_tpu_torch/server/fleet.py',
               'mlcomp_tpu_torch/db/providers/fleet.py',
@@ -81,7 +83,9 @@ TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
               'mlcomp_tpu_torch/worker/executors/sweep_probe.py',
               'mlcomp_tpu_torch/server/scheduler.py',
               'mlcomp_tpu_torch/db/providers/quota.py',
-              'mlcomp_tpu_torch/db/providers/usage.py')
+              'mlcomp_tpu_torch/db/providers/usage.py',
+              'mlcomp_tpu_torch/telemetry/watchdog.py',
+              'mlcomp_tpu_torch/telemetry/slo.py')
 
 
 @pytest.mark.parametrize('path', TORCH_FREE)

@@ -1172,7 +1172,7 @@ def _mlp_train(epochs, n_train=128):
 
 
 def test_an_in_process_victim_stops_and_resumes_after_its_checkpoint(
-        daemon, tmp_path):
+        daemon, tmp_path, monkeypatch):
     """End to end on the CPU: one card slot, an in-process worker thread
     and the tick. A ``preemptible`` MLP run (6 epochs, a checkpoint an
     epoch) is evicted for a ``high`` one once it saved epoch 1; no
@@ -1180,9 +1180,14 @@ def test_an_in_process_victim_stops_and_resumes_after_its_checkpoint(
     initiator trains, the retry pass requeues the victim, which resumes
     at the epoch after its last checkpoint and ends ``Success`` with
     every epoch trained once. The ledger holds exactly the victim's two
-    attempts and the initiator's row."""
+    attempts and the initiator's row.
+
+    The victim's first attempt waits at its ``train.epoch`` seam after
+    epoch 1 until its row went terminal or moved on, so the eviction
+    lands mid-run however long the submit and the tick take."""
     import mlcomp_tpu_torch
     from mlcomp_tpu_torch.testing import faults
+    from mlcomp_tpu_torch.train import executor as train_executor
     from mlcomp_tpu_torch.train.checkpoint import load_meta
     session, provider = daemon, TaskProvider(daemon)
     victim = _submit_code(session, tmp_path, 'v', {
@@ -1199,9 +1204,25 @@ def test_an_in_process_victim_stops_and_resumes_after_its_checkpoint(
             if not _consume(pool, in_process=True):
                 time.sleep(0.05)
 
+    gate = TaskProvider(Session.create_session(
+        key=f'gate-{tmp_path}', connection_string=session.connection_string))
+    finished = {int(s) for s in TaskStatus.finished()}
+    seam = train_executor.fault_point
+
+    def evicted():
+        row = gate.by_id(victim)
+        return row.status in finished or row.attempt > 0
+
+    def held(name, **ctx):
+        seam(name, **ctx)
+        if name == 'train.epoch' and ctx.get('task') == victim and \
+                ctx.get('epoch') == 2:
+            _wait('the eviction', evicted, timeout=120)
+
+    monkeypatch.setattr(train_executor, 'fault_point', held)
     tick = _ticker(session)
     worker = threading.Thread(target=slot)
-    # an epoch of ~0.3 s, so that the eviction lands mid-run
+    # an epoch of ~0.3 s after each boundary
     faults.configure_faults({'train.epoch': {'action': 'sleep', 'ms': 300,
                                              'times': None}})
     ck_dir = f'{mlcomp_tpu_torch.TASK_FOLDER}/{victim}/checkpoints'
@@ -1215,7 +1236,6 @@ def test_an_in_process_victim_stops_and_resumes_after_its_checkpoint(
             'executors': {'train': _mlp_train(2)}})['train'][0]
         session.execute("UPDATE task SET priority='high', owner='bob' "
                         "WHERE id=?", (boss,))
-        finished = {int(s) for s in TaskStatus.finished()}
         deadline = time.monotonic() + 120
         while not (provider.by_id(victim).status == int(TaskStatus.Success)
                    and provider.by_id(boss).status in finished):
@@ -1228,6 +1248,7 @@ def test_an_in_process_victim_stops_and_resumes_after_its_checkpoint(
         stop.set()
         worker.join(timeout=60)
         Session.cleanup(pool.key)
+        Session.cleanup(gate.session.key)
     assert provider.by_id(boss).status == int(TaskStatus.Success)
     (dec,) = PreemptionProvider(session).recent()
     assert (dec.task, dec.attempt, dec.initiator, dec.victim_class,

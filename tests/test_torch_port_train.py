@@ -486,6 +486,47 @@ class TestCheckpoints:
         assert ckpt.load_meta(str(tmp_path))['epoch'] == 0
         assert ckpt.checkpoint_exists(str(tmp_path), 'best') is None
 
+    def test_best_is_a_file_of_its_own_that_jax_reads(self, tmp_path):
+        """``best`` holds the same bytes as ``last``, in a file of its
+        own, and flax reads it as the tree the JAX package saves."""
+        d = str(tmp_path)
+        tree = {'step': 3, 'params': {'w': np.arange(6, dtype=np.float32)
+                                      .reshape(2, 3)}}
+        ckpt.save_checkpoint(d, tree, {'epoch': 0}, best=True)
+        last, best = (os.path.join(d, f'{k}.msgpack')
+                      for k in ('last', 'best'))
+        with open(last, 'rb') as a, open(best, 'rb') as b:
+            blob = a.read()
+            assert blob == b.read()
+        assert os.stat(last).st_ino != os.stat(best).st_ino
+        from flax.serialization import msgpack_restore
+        jax_d = str(tmp_path / 'jax')
+        jax_ckpt.save_checkpoint(jax_d, tree, {'epoch': 0})
+        with open(os.path.join(jax_d, 'last.msgpack'), 'rb') as fh:
+            want = msgpack_restore(fh.read())
+        got = msgpack_restore(blob)
+        assert got['step'] == want['step'] == 3
+        np.testing.assert_array_equal(got['params']['w'],
+                                      want['params']['w'])
+        assert ckpt.load_meta(d, 'best') == ckpt.load_meta(d)
+
+    def test_short_writes_are_finished(self, tmp_path, monkeypatch):
+        """``writev`` may write less than it was given: the rest of each
+        buffer still lands, in order."""
+        writev = os.writev
+        calls = []
+
+        def short(fd, buffers):
+            calls.append(len(buffers))
+            return writev(fd, [memoryview(buffers[0])[:7]])
+        monkeypatch.setattr(ckpt.os, 'writev', short)
+        chunks = [b'abcdefghij', b'', memoryview(np.arange(5, dtype=np.int32))
+                  .cast('B'), b'xyz']
+        ckpt._write_durable(str(tmp_path / 'f'), chunks)
+        with open(tmp_path / 'f', 'rb') as fh:
+            assert fh.read() == b''.join(bytes(c) for c in chunks)
+        assert len(calls) > 3
+
     def test_torn_last_falls_back_to_best(self, tmp_path):
         d = str(tmp_path)
         ckpt.save_checkpoint(d, self._tree(1.0), {'epoch': 0}, best=True)
