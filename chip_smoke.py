@@ -282,6 +282,24 @@ Phase of the scheduler's slice, run after the command line's:
   just after: ``[cli]``'s counts (1280 of each norm kernel, the ``vit``
   cell's 216 / 192 / 192 flash launches, nothing else), all seven tasks
   Success, the card's memory in the computer row's usage.
+- registry (part of sched, on its DB, right after the grid's Success; no
+  ``run-task`` process): (a) the grid's 512 validation images as
+  ``.npy`` files in a class-per-subfolder folder, ``python -m
+  mlcomp_tpu_torch.contrib split-classify`` as a process; (b)
+  ``/api/model/add`` of the ``vit`` cell's train task: the
+  ``model_add`` DAG Success, the Model row with the task's score, the
+  export's leaves bit for bit the best checkpoint's ``params``; (c)
+  ``dag`` of a ``pipes:`` config (``infer_classify``,
+  ``valid_classify``, ``submit_classify`` over the image folder's fold
+  0): a Pipe row, no tasks; (d) ``/api/model/start_begin`` and
+  ``/api/model/start_end`` with a version setting the infer batch to
+  64: three tasks Success, the ViT's 6 layers x batches flash forwards
+  and no other launch (the forward's ``launches_by_path['registry']``),
+  the predictions against the same weights with ``attn_impl: dense``,
+  the valid score their accuracy and ``score_local``, the submission
+  their argmax, the version ``used``; (e) gray, RGB, RGBA and palette
+  PNGs of mixed filters read back as written. Prints each step's
+  seconds and the infer task's images/s.
 
 Phase of the site's slice, run after the scheduler's:
 
@@ -374,7 +392,10 @@ Phase of the ASHA sweeps' slice, run after the fleets':
   against the exhaustive 12. The launches, summed over the cells, are
   the norm kernels' ``launches_by_path['sweep']``.
 - preempt (after sweep): quotas, checkpoint-preemption and the usage
-  ledger through ``server start 1`` in a fresh root (one card slot).
+  ledger in a fresh root (one card slot): the supervisor loop in this
+  process with a 2 s retry backoff (``RecoveryConfig(backoff_base_s=2)``,
+  as ``[watchdog]``), the routes by ``start_server(background=True)``,
+  ``worker start 1`` as processes.
   ``/api/quota/set`` locks tenant alice out (``cores`` 0) and V,
   ``cifar_simple``'s ResNet-18 (``norm: fused``, 32768 / 512 images, 6
   epochs, a checkpoint an epoch, ``dag --owner alice --priority
@@ -4187,7 +4208,7 @@ def _tail(path: str, n: int = 3000) -> str:
         return fh.read()[-n:]
 
 
-def phase_sched(smi: str) -> dict:
+def phase_sched(smi: str, seed: int) -> dict:
     """``[sched]``: a DAG submitted with ``dag`` runs to Success through
     the port's supervisor tick, its DB queue and a worker daemon, with
     no ``execute``. (a) As processes: ``init``, then ``worker-supervisor``
@@ -4442,7 +4463,11 @@ def phase_sched(smi: str) -> dict:
             cuda_visible_devices=os.environ.get('CUDA_VISIBLE_DEVICES'),
             launches=launches, card_usage=card[0],
             phase_s=f'{phase_b_s:.2f}', card=smi)
-        return {'sched': launches}
+        registry = phase_registry(smi, session, builder, host, db,
+                                  dag_ids[1], os.path.join(work, 'registry'),
+                                  seed)
+        _no_containment('registry', db)
+        return {'sched': launches, 'registry': registry}
     finally:
         if loop is not None:
             loop.stop()
@@ -4450,6 +4475,345 @@ def phase_sched(smi: str) -> dict:
         Session.cleanup()
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------- the registry
+#: ``[registry]``: the registered model's name, the folds of the split,
+#: the pipe's infer batch and the one the started version sets, and the
+#: ticks it waits for one DAG at most
+REGISTRY_MODEL, REGISTRY_FOLDS = 'grid_vit', 5
+REGISTRY_PIPE_BATCH, REGISTRY_BATCH = 512, 64
+REGISTRY_TICKS = 30
+
+
+def _png(path: str, pixels: np.ndarray, color: int, palette=None,
+         filters=(0, 1, 2, 3, 4)):
+    """A PNG of ``pixels`` (uint8, [H, W] or [H, W, C], 8 bits a
+    sample) written with the standard library, row ``y`` filtered with
+    ``filters[y % len(filters)]``."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return struct.pack('>I', len(body)) + kind + body + struct.pack(
+            '>I', zlib.crc32(kind + body) & 0xffffffff)
+
+    h, w = pixels.shape[:2]
+    bpp = 1 if pixels.ndim == 2 else pixels.shape[2]
+    rows = pixels.reshape(h, w * bpp).astype(np.int64)
+    raw, prev = bytearray(), np.zeros(w * bpp, np.int64)
+    for y in range(h):
+        kind, cur = filters[y % len(filters)], rows[y]
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        pa, pb, pc = (np.abs(prev - upleft), np.abs(left - upleft),
+                      np.abs(left + prev - 2 * upleft))
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, prev, upleft))
+        pred = (0, left, prev, (left + prev) // 2, paeth)[kind]
+        raw.append(kind)
+        raw += ((cur - pred) & 255).astype(np.uint8).tobytes()
+        prev = cur
+    body = b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', struct.pack(
+        '>IIBBBBB', w, h, 8, color, 0, 0, 0))
+    if palette is not None:
+        body += chunk(b'PLTE', palette.astype(np.uint8).tobytes())
+    body += chunk(b'IDAT', zlib.compress(bytes(raw))) + chunk(b'IEND', b'')
+    with open(path, 'wb') as fh:
+        fh.write(body)
+
+
+def _registry_pngs(phase: str, work: str, seed: int) -> int:
+    """``[registry]`` (e): gray, RGB, RGBA and palette PNGs of mixed
+    filter types read back by ``_read_image`` as the pixels written (RGB
+    order, gray repeated, alpha dropped, the palette expanded); the gray
+    one in gray mode as itself. Returns the images checked."""
+    from mlcomp_tpu_torch.contrib.dataset.classify import _read_image
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(0, 256, (37, 3))
+    index = rng.randint(0, 37, (29, 41))
+    cases = {'gray': (rng.randint(0, 256, (29, 41)), 0, None),
+             'rgb': (rng.randint(0, 256, (29, 41, 3)), 2, None),
+             'rgba': (rng.randint(0, 256, (29, 41, 4)), 6, None),
+             'palette': (index, 3, palette)}
+    for name, (px, color, pal) in cases.items():
+        path = os.path.join(work, f'{name}.png')
+        _png(path, px.astype(np.uint8), color, pal)
+        want = {'gray': np.repeat(px[..., None], 3, axis=2),
+                'rgb': px, 'rgba': px[..., :3],
+                'palette': palette[index]}[name].astype(np.uint8)
+        got = _read_image(path)
+        if got.dtype != np.uint8 or not np.array_equal(got, want) or (
+                name == 'gray' and not np.array_equal(
+                    _read_image(path, gray_scale=True), px)):
+            fail(f'{phase}: the {name} PNG read back as {got.dtype} '
+                 f'{got.shape}, not the pixels written')
+    return len(cases)
+
+
+def phase_registry(smi: str, session, builder, host: str, db: str,
+                   grid_dag: int, work: str, seed: int) -> dict:
+    """``[registry]``, part of ``[sched]`` on its DB, right after its grid
+    DAG's Success: the model registry and a ``pipes:`` pipeline over an
+    image folder, through the site's routes (``start_server(background=
+    True)`` without its supervisor), ``[sched]``'s supervisor ticks and
+    the in-process consume; no ``run-task`` process.
+
+    (a) The grid's 512 validation images (the spec of
+    ``examples/encoder_grid/config.yml``) as ``.npy`` files in a
+    class-per-subfolder folder, each also linked at the folder's top
+    (the fold file names an image without its class folder, as JAX's
+    command writes it); ``python -m mlcomp_tpu_torch.contrib
+    split-classify FOLDER 5`` as a process gives ``fold.csv``: every
+    image once, labels the folders', each class spread over the folds.
+    (b) ``/api/model/add`` ``{name: grid_vit, task: <the vit cell's train
+    task>}``: the ``model_add`` DAG Success, the Model row with the
+    task's score and DAG, the export's leaves bit for bit the ``params``
+    of the task's ``best`` checkpoint (the grid's tasks write no export
+    of their own: the config has no ``model_name``). (c) ``dag`` of a
+    ``pipes:`` config (one pipe: ``infer_classify`` at batch 512,
+    ``valid_classify`` and ``submit_classify`` over ``{img_folder,
+    fold_csv, fold_number: 0}``) through the command's ``main``: a Pipe
+    row, no tasks. (d) ``/api/model/start_begin`` lists the pipe;
+    ``/api/model/start_end`` with one version overriding the infer batch
+    to 64; every kernel's count zeroed just before and read just after
+    the three tasks run to Success: the ViT's depth x batches flash
+    forwards and nothing else; the predictions against the registered
+    weights through the port's predictor with ``attn_impl: dense`` on
+    the same rows (row cosine, tie-aware top-1); the valid score their
+    accuracy and ``model.score_local``; the submission ``id`` 0..n-1 and
+    ``label`` their argmax; the version ``used`` in ``model.equations``.
+    (e) ``_registry_pngs``. Prints each step's seconds, the infer task's
+    images/s and its launches; returns the launches."""
+    from mlcomp_tpu_torch import DATA_FOLDER, DOCKER_IMG, MODEL_FOLDER, \
+        TASK_FOLDER, TOKEN
+    from mlcomp_tpu_torch.__main__ import main as cli_main
+    from mlcomp_tpu_torch.db.enums import DagType, TaskStatus
+    from mlcomp_tpu_torch.db.providers import (
+        DockerProvider, ModelProvider, QueueProvider,
+    )
+    from mlcomp_tpu_torch.server.api import start_server
+    from mlcomp_tpu_torch.train.data import create_dataset
+    from mlcomp_tpu_torch.train.export import load_export, make_predictor
+    from mlcomp_tpu_torch.utils.csv_io import read_csv
+    from mlcomp_tpu_torch.utils.io import yaml_dump, yaml_load
+    from mlcomp_tpu_torch.utils.logging import create_logger
+    from mlcomp_tpu_torch.utils.msgpack_io import msgpack_restore
+    import mlcomp_tpu_torch.worker.__main__ as worker_main
+
+    phase = 'registry'
+    finished = {int(s) for s in TaskStatus.finished()}
+    queue, docker = QueueProvider(session), DockerProvider(session)
+    logger = create_logger(session)
+    seconds = {}
+    server = None
+
+    def drive(dag_id: int) -> list:
+        """Ticks and the in-process consume until every task of the dag
+        has ended; its task rows."""
+        for _ in range(REGISTRY_TICKS):
+            docker.heartbeat(host, DOCKER_IMG)     # the agent is stopped
+            builder.build()
+            while worker_main._consume_one(session, queue, logger, 0,
+                                           in_process=True):
+                docker.heartbeat(host, DOCKER_IMG)
+            tasks = session.query('SELECT * FROM task WHERE dag=? ORDER '
+                                  'BY id', (dag_id,))
+            if tasks and all(t['status'] in finished for t in tasks):
+                bad = [(t['name'], t['status'], t['failure_reason'])
+                       for t in tasks
+                       if t['status'] != int(TaskStatus.Success)]
+                if bad:
+                    fail(f'{phase}: dag {dag_id} tasks not Success: {bad}')
+                return tasks
+        fail(f'{phase}: dag {dag_id} not done after {REGISTRY_TICKS} ticks')
+
+    def post(path: str, data: dict) -> dict:
+        status, body = _api(server.port, path, data, token=TOKEN)
+        if status != 200:
+            fail(f'{phase}: {path} answered {status} {body}')
+        return body
+
+    def since(t: float, step: str):
+        seconds[step] = time.monotonic() - t
+
+    try:
+        # (a) the image folder and its folds
+        t0 = time.monotonic()
+        os.makedirs(work)
+        grid = yaml_load(file=os.path.join(HERE, CLI_GRID))
+        data = create_dataset(**grid['executors']['train']['dataset'])
+        x, y = data['x_valid'], data['y_valid']
+        images = os.path.join(work, 'images')
+        for i, (img, label) in enumerate(zip(x, y)):
+            os.makedirs(os.path.join(images, str(label)), exist_ok=True)
+            name = f'{i:04d}.npy'
+            np.save(os.path.join(images, str(label), name), img)
+            os.symlink(os.path.join(str(label), name),
+                       os.path.join(images, name))
+        fold_csv = os.path.join(work, 'fold.csv')
+        out = subprocess.run(
+            [sys.executable, '-m', 'mlcomp_tpu_torch.contrib',
+             'split-classify', images, str(REGISTRY_FOLDS), '--out',
+             fold_csv], cwd=HERE, capture_output=True, text=True,
+            timeout=120)
+        if out.returncode != 0:
+            fail(f'{phase}: split-classify exited {out.returncode}:\n'
+                 f'{out.stdout}\n{out.stderr}')
+        folds = read_csv(fold_csv)
+        index = np.asarray([int(n[:4]) for n in folds['image']])
+        spread = [np.bincount(folds['fold'][folds['label'] == c],
+                              minlength=REGISTRY_FOLDS)
+                  for c in np.unique(y)]
+        if list(folds) != ['image', 'label', 'fold'] or \
+                sorted(index) != list(range(len(x))) or \
+                not np.array_equal(folds['label'], y[index]) or \
+                any(s.max() - s.min() > 1 for s in spread):
+            fail(f'{phase}: fold.csv columns {list(folds)}, '
+                 f'{len(index)} rows, folds by class {spread}')
+        rows = index[folds['fold'] == 0]     # the pipe's rows, in order
+        since(t0, 'split_s')
+
+        # (b) the model registered from the ViT cell's train task
+        t0 = time.monotonic()
+        server = start_server(host='127.0.0.1', port=0, logger=logger,
+                              with_supervisor=False, background=True)
+        (vit,) = session.query("SELECT * FROM task WHERE dag=? AND name="
+                               "'train model/name=vit'", (grid_dag,))
+        added = post('/api/model/add', {'name': REGISTRY_MODEL,
+                                        'task': vit['id']})
+        (add_task,) = drive(added['dag'])
+        model = ModelProvider(session).by_name(REGISTRY_MODEL)
+        export = os.path.join(MODEL_FOLDER, grid['info']['project'],
+                              REGISTRY_MODEL)
+        best = os.path.join(TASK_FOLDER, str(vit['id']), 'checkpoints',
+                            'best.msgpack')
+        with open(best, 'rb') as fh:
+            want = msgpack_restore(fh.read())
+        variables, spec = load_export(export)
+
+        def leaves(tree, prefix=()):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    yield from leaves(tree[k], prefix + (k,))
+            else:
+                yield prefix, np.asarray(tree)
+        got = dict(leaves(variables['params']))
+        ref = dict(leaves(want['params']))
+        if model is None or model.score_local != vit['score'] or \
+                model.dag != grid_dag or spec.get('name') != 'vit' or \
+                sorted(got) != sorted(ref) or any(
+                    got[k].dtype != ref[k].dtype or
+                    got[k].tobytes() != ref[k].tobytes() for k in ref):
+            fail(f'{phase}: model row {model and model.to_dict()} '
+                 f'(task score {vit["score"]}), export spec {spec}, '
+                 f'{len(got)} leaves against the best checkpoint\'s '
+                 f'{len(ref)}')
+        since(t0, 'register_s')
+        say(phase, part='b', model=model.id, task=vit['id'],
+            add_task=add_task['id'], score_local=model.score_local,
+            leaves=len(got), export=export + '.msgpack')
+
+        # (c) the pipe registered from a pipes: config
+        t0 = time.monotonic()
+        dataset = {'img_folder': images, 'fold_csv': fold_csv,
+                   'fold_number': 0}
+        pipe_config = {
+            'info': {'name': 'grid_pipe',
+                     'project': grid['info']['project']},
+            'pipes': {'grid_pipe': {
+                'infer': {'type': 'infer_classify', 'dataset': dataset,
+                          'batch_size': REGISTRY_PIPE_BATCH},
+                'valid': {'type': 'valid_classify', 'dataset': dataset,
+                          'depends': 'infer'},
+                'submit': {'type': 'submit_classify', 'dataset': dataset,
+                           'out': REGISTRY_MODEL, 'depends': 'infer'}}}}
+        folder = os.path.join(work, 'pipe')
+        os.makedirs(folder)
+        yaml_dump(pipe_config, file=os.path.join(folder, 'config.yml'))
+        known = set(_dag_ids(db))
+        cli_main(['dag', os.path.join(folder, 'config.yml')])
+        (pipe,) = [i for i in _dag_ids(db) if i not in known]
+        row = session.query_one('SELECT * FROM dag WHERE id=?', (pipe,))
+        if row['type'] != int(DagType.Pipe) or session.query(
+                'SELECT id FROM task WHERE dag=?', (pipe,)):
+            fail(f'{phase}: the pipes: config made dag {dict(row)} with '
+                 f'tasks')
+        since(t0, 'pipe_s')
+
+        # (d) the pipe started for the model through the routes
+        t0 = time.monotonic()
+        begin = post('/api/model/start_begin', {'model_id': model.id})
+        if {'name': 'grid_pipe'} not in begin['pipes']:
+            fail(f'{phase}: /api/model/start_begin {begin}')
+        version = {'name': 'b64', 'equations': {
+            'infer': {'batch_size': REGISTRY_BATCH}}}
+        counters = _kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        started = post('/api/model/start_end', {
+            'model_id': model.id, 'dag': pipe,
+            'pipe': {'name': 'grid_pipe', 'versions': [version]}})
+        tasks = {t['executor']: t for t in drive(started['dag'])}
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        since(t0, 'start_s')
+        n = len(rows)
+        layers, batches = 6, -(-n // REGISTRY_BATCH)
+        _check_launches(phase, launches,
+                        {'flash_attention_fwd': layers * batches})
+        project_data = os.path.join(DATA_FOLDER, grid['info']['project'])
+        preds = np.load(os.path.join(project_data, 'pred',
+                                     f'{REGISTRY_MODEL}.npy'))
+        _check_probabilities(phase, preds, n, 10)
+        for fn in counters.values():
+            fn.launches = 0
+        plain = make_predictor(variables=variables,
+                               model_spec=dict(spec, attn_impl='dense'),
+                               batch_size=REGISTRY_BATCH,
+                               activation='softmax')(x[rows])
+        if any(fn.launches for fn in counters.values()):
+            fail(f'{phase}: the dense predictor launched a kernel')
+        _compare_rows(phase, torch.from_numpy(preds),
+                      torch.from_numpy(plain), kernel='registry infer',
+                      plain='attn_impl dense')
+        accuracy = _accuracy(preds, y[rows])
+        model = ModelProvider(session).by_id(model.id)
+        score = tasks['valid']['score']
+        submission = read_csv(os.path.join(project_data, 'submissions',
+                                           f'{REGISTRY_MODEL}.csv'))
+        used = [v for v in yaml_load(model.equations)['grid_pipe']
+                if v.get('used')]
+        if score != accuracy or model.score_local != accuracy or \
+                list(submission) != ['id', 'label'] or \
+                not np.array_equal(submission['id'], np.arange(n)) or \
+                not np.array_equal(submission['label'],
+                                   preds.argmax(-1)) or \
+                [v['name'] for v in used] != ['b64']:
+            fail(f'{phase}: valid score {score}, score_local '
+                 f'{model.score_local}, accuracy {accuracy}, submission '
+                 f'{list(submission)} of {len(submission["id"])} rows, '
+                 f'versions used {used}')
+        infer = tasks['infer']
+        wall = _seconds(infer['finished'], infer['started'])
+        say(phase, part='d', dag=started['dag'], rows=n,
+            infer_batch=REGISTRY_BATCH, batches=batches, launches=launches,
+            infer_wall_s=f'{wall:.3f}', images_per_s=f'{n / wall:.1f}',
+            valid_score=score, card=smi)
+
+        # (e) PNGs
+        t0 = time.monotonic()
+        pngs = _registry_pngs(phase, work, seed)
+        since(t0, 'png_s')
+        server.shutdown()
+        server = None
+        say(phase, pngs=pngs, **{k: f'{v:.2f}' for k, v in seconds.items()},
+            card=smi)
+        return launches
+    finally:
+        if server is not None:
+            server.shutdown()
 
 
 # ------------------------------------------------------------------ the site
@@ -5020,6 +5384,9 @@ def phase_site(smi: str) -> dict:
 # ------------------------------------------------------------ serving fleets
 #: seconds ``[fleet]`` waits for any one of its steps
 FLEET_TIMEOUT_S = 240
+#: seconds every replica has to be dead after ``fleet-stop``: a few of the
+#: site's 1 s ticks
+FLEET_STOP_S = 10
 #: the smoke's fleets: the flagship at ``[serve]``'s batch, answering
 #: token ids (``argmax``) — a row's logits would be 1 GiB of JSON — and a
 #: p99 SLO that the clients' own pace cannot trip (the default 250 ms is
@@ -5552,18 +5919,27 @@ def phase_fleet(seed: int, smi: str) -> dict:
                  f'driver and the gateway {gateway.pid} and the site '
                  f'{site_pid} must not (compute apps {apps})')
 
-        # shutdown: fleet-stop leaves no replica process
+        # shutdown: fleet-stop leaves no replica process. A tick that
+        # read a fleet active as it stopped respawns its replicas; the
+        # next tick retires them (server/fleet.py ``_retire_stopped``)
         t_stop = time.monotonic()
         command('fleet-stop', 'lm')
         command('fleet-stop', 'lm_int8')
+
+        def all_dead():
+            roster.poll()
+            return all(r['state'] == 'dead' for r in roster.rows.values())
+        deadline = time.monotonic() + FLEET_STOP_S
+        while not all_dead():
+            alive()
+            if time.monotonic() > deadline:
+                fail(f'{phase}: replicas left {FLEET_STOP_S} s after '
+                     f'fleet-stop: {roster.rows}')
+            time.sleep(0.2)
         pids = [r['pid'] for r in roster.rows.values() if r['pid']]
         _wait_for(phase, 'exit of every replica process', lambda: not any(
             procfs.pid_exists(p) for p in pids), alive)
         stop_s = seconds_since(t_stop)
-        roster.poll()
-        if any(r['state'] != 'dead' for r in roster.rows.values()):
-            fail(f'{phase}: replicas left after fleet-stop: '
-                 f'{roster.rows}')
         _stop_session(gateway)
         gateway = None
         command('stop')
@@ -6082,9 +6458,11 @@ def phase_sweep(smi: str) -> dict:
 #: ended before the eviction could land
 PREEMPT_V, PREEMPT_H = (32768, 6), (4096, 2)
 PREEMPT_STEPS = {'v': PREEMPT_V[0] // 256, 'h': PREEMPT_H[0] // 256}
-#: seconds ``[preempt]`` waits for any one of its steps (V's retry
-#: backoff is 30-36 s)
+#: seconds ``[preempt]`` waits for any one of its steps
 PREEMPT_TIMEOUT_S = 240
+#: the retry backoff's base, as ``[watchdog]`` sets it (JAX's default
+#: waits 30-36 s before V's requeue)
+PREEMPT_BACKOFF_S = 2
 #: the supervisor ticks ``[preempt]`` watches V held by its quota
 PREEMPT_QUOTA_TICKS = 3
 
@@ -6155,10 +6533,15 @@ def _preempt_rows(db: str) -> dict:
 
 def phase_preempt(smi: str) -> dict:
     """``[preempt]``: quota admission, checkpoint-preemption and the usage
-    ledger on the card, through the port's site.
+    ledger on the card, through the port's routes.
 
-    ``python -m mlcomp_tpu_torch.server start 1`` in a fresh root (one
-    card slot, a ``run-task`` process per task). ``/api/quota/set`` locks
+    In a fresh root: the supervisor loop in this process
+    (``register_supervisor(ha=False)``, its builder's
+    ``RecoveryConfig(backoff_base_s=2)`` as ``[watchdog]`` sets it), the
+    routes by ``start_server(background=True)`` without a supervisor of
+    its own, and ``python -m mlcomp_tpu_torch.worker start 1`` as
+    processes (one card slot, a ``run-task`` process per task), stopped
+    at the end with ``worker stop``. ``/api/quota/set`` locks
     tenant alice out (``cores`` 0), then V (``cifar_simple``'s ResNet-18,
     ``norm: fused``, 32768 images, 6 epochs, ``--owner alice --priority
     preemptible``) is submitted: over three ticks V stays NotRan with a
@@ -6182,26 +6565,35 @@ def phase_preempt(smi: str) -> dict:
     the launches summed over the three attempts."""
     import datetime
     from mlcomp_tpu_torch import TOKEN
+    from mlcomp_tpu_torch.db.core import Session
     from mlcomp_tpu_torch.db.enums import TaskStatus
+    from mlcomp_tpu_torch.db.migration import migrate
+    from mlcomp_tpu_torch.recovery import RecoveryConfig
+    from mlcomp_tpu_torch.server import api
+    from mlcomp_tpu_torch.server.supervisor import register_supervisor
     from mlcomp_tpu_torch.telemetry.export import parse_openmetrics
     from mlcomp_tpu_torch.train.checkpoint import load_meta
     from mlcomp_tpu_torch.utils.io import yaml_dump
+    from mlcomp_tpu_torch.utils.logging import create_logger
 
     phase = 'preempt'
     work = tempfile.mkdtemp(prefix='preempt_')
     root = os.path.join(work, 'root')
     db = os.path.join(root, 'db', 'sqlite.db')
+    url = f'sqlite:///{db}'
     group_log = os.path.join(work, 'group.log')
     port = _free_port()
-    env = dict(os.environ, MLCOMP_TPU_ROOT=root, WEB_PORT=str(port),
-               MLCOMP_TPU_CORES='1')
-    group = None
+    env = dict(os.environ, MLCOMP_TPU_ROOT=root, MLCOMP_TPU_CORES='1')
+    group, loop, server = None, None, None
     card_bytes = torch.cuda.get_device_properties(0).total_memory
 
     def group_alive():
-        """The group runs, and the supervisor's containment logged no
-        failed preemption pass, usage fold, watchdog or SLO pass."""
+        """The workers and the supervisor loop run, and the supervisor's
+        containment logged no failed preemption pass, usage fold,
+        watchdog or SLO pass."""
         _check_alive(phase, group, group_log)
+        if loop is not None and not loop.is_alive():
+            fail(f'{phase}: the supervisor loop stopped')
         _no_containment(phase, db, ('preemption pass failed',
                                     'usage fold failed'))
 
@@ -6243,7 +6635,18 @@ def phase_preempt(smi: str) -> dict:
             yaml_dump(preempt_config(f'preempt_{key}', n_train, epochs),
                       file=configs[key])
         t0 = time.monotonic()
-        group = _start_group(1, env, group_log)
+        os.makedirs(os.path.dirname(db))
+        session = Session.create_session(key=phase, connection_string=url)
+        migrate(session)
+        builder, (loop,) = register_supervisor(
+            session=session, logger=create_logger(session), ha=False)
+        builder.recovery_config = RecoveryConfig(
+            backoff_base_s=PREEMPT_BACKOFF_S)
+        server = api.start_server(host='127.0.0.1', port=port,
+                                  with_supervisor=False, background=True,
+                                  connection_string=url)
+        group = _start_group(1, env, group_log,
+                             module='mlcomp_tpu_torch.worker')
 
         def site_and_agent():
             import sqlite3
@@ -6457,13 +6860,16 @@ def phase_preempt(smi: str) -> dict:
             fail(f'{phase}: train steps of the three runs {attempts}')
 
         off = subprocess.run(
-            [sys.executable, '-m', 'mlcomp_tpu_torch.server', 'stop'],
+            [sys.executable, '-m', 'mlcomp_tpu_torch.worker', 'stop'],
             cwd=HERE, env=env, capture_output=True, text=True, timeout=120)
         if off.returncode != 0:
-            fail(f'{phase}: server stop exited {off.returncode}: '
+            fail(f'{phase}: worker stop exited {off.returncode}: '
                  f'{off.stdout} {off.stderr}')
         _wait_group_end(phase, root)
         group.wait(timeout=30)
+        loop.stop()
+        loop.join(timeout=30)
+        loop = None
         first_v = v_msgs[0]
         def span(later, earlier):
             return f'{_seconds(later, earlier):.3f}'
@@ -6492,8 +6898,15 @@ def phase_preempt(smi: str) -> dict:
             phase_s=f'{time.monotonic() - t0:.2f}', card=smi)
         return {'preempt': launches}
     finally:
+        if loop is not None:
+            loop.stop()
+            loop.join(timeout=30)
+        if server is not None:
+            server.shutdown()
         _stop_session(group)
         _reap(root)
+        for key in (phase, api._SESSION_KEY):
+            Session.cleanup(key)
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -7668,6 +8081,7 @@ def phase_zoo(seed: int, smi: str):
 
 
 def main():
+    t_start = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
     args = parser.parse_args()
@@ -7712,7 +8126,7 @@ def main():
         phase_dag_segmentation(args.seed, smi)
         phase_zoo(args.seed, smi)
         cli = phase_cli(smi)
-        sched = phase_sched(smi)
+        sched = phase_sched(smi, args.seed)
         site = phase_site(smi)
         fleet = phase_fleet(args.seed, smi)
         sweep = phase_sweep(smi)
@@ -7745,6 +8159,7 @@ def main():
            for path, counts in dag_ensemble.items()},
         'cli': cli['cli']['flash_attention_fwd'],
         'sched': sched['sched']['flash_attention_fwd'],
+        'registry': sched['registry']['flash_attention_fwd'],
         'fleet': fleet['fleet']['flash_attention_fwd'],
         'fleet_int8': fleet['fleet_int8']['flash_attention_fwd'],
         **{path: telemetry[path]['flash_attention_fwd']
@@ -7830,6 +8245,8 @@ def main():
         moe_mfu=f'{moe_step["mfu"]:.4f}', moe_aux=moe_step['moe_aux'],
         vit_step_ms=f'{vit_step["step_ms"]:.3f}',
         vit_device_busy=vit_device['step'].get('device_busy'))
+    say('smoke', total_s=f'{time.monotonic() - t_start:.1f}',
+        limit_s=1200, card=smi)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -6,7 +6,8 @@ on ``argparse``:
 - ``python -m mlcomp_tpu_torch check CONFIG``   — the DAG preflight alone,
   no DB writes; exit 0 clean, 1 on error findings, 2 on analyzer error
 - ``python -m mlcomp_tpu_torch dag CONFIG``     — submit a DAG: preflight,
-  then the dag, task, dependency, report and code rows. A running
+  then the dag, task, dependency, report and code rows (a ``pipes:``
+  config registers its pipes as a Pipe DAG, with no tasks). A running
   supervisor (``server/supervisor.py`` ``register_supervisor``)
   dispatches its tasks onto the DB queue, and the worker daemons
   (``python -m mlcomp_tpu_torch.worker start N``) run them.
@@ -97,7 +98,7 @@ def _preflight(config_path: str, params=()):
 def _dag(config_path: str, params=(), debug: bool = False,
          owner: str = None, priority: str = None):
     from mlcomp_tpu_torch.analysis import format_report, split_findings
-    from mlcomp_tpu_torch.server.create_dags import dag_standard
+    from mlcomp_tpu_torch.server.create_dags import dag_pipe, dag_standard
 
     # the submit gate: errors reject BEFORE any DB write
     findings, raw, folder = _preflight(config_path, params)
@@ -114,8 +115,10 @@ def _dag(config_path: str, params=(), debug: bool = False,
         config.setdefault('info', {})['priority'] = priority
     logger = create_logger(session)
     if 'pipes' in config:
-        raise CliError('pipe registration (dag_pipe) is not ported yet '
-                       '(ROADMAP.md, A0)')
+        # pipe registration: nothing runs until a model starts the pipe
+        dag = dag_pipe(session, config, config_text=text,
+                       upload_folder=folder, logger=logger)
+        return session, dag, {}, config
     dag, tasks = dag_standard(
         session, config, debug=debug, config_text=text,
         upload_folder=folder, logger=logger, preflight_warnings=warnings)

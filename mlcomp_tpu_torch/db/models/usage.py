@@ -1,7 +1,8 @@
 """Usage ledger model — one row per finished task attempt.
 
-The cluster-economy measurement plane (ROADMAP item 3): who used the
-cluster (owner/project labels, migration v14), how much (core-seconds =
+The cluster-economy measurement plane (the usage ledger, beside quotas
+and checkpoint-preemption): who used the cluster (owner/project labels,
+migration v14), how much (core-seconds =
 assigned cores x started->finished wall clock), how long they waited
 (queue_message enqueue->claim), and how hot they ran (peak HBM from the
 ``device*.hbm_used`` series when the task was instrumented). Rows are

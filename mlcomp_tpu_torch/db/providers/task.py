@@ -114,9 +114,10 @@ class TaskProvider(BaseDataProvider):
         # supervisor's tick is the only writer for scheduling states,
         # and kill paths go through the queue's conditional claim.
         # Folding a prior-status condition in here needs expected-state
-        # plumbing at ~30 call sites — revisit with the Postgres
-        # backend (ROADMAP item 1), where cross-host writers make the
-        # call-site guards insufficient.
+        # plumbing at ~30 call sites — revisit with the PostgreSQL
+        # backend (ROADMAP.md, "Not queueable without a download"),
+        # where cross-host writers make the call-site guards
+        # insufficient.
         # preflight: disable=db-naked-transition — see above
         task.status = int(status)
         fields = ['status', 'started', 'finished', 'last_activity']

@@ -13,7 +13,10 @@ Endpoint map (POST JSON unless noted):
 - ``/api/projects`` + add/edit/remove
 - ``/api/layouts`` + layout/add/edit/remove
 - ``/api/report/add_start|add_end`` new-report dialog
-- ``/api/models``, ``/api/model/remove``
+- ``/api/models``, ``/api/model/remove``; ``/api/model/add`` (the
+  Model row, or the ``ModelAdd`` DAG of a train task),
+  ``/api/model/start_begin`` (the pipes and versions to choose from),
+  ``/api/model/start_end`` (a pipe started for the model)
 - ``/api/img_classify``, ``/api/img_segment`` galleries
 - ``/api/config``, ``/api/graph``, ``/api/dags``
 - ``/api/code``, GET ``/api/code_download`` code browser
@@ -232,6 +235,24 @@ def api_model_remove(data, s):
     if m is not None:
         provider.remove(m.id)
     return {'success': True}
+
+
+def api_model_start_begin(data, s):
+    return ModelProvider(s).model_start_begin(data['model_id'])
+
+
+def api_model_add(data, s):
+    from mlcomp_tpu_torch.server.create_dags import dag_model_add
+    dag = dag_model_add(s, data)
+    # a call without a task writes the Model row alone, no ModelAdd dag
+    return {'success': True,
+            'dag': dag.id if dag is not None else None}
+
+
+def api_model_start_end(data, s):
+    from mlcomp_tpu_torch.server.create_dags import dag_model_start
+    dag = dag_model_start(s, data)
+    return {'success': True, 'dag': dag.id}
 
 
 def api_img_classify(data, s):
@@ -1103,9 +1124,6 @@ def api_stop(data, s):
 #: the JAX package's routes whose backing module is not ported yet, with
 #: the ROADMAP.md item each waits for
 WAITING_ROUTES = {
-    '/api/model/add': 'A0: the model_add / model_start DAGs',
-    '/api/model/start_begin': 'A0: the model_add / model_start DAGs',
-    '/api/model/start_end': 'A0: the model_add / model_start DAGs',
     '/api/db': 'A0: the server-proxied DB, with PostgreSQL',
     '/api/worker_token': 'A0: the server-proxied DB, with PostgreSQL',
     '/api/db_audit': 'A0: the server-proxied DB, with PostgreSQL',
@@ -1126,10 +1144,10 @@ _ROUTES = {
     '/api/report/add_start': (api_report_add_start, True),
     '/api/report/add_end': (api_report_add_end, True),
     '/api/models': (api_models, True),
-    '/api/model/add': (_waits('/api/model/add'), True),
+    '/api/model/add': (api_model_add, True),
     '/api/model/remove': (api_model_remove, True),
-    '/api/model/start_begin': (_waits('/api/model/start_begin'), True),
-    '/api/model/start_end': (_waits('/api/model/start_end'), True),
+    '/api/model/start_begin': (api_model_start_begin, True),
+    '/api/model/start_end': (api_model_start_end, True),
     '/api/img_classify': (api_img_classify, True),
     '/api/img_segment': (api_img_segment, True),
     '/api/config': (api_config, True),

@@ -47,17 +47,23 @@ Without it the dag is the JAX package's, created at the first spawn.
 And where JAX mints a replica task with ``fleet.cores or 1`` card slots,
 the port takes ``cores`` as it is: a fleet of ``cores=0`` places its
 replicas with no slot (``cores_assigned`` ``[]``), so they share the
-cards of their host; NULL still reads as 1.
+cards of their host; NULL still reads as 1. Last, a tick that read a
+fleet active just before ``stop_fleet`` landed can respawn a replica the
+stop had just retired; JAX's reconciler never visits a stopped fleet
+again, so that replica lives on. The port's tick ends by retiring what
+is still live in a stopped fleet (``_retire_stopped``), as the stop
+retires it.
 """
 
 import json
 import traceback
 
 from mlcomp_tpu_torch.db.enums import ComponentType, TaskStatus, TaskType
-from mlcomp_tpu_torch.db.models import Dag, ServeReplica, Task
+from mlcomp_tpu_torch.db.models import Dag, ServeFleet, ServeReplica, Task
 from mlcomp_tpu_torch.db.providers import (
     DagProvider, FleetProvider, ReplicaProvider, TaskProvider,
 )
+from mlcomp_tpu_torch.db.providers.fleet import LIVE_STATES
 from mlcomp_tpu_torch.utils.io import yaml_dump
 from mlcomp_tpu_torch.utils.misc import now
 
@@ -126,7 +132,6 @@ def create_fleet(session, name: str, model: str, project: str = None,
     (``softmax``, ``sigmoid``, ``argmax``) is applied by every replica
     to the model's output; it lives in the fleet's dag (module
     docstring)."""
-    from mlcomp_tpu_torch.db.models import ServeFleet
     from mlcomp_tpu_torch.server.scheduler import normalize_priority
     if activation not in ACTIVATIONS:
         raise ValueError(f'activation must be one of {ACTIVATIONS}, '
@@ -267,6 +272,7 @@ class FleetReconciler:
         the scheduling tick down."""
         self.aux = {}
         from mlcomp_tpu_torch.db.fencing import FenceLostError
+        self._retire_stopped()
         for fleet in self.fleets.active():
             try:
                 self._reconcile(fleet)
@@ -282,6 +288,16 @@ class FleetReconciler:
                         f'{traceback.format_exc()}',
                         ComponentType.Supervisor)
         return self.aux
+
+    def _retire_stopped(self):
+        """Stop again every stopped fleet that still has a live or
+        draining replica: one a tick spawned while ``stop_fleet`` ran."""
+        states = LIVE_STATES + ('draining',)
+        for row in self.session.query(
+                "SELECT * FROM serve_fleet WHERE status = 'stopped' AND id "
+                "IN (SELECT fleet FROM serve_replica WHERE state IN "
+                f"({','.join('?' * len(states))}))", states):
+            stop_fleet(self.session, ServeFleet.from_row(row))
 
     def _reconcile(self, fleet):
         self._absorb_task_verdicts(fleet)

@@ -1,15 +1,16 @@
 """Datasets and the host→device batch pipeline — port of
 ``mlcomp_tpu/train/data.py``.
 
-The registry and the loaders ported so far: ``npz`` (local files with the
-fold split), ``synthetic_lm`` (Markov-chain token streams),
+The registry and its loaders: ``npz`` (local files with the fold
+split), ``synthetic_lm`` (Markov-chain token streams),
 ``synthetic_images`` (class prototypes plus noise, CIFAR-shaped),
 ``synthetic_segmentation`` (rectangles and their masks), ``cifar10`` (a
-local npz, else the synthetic stand-in) and ``digits`` (scikit-learn's
-scans; scikit-learn is imported inside the loader and its absence raises
-there). Each makes the same ``np.random.RandomState`` draws as the JAX
-package, so the same seed gives the same arrays. ``digits_segmentation``
-is registered and raises, pointing at ROADMAP.md. Batches are augmented
+local npz, else the synthetic stand-in), ``digits`` and
+``digits_segmentation`` (scikit-learn's scans, the latter upscaled with
+threshold masks; scikit-learn is imported inside the loader and its
+absence raises ``ImportError`` there). Each makes the same
+``np.random.RandomState`` draws as the JAX package, so the same seed
+gives the same arrays. Batches are augmented
 on the host where a ``transform`` is given (``contrib/transform``) and go
 to the card as pinned host tensors copied with ``non_blocking``,
 ``depth`` batches ahead of the step that uses them.
@@ -124,10 +125,8 @@ def _digits(fold_csv: Optional[str] = None, fold_number: int = 0,
     x = (d.images.astype(np.float32) / 16.0)[..., None]
     y = d.target.astype(np.int32)
     if fold_csv:
-        import csv
-        with open(fold_csv, newline='') as fh:
-            folds = np.asarray([int(row['fold'])
-                                for row in csv.DictReader(fh)])
+        from mlcomp_tpu_torch.utils.csv_io import read_csv
+        folds = read_csv(fold_csv)['fold']
         if len(folds) != len(y):
             raise ValueError(
                 f'fold_csv {fold_csv!r} has {len(folds)} rows; expected '
@@ -217,11 +216,47 @@ def _synth_seg(n_train: int = 512, n_valid: int = 64, image_size: int = 64,
 
 
 @register_dataset('digits_segmentation')
-def _digits_segmentation(**_):
-    raise NotImplementedError(
-        "dataset 'digits_segmentation' is not ported yet (ROADMAP.md, queue "
-        "A: A7): it is built from scikit-learn's digits, and the card's "
-        "machine has no scikit-learn")
+def _digits_segmentation(fold_csv: Optional[str] = None, fold_number: int = 0,
+                         valid_fraction: float = 0.2, seed: int = 0,
+                         image_size: int = 32, threshold: float = 0.35,
+                         **_):
+    """scikit-learn's handwritten digit scans upscaled to ``image_size``
+    by repeating each pixel (``np.kron``), NHWC [N, S, S, 1], with the
+    mask the foreground threshold of the scan ([N, S, S] int32: ink 1,
+    paper 0). ``fold_csv`` / ``fold_number`` as ``digits`` takes them;
+    without one a seeded ``valid_fraction`` split."""
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError as e:
+        raise ImportError(
+            "dataset 'digits_segmentation' needs scikit-learn, which this "
+            "Python does not have; train from an npz of the digits "
+            "instead") from e
+    d = load_digits()
+    x8 = d.images.astype(np.float32) / 16.0          # [N, 8, 8]
+    rep = int(image_size) // 8
+    if rep < 1 or int(image_size) % 8:
+        raise ValueError(f'image_size {image_size} must be a '
+                         f'multiple of 8')
+    x = np.kron(x8, np.ones((rep, rep), np.float32))[..., None]
+    y = (x[..., 0] > float(threshold)).astype(np.int32)
+    if fold_csv:
+        from mlcomp_tpu_torch.utils.csv_io import read_csv
+        folds = read_csv(fold_csv)['fold']
+        if len(folds) != len(y):
+            raise ValueError(
+                f'fold_csv {fold_csv!r} has {len(folds)} rows; '
+                f'expected {len(y)} (load_digits order)')
+        mask = folds == int(fold_number)
+    else:
+        rng = np.random.RandomState(seed)
+        mask = np.zeros(len(y), bool)
+        mask[rng.permutation(len(y))[:int(len(y) * valid_fraction)]] \
+            = True
+    return {'x_train': x[~mask], 'y_train': y[~mask],
+            'x_valid': x[mask], 'y_valid': y[mask],
+            'source': 'sklearn.load_digits (masks: foreground '
+                      'threshold)'}
 
 
 # ---------------------------------------------------------------- batching

@@ -17,8 +17,9 @@ to the whitelisted methods load/infer/mean. The tree is walked with
 
 The port adds a ``device`` key (default ``'cuda'``), handed to
 ``make_predictor``: ``work`` raises without CUDA unless the config asks
-for ``device: cpu``. Without a DB session (the only mode ported), a
-``model_id`` names nothing: the model is ``model_name`` or ``name``.
+for ``device: cpu``. The model is ``model_name``, else the registry
+name of ``model_id`` (read through the DB session, when there is one),
+else ``name``.
 """
 
 import ast
@@ -70,6 +71,18 @@ class Equation(Executor):
         self.part = (0, None)
         self.name = name or self.model_name
 
+    def _resolve_model_name(self):
+        """``model_id`` -> the registry name, read once through the
+        session (``model_name`` when it is set)."""
+        if not self.model_name and self.model_id and self.session:
+            from mlcomp_tpu_torch.db.providers import ModelProvider
+            row = ModelProvider(self.session).by_id(self.model_id)
+            if row is not None:
+                self.model_name = row.name
+                if not self.name:
+                    self.name = row.name
+        return self.model_name
+
     def _check_device(self):
         """Raise unless ``device`` is the CPU or CUDA is available."""
         resolve_device(self.device)
@@ -102,7 +115,7 @@ class Equation(Executor):
     def load(self, file: str = None) -> np.ndarray:
         """Predictions saved by an Infer executor, sliced to the current
         part. ``load('a')`` -> data/pred/a.npy (or .npz key 'y')."""
-        base = file or self.model_name or self.name
+        base = file or self._resolve_model_name() or self.name
         if self.suffix:
             base = f'{base}_{self.suffix}'
         for candidate in (base, base + '.npy', base + '.npz'):
@@ -127,7 +140,7 @@ class Equation(Executor):
         model. ``quantize='int8'`` serves through the weight-only int8
         kernel (``train/export.py``)."""
         from mlcomp_tpu_torch.train.export import make_predictor
-        name = file or self.model_name or self.name
+        name = file or self._resolve_model_name() or self.name
         path = os.path.join('models', str(name))
         key = (path, batch_size, activation, quantize)
         predict = self._predictors.get(key)

@@ -7,8 +7,8 @@ A ``dataset:`` spec in the executor config resolves to dense arrays:
   ``train/data.py`` (``part`` selects the train or valid split);
 - ``{path: d.npz, fold_csv: fold.csv, fold_number: 0}``: a fold-filtered
   array file (``contrib.dataset.NpzDataset``);
-- ``{img_folder: ..., fold_csv: ...}``: an image folder, not ported yet
-  (``contrib.dataset.ImageDataset`` raises).
+- ``{img_folder: ..., fold_csv: ...}``: an image folder of PNG or NPY
+  files (``contrib.dataset.ImageDataset``).
 
 Bare file names resolve against ``data/`` (``train/data.py``'s
 ``resolve_data_paths``).

@@ -94,7 +94,7 @@ class InferClassify(DatasetInputMixin, Infer):
     def save_final(self, folder: str):
         out = np.concatenate(self._chunks) if self._chunks \
             else np.empty(0)
-        name = self.name or 'pred'
+        name = self.name or self._resolve_model_name() or 'pred'
         path = os.path.join(folder, f'{name}.npy')
         np.save(path, out)
         self.info(f'saved predictions {out.shape} -> {path}')

@@ -68,9 +68,11 @@ class Valid(Equation):
         if self.task is not None:
             self.task.score = score
             TaskProvider(self.session).update(self.task, ['score'])
-        if self.model_name:
+        model_name = self._resolve_model_name()
+        if self.model_id or model_name:
             provider = ModelProvider(self.session)
-            row = provider.by_name(self.model_name)
+            row = provider.by_id(self.model_id) if self.model_id \
+                else provider.by_name(model_name)
             if row is not None:
                 row.score_local = score
                 provider.update(row, ['score_local'])

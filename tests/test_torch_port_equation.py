@@ -217,13 +217,31 @@ class TestNpzDataset:
                         jax_ex.load_dataset_arrays(part)):
             np.testing.assert_array_equal(g, w)
 
-    def test_image_folders_are_not_ported(self):
-        with pytest.raises(NotImplementedError, match='A5'):
-            port_dataset.ImageDataset(img_folder='imgs')
-        ex = Executor.get('infer_classify')(
-            model_name='m', dataset={'img_folder': 'imgs'}, device='cpu')
-        with pytest.raises(NotImplementedError, match='A5'):
-            ex.load_dataset_arrays()
+    def test_image_folders_are_not_ported(self, files):
+        """Image folders are read now: the executors' ``img_folder:``
+        branch gives JAX's arrays, ``is_test`` by the part as JAX
+        defaults it (``tests/test_torch_port_images.py`` holds the
+        datasets themselves)."""
+        x, y = files
+        os.makedirs('imgs')
+        for i in range(20):
+            np.save(os.path.join('imgs', f'{i}.npy'), x[i])
+        with open('fold.csv', 'w') as fh:
+            fh.write('image,label,fold\n')
+            for i in range(20):
+                fh.write(f'{i}.npy,{y[i]},{i % 4}\n')
+        spec = {'img_folder': 'imgs', 'fold_csv': 'fold.csv',
+                'fold_number': 2}
+        for part in ('train', 'valid'):
+            ex = Executor.get('infer_classify')(
+                model_name='m', dataset=spec, device='cpu')
+            jax_ex = JaxExecutor.get('infer_classify')(
+                model_name='m', dataset=spec)
+            got = ex.load_dataset_arrays(part)
+            for g, w in zip(got, jax_ex.load_dataset_arrays(part)):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+            assert len(got[0]) == (15 if part == 'train' else 5)
 
 
 # --------------------------------------------------------------- executors

@@ -331,6 +331,36 @@ def test_stop_fleet_kills_replicas(twin):
     assert {r['state'] for r in st['replicas']} == {'dead'}
 
 
+def test_a_replica_spawned_across_a_stop_is_retired(twin):
+    """A tick that read the fleet active just before ``stop_fleet``
+    landed respawns the replicas the stop retired. JAX's reconciler never
+    visits the stopped fleet again, so they live on (a fault of the
+    reference); the port's next tick stops them as the stop does."""
+    twin.computer('h1')
+    twin.start()
+    _create(twin, desired=2)
+    twin.tick()
+    stale = _fleet(twin)                 # read by the racing tick
+    twin.each(lambda pkg, s: pkg.fleet.stop_fleet(
+        s, pkg.providers.FleetProvider(s).by_name('f')))
+    twin.jax_sup.fleet_reconciler._reconcile(stale[0])
+    twin.port_sup.fleet_reconciler._reconcile(stale[1])
+    theirs, mine = fleet_state(twin.jax), fleet_state(twin.port)
+    assert mine == theirs
+    assert [r['state'] for r in mine['replicas']] == ['dead'] * 2 + \
+        ['starting'] * 2
+    twin.jax_sup.build()
+    twin.port_sup.build()
+    theirs, mine = fleet_state(twin.jax), fleet_state(twin.port)
+    assert [r['state'] for r in theirs['replicas']] == ['dead'] * 2 + \
+        ['starting'] * 2
+    assert [(r['state'], r['failure_reason']) for r in mine['replicas']] \
+        == [('dead', 'fleet-stopped')] * 4
+    assert {t['status'] for t in mine['replica_tasks']} == {
+        int(TaskStatus.Stopped)}
+    assert mine['fleets'][0]['status'] == 'stopped'
+
+
 # ------------------------------------------------------------- the swap
 def _warm(twin, desired=2):
     for host in ('h1', 'h2'):

@@ -72,8 +72,9 @@ def test_no_forbidden_imports(path):
 #: modules of the control plane that run in processes holding no CUDA
 #: context (the gateway; the site's fleet reconciler, ASHA sweep
 #: scheduler, scheduling policy, quota admission, preemption audit,
-#: usage ledger, watchdog and SLO engine; the synthetic sweep cell):
-#: they must not import torch, even inside a function
+#: usage ledger, watchdog and SLO engine; the synthetic sweep cell; the
+#: contrib command's fold files and the registry's DAG builders): they
+#: must not import torch, even inside a function
 TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
               'mlcomp_tpu_torch/server/fleet.py',
               'mlcomp_tpu_torch/db/providers/fleet.py',
@@ -85,7 +86,14 @@ TORCH_FREE = ('mlcomp_tpu_torch/server/gateway.py',
               'mlcomp_tpu_torch/db/providers/quota.py',
               'mlcomp_tpu_torch/db/providers/usage.py',
               'mlcomp_tpu_torch/telemetry/watchdog.py',
-              'mlcomp_tpu_torch/telemetry/slo.py')
+              'mlcomp_tpu_torch/telemetry/slo.py',
+              'mlcomp_tpu_torch/contrib/__main__.py',
+              'mlcomp_tpu_torch/contrib/split/frame.py',
+              'mlcomp_tpu_torch/utils/csv_io.py',
+              'mlcomp_tpu_torch/utils/png.py',
+              'mlcomp_tpu_torch/server/create_dags/pipe.py',
+              'mlcomp_tpu_torch/server/create_dags/model_add.py',
+              'mlcomp_tpu_torch/server/create_dags/model_start.py')
 
 
 @pytest.mark.parametrize('path', TORCH_FREE)

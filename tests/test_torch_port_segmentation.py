@@ -282,8 +282,18 @@ def test_synthetic_segmentation_is_jax_s_bit_for_bit():
         np.testing.assert_array_equal(got[key], want[key])
 
 
-def test_digits_segmentation_names_scikit_learn():
-    with pytest.raises(NotImplementedError, match='scikit-learn'):
+def test_digits_segmentation_names_scikit_learn(monkeypatch):
+    """The dataset needs scikit-learn, as on the card's machine, which
+    has none: the ``ImportError`` names it."""
+    import builtins
+    real_import = builtins.__import__
+
+    def no_sklearn(name, *args, **kwargs):
+        if name.startswith('sklearn'):
+            raise ImportError('no sklearn here')
+        return real_import(name, *args, **kwargs)
+    monkeypatch.setattr(builtins, '__import__', no_sklearn)
+    with pytest.raises(ImportError, match='scikit-learn'):
         port_data.create_dataset('digits_segmentation')
 
 

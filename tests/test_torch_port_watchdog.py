@@ -1576,7 +1576,7 @@ def test_the_tick_and_slo_families_give_jax_samples(api_twin, monkeypatch):
 def test_route_auth_and_read_only_lists_match_jax():
     """``/api/slos`` joined the ported routes: each route's auth flag and
     the reads safe to retry after a heal are JAX's, and what still waits
-    is the model_add/model_start DAGs and the server-proxied DB."""
+    is the server-proxied DB."""
     import mlcomp_tpu.server.api as jax_api
     import mlcomp_tpu_torch.server.api as api
     assert {r: auth for r, (_, auth) in api._ROUTES.items()} == \
@@ -1586,9 +1586,6 @@ def test_route_auth_and_read_only_lists_match_jax():
     assert sorted(api.WAITING_ROUTES.items()) == [
         ('/api/db', 'A0: the server-proxied DB, with PostgreSQL'),
         ('/api/db_audit', 'A0: the server-proxied DB, with PostgreSQL'),
-        ('/api/model/add', 'A0: the model_add / model_start DAGs'),
-        ('/api/model/start_begin', 'A0: the model_add / model_start DAGs'),
-        ('/api/model/start_end', 'A0: the model_add / model_start DAGs'),
         ('/api/worker_token', 'A0: the server-proxied DB, with PostgreSQL')]
 
 
